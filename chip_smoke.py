@@ -13,8 +13,16 @@
 5. runs the slice: 8 genomes x 8,000,000 bases (seed 2016) through
    `twopaco_tpu_torch.cli.twopaco.main(["-k", "25", "-f", "30", ...])`,
    with every kernel's launch counter reset just before and read just
-   after; then the same input through the plain versions on the card,
-   whose .dbg must be byte-identical.
+   after; its .dbg sha256 must be SLICE_SHA256; then the same input
+   through the plain versions on the card, whose .dbg must be
+   byte-identical;
+6. runs the slice in four rounds (-r 4) in each multi-round mode:
+   resident, grouped (TWOPACO_RESIDENT_BYTES at half the resident
+   blocks' bytes: 2 groups of 2 rounds), stream (TWOPACO_RESIDENT=0 and
+   TWOPACO_GROUPED=0) and histogram split (TWOPACO_UNIFORM_SPLIT=0), each
+   with the counters reset just before and read just after; each must
+   launch its mode's kernels and write the -r 1 run's bytes; then -r 4
+   resident through the plain versions on the card, the same bytes again.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
 package is missing, or if any phase fails. The last line of standard
@@ -37,6 +45,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "chip_smoke_work")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_sha256.json")
 SLICE = dict(n_seqs=8, length=8_000_000, seed=2016, k=25)
+# the slice's .dbg: the one-round run of the first port slice on an H100
+# (PERF.md); every later run of the slice must write these bytes
+SLICE_SHA256 = "86f34ccc5bb5aa29e69df2b13aa85d3068afe54aca0e3052f93fb731dec2e1cb"
+ROUNDS = 4
+MODE_VARS = ("TWOPACO_RESIDENT", "TWOPACO_GROUPED", "TWOPACO_RESIDENT_BYTES",
+             "TWOPACO_UNIFORM_SPLIT", "TWOPACO_POS64")
 REPLACES = {
     "build_records": ("twopaco_tpu_torch/kernels/csrc/records.cu",
                       "twopaco_tpu/passes/sortpipe.py:143"),
@@ -44,6 +58,20 @@ REPLACES = {
                      "twopaco_tpu/passes/sortpipe.py:365"),
     "judge_compact": ("twopaco_tpu_torch/kernels/csrc/judge.cu",
                       "twopaco_tpu/passes/sortpipe.py:453"),
+    "partition": ("twopaco_tpu_torch/kernels/csrc/partition.cu",
+                  "twopaco_tpu/passes/sortpipe.py:166"),
+    "assemble": ("twopaco_tpu_torch/kernels/csrc/assemble.cu",
+                 "twopaco_tpu/passes/sortpipe.py:237"),
+    "compact": ("twopaco_tpu_torch/kernels/csrc/compact.cu",
+                "twopaco_tpu/passes/sortpipe.py:338"),
+    "histogram": ("twopaco_tpu_torch/kernels/csrc/histogram.cu",
+                  "twopaco_tpu/passes/kernels.py:581"),
+}
+# the run whose launch counts each kernel reports: its own path
+PATH_OF = {
+    "build_records": "r1", "sort_records": "r1", "judge_compact": "r1",
+    "partition": "resident", "assemble": "resident", "compact": "stream",
+    "histogram": "histogram",
 }
 
 
@@ -95,8 +123,8 @@ def max_abs_err(got, want) -> int:
 
     err = 0
     for a, b in zip(got, want):
-        if isinstance(a, int):
-            err = max(err, abs(a - b))
+        if isinstance(a, (bool, int)):
+            err = max(err, abs(int(a) - int(b)))
             continue
         require(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
         if a.dtype == torch.uint32:
@@ -129,17 +157,34 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def run_cli(argv) -> str:
-    """The port's CLI main(); echoes its output and returns it."""
+def run_cli(argv, env=None, echo=True) -> str:
+    """The port's CLI main() with the mode variables `env` set (and the
+    others unset); echoes its output and returns it."""
     from twopaco_tpu_torch.cli.twopaco import main as cli_main
 
+    saved = {v: os.environ.pop(v, None) for v in MODE_VARS}
+    os.environ.update(env or {})
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli_main(argv)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+    finally:
+        for v, val in saved.items():
+            os.environ.pop(v, None)
+            if val is not None:
+                os.environ[v] = val
     text = buf.getvalue()
-    print(text, end="")
+    if echo:
+        print(text, end="")
     require(rc == 0, f"twopaco {' '.join(argv)} exited {rc}")
     return text
+
+
+def phase_times(text) -> dict:
+    return {
+        line.split("\t")[1]: float(line.split("\t")[2])
+        for line in text.splitlines() if line.startswith("time\t")
+    }
 
 
 def main() -> int:
@@ -150,10 +195,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
+        import numpy as np
+
         from twopaco_tpu_torch.io import fasta, windows
         from twopaco_tpu_torch.kernels import build
         from twopaco_tpu_torch.ops import pack
-        from twopaco_tpu_torch.passes import judge, records, sort
+        from twopaco_tpu_torch.passes import (
+            histogram, judge, partition, records, sort, sortpipe, stream,
+        )
         from twopaco_tpu_torch.passes.pipeline import PipelineConfig
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
         from twopaco_tpu_torch.testing import bench_data
@@ -176,9 +225,9 @@ def main() -> int:
     phase("build kernels")
     build.lib()
     secs = build.LIBRARY.build_seconds
-    print("kernel build: " + (f"{secs:.1f} s (nvcc, sm_90a; ptxas report in "
-          "twopaco_tpu_torch/kernels/build/build.log)" if secs is not None
-          else "reused an existing build") + f" {label}")
+    print("kernel build: " + (f"{secs:.1f} s (nvcc, sm_90a, one process a source; "
+          "ptxas report in twopaco_tpu_torch/kernels/build/build.log)"
+          if secs is not None else "reused an existing build") + f" {label}")
 
     phase("slice data")
     t0 = time.time()
@@ -248,6 +297,85 @@ def main() -> int:
     del srt
     torch.cuda.synchronize()
 
+    phase(f"multi-round kernels vs plain versions (-r {ROUNDS} shapes)")
+    uploads = [upload(b) for b in batches]
+    bases = [b.row0 * P for b in batches]
+    bp = B * P
+    hist_stride = max(1, 1 << max(0, n_slots.bit_length() - 24))  # as the path
+    # histogram: the path's stride first (its time is the one reported)
+    for stride in (hist_stride, 1):
+        compare(
+            "histogram",
+            lambda: histogram.histogram_vertex_hashes(*args, k=k, P=P, stride=stride),
+            lambda: histogram.histogram_vertex_hashes_plain(*args, k=k, P=P, stride=stride),
+            10, results,
+        )
+    hist_k = histogram.histogram_scan(uploads, k=k, P=P, stride=hist_stride)
+    hist_p = histogram.histogram_scan(
+        uploads, k=k, P=P, stride=hist_stride, fn=histogram.histogram_vertex_hashes_plain)
+    require(np.array_equal(hist_k, hist_p), "histogram scan differs from the plain one")
+    print(f"histogram scan of {len(uploads)} batches at stride {hist_stride}: exact")
+    # resident partition into the path's blocks: 4 rounds, cap 1.25 B*P / 4
+    intervals = sortpipe._live_intervals(np.ones(1 << 16, np.int64), ROUNDS)
+    highs = [h for _l, h in intervals]
+    part_cap = -(-int(cfg.round_slack * bp) // len(intervals))
+    highs_d = pack.as_u32(torch.tensor(highs, dtype=torch.int64, device=dev))
+    compare(
+        "partition",
+        lambda: partition.partition_batch(*args, highs_d, 0, 0xFFFFFFFF, k=k, P=P,
+                                          part_cap=part_cap),
+        lambda: partition.partition_batch_plain(*args, highs_d, 0, 0xFFFFFFFF, k=k,
+                                                P=P, part_cap=part_cap),
+        5, results,
+    )
+    *blocks, counts = partition.partition_scan(
+        uploads, highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=part_cap)
+    *blocks_p, counts_p = partition.partition_scan(
+        uploads, highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=part_cap,
+        fn=partition.partition_batch_plain)
+    require(np.array_equal(counts, counts_p) and (counts <= part_cap).all(),
+            "partition scan counts differ from the plain ones, or overflow")
+    err = max_abs_err(blocks, blocks_p)
+    require(err == 0, f"partition scan blocks differ from the plain ones ({err})")
+    del blocks_p
+    print(f"partition scan: blocks {tuple(blocks[0].shape)} exact "
+          f"({sum(t.numel() * t.element_size() for t in blocks) / 1e9:.2f} GB)")
+    bases_d = torch.tensor(bases, dtype=torch.int64, device=dev)
+    asm_slots = len(batches) * part_cap
+    for r in range(len(intervals)):
+        compare(
+            "assemble",
+            lambda: partition.assemble_round(r, *blocks, bases_d, asm_slots),
+            lambda: partition.assemble_round_plain(r, *blocks, bases_d, asm_slots),
+            5 if r == 0 else 1, results,
+        )
+    del blocks
+    # stream compaction: one batch's round-0 records appended, then a
+    # whole round against the plain compaction
+    low, high = intervals[0]
+    st_slots = -(-int(n_slots * cfg.round_slack) // len(intervals)) + bp
+    recs = records.build_sort_records(*args, 0, k=k, P=P, low=low, high=high)
+    (buf_k, st_k), (buf_p, st_p) = (stream.new_round_buffer(st_slots, w, dev) for _ in "kp")
+    compare(
+        "compact",
+        lambda: (st_k.zero_(), stream.compact_append(*recs, buf_k, st_k, st_slots - bp),
+                 *buf_k, st_k)[2:],
+        lambda: (st_p.zero_(), stream.compact_append_plain(*recs, buf_p, st_p, st_slots - bp),
+                 *buf_p, st_p)[2:],
+        10, results,
+    )
+    del buf_k, buf_p
+    rounds = [
+        stream.stream_round(uploads, bases, low, high, k=k, P=P, buf_slots=st_slots,
+                            compact_fn=fn)
+        for fn in (stream.compact_append, stream.compact_append_plain)
+    ]
+    err = max_abs_err(*rounds)
+    require(err == 0 and not rounds[0][3], f"stream round differs or overflows ({err})")
+    print(f"stream round 0: buffer of {st_slots} slots exact, no overflow")
+    del rounds, uploads, recs
+    torch.cuda.synchronize()
+
     phase("golden sha256 (JAX package outputs)")
     with open(GOLDEN) as f:
         golden = json.load(f)
@@ -266,31 +394,39 @@ def main() -> int:
         print(f"golden {name}: sha256 matches the JAX package")
     torch.cuda.synchronize()
 
+    bases_n = SLICE["n_seqs"] * SLICE["length"]
+    launches = {}
+
+    def slice_run(tag, argv, env=None):
+        """One CLI run of the slice with the counters zeroed just before
+        and read just after -> (text, wall seconds)."""
+        build.reset_launch_counts()
+        t0 = time.time()
+        text = run_cli(argv, env, echo=False)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches[tag] = build.launch_counts()
+        times = phase_times(text)
+        print(f"{tag}: launches {launches[tag]}")
+        print(f"{tag} phases (s) {label}: " + ", ".join(
+            f"{n}={times[n]:.3f}" for n in (*sortpipe.PHASES, "total")))
+        for line in text.splitlines():
+            if line.startswith("Splitting") or (
+                    line.startswith("Round ") and "seconds" in line):
+                print(f"{tag}   {line}")
+        print(f"{tag}: {bases_n} bases in {wall:.3f} s wall = "
+              f"{bases_n / wall / 1e6:.2f} Mbases/s {label}")
+        return text, wall
+
     phase("slice: port CLI on the 8 x 8 Mbase input")
     out = os.path.join(WORK, "slice.dbg")
-    build.reset_launch_counts()
-    t0 = time.time()
-    text = run_cli(["-k", str(k), "-f", "30", fa, "-o", out])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = build.launch_counts()
-    print(f"launches in the slice run: {launches}")
-    for name in REPLACES:
-        require(launches.get(name, 0) > 0, f"{name}: no launch in the slice run")
-    times = {
-        line.split("\t")[1]: float(line.split("\t")[2])
-        for line in text.splitlines() if line.startswith("time\t")
-    }
-    bases = SLICE["n_seqs"] * SLICE["length"]
-    print(f"slice phases (s) {label}: " + ", ".join(
-        f"{n}={times[n]:.3f}" for n in ("read", "windows", "upload", "build",
-                                        "sort", "judge", "fetch", "merge",
-                                        "emit", "total")))
-    print(f"slice: {bases} bases in {wall:.3f} s wall = "
-          f"{bases / wall / 1e6:.2f} Mbases/s {label}")
+    slice_run("r1", ["-k", str(k), "-f", "30", fa, "-o", out])
+    for name in ("build_records", "sort_records", "judge_compact"):
+        require(launches["r1"].get(name, 0) > 0, f"{name}: no launch in the slice run")
     slice_sha = sha256(out)
     size_dbg = os.path.getsize(out)
     require(size_dbg > 0 and size_dbg % 12 == 0, f"slice .dbg has {size_dbg} bytes")
+    require(slice_sha == SLICE_SHA256, f"slice .dbg sha256 {slice_sha} != {SLICE_SHA256}")
 
     phase("slice: plain versions on the card")
     out_ref = os.path.join(WORK, "slice_plain.dbg")
@@ -300,6 +436,41 @@ def main() -> int:
     print(f"plain-version slice run: {time.time() - t0:.3f} s wall {label}")
     require(sha256(out_ref) == slice_sha, "slice .dbg differs between kernels and plain versions")
     print(f"slice .dbg: {size_dbg} bytes, sha256 {slice_sha}, identical to the plain run")
+
+    phase(f"slice: -r {ROUNDS} in each multi-round mode")
+    resident_bytes = int(n_slots * cfg.round_slack * sortpipe.block_bytes(w))
+    modes = {
+        "resident": ({}, ("partition", "assemble"), "resident parts"),
+        "grouped": ({"TWOPACO_RESIDENT_BYTES": str(resident_bytes // 2 + 1)},
+                    ("partition", "assemble"), "in 2 resident groups"),
+        "stream": ({"TWOPACO_RESIDENT": "0", "TWOPACO_GROUPED": "0"},
+                   ("build_records", "compact"), f"({ROUNDS} rounds)"),
+        "histogram": ({"TWOPACO_UNIFORM_SPLIT": "0"},
+                      ("histogram", "partition", "assemble"), "resident parts"),
+    }
+    for tag, (env, kernels, split_line) in modes.items():
+        out_r = os.path.join(WORK, f"slice_r{ROUNDS}_{tag}.dbg")
+        text, _wall = slice_run(tag, ["-k", str(k), "-f", "30", "-r", str(ROUNDS), fa,
+                                      "-o", out_r], env)
+        for name in (*kernels, "sort_records", "judge_compact"):
+            require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
+        require(any(line.startswith("Splitting") and split_line in line
+                    for line in text.splitlines()), f"{tag}: the mode did not run")
+        require(sum(line.startswith("Round ") and "seconds" in line
+                    for line in text.splitlines()) == ROUNDS, f"{tag}: not {ROUNDS} rounds")
+        got = sha256(out_r)
+        require(got == slice_sha, f"{tag}: -r {ROUNDS} .dbg sha256 {got} != {slice_sha}")
+        print(f"{tag}: .dbg identical to the -r 1 run")
+
+    phase(f"slice: -r {ROUNDS} resident through the plain versions on the card")
+    out_ref = os.path.join(WORK, f"slice_r{ROUNDS}_plain.dbg")
+    t0 = time.time()
+    build_junctions_sorted([fa], PipelineConfig(k=k, rounds=ROUNDS, positions_per_row=P,
+                                                rows_per_batch=B),
+                           out_ref, device=dev, reference=True)
+    torch.cuda.synchronize()
+    print(f"plain-version -r {ROUNDS} run: {time.time() - t0:.3f} s wall {label}")
+    require(sha256(out_ref) == slice_sha, f"-r {ROUNDS} plain run .dbg differs")
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = []
@@ -307,7 +478,7 @@ def main() -> int:
         rs = results[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=launches[PATH_OF[name]][name],
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=rs[0]["ms"], plain_ms=rs[0]["plain_ms"],
         ))

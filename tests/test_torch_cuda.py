@@ -15,7 +15,7 @@ import torch
 from twopaco_tpu_torch import dna
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import pack
-from twopaco_tpu_torch.passes import judge, records, sort
+from twopaco_tpu_torch.passes import histogram, judge, partition, records, sort, stream
 from twopaco_tpu_torch.passes.pipeline import PipelineConfig
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
 from twopaco_tpu_torch.testing import oracle
@@ -164,4 +164,122 @@ def test_pipeline_cuda_equals_cpu(dev, tmp_path, k):
         if device == "cuda":
             counts = build.launch_counts()
             assert set(counts) == {"build_records", "sort_records", "judge_compact"}
+    assert outs[0] == outs[1] and len(outs[0]) > 0
+
+
+def _upload_batches(dev, rng, nb, B, P, k):
+    return [_to(dev, *_genome_batch(rng, B, P, k)) for _ in range(nb)]
+
+
+@pytest.mark.parametrize(
+    "k,n_parts,cap,gate",
+    [(25, 4, 1200, "full"), (25, 1, 5000, "full"), (11, 7, 150, "full"),
+     (33, 5, 900, "narrow"), (101, 3, 64, "full"), (25, 300, 8, "full")],
+)
+def test_partition_kernel(dev, k, n_parts, cap, gate):
+    """Blocks, counts and sentinel slots equal the plain version exactly,
+    overflowing caps (150, 64, 8) included."""
+    rng = np.random.default_rng(k * 31 + n_parts)
+    B, P = 8, 512
+    args = _to(dev, *_genome_batch(rng, B, P, k))
+    low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
+    cuts = np.sort(rng.integers(low, high, size=n_parts - 1))
+    highs = pack.as_u32(torch.tensor(np.append(cuts, high), device=dev))
+    build.reset_launch_counts()
+    got = partition.partition_batch(*args, highs, low, high, k=k, P=P, part_cap=cap)
+    assert build.launch_counts() == {"partition": 1}
+    want = partition.partition_batch_plain(*args, highs, low, high, k=k, P=P, part_cap=cap)
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+    assert int(want[3].sum()) > 0
+
+
+@pytest.mark.parametrize("w_k", [11, 25, 101])
+def test_assemble_kernel(dev, w_k):
+    rng = np.random.default_rng(w_k)
+    B, P, nb, n_parts, cap = 4, 256, 3, 3, 400
+    highs = pack.as_u32(torch.tensor([1 << 30, 2 << 30, 0xFFFFFFFF], device=dev))
+    parts = [
+        partition.partition_batch_plain(*u, highs, 0, 0xFFFFFFFF, k=w_k, P=P, part_cap=cap)
+        for u in _upload_batches(dev, rng, nb, B, P, w_k)
+    ]
+    blocks = [torch.stack([p[j] for p in parts]) for j in range(3)]
+    bases = torch.tensor([0, 1 << 33, (1 << 33) + B * P], dtype=torch.int64, device=dev)
+    for r in range(n_parts):
+        for buf_slots in (nb * cap, nb * cap + 777):
+            build.reset_launch_counts()
+            got = partition.assemble_round(r, *blocks, bases, buf_slots)
+            assert build.launch_counts() == {"assemble": 1}
+            want = partition.assemble_round_plain(r, *blocks, bases, buf_slots)
+            for a, b in zip(got, want):
+                assert _equal(a, b)
+
+
+@pytest.mark.parametrize("k", [25, 101])
+@pytest.mark.parametrize("slots_per_batch", [100, 2048])  # 100 overflows
+def test_compact_kernel(dev, k, slots_per_batch):
+    """compact_append over several batches: the buffer and the (offset,
+    overflow) state equal the plain version's exactly."""
+    rng = np.random.default_rng(k + slots_per_batch)
+    B, P, nb = 4, 256, 5
+    n = B * P
+    buf_slots = nb * slots_per_batch + n
+    low, high = 1 << 30, 3 << 30
+    outs = []
+    for fn in (stream.compact_append, stream.compact_append_plain):
+        rng_b = np.random.default_rng(7)
+        buf, state = stream.new_round_buffer(buf_slots, pack.n_words(k), dev)
+        build.reset_launch_counts()
+        for bi, u in enumerate(_upload_batches(dev, rng_b, nb, B, P, k)):
+            recs = records.build_sort_records_plain(*u, bi * n, k=k, P=P, low=low, high=high)
+            fn(*recs, buf, state, buf_slots - n)
+        if fn is stream.compact_append:
+            assert build.launch_counts() == {"compact": nb}
+        outs.append((*buf, state))
+    for a, b in zip(*outs):
+        assert _equal(a, b)
+    assert int(outs[0][3][1]) == (slots_per_batch == 100)
+
+
+@pytest.mark.parametrize("k", [11, 25, 101])
+@pytest.mark.parametrize("stride", [1, 4])
+def test_histogram_kernel(dev, k, stride):
+    rng = np.random.default_rng(k * stride)
+    B, P = 16, 2048
+    args = _to(dev, *_genome_batch(rng, B, P, k))
+    build.reset_launch_counts()
+    got = histogram.histogram_vertex_hashes(*args, k=k, P=P, stride=stride)
+    got = histogram.histogram_vertex_hashes(*args, k=k, P=P, stride=stride, out=got)
+    assert build.launch_counts() == {"histogram": 2}
+    want = histogram.histogram_vertex_hashes_plain(*args, k=k, P=P, stride=stride)
+    assert torch.equal(got.cpu(), 2 * want.cpu()) and int(want.sum()) > 0
+
+
+MODES = {
+    "resident": ({}, {"partition", "assemble"}),
+    "grouped": ({"TWOPACO_RESIDENT_BYTES": "1"}, {"partition", "assemble"}),
+    "stream": ({"TWOPACO_RESIDENT": "0", "TWOPACO_GROUPED": "0"}, {"build_records", "compact"}),
+    "histogram": ({"TWOPACO_UNIFORM_SPLIT": "0"}, {"partition", "assemble", "histogram"}),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_pipeline_rounds_cuda_equals_cpu(dev, tmp_path, monkeypatch, mode):
+    env, kernels = MODES[mode]
+    for name, val in env.items():
+        monkeypatch.setenv(name, val)
+    rng = np.random.default_rng(12)
+    base = oracle.generate_sequence(rng, 6000)
+    seqs = [base] + [oracle.mutate_sequence(rng, base, 0.03, 0.1) for _ in range(3)]
+    sequences = [(i, dna.encode(s)) for i, s in enumerate(seqs)]
+    cfg = PipelineConfig(k=25, rounds=3, positions_per_row=256, rows_per_batch=8)
+    outs = []
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.dbg")
+        build.reset_launch_counts()
+        build_junctions_sorted(None, cfg, out, sequences=sequences, device=device)
+        outs.append(open(out, "rb").read())
+        if device == "cuda":
+            counts = build.launch_counts()
+            assert kernels | {"sort_records", "judge_compact"} <= set(counts), counts
     assert outs[0] == outs[1] and len(outs[0]) > 0

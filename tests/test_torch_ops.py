@@ -50,10 +50,18 @@ def test_config_from_jax():
         k=31, filter_bits=30, hash_functions=3, rounds=1, abundance=7,
         positions_per_row=256, rows_per_batch=4,
     )
+    # the JAX sort_chunk default (2^26) crosses as it is; the port's own
+    # default, None, sizes rounds from the device's memory
     assert config_from_jax(jc) == PipelineConfig(
         k=31, rounds=1, abundance=7, positions_per_row=256, rows_per_batch=4,
+        sort_chunk=1 << 26,
     )
-    assert config_from_jax(JaxConfig(k=25)) == PipelineConfig(k=25)
+    assert config_from_jax(JaxConfig(k=25)) == PipelineConfig(k=25, sort_chunk=1 << 26)
+    multi = JaxConfig(k=9, rounds=3, sort_chunk=4096, round_slack=1.5, force_wide=True)
+    assert config_from_jax(multi) == PipelineConfig(
+        k=9, rounds=3, sort_chunk=4096, round_slack=1.5, force_wide=True,
+    )
+    assert PipelineConfig(k=25).sort_chunk is None
 
 
 @pytest.mark.parametrize("k", KS)

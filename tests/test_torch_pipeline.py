@@ -92,12 +92,14 @@ def test_cli_byte_identical(tmp_path):
 
 
 def test_cli_multi_round_exits_1(tmp_path, capsys):
+    """-r 2 exited 1 while only one round was ported; it now exits 0 and
+    writes the JAX package's bytes."""
     fa = _tiny_fasta(tmp_path)
-    rc = port_main(["-k", "25", "-f", "20", "-r", "2", "--device", "cpu", fa,
-                    "-o", str(tmp_path / "x.dbg")])
-    assert rc == 1
-    err = capsys.readouterr().err
-    assert "-r 2" in err and "multi-round" in err
+    tout, jout = str(tmp_path / "port.dbg"), str(tmp_path / "jax.dbg")
+    rc = port_main(["-k", "25", "-f", "20", "-r", "2", "--device", "cpu", fa, "-o", tout])
+    assert rc == 0 and "Round 1," in capsys.readouterr().out
+    assert jax_main(["-k", "25", "-f", "20", "-r", "2", fa, "-o", jout]) == 0
+    assert open(tout, "rb").read() == open(jout, "rb").read()
 
 
 def test_cli_rejects_bad_flags(tmp_path):

@@ -7,9 +7,13 @@ Flag-compatible with the reference binary: -k/--kvalue, -f/--filtersize
 XOR --filtermemory, -q/--hashfnumber, -r/--rounds, -t/--threads,
 -a/--abundance, --tmpdir, -o/--outfile, positional FASTA files. The
 sort-join engine has no Bloom filter, so -f, --filtermemory and -q are
-checked and otherwise unused, as are -t and --tmpdir. --device picks
-the device: cuda (the default; raises when there is no card) or cpu
-(the plain PyTorch versions).
+checked and otherwise unused, as are -t and --tmpdir. -r N splits the
+run into at least N rounds by vertex hash (more when the input does not
+fit the device in N); the TWOPACO_* variables of passes/sortpipe.py pick
+the multi-round mode. --tpu-checkpoint DIR (the JAX package's flag)
+checkpoints each round, and a rerun resumes. --device picks the device:
+cuda (the default; raises when there is no card) or cpu (the plain
+PyTorch versions).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "-r", "--rounds", type=int, default=1,
-        help="Number of computation rounds (only 1 is ported)",
+        help="Number of computation rounds (at least; more when the "
+        "input does not fit the device)",
     )
     p.add_argument(
         "-t", "--threads", type=int, default=1,
@@ -56,6 +61,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "-o", "--outfile", default="de_bruijn.bin",
         help="Output file name prefix",
+    )
+    p.add_argument(
+        "--tpu-checkpoint", default=None, metavar="DIR",
+        help="Round-boundary checkpoint directory (resume on rerun)",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -107,14 +116,14 @@ def main(argv: list[str] | None = None) -> int:
         )
         enum = build_junctions_sorted(
             args.filenames, cfg, out_path=args.outfile, log=print,
-            device=device,
+            checkpoint_dir=args.tpu_checkpoint, device=device,
         )
     except (OSError, RuntimeError, ValueError) as e:
-        # includes MultiRoundUnsupported (-r > 1, or an input too large
-        # for one round) and FASTA errors
+        # FASTA errors, round overflows, inputs that fit no mode
         print(f"Error: {e}", file=sys.stderr)
         return 1
     print(f"Distinct junctions = {enum.vertices_count}")
+    # one line per phase, summed over rounds: the same keys in every mode
     for name, val in enum.stats.timings.items():
         print(f"time\t{name}\t{val:.3f}")
     print()

@@ -1,10 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
-The sources in csrc/ are compiled by nvcc for sm_90a into one shared
-library with a plain C interface, at first use, into kernels/build/ (the
-file name carries a hash of the sources and flags, so an edited source
-is rebuilt; nvcc's output, with ptxas's register and spill report, goes
-to build.log beside it). ctypes binds it: pointers and the stream travel as
+The sources in csrc/ are compiled by nvcc for sm_90a, one nvcc process
+per source, all started together, and linked into one shared library
+with a plain C interface, at first use, into kernels/build/ (the file
+name carries a hash of the sources and flags, so an edited source is
+rebuilt; nvcc's output, with ptxas's register and spill report, goes to
+build.log beside it). ctypes binds it: pointers and the stream travel as
 ctypes.c_void_p. There is no fallback: without nvcc, or when the build
 fails, loading raises KernelBuildError.
 
@@ -28,10 +29,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("scan.cu", "records.cu", "sort.cu", "judge.cu")
+SOURCES = (
+    "scan.cu", "records.cu", "sort.cu", "judge.cu", "partition.cu",
+    "assemble.cu", "compact.cu", "histogram.cu",
+)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_CANDIDATES = ("$CUDA_HOME/bin/nvcc", "/usr/local/cuda/bin/nvcc")
 
@@ -52,6 +56,16 @@ _SIGNATURES = {
     "tp_judge_compact": (
         [_P, _P, _P, _SZ, _I, _I, ctypes.c_ulonglong] + [_P] * 7, _I
     ),
+    "tp_partition_count_words": ([_SZ, _I], _SZ),
+    "tp_partition_max_parts": ([], _I),
+    "tp_partition_records": (
+        [_P] * 3 + [_I] * 5 + [_U32] * 6 + [_P, _I, _I] + [_P] * 11, _I
+    ),
+    "tp_assemble_round": ([_P] * 4 + [_I] * 5 + [_SZ] + [_P] * 4, _I),
+    "tp_compact_append": (
+        [_P] * 3 + [_SZ, _I] + [_P] * 3 + [ctypes.c_longlong] + [_P] * 5, _I
+    ),
+    "tp_histogram": ([_P] * 3 + [_I] * 5 + [_U32] * 4 + [_P] * 2, _I),
 }
 
 
@@ -95,20 +109,36 @@ class KernelLibrary:
     def _build(self, target: Path) -> None:
         nvcc = find_nvcc(self.candidates)
         self.build_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
         t0 = time.time()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=self.build_dir) as tmp:
+            objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for s, o in zip(SOURCES, objs)
+            ]
+            logs = [f"== {s}\n{p.communicate()[0]}" for s, p in zip(SOURCES, procs)]
+            failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+            if not failed:
+                lib_tmp = os.path.join(tmp, "lib.so")
+                link = subprocess.run(
+                    [nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp, *objs],
+                    capture_output=True, text=True,
+                )
+                logs.append(f"== link\n{link.stdout}{link.stderr}")
+                if link.returncode != 0:
+                    failed = ["link"]
+                else:
+                    os.replace(lib_tmp, target)
         self.build_seconds = time.time() - t0
-        self.build_log = proc.stdout + proc.stderr
+        self.build_log = "".join(logs)
         (self.build_dir / "build.log").write_text(self.build_log)
-        if proc.returncode != 0:
-            os.unlink(tmp)
+        if failed:
             raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{self.build_log[-4000:]}"
+                f"nvcc failed ({', '.join(failed)}):\n{self.build_log[-4000:]}"
             )
-        os.replace(tmp, target)
 
     def get(self) -> ctypes.CDLL:
         if self._lib is None:

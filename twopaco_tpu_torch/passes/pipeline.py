@@ -1,7 +1,8 @@
 """Pipeline configuration, run statistics, the junction dictionary, and
 the junction-list writer (host numpy).
 
-The port of twopaco_tpu/passes/pipeline.py:45-594. Output is
+The port of twopaco_tpu/passes/pipeline.py:45-594 (the sort-join
+engine's part of it). Output is
 deterministic and byte-identical to the JAX package: canonical
 orientation is the lexicographic min(kmer, rc), ids are ranks in the
 sorted junction table, and stub ids are assigned in input order.
@@ -9,6 +10,9 @@ sorted junction table, and stub ids are assigned in input order.
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -30,6 +34,11 @@ class PipelineConfig:
     abundance: int = (1 << 64) - 1  # reference -a
     positions_per_row: int = 2048  # P
     rows_per_batch: int = 256  # B
+    # most records one round may sort; None sizes the round from the
+    # device's free memory (the CPU: no limit)
+    sort_chunk: int | None = None
+    round_slack: float = 1.25  # round buffer slack over an even split
+    force_wide: bool = False  # the >= 2^32-slot merge layout on any input
 
     def __post_init__(self) -> None:
         # even k breaks canonicalization (palindromes tie with their own
@@ -63,6 +72,9 @@ def config_from_jax(cfg) -> PipelineConfig:
         abundance=cfg.abundance,
         positions_per_row=cfg.positions_per_row,
         rows_per_batch=cfg.rows_per_batch,
+        sort_chunk=cfg.sort_chunk,
+        round_slack=cfg.round_slack,
+        force_wide=cfg.force_wide,
     )
 
 
@@ -74,6 +86,100 @@ class RunStats:
     stub_ids: int = 0
     total_positions: int = 0
     timings: dict = field(default_factory=dict)
+
+
+def _split_rounds(hist: np.ndarray, rounds: int, bin_pow: int) -> list[tuple[int, int]]:
+    """Greedy equal-mass split of the hash space into `rounds` inclusive
+    uint32 intervals (reference vertexenumerator.h:206-250)."""
+    if rounds <= 1:
+        return [(0, 0xFFFFFFFF)]
+    total = int(hist.sum())
+    target = total / rounds
+    bounds = []
+    acc = 0
+    low_bin = 0
+    for b in range(len(hist)):
+        acc += int(hist[b])
+        if acc >= target and len(bounds) < rounds - 1:
+            bounds.append((low_bin, b))
+            low_bin = b + 1
+            acc = 0
+    bounds.append((low_bin, len(hist) - 1))
+    shift = 32 - bin_pow
+    out = []
+    for lo_b, hi_b in bounds:
+        if lo_b >= len(hist):
+            # the greedy boundary consumed every bin already: this round
+            # is empty, an inverted (always-false) interval keeps the
+            # uint32 bounds valid and the rounds disjoint
+            out.append((1, 0))
+            continue
+        low = lo_b << shift
+        high = ((hi_b + 1) << shift) - 1 if hi_b + 1 < len(hist) else 0xFFFFFFFF
+        out.append((low, high))
+    return out
+
+
+def _input_fingerprint(input_paths, sequences) -> str:
+    """Identity of the run's input for checkpoint validation: file
+    paths, sizes and mtimes when reading from disk, a content hash of the
+    encoded sequences otherwise."""
+    h = hashlib.blake2b(digest_size=16)
+    if input_paths is not None:
+        for p in input_paths:
+            st = os.stat(p)
+            h.update(f"{os.path.abspath(p)}:{st.st_size}:{st.st_mtime_ns};".encode())
+    else:
+        for sid, codes in sequences:
+            h.update(f"{sid}:{len(codes)}:".encode())
+            h.update(np.ascontiguousarray(codes, np.uint8).tobytes())
+    return h.hexdigest()
+
+
+class RoundCheckpoint:
+    """Round-boundary checkpointing: each completed round's arrays and
+    stats land in <dir>/round_<r>.npz, guarded by a meta.json of the run
+    parameters and an input fingerprint (a mismatch clears the directory
+    rather than resuming wrongly). The reference keeps intermediate files
+    but has no resume; rounds are deterministic here, so completed ones
+    can be reloaded verbatim. directory None: no checkpointing."""
+
+    def __init__(self, directory, meta: dict):
+        self.dir = directory
+        if directory is None:
+            return
+        os.makedirs(directory, exist_ok=True)
+        self.meta = meta
+        meta_path = os.path.join(directory, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                if json.load(f) != self.meta:
+                    for fn in os.listdir(directory):
+                        if fn.startswith("round_") or fn == "meta.json":
+                            os.remove(os.path.join(directory, fn))
+        with open(meta_path, "w") as f:
+            json.dump(self.meta, f)
+
+    def _path(self, r: int) -> str:
+        return os.path.join(self.dir, f"round_{r}.npz")
+
+    def has_round(self, r: int) -> bool:
+        return self.dir is not None and os.path.exists(self._path(r))
+
+    def load_round(self, r: int):
+        """-> (arrays dict, rstats dict) or None if not checkpointed."""
+        if not self.has_round(r):
+            return None
+        z = np.load(self._path(r), allow_pickle=False)
+        rstats = json.loads(str(z["stats"]))
+        return {k: z[k] for k in z.files if k != "stats"}, rstats
+
+    def save_round(self, r: int, rstats, **arrays) -> None:
+        if self.dir is None:
+            return
+        tmp = self._path(r) + ".tmp.npz"  # .npz suffix: savez won't append
+        np.savez(tmp, stats=np.asarray(json.dumps(rstats)), **arrays)
+        os.replace(tmp, self._path(r))
 
 
 class Enumerator:
@@ -112,44 +218,21 @@ class Enumerator:
         return INVALID_VERTEX
 
 
-def emit_junctions_packed(
-    out_path: str,
-    batches,
-    keys: np.ndarray,
-    table_len: int,
-    P: int,
-    timings: dict | None = None,
-) -> tuple[int, int]:
-    """Write the junction list from a PACKED occurrence stream: keys
-    (sorted u64) = flat_pos << 32 | (signed id + 2^31). Requires flat
-    positions < 2^32 and |id| < 2^31.
+def _endpoint_stubs(batches, present, table_len: int, P: int):
+    """Stubs at unresolved sequence endpoints, in stream order.
 
     Semantics are the reference EdgeConstructionWorker's
     (vertexenumerator.h:927-958): every sequence's first/last vertex
     position gets a fresh stub id when it isn't a resolved junction,
     except that stub ids here are assigned in input order.
-    Returns (records_written, stub_count)."""
-    t0 = time.time()
-    ib = np.uint64(32)
-    id_bias = np.int64(1) << 31
+    present(flats) says which flat positions hold an occurrence.
+    -> (seq_id, pos0 per row, stub flat positions sorted, stub ids)"""
     seq_id = np.concatenate([b.seq_id for b in batches]).astype(np.int64)
     pos0 = np.concatenate([b.pos0 for b in batches])
     valid = np.concatenate([b.valid for b in batches]).astype(np.int64)
     n_pos = np.concatenate([b.n_pos for b in batches])
     rows = np.arange(len(seq_id), dtype=np.int64)
     live = seq_id >= 0
-
-    def present(flats):
-        # an occurrence at flat f has key in [f << 32, (f + 1) << 32)
-        if len(keys) == 0:
-            return np.zeros(len(flats), bool)
-        idx = np.minimum(
-            np.searchsorted(keys, flats.astype(np.uint64) << ib),
-            len(keys) - 1,
-        )
-        return (keys[idx] >> ib).astype(np.int64) == flats
-
-    # stubs at unresolved sequence endpoints, in stream order
     first_flat = rows * P
     pre = live & (pos0 == 1) & ~present(first_flat)
     j_last = n_pos - pos0
@@ -164,51 +247,29 @@ def emit_junctions_packed(
     stub_ids = (
         np.arange(len(stub_flat), dtype=np.int64) + table_len + STUB_ID_OFFSET
     )
-    # occurrences and stubs are each sorted and disjoint: the output is
-    # occurrence segments with single stub records spliced between them
-    ins = np.searchsorted(keys, stub_flat.astype(np.uint64) << ib, side="left")
-    if timings is not None:
-        timings["emit_stub"] = time.time() - t0
-    t0 = time.time()
+    return seq_id, pos0, stub_flat, stub_ids
 
+
+def _write_spliced(out_path, n_occ: int, ins, stub_flat, stub_ids, map_occ, map_flat):
+    """Write occurrence segments [ins[i-1], ins[i]) with one stub record
+    spliced after each (occurrences and stubs are each sorted and
+    disjoint), decoding chunk i+1 in a thread while chunk i is written
+    (numpy releases the interpreter lock in its large passes).
+    map_occ(a, b) decodes occurrences [a, b)."""
     CH = 1 << 24
-    p_shift = P.bit_length() - 1 if P & (P - 1) == 0 else None
-
-    def map_keys(kv):
-        # u32 halves through a view (little-endian: [0] = id, [1] = pos)
-        halves = kv.view(np.uint32).reshape(-1, 2)
-        fv, iv = halves[:, 1], halves[:, 0].astype(np.int64) - id_bias
-        if p_shift is not None:
-            row_of = (fv >> fv.dtype.type(p_shift)).astype(np.int64)
-            col = fv & fv.dtype.type(P - 1)
-        else:
-            fv64 = fv.astype(np.int64)
-            row_of = fv64 // P
-            col = (fv64 - row_of * P).astype(np.uint32)
-        return seq_id[row_of], pos0[row_of] - 1 + col, iv
-
-    def map_flat(fv, iv):
-        row_of = fv // P
-        return (
-            seq_id[row_of],
-            (pos0[row_of] - 1 + (fv - row_of * P)).astype(np.uint32),
-            iv,
-        )
 
     def chunk_iter():
         seg_start = np.concatenate([[0], ins])
-        seg_end = np.concatenate([ins, [len(keys)]])
+        seg_end = np.concatenate([ins, [n_occ]])
         for si in range(len(seg_start)):
             for a in range(seg_start[si], seg_end[si], CH):
                 b = min(a + CH, seg_end[si])
-                yield lambda a=a, b=b: map_keys(keys[a:b])
+                yield lambda a=a, b=b: map_occ(a, b)
             if si < len(stub_flat):
                 yield lambda si=si: map_flat(
                     stub_flat[si : si + 1], stub_ids[si : si + 1]
                 )
 
-    # decode chunk i+1 in a thread while chunk i is written (numpy
-    # releases the interpreter lock in its large passes)
     with junction_io.ChunkWriter(out_path) as w, ThreadPoolExecutor(1) as pool:
         fut = None
         for thunk in chunk_iter():
@@ -218,6 +279,109 @@ def emit_junctions_packed(
             fut = nxt
         if fut is not None:
             w.write(*fut.result())
+
+
+def _row_mapper(seq_id, pos0, P: int):
+    """(flat positions, ids) -> (sequence, 0-based position, ids)."""
+    p_shift = P.bit_length() - 1 if P & (P - 1) == 0 else None
+
+    def map_flat(fv, iv):
+        if p_shift is not None:  # int64 division runs ~25M/s, shifts ~500M/s
+            row_of = (fv >> fv.dtype.type(p_shift)).astype(np.int64)
+            col = (fv & fv.dtype.type(P - 1)).astype(np.int64)
+        else:
+            fv64 = fv.astype(np.int64)
+            row_of = fv64 // P
+            col = fv64 - row_of * P
+        return seq_id[row_of], pos0[row_of] - 1 + col, iv
+
+    return map_flat
+
+
+def emit_junctions(
+    out_path: str,
+    batches,
+    occ_pos: np.ndarray,
+    occ_ids: np.ndarray,
+    table_len: int,
+    P: int,
+    timings: dict | None = None,
+) -> tuple[int, int]:
+    """Write the junction list from an UNPACKED occurrence stream:
+    occ_pos sorted int64 global flat positions (row * P + col) of the
+    resolved junction occurrences, occ_ids their signed ids (any width).
+    The fallback of emit_junctions_packed for runs whose ids and positions
+    do not fit one u64 key. Returns (records_written, stub_count)."""
+    t0 = time.time()
+    occ_pos = occ_pos.astype(np.int64, copy=False)
+    occ_ids = occ_ids.astype(np.int64, copy=False)
+
+    def present(flats):
+        if len(occ_pos) == 0:
+            return np.zeros(len(flats), bool)
+        idx = np.minimum(np.searchsorted(occ_pos, flats), len(occ_pos) - 1)
+        return occ_pos[idx] == flats
+
+    seq_id, pos0, stub_flat, stub_ids = _endpoint_stubs(batches, present, table_len, P)
+    ins = np.searchsorted(occ_pos, stub_flat, side="left")
+    if timings is not None:
+        timings["emit_stub"] = time.time() - t0
+    t0 = time.time()
+    map_flat = _row_mapper(seq_id, pos0, P)
+    _write_spliced(
+        out_path, len(occ_pos), ins, stub_flat, stub_ids,
+        lambda a, b: map_flat(occ_pos[a:b], occ_ids[a:b]), map_flat,
+    )
+    if timings is not None:
+        timings["emit_write"] = time.time() - t0
+    return len(occ_pos) + len(stub_flat), len(stub_flat)
+
+
+def emit_junctions_packed(
+    out_path: str,
+    batches,
+    keys: np.ndarray,
+    table_len: int,
+    P: int,
+    timings: dict | None = None,
+    id_bits: int = 32,
+) -> tuple[int, int]:
+    """Write the junction list from a PACKED occurrence stream: keys
+    (sorted u64) = flat_pos << id_bits | (signed id + 2^(id_bits-1)).
+    Requires flat positions < 2^(64 - id_bits) and |id| < 2^(id_bits-1)
+    (emit_junctions takes the rest). Returns (records_written,
+    stub_count)."""
+    t0 = time.time()
+    ib = np.uint64(id_bits)
+    id_bias = np.int64(1) << (id_bits - 1)
+    id_mask = np.uint64((1 << id_bits) - 1)
+
+    def present(flats):
+        # an occurrence at flat f has key in [f << id_bits, (f + 1) << id_bits)
+        if len(keys) == 0:
+            return np.zeros(len(flats), bool)
+        idx = np.minimum(
+            np.searchsorted(keys, flats.astype(np.uint64) << ib),
+            len(keys) - 1,
+        )
+        return (keys[idx] >> ib).astype(np.int64) == flats
+
+    seq_id, pos0, stub_flat, stub_ids = _endpoint_stubs(batches, present, table_len, P)
+    ins = np.searchsorted(keys, stub_flat.astype(np.uint64) << ib, side="left")
+    if timings is not None:
+        timings["emit_stub"] = time.time() - t0
+    t0 = time.time()
+    map_flat = _row_mapper(seq_id, pos0, P)
+
+    def map_keys(a, b):
+        kv = keys[a:b]
+        if id_bits == 32:
+            # u32 halves through a view (little-endian: [0] = id, [1] = pos)
+            halves = kv.view(np.uint32).reshape(-1, 2)
+            return map_flat(halves[:, 1], halves[:, 0].astype(np.int64) - id_bias)
+        return map_flat((kv >> ib).view(np.int64), (kv & id_mask).view(np.int64) - id_bias)
+
+    _write_spliced(out_path, len(keys), ins, stub_flat, stub_ids, map_keys, map_flat)
     if timings is not None:
         timings["emit_write"] = time.time() - t0
     return len(keys) + len(stub_flat), len(stub_flat)

@@ -17,10 +17,48 @@ from twopaco_tpu_torch.ops import buzhash as bz
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
 
+REAL = 1 << 17  # payload bit of a real (in-round) record
+
 
 def _comp4(x: torch.Tensor) -> torch.Tensor:
     """Complement of an extension code; N (4) stays N."""
     return torch.where(x < 4, 3 - x, 4)
+
+
+def vertex_hashes_plain(codes, valid, *, k: int, P: int):
+    """codes (B, P+k+1) int64 -> (hv (B, P) int64 vertex hashes, ok (B, P)
+    bool: the position has a record, inside its row's valid count with no
+    N in its window)."""
+    hf, hr = bz.window_hashes(*bz.hash_scans(codes, bz.TABLE_1), k, P + 1)
+    hv = (hf[:, 1 : P + 1] + hr[:, 1 : P + 1]) & MASK32
+    col = torch.arange(P, device=codes.device)[None, :]
+    ok = (col < valid.to(torch.int64)[:, None]) & pack.window_all_definite(
+        codes, k, P + 1
+    )[:, 1 : P + 1]
+    return hv, ok
+
+
+def batch_records_plain(packed, nmask, valid, *, k: int, P: int):
+    """Ungated records of every position of a batch (twopaco_tpu
+    sortpipe.py:103 _batch_records), plain PyTorch.
+
+    -> (canon (B*P, w) int64 canonical words, payload (B*P,) int64 = in |
+    out<<8 | is_rc<<16 without the real bit, hv (B*P,) int64, ok (B*P,)
+    bool)"""
+    codes = pack.unpack_codes(packed, nmask, P + k + 1).to(torch.int64)
+    B = codes.shape[0]
+    cm = torch.where(codes < 4, codes, 0)
+    words_all = pack.kmer_words(cm, k, P + 2)  # offset j = chars [j, j+k)
+    rc_all = pack.revcomp_words(words_all, k)
+    # vertex i of a row is offset i+1; prev = char i, next = char i+k+1
+    canon, is_rc = pack.canonical(words_all[:, 1 : P + 1], rc_all[:, 1 : P + 1])
+    prev = codes[:, 0:P]
+    nxt = codes[:, k + 1 : k + 1 + P]
+    hv, ok = vertex_hashes_plain(codes, valid, k=k, P=P)
+    in_code = torch.where(is_rc, _comp4(nxt), prev)
+    out_code = torch.where(is_rc, _comp4(prev), nxt)
+    payload = in_code | (out_code << 8) | (is_rc.to(torch.int64) << 16)
+    return canon.reshape(B * P, -1), payload.reshape(-1), hv.reshape(-1), ok.reshape(-1)
 
 
 def build_sort_records_plain(
@@ -28,35 +66,14 @@ def build_sort_records_plain(
     low: int = 0, high: int = MASK32, out=None,
 ):
     """Plain PyTorch version of build_sort_records (any device)."""
-    R = P + k + 1
-    codes = pack.unpack_codes(packed, nmask, R).to(torch.int64)
-    B = codes.shape[0]
-    cm = torch.where(codes < 4, codes, 0)
-    words_all = pack.kmer_words(cm, k, P + 2)  # offset j = chars [j, j+k)
-    rc_all = pack.revcomp_words(words_all, k)
-    def_all = pack.window_all_definite(codes, k, P + 2)
-    # vertex i of a row is offset i+1; prev = char i, next = char i+k+1
-    canon, is_rc = pack.canonical(words_all[:, 1 : P + 1], rc_all[:, 1 : P + 1])
-    prev = codes[:, 0:P]
-    nxt = codes[:, k + 1 : k + 1 + P]
-    hf, hr = bz.window_hashes(*bz.hash_scans(codes, bz.TABLE_1), k, P + 1)
-    hv = (hf[:, 1 : P + 1] + hr[:, 1 : P + 1]) & MASK32
-    col = torch.arange(P, device=codes.device)[None, :]
-    ok = (
-        (col < valid.to(torch.int64)[:, None])
-        & def_all[:, 1 : P + 1]
-        & (hv >= low)
-        & (hv <= high)
-    )
-    in_code = torch.where(is_rc, _comp4(nxt), prev)
-    out_code = torch.where(is_rc, _comp4(prev), nxt)
-    payload = in_code | (out_code << 8) | (is_rc.to(torch.int64) << 16) | (1 << 17)
-    payload = torch.where(ok, payload, 0)
-    words = torch.where(ok[..., None], canon, MASK32)
+    canon, payload, hv, ok = batch_records_plain(packed, nmask, valid, k=k, P=P)
+    ok = ok & (hv >= low) & (hv <= high)
+    payload = torch.where(ok, payload | REAL, 0)
+    words = torch.where(ok[:, None], canon, MASK32)
     res = (
-        pack.as_u32(words.reshape(B * P, -1)),
-        pack.as_u32(payload.reshape(-1)),
-        pos_base + torch.arange(B * P, device=codes.device),
+        pack.as_u32(words),
+        pack.as_u32(payload),
+        pos_base + torch.arange(len(payload), device=payload.device),
     )
     if out is None:
         return res

@@ -1,48 +1,102 @@
-"""Sort-join junction engine, one device, one round.
+"""Sort-join junction engine on one device, in one round or many.
 
-The port of twopaco_tpu/passes/sortpipe.py:1008 build_junctions_sorted
-in its single-round form (:1253-1262, :1355-1358 _stream_single_round):
+The port of twopaco_tpu/passes/sortpipe.py:1008 build_junctions_sorted:
 
   1. host: read FASTA, cut window batches, pack them 2 bits a char plus
      an N mask, upload;
-  2. device: build one record per vertex position straight into the
-     round buffer (passes/records.py), sort the round by k-mer words
-     (passes/sort.py), judge k-mer groups and compact the junction table
-     and the (position, +-id) occurrences (passes/judge.py);
-  3. host: fetch, pack occurrences into u64 keys (position << 32 | biased
-     id), sort them, and write the junction list with stubs
-     (pipeline.emit_junctions_packed).
+  2. device, per round: the round's records (one per vertex position
+     whose hash lies in the round's interval) in a sort buffer, sorted by
+     k-mer words (passes/sort.py), judged and compacted into the round's
+     junction table and (position, +-id) occurrences (passes/judge.py),
+     fetched;
+  3. host: merge the rounds' tables into the sorted global dictionary,
+     remap the round-local ids, sort the occurrences by position, and
+     write the junction list with stubs.
 
-The round holds the whole input. Its size comes from the device's free
-memory (torch.cuda.mem_get_info); an input that does not fit, or -r
-above 1, raises: the multi-round modes are not ported yet.
+Rounds split the hash space (the reference's -r semantics), so a round
+holds about 1/R of the records. How a round's buffer is filled is the
+mode:
+  - one round: every batch's records straight into the buffer at
+    row0 * P (passes/records.py);
+  - resident: every record built once and split into per-round blocks
+    held on the device (passes/partition.py); each round gathers its
+    blocks;
+  - grouped: resident, one group of rounds at a time, when all blocks
+    exceed the resident budget;
+  - stream: each round re-builds every batch's records gated to its
+    interval and appends the in-round ones (passes/stream.py).
+The environment picks among them as in the JAX package:
+TWOPACO_RESIDENT=0 leaves resident mode, TWOPACO_GROUPED=0 leaves grouped
+mode, TWOPACO_RESIDENT_BYTES sets the resident budget (default: the
+device's free memory less one round's peak; on the CPU 6 GiB),
+TWOPACO_UNIFORM_SPLIT=0 splits the hash space by a measured histogram
+(passes/histogram.py) instead of uniformly, TWOPACO_POS64=1 forces the
+wide merge layout of inputs of 2^32 or more slots.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
+from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from twopaco_tpu_torch import dna
 from twopaco_tpu_torch.hostmem import big_empty
 from twopaco_tpu_torch.io import fasta as fasta_io
 from twopaco_tpu_torch.io import windows
 from twopaco_tpu_torch.ops import pack
-from twopaco_tpu_torch.passes import judge, records, sort
+from twopaco_tpu_torch.ops.pack import MASK32
+from twopaco_tpu_torch.passes import histogram, judge, partition, records, sort, stream
+from twopaco_tpu_torch.passes.histogram import BIN_POW
 from twopaco_tpu_torch.passes.pipeline import (
     Enumerator,
     PipelineConfig,
+    RoundCheckpoint,
     RunStats,
+    _input_fingerprint,
+    _split_rounds,
+    emit_junctions,
     emit_junctions_packed,
 )
 
-MULTI_ROUND_ITEM = "ROADMAP item A4, multi-round modes"
+RESIDENT_BYTES_CPU = 6 << 30  # the JAX package's default budget
+# the phase times every run reports, summed over rounds
+PHASES = (
+    "read", "windows", "upload", "hist", "partition", "build", "sort",
+    "judge", "fetch", "merge", "emit",
+)
 
 
-class MultiRoundUnsupported(ValueError):
-    pass
+@dataclass(frozen=True)
+class Ops:
+    """The device functions a run calls: the kernels' wrappers, or their
+    plain PyTorch versions."""
+
+    build: Callable
+    sort: Callable
+    judge: Callable
+    partition: Callable
+    assemble: Callable
+    compact: Callable
+    histogram: Callable
+
+
+KERNELS = Ops(
+    records.build_sort_records, sort.sort_records, judge.judge_compact,
+    partition.partition_batch, partition.assemble_round,
+    stream.compact_append, histogram.histogram_vertex_hashes,
+)
+PLAIN = Ops(
+    records.build_sort_records_plain, sort.sort_records_plain,
+    judge.judge_compact_plain, partition.partition_batch_plain,
+    partition.assemble_round_plain, stream.compact_append_plain,
+    histogram.histogram_vertex_hashes_plain,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -60,12 +114,18 @@ def resolve_device(device) -> torch.device:
 
 
 def slot_bytes(w: int) -> int:
-    """Device bytes a record slot needs at the round's peak: the record
-    (4w words + 4 payload + 8 position) twice around the sort, the sort's
-    24 bytes of keys and indices, then the judge's 36 bytes of work plus
-    its table and occurrence outputs."""
+    """Device bytes a record slot of a round needs at the round's peak:
+    the record (4w words + 4 payload + 8 position) twice around the sort,
+    the sort's 24 bytes of keys and indices, then the judge's 36 bytes of
+    work plus its table and occurrence outputs."""
     rec = 4 * w + 12
     return max(2 * rec + 24, rec + 36 + 4 * w + 12)
+
+
+def block_bytes(w: int) -> int:
+    """Device bytes of a resident block slot: w words, payload, u32
+    in-batch offset."""
+    return 4 * (w + 2)
 
 
 def _sync(dev: torch.device) -> None:
@@ -73,22 +133,165 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _check_fits(n_slots: int, w: int, dev: torch.device, upload: int) -> None:
-    if n_slots >= 1 << 31:
-        raise MultiRoundUnsupported(
-            f"{n_slots} record slots exceed one round's u32 indices; "
-            f"split runs are {MULTI_ROUND_ITEM}, not ported yet"
-        )
+def _free_bytes(dev: torch.device) -> int | None:
+    """Free device memory, counting what PyTorch's allocator holds
+    unused; None on the CPU (no limit is planned for)."""
     if dev.type != "cuda":
-        return
+        return None
     free, _total = torch.cuda.mem_get_info(dev)
-    need = n_slots * slot_bytes(w) + upload
-    if need > free:
-        raise MultiRoundUnsupported(
-            f"one round needs {need / 2**30:.2f} GiB of device memory, "
-            f"{free / 2**30:.2f} GiB is free; split runs are "
-            f"{MULTI_ROUND_ITEM}, not ported yet"
+    return free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+
+
+def _gib(n: int) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def plan_rounds(config: PipelineConfig, n_slots: int, bp: int, free: int | None):
+    """-> (n_rounds, round_buf): the round count (at least -r) and the
+    records a round's buffer may hold (twopaco_tpu sortpipe.py:1068-1089).
+
+    The most records one round may sort is config.sort_chunk or, when it
+    is None, what the free device memory holds: the whole input when it
+    fits one round, else half the free memory's worth (the other half
+    holds resident blocks). The judge's u32 scans cap it below 2^31."""
+    w = config.w
+    slack = config.round_slack
+    max_sort = config.sort_chunk
+    if max_sort is None:
+        if free is None or n_slots * slot_bytes(w) <= free:
+            max_sort = n_slots
+        else:
+            max_sort = free // (2 * slot_bytes(w))
+            if max_sort < 2 * bp:
+                raise RuntimeError(
+                    f"the input needs at least {_gib(4 * bp * slot_bytes(w))} "
+                    f"of free device memory for its smallest rounds; "
+                    f"{_gib(free)} is free"
+                )
+    max_sort = max(1, min(max_sort, int(((1 << 31) - 4 * bp) / slack)))
+    round_buf = min(n_slots, int(max_sort * slack) + bp) + bp
+    capacity = max(1, int((round_buf - bp) / slack))
+    if n_slots <= max_sort:
+        n_rounds = max(config.rounds, 1)
+    else:
+        n_rounds = max(config.rounds, -(-n_slots // capacity))
+    return n_rounds, round_buf
+
+
+def resident_budget(config: PipelineConfig, n_slots: int, bp: int, n_rounds: int,
+                    free: int | None) -> int:
+    """Device bytes the resident blocks may take: TWOPACO_RESIDENT_BYTES,
+    else the free memory less the peak of one round's sort and judge (on
+    the CPU, the JAX package's 6 GiB)."""
+    env = os.environ.get("TWOPACO_RESIDENT_BYTES")
+    if env:
+        return int(env)
+    if free is None:
+        return RESIDENT_BYTES_CPU
+    round_slots = -(-int(n_slots * config.round_slack) // n_rounds) + bp
+    return free - round_slots * slot_bytes(config.w)
+
+
+def _plan_groups(hist, n_groups: int, n_inner: int, bin_pow: int):
+    """Two-level greedy split of the hash space for the grouped mode:
+    n_groups outer intervals (each sized so one group's blocks fit the
+    resident budget), each split into up to n_inner inner rounds
+    (twopaco_tpu sortpipe.py:1495).
+
+    -> (groups, flat_intervals): groups[g] = (glow, ghigh, [(low, high,
+    part_idx), ...]); flat_intervals lists every round's (low, high) in
+    global round order (the checkpoint's identity)."""
+    shift = 32 - bin_pow
+    groups = []
+    flat = []
+    for gl, gh in _split_rounds(hist, n_groups, bin_pow):
+        if gl > gh:
+            continue
+        sub = np.zeros_like(hist)
+        sub[gl >> shift : (gh >> shift) + 1] = hist[gl >> shift : (gh >> shift) + 1]
+        inner = []
+        for lo, hi in _split_rounds(sub, n_inner, bin_pow):
+            lo2, hi2 = max(lo, gl), min(hi, gh)
+            if lo2 <= hi2:
+                inner.append((lo2, hi2, len(inner)))
+        if not inner:
+            inner = [(gl, gh, 0)]
+        groups.append((gl, gh, inner))
+        flat.extend((lo, hi) for lo, hi, _p in inner)
+    return groups, flat
+
+
+def _live_intervals(hist, n_rounds: int):
+    """_split_rounds without its inverted (empty) intervals: each would
+    run a whole round of no records."""
+    return [iv for iv in _split_rounds(hist, n_rounds, BIN_POW) if iv[0] <= iv[1]]
+
+
+# ---- checkpoints -----------------------------------------------------
+
+
+def _checkpoint_meta(config: PipelineConfig, n_slots: int, intervals, fingerprint) -> dict:
+    # "torch-1": the port stores raw occurrences; a twopaco_tpu checkpoint
+    # (version 2, 4-byte packed rounds) is cleared, never misread
+    return dict(
+        k=config.k,
+        abundance=config.abundance,
+        n_slots=int(n_slots),
+        intervals=[list(map(int, iv)) for iv in intervals],
+        fingerprint=fingerprint,
+        version="torch-1",
+    )
+
+
+class _Checkpoint(RoundCheckpoint):
+    """Sort-engine round checkpoint: each round's junction table and raw
+    occurrences (twopaco_tpu sortpipe.py:901)."""
+
+    def __init__(self, directory, config, n_slots, intervals, fingerprint=None):
+        super().__init__(
+            directory, _checkpoint_meta(config, n_slots, intervals, fingerprint)
         )
+
+    def load_round(self, r: int):
+        """-> ((table, occ_pos, occ_ids), rstats) or None."""
+        got = super().load_round(r)
+        if got is None:
+            return None
+        arrays, rstats = got
+        return (arrays["table"], arrays["occ_pos"], arrays["occ_ids"]), rstats
+
+    def save_round(self, r, entry, rstats) -> None:
+        table, occ_pos, occ_ids = entry
+        super().save_round(r, rstats, table=table, occ_pos=occ_pos, occ_ids=occ_ids)
+
+
+def _complete_checkpoint_intervals(directory, config, n_slots, fingerprint):
+    """Intervals of a COMPLETE matching checkpoint, else None
+    (twopaco_tpu sortpipe.py:967).
+
+    Matching: the stored meta.json equals what this run would write for
+    every key but the interval list itself, which is the data being
+    recovered (it can differ from a fresh split when the resident
+    partition re-split on overflow). Complete: a round_<r>.npz exists for
+    every stored interval."""
+    meta_path = os.path.join(directory, "meta.json")
+    try:
+        with open(meta_path) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return None
+    ivs = meta.get("intervals")
+    if not ivs or meta != _checkpoint_meta(config, n_slots, ivs, fingerprint):
+        return None
+    if not all(
+        os.path.exists(os.path.join(directory, f"round_{r}.npz"))
+        for r in range(len(ivs))
+    ):
+        return None
+    return [tuple(iv) for iv in ivs]
+
+
+# ---- the run ---------------------------------------------------------
 
 
 def build_junctions_sorted(
@@ -97,6 +300,7 @@ def build_junctions_sorted(
     out_path: str | None = None,
     sequences: Sequence[tuple[int, np.ndarray]] | None = None,
     log: Callable[[str], None] = lambda s: None,
+    checkpoint_dir: str | None = None,
     *,
     device="cuda",
     reference: bool = False,
@@ -104,31 +308,18 @@ def build_junctions_sorted(
     """Find the junctions of the input and write the junction list.
 
     input_paths: FASTA files in reference CLI order, or `sequences` as
-    [(seq_id, codes uint8)]. device: "cuda" runs the kernels and raises
-    when there is no card; "cpu" runs the plain PyTorch versions.
-    reference=True runs the plain versions on any device (to check the
-    kernels against them on the card).
+    [(seq_id, codes uint8)]. checkpoint_dir: round-boundary checkpoints;
+    a rerun restores the rounds it finds. device: "cuda" runs the kernels
+    and raises when there is no card; "cpu" runs the plain PyTorch
+    versions. reference=True runs the plain versions on any device (to
+    check the kernels against them on the card).
     """
-    if config.rounds > 1:
-        raise MultiRoundUnsupported(
-            f"-r {config.rounds}: runs of more than one round are "
-            f"{MULTI_ROUND_ITEM}, not ported yet"
-        )
     dev = resolve_device(device)
-    if reference:
-        build_fn, sort_fn, judge_fn = (
-            records.build_sort_records_plain,
-            sort.sort_records_plain,
-            judge.judge_compact_plain,
-        )
-    else:
-        build_fn, sort_fn, judge_fn = (
-            records.build_sort_records,
-            sort.sort_records,
-            judge.judge_compact,
-        )
+    ops = PLAIN if reference else KERNELS
     k, P, B, w = config.k, config.positions_per_row, config.rows_per_batch, config.w
+    slack = config.round_slack
     stats = RunStats()
+    stats.timings.update(dict.fromkeys(PHASES, 0.0))
     t_start = time.time()
 
     t0 = time.time()
@@ -143,18 +334,33 @@ def build_junctions_sorted(
     stats.total_positions = sum(int(b.valid.sum()) for b in batches)
     stats.timings["windows"] = time.time() - t0
     bp = B * P
-    n_slots = len(batches) * bp
+    nb = len(batches)
+    n_slots = nb * bp
+    # beyond 2^32 flat positions (~4.2 Gbases) the merge keys need more
+    # than 32 position bits; TWOPACO_POS64=1 forces that layout for tests
+    wide = (
+        n_slots >= 1 << 32
+        or config.force_wide
+        or os.environ.get("TWOPACO_POS64") == "1"
+    )
     log(
         f"Engine = sort-join ({dev.type})\nVertex length = {k}\n"
         f"Record slots = {n_slots}\nCapacity = {w} words"
     )
+    if nb == 0:
+        raise ValueError(f"no input sequence has {k} or more chars")
 
     # 2-bit packed chars + N bitmask: 2.25 bits a char over the link
     t0 = time.time()
     packed_np = [pack.pack_codes_host(b.codes) for b in batches]
     upload = sum(p.nbytes + m.nbytes for p, m in packed_np)
-    _check_fits(n_slots, w, dev, upload)
-    packed = [
+    free = _free_bytes(dev)
+    if free is not None and upload > free:
+        raise RuntimeError(
+            f"the input's upload needs {_gib(upload)} of device memory, "
+            f"{_gib(free)} is free"
+        )
+    uploads = [
         (
             torch.from_numpy(p).to(dev),
             torch.from_numpy(m).to(dev),
@@ -163,90 +369,402 @@ def build_junctions_sorted(
         for (p, m), b in zip(packed_np, batches)
     ]
     del packed_np
+    bases = [b.row0 * P for b in batches]
     _sync(dev)
     stats.timings["upload"] = time.time() - t0
 
-    t0 = time.time()
-    buf_w = torch.empty((n_slots, w), dtype=torch.uint32, device=dev)
-    buf_pay = torch.empty(n_slots, dtype=torch.uint32, device=dev)
-    buf_pos = torch.empty(n_slots, dtype=torch.int64, device=dev)
-    for (codes_p, nmask, valid), b in zip(packed, batches):
-        off = b.row0 * P  # each batch fills its own B*P slots
-        out = (buf_w[off : off + bp], buf_pay[off : off + bp], buf_pos[off : off + bp])
-        build_fn(codes_p, nmask, valid, off, k=k, P=P, out=out)
-    del packed
-    _sync(dev)
-    stats.timings["build"] = time.time() - t0
-
-    t0 = time.time()
-    sw, spay, spos = sort_fn(buf_w, buf_pay, buf_pos)
-    del buf_w, buf_pay, buf_pos
-    _sync(dev)
-    stats.timings["sort"] = time.time() - t0
-
-    t0 = time.time()
-    table_d, occ_pos_d, occ_id_d, n_groups, n_junc, n_occ = judge_fn(
-        sw, spay, spos, config.abundance
+    free = _free_bytes(dev)
+    n_rounds, round_buf = plan_rounds(config, n_slots, bp, free)
+    budget = resident_budget(config, n_slots, bp, n_rounds, free)
+    total_bytes = int(n_slots * slack * block_bytes(w))
+    resident = (
+        n_rounds > 1
+        and total_bytes <= budget
+        and os.environ.get("TWOPACO_RESIDENT", "1") != "0"
     )
-    del sw, spay, spos
-    _sync(dev)
-    stats.timings["judge"] = time.time() - t0
+    hist = None
+    if n_rounds > 1:
+        t0 = time.time()
+        if os.environ.get("TWOPACO_UNIFORM_SPLIT", "1") != "0":
+            # Buzhash values are near-uniform: a uniform split of the hash
+            # space balances the rounds to ~sqrt(records a round), and the
+            # resident partition re-splits on overflow anyway
+            hist = np.ones(1 << BIN_POW, np.int64)
+        else:
+            # a sample of ~2^23 positions: ~1% interval-mass accuracy
+            stride = max(1, 1 << max(0, n_slots.bit_length() - 24))
+            hist = histogram.histogram_scan(uploads, k=k, P=P, stride=stride, fn=ops.histogram)
+        stats.timings["hist"] = time.time() - t0
 
-    t0 = time.time()
-    table = table_d.cpu().numpy()
-    occ_pos = occ_pos_d.cpu().numpy()
-    occ_id = occ_id_d.cpu().numpy()
-    del table_d, occ_pos_d, occ_id_d
-    stats.timings["fetch"] = time.time() - t0
-    stats.rounds.append(
-        dict(
-            low=0, high=0xFFFFFFFF, marks=n_occ, hash_table_size=n_groups,
-            true_junctions=n_junc, false_positives=0,
+    fingerprint = None
+    if checkpoint_dir is not None:
+        fingerprint = _input_fingerprint(input_paths, sequences)
+
+    blocks = None  # resident blocks: (words, payload, offset) stacked
+    groups = None  # grouped plan
+    n_inner = part_cap = 0
+    resumed_all = False
+    if resident and checkpoint_dir is not None:
+        # a COMPLETE matching checkpoint holds the final (re-split)
+        # intervals: restore every round without the partition pass
+        resume_iv = _complete_checkpoint_intervals(checkpoint_dir, config, n_slots, fingerprint)
+        if resume_iv is not None:
+            intervals = resume_iv
+            buf_slots = 0
+            del uploads
+            resident = False  # the round loop must not touch blocks
+            resumed_all = True
+            log(f"All {len(intervals)} resident rounds checkpointed — skipping partition")
+    if resumed_all:
+        pass
+    elif resident:
+        t0 = time.time()
+        n_rounds = max(config.rounds, -(-int(n_slots * slack) // round_buf))
+        for _attempt in range(6):
+            intervals = _live_intervals(hist, n_rounds)
+            part_cap = -(-int(slack * bp) // len(intervals))
+            highs = [h for _l, h in intervals]
+            *blocks, counts = partition.partition_scan(
+                uploads, highs, 0, MASK32, k=k, P=P, part_cap=part_cap,
+                fn=ops.partition,
+            )
+            if (counts <= part_cap).all():
+                break
+            # a batch's round block overflowed its fixed cap (local k-mer
+            # hash skew): split finer and partition again
+            blocks = None
+            n_rounds = -(-n_rounds * 3) // 2
+            log(
+                f"Round block overflow (max {int(counts.max())} > {part_cap}); "
+                f"re-splitting into {n_rounds} rounds"
+            )
+        else:
+            raise RuntimeError(
+                "round block overflow persists after re-splitting — raise "
+                "PipelineConfig.round_slack"
+            )
+        del uploads  # the records live in the blocks now
+        buf_slots = nb * part_cap
+        _sync(dev)
+        stats.timings["partition"] = time.time() - t0
+        log(
+            f"Splitting the input kmers set ({len(intervals)} rounds, "
+            f"resident parts, block cap {part_cap})"
         )
-    )
-    log(
-        f"True junctions = {n_junc}\nDistinct k-mers = {n_groups}\n"
-        f"Occurrences = {n_occ}"
-    )
+    elif n_rounds > 1 and os.environ.get("TWOPACO_GROUPED", "1") != "0":
+        # one partition pass per group of rounds, each group's blocks
+        # resident while its rounds run
+        n_groups = min(max(2, -(-total_bytes // max(budget, 1))), n_rounds)
+        n_inner = -(-n_rounds // n_groups)
+        groups, intervals = _plan_groups(hist, n_groups, n_inner, BIN_POW)
+        part_cap = -(-int(slack * bp) // (len(groups) * n_inner))
+        buf_slots = nb * part_cap
+        log(
+            f"Splitting the input kmers set ({len(intervals)} rounds in "
+            f"{len(groups)} resident groups, block cap {part_cap})"
+        )
+    elif n_rounds > 1:
+        intervals = _live_intervals(hist, n_rounds)
+        # a round's share of the records with the slack, plus one batch of
+        # append headroom
+        buf_slots = min(round_buf, -(-int(n_slots * slack) // len(intervals)) + bp)
+        log(f"Splitting the input kmers set ({len(intervals)} rounds)")
+    else:
+        intervals = [(0, MASK32)]
+        buf_slots = n_slots  # every batch at row0 * P
+
+    ckpt = _Checkpoint(checkpoint_dir, config, n_slots, intervals, fingerprint)
+    bases_d = torch.tensor(bases, dtype=torch.int64, device=dev)
+
+    # grouped bookkeeping: round -> block index within its group, and the
+    # rounds at which a group's partition pass runs
+    part_of_round: list[int] = []
+    group_at: dict[int, tuple] = {}
+    for glow, ghigh, g_rounds in groups or ():
+        group_at[len(part_of_round)] = (
+            glow, ghigh, [hi for _l, hi, _p in g_rounds], len(g_rounds),
+        )
+        part_of_round.extend(p for _l, _h, p in g_rounds)
+
+    fetched = []
+    for r, (low, high) in enumerate(intervals):
+        if r in group_at:
+            glow, ghigh, g_highs, n_real = group_at[r]
+            if not all(ckpt.has_round(r + j) for j in range(n_real)):
+                blocks = None  # the previous group's blocks go first
+                t0 = time.time()
+                *blocks, counts = partition.partition_scan(
+                    uploads, g_highs + [ghigh] * (n_inner - n_real), glow, ghigh,
+                    k=k, P=P, part_cap=part_cap, fn=ops.partition,
+                )
+                if (counts[:, :n_real] > part_cap).any():
+                    raise RuntimeError(
+                        f"grouped round block overflow (max {int(counts.max())} "
+                        f"> {part_cap}) — raise PipelineConfig.round_slack"
+                    )
+                _sync(dev)
+                stats.timings["partition"] += time.time() - t0
+        restored = ckpt.load_round(r)
+        if restored is not None:
+            entry, rstats = restored
+            fetched.append(entry)
+            stats.rounds.append(rstats)
+            log(f"Round {r}: restored from checkpoint")
+            continue
+        if resumed_all:
+            # every round file was there a moment ago; the blocks and the
+            # upload are released, so the round cannot be computed
+            raise RuntimeError(f"checkpoint round {r} disappeared during resume")
+        log(f"Round {r}, {low}:{high}")
+        t0 = time.time()
+        if resident or groups is not None:
+            pidx = r if resident else part_of_round[r]
+            buf = ops.assemble(pidx, *blocks, bases_d, buf_slots)
+        elif len(intervals) == 1:
+            buf = (
+                torch.empty((n_slots, w), dtype=torch.uint32, device=dev),
+                torch.empty(n_slots, dtype=torch.uint32, device=dev),
+                torch.empty(n_slots, dtype=torch.int64, device=dev),
+            )
+            for (codes_p, nmask, valid), off in zip(uploads, bases):
+                out = tuple(t[off : off + bp] for t in buf)
+                ops.build(codes_p, nmask, valid, off, k=k, P=P, low=low, high=high, out=out)
+        else:
+            *buf, over = stream.stream_round(
+                uploads, bases, low, high, k=k, P=P, buf_slots=buf_slots,
+                build_fn=ops.build, compact_fn=ops.compact,
+            )
+            if over:
+                raise RuntimeError(
+                    "round record buffer overflow — increase rounds (-r) or "
+                    "PipelineConfig.round_slack"
+                )
+        _sync(dev)
+        t_build = time.time() - t0
+
+        t0 = time.time()
+        sw, spay, spos = ops.sort(*buf)
+        del buf
+        _sync(dev)
+        t_sort = time.time() - t0
+
+        t0 = time.time()
+        table_d, occ_pos_d, occ_id_d, n_groups, n_junc, n_occ = ops.judge(
+            sw, spay, spos, config.abundance
+        )
+        del sw, spay, spos
+        _sync(dev)
+        t_judge = time.time() - t0
+
+        t0 = time.time()
+        entry = (table_d.cpu().numpy(), occ_pos_d.cpu().numpy(), occ_id_d.cpu().numpy())
+        del table_d, occ_pos_d, occ_id_d
+        t_fetch = time.time() - t0
+        fetched.append(entry)
+        stats.rounds.append(
+            dict(
+                low=low, high=high, marks=n_occ, hash_table_size=n_groups,
+                true_junctions=n_junc, false_positives=0, t_build=t_build,
+                t_sort=t_sort, t_judge=t_judge, t_fetch=t_fetch,
+            )
+        )
+        for key, val in (("build", t_build), ("sort", t_sort),
+                         ("judge", t_judge), ("fetch", t_fetch)):
+            stats.timings[key] += val
+        log(
+            f"Round {r} seconds: build={t_build:.4f} sort={t_sort:.4f} "
+            f"judge={t_judge:.4f} fetch={t_fetch:.4f}\n"
+            f"True junctions = {n_junc}\nDistinct k-mers = {n_groups}\n"
+            f"Occurrences = {n_occ}"
+        )
+        ckpt.save_round(r, entry, stats.rounds[-1])
+
+    blocks = uploads = None  # release the device state before the host tail
     return merge_fetched(
-        table, occ_pos, occ_id, batches, config, out_path, stats, log, t_start
+        fetched, batches, config, out_path, stats, log, t_start,
+        n_slots=n_slots, wide=wide, n_sequences=len(sequences),
     )
+
+
+# ---- the host tail ---------------------------------------------------
 
 
 def merge_fetched(
-    table, occ_pos, occ_id, batches, config, out_path, stats, log, t_start
+    fetched, batches, config, out_path, stats, log, t_start,
+    *, n_slots: int, wide: bool, n_sequences: int,
 ) -> Enumerator:
-    """Host tail of the round: the junction table is already the sorted
-    global dictionary, and occurrence ids are +-(row + 1) into it. Pack
-    each occurrence into one u64 key, position << 32 | (id + 2^31), sort
-    the keys, and emit (twopaco_tpu sortpipe.py:1467 merge_fetched and
-    :1539 merge_rounds_packed with one round: the remap is the
-    identity)."""
+    """Merge the rounds and write the junction list (twopaco_tpu
+    sortpipe.py:1467). fetched = [(table (nj, w) uint32 sorted, occ_pos
+    int64, occ_ids = +-(1-based row of table))] per round; the rounds'
+    k-mer sets are disjoint. Picks the packed u64 merge when every id and
+    position fits one key, else the unpacked int64 merge.
+
+    u64 keys: position in the high pos_bits, biased signed id below.
+    Inputs under 2^32 slots split 32/32 (u32 views: fast paths); wide
+    runs split at the position width while the ids still fit."""
+    total_j = sum(len(t) for t, _, _ in fetched)
+    pos_bits = 32 if not wide else max(n_slots.bit_length(), 33)
+    id_bits = 64 - pos_bits
+    if total_j + 2 * n_sequences + 64 < (1 << (id_bits - 1)):
+        return merge_rounds_packed(
+            fetched, batches, config, out_path, stats, log, t_start,
+            pos_bits=pos_bits,
+        )
+    return merge_rounds_and_emit(
+        [t for t, _, _ in fetched], [(p, i) for _, p, i in fetched],
+        batches, config, out_path, stats, log, t_start,
+    )
+
+
+def _merge_keys(cat: np.ndarray, w: int) -> np.ndarray:
+    """Sort/search keys for (n, w) canonical k-mer word rows: u64 keys
+    when they fit (k <= 31, the same lexicographic order and much faster
+    than byte strings), else byte-string keys (twopaco_tpu
+    sortpipe.py:1526)."""
+    if w == 1:
+        return cat[:, 0].astype(np.uint64)
+    if w == 2:
+        return (cat[:, 0].astype(np.uint64) << 32) | cat[:, 1].astype(np.uint64)
+    return dna.words_to_bytes_keys(cat)
+
+
+def merge_rounds_packed(
+    fetched, batches, config, out_path, stats, log, t_start, pos_bits: int = 32,
+) -> Enumerator:
+    """Merge into ONE u64 key buffer (pos << id_bits | id + 2^(id_bits-1),
+    id_bits = 64 - pos_bits), sorted in place (twopaco_tpu
+    sortpipe.py:1539). The global table is the rounds' tables sorted; the
+    keys are unique (rounds partition the k-mer space), so the inverse of
+    that sort remaps each round's local ids with no search. Raises on
+    duplicate keys across rounds, on an id past its round's table, on id
+    0, and on a position past pos_bits."""
+    id_bits = 64 - pos_bits
     t0 = time.time()
-    n = len(occ_id)
-    if n:
-        idx = np.abs(occ_id.astype(np.int64)) - 1
-        # a corrupt id would otherwise point at a plausible junction
-        if int(idx.max()) >= len(table) or int(idx.min()) < 0:
-            raise RuntimeError(
-                f"occurrence id out of range: |id| in "
-                f"[{int(idx.min()) + 1}, {int(idx.max()) + 1}], "
-                f"table size {len(table)}"
+    tables = [t for t, _, _ in fetched if len(t)]
+    if tables:
+        cat = np.concatenate(tables)
+        keys = _merge_keys(cat, config.w)
+        order = np.argsort(keys)
+        table = np.ascontiguousarray(cat[order])
+        sorted_keys = keys[order]
+        if len(sorted_keys) > 1 and not bool((sorted_keys[1:] > sorted_keys[:-1]).all()):
+            raise AssertionError(
+                "duplicate junction keys across rounds — hash intervals "
+                "must partition the k-mer space"
             )
-    keys = big_empty(n, np.uint64)
-    halves = keys.view(np.uint32).reshape(-1, 2)  # little-endian: [0] = low
-    halves[:, 1] = occ_pos  # flat positions < 2^32 (one round)
-    halves[:, 0] = occ_id.astype(np.int64) + (1 << 31)
-    keys.sort()
+        del sorted_keys
+        inv = np.empty(len(keys), np.int64)
+        inv[order] = np.arange(len(keys), dtype=np.int64)
+    else:
+        table = np.zeros((0, config.w), np.uint32)
+        inv = np.zeros(0, np.int64)
+
+    total_o = sum(len(oi) for _, _, oi in fetched)
+    buf = big_empty(total_o, np.uint64)
+    ofs = row_ofs = 0
+    bias = np.int64(1) << (id_bits - 1)
+    for rtab, pos, oi in fetched:
+        remap = inv[row_ofs : row_ofs + len(rtab)]
+        row_ofs += len(rtab)
+        n = len(oi)
+        if n == 0:
+            continue
+        idx = np.abs(oi.astype(np.int64)) - 1
+        # a corrupt id would otherwise point at a plausible junction
+        if int(idx.max()) >= len(remap):
+            raise RuntimeError(
+                f"occurrence id out of range: max index {int(idx.max())} >= "
+                f"table size {len(remap)}"
+            )
+        if int(idx.min()) < 0:
+            raise RuntimeError("occurrence id 0 (corrupt round)")
+        if int(pos.max()) >> pos_bits or int(pos.min()) < 0:
+            raise RuntimeError(f"occurrence position outside {pos_bits} bits")
+        gid = remap[idx] + 1
+        np.negative(gid, where=oi < 0, out=gid)
+        gid += bias
+        seg64 = buf[ofs : ofs + n]
+        if pos_bits == 32:
+            # the two u32 halves through a view (little-endian: [0] = id)
+            seg = seg64.view(np.uint32).reshape(-1, 2)
+            seg[:, 1] = pos
+            seg[:, 0] = gid
+        else:
+            np.left_shift(pos.astype(np.int64).view(np.uint64), np.uint64(id_bits), out=seg64)
+            np.bitwise_or(seg64, gid.view(np.uint64), out=seg64)
+        ofs += n
+    buf.sort()
     stats.timings["merge"] = time.time() - t0
 
     stats.distinct_junctions = len(table)
-    enum = Enumerator(np.ascontiguousarray(table), config.k, stats)
+    enum = Enumerator(table, config.k, stats)
     if out_path is not None:
         t0 = time.time()
         occurrences, n_stubs = emit_junctions_packed(
-            out_path, batches, keys, len(table), config.positions_per_row,
-            timings=stats.timings,
+            out_path, batches, buf, len(table), config.positions_per_row,
+            timings=stats.timings, id_bits=id_bits,
+        )
+        stats.occurrences = occurrences
+        stats.stub_ids = n_stubs
+        stats.timings["emit"] = time.time() - t0
+        log(f"True marks count: {occurrences}")
+    stats.timings["total"] = time.time() - t_start
+    log(f"Distinct junctions = {enum.vertices_count}")
+    return enum
+
+
+def merge_rounds_and_emit(
+    round_tables, round_occ, batches, config, out_path, stats, log, t_start,
+) -> Enumerator:
+    """The unpacked merge (twopaco_tpu sortpipe.py:1677): the rounds'
+    tables merged into the global sorted dictionary, local ids remapped
+    by search, occurrences as int64 (position, id) pairs sorted by
+    position. round_occ[r] = (occ_pos, signed local ids, |id| = 1-based
+    row of round_tables[r]), in any order."""
+    t0 = time.time()
+    w = config.w
+    if sum(len(t) for t in round_tables):
+        cat = np.concatenate([t for t in round_tables if len(t)])
+        keys = _merge_keys(cat, w)
+        order = np.argsort(keys, kind="stable")
+        table = np.ascontiguousarray(cat[order])
+        global_keys = keys[order]
+    else:
+        table = np.zeros((0, w), np.uint32)
+        global_keys = _merge_keys(table, w)
+
+    all_pos, all_ids = [], []
+    for rtab, (op, oi) in zip(round_tables, round_occ):
+        if len(op) == 0:
+            continue
+        remap = np.searchsorted(global_keys, _merge_keys(rtab, w)).astype(np.int64)
+        gid = remap[np.abs(oi.astype(np.int64)) - 1] + 1
+        all_pos.append(op.astype(np.int64))
+        all_ids.append(np.sign(oi).astype(np.int64) * gid)
+    if all_pos:
+        occ_pos = np.concatenate(all_pos)
+        occ_ids = np.concatenate(all_ids)
+        order = np.argsort(occ_pos, kind="stable")
+        occ_pos, occ_ids = occ_pos[order], occ_ids[order]
+    else:
+        occ_pos = occ_ids = np.zeros(0, np.int64)
+    stats.timings["merge"] = time.time() - t0
+    return finish_emit(table, occ_pos, occ_ids, batches, config, out_path, stats, log, t_start)
+
+
+def finish_emit(
+    table, occ_pos, occ_ids, batches, config, out_path, stats, log, t_start,
+) -> Enumerator:
+    """Common tail of the unpacked merge (twopaco_tpu sortpipe.py:1747):
+    the Enumerator of the global table, and the junction list written
+    from the position-sorted occurrence stream."""
+    stats.distinct_junctions = len(table)
+    enum = Enumerator(table, config.k, stats)
+    if out_path is not None:
+        t0 = time.time()
+        occurrences, n_stubs = emit_junctions(
+            out_path, batches, occ_pos, occ_ids, len(table),
+            config.positions_per_row, timings=stats.timings,
         )
         stats.occurrences = occurrences
         stats.stub_ids = n_stubs
