@@ -22,7 +22,19 @@
    TWOPACO_GROUPED=0) and histogram split (TWOPACO_UNIFORM_SPLIT=0), each
    with the counters reset just before and read just after; each must
    launch its mode's kernels and write the -r 1 run's bytes; then -r 4
-   resident through the plain versions on the card, the same bytes again.
+   resident through the plain versions on the card, the same bytes again;
+7. holds the Bloom engine's four kernels (fill, mark, extract, lookup)
+   against their plain versions at one slice batch: fill (the whole
+   slice's filter, each version filling its own) and mark in the byte
+   layout at f=30, the bit layout at f=34 (64-bit probe indices) and the
+   block layout at f=30, extract on the byte mask, lookup against the
+   slice's junction table;
+8. runs the slice through the Bloom engine (`--tpu-engine bloom`): -f 30
+   (auto: byte), --tpu-layout bit -f 34, --tpu-layout block -f 30, and
+   -f 30 -r 4, each with the counters reset just before and read just
+   after; each must launch the Bloom kernels and the sort and judge of
+   its verify pass and write SLICE_SHA256; then a Bloom run through the
+   plain versions on the card, the same bytes again.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
 package is missing, or if any phase fails. The last line of standard
@@ -66,13 +78,31 @@ REPLACES = {
                 "twopaco_tpu/passes/sortpipe.py:338"),
     "histogram": ("twopaco_tpu_torch/kernels/csrc/histogram.cu",
                   "twopaco_tpu/passes/kernels.py:581"),
+    "bloom_fill": ("twopaco_tpu_torch/kernels/csrc/bloom_fill.cu",
+                   "twopaco_tpu/passes/kernels.py:257"),
+    "bloom_mark": ("twopaco_tpu_torch/kernels/csrc/bloom_mark.cu",
+                   "twopaco_tpu/passes/kernels.py:400"),
+    "bloom_extract": ("twopaco_tpu_torch/kernels/csrc/bloom_extract.cu",
+                      "twopaco_tpu/passes/kernels.py:420"),
+    "bloom_lookup": ("twopaco_tpu_torch/kernels/csrc/bloom_lookup.cu",
+                     "twopaco_tpu/passes/kernels.py:506"),
 }
 # the run whose launch counts each kernel reports: its own path
 PATH_OF = {
     "build_records": "r1", "sort_records": "r1", "judge_compact": "r1",
     "partition": "resident", "assemble": "resident", "compact": "stream",
-    "histogram": "histogram",
+    "histogram": "histogram", "bloom_fill": "bloom_byte", "bloom_mark": "bloom_byte",
+    "bloom_extract": "bloom_byte", "bloom_lookup": "bloom_byte",
 }
+# the Bloom engine's runs of the slice: flags, and the layout each must use
+BLOOM_RUNS = {
+    "bloom_byte": (["-f", "30"], "byte"),
+    "bloom_bit": (["--tpu-layout", "bit", "-f", "34"], "bit"),
+    "bloom_block": (["--tpu-layout", "block", "-f", "30"], "block"),
+    "bloom_r4": (["-f", "30", "-r", str(ROUNDS)], "byte"),
+}
+BLOOM_PATH = ("bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
+              "judge_compact", "bloom_lookup")
 
 
 class SmokeFailure(RuntimeError):
@@ -127,6 +157,8 @@ def max_abs_err(got, want) -> int:
             err = max(err, abs(int(a) - int(b)))
             continue
         require(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.dtype == torch.uint32 and torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            continue  # equal (and a GiB-sized filter needs no int64 copy)
         if a.dtype == torch.uint32:
             a, b = pack.as_i64(a), pack.as_i64(b)
         if a.numel():
@@ -200,10 +232,12 @@ def main() -> int:
         from twopaco_tpu_torch.io import fasta, windows
         from twopaco_tpu_torch.kernels import build
         from twopaco_tpu_torch.ops import pack
+        from twopaco_tpu_torch.ops import bloom
         from twopaco_tpu_torch.passes import (
-            histogram, judge, partition, records, sort, sortpipe, stream,
+            bloompipe, extract, fill, histogram, judge, lookup, mark, partition,
+            records, sort, sortpipe, stream,
         )
-        from twopaco_tpu_torch.passes.pipeline import PipelineConfig
+        from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
         from twopaco_tpu_torch.testing import bench_data
     except ImportError as e:
@@ -294,6 +328,7 @@ def main() -> int:
             lambda: judge.judge_compact_plain(*srt, ab),
             3, results,
         )
+    slice_table = judge.judge_compact(*srt)[0].clone()  # for the Bloom lookup
     del srt
     torch.cuda.synchronize()
 
@@ -397,7 +432,7 @@ def main() -> int:
     bases_n = SLICE["n_seqs"] * SLICE["length"]
     launches = {}
 
-    def slice_run(tag, argv, env=None):
+    def slice_run(tag, argv, env=None, phases=sortpipe.PHASES):
         """One CLI run of the slice with the counters zeroed just before
         and read just after -> (text, wall seconds)."""
         build.reset_launch_counts()
@@ -409,7 +444,7 @@ def main() -> int:
         times = phase_times(text)
         print(f"{tag}: launches {launches[tag]}")
         print(f"{tag} phases (s) {label}: " + ", ".join(
-            f"{n}={times[n]:.3f}" for n in (*sortpipe.PHASES, "total")))
+            f"{n}={times[n]:.3f}" for n in (*phases, "total")))
         for line in text.splitlines():
             if line.startswith("Splitting") or (
                     line.startswith("Round ") and "seconds" in line):
@@ -471,6 +506,93 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"plain-version -r {ROUNDS} run: {time.time() - t0:.3f} s wall {label}")
     require(sha256(out_ref) == slice_sha, f"-r {ROUNDS} plain run .dbg differs")
+
+    phase("Bloom kernels vs plain versions (one slice batch)")
+    bcfgs = {
+        "byte": PassConfig(k=k, f=30, layout="byte", positions_per_row=P, rows_per_batch=B),
+        "bit": PassConfig(k=k, f=34, layout="bit", positions_per_row=P, rows_per_batch=B),
+        "block": PassConfig(k=k, f=30, layout="block", positions_per_row=P, rows_per_batch=B),
+    }
+    full = (0, 0xFFFFFFFF)
+    uploads = [upload(b) for b in batches[1:]]
+    for lay, bcfg in bcfgs.items():
+        filt_k = bloom.make_filter(bcfg.f, lay, dev)
+        filt_p = bloom.make_filter(bcfg.f, lay, dev)
+        # the rest of the slice first, each filter by its own version, so
+        # that batch 0 is marked against the whole input's filter
+        for u in uploads:
+            fill.bloom_fill(filt_k, *u, *full, cfg=bcfg)
+            fill.bloom_fill_plain(filt_p, *u, *full, cfg=bcfg)
+        # OR is idempotent: every repeat of a fill leaves the same filter
+        compare("bloom_fill",
+                lambda: (fill.bloom_fill(filt_k, *args, *full, cfg=bcfg),),
+                lambda: (fill.bloom_fill_plain(filt_p, *args, *full, cfg=bcfg),),
+                5, results)
+        del filt_p
+        compare("bloom_mark",
+                lambda: mark.bloom_mark(filt_k, *args, *full, cfg=bcfg),
+                lambda: mark.bloom_mark_plain(filt_k, *args, *full, cfg=bcfg),
+                5, results)
+        bmask, bcount = mark.bloom_mark(filt_k, *args, *full, cfg=bcfg)
+        print(f"Bloom {lay} f={bcfg.f}: filter {filt_k.numel() * filt_k.element_size()} "
+              f"bytes, {int(bcount)} candidates of {B * P} positions")
+        if lay == "byte":
+            mask0, count0 = bmask, int(bcount)
+        del filt_k, bmask
+    del uploads
+    (buf_k, st_k), (buf_p, st_p) = (extract.new_buffer(count0, w, dev) for _ in "kp")
+    compare(
+        "bloom_extract",
+        lambda: (st_k.zero_(), extract.extract_records(args[0], args[1], mask0, buf_k, st_k, 0,
+                                                       k=k, P=P), *buf_k, st_k)[2:],
+        lambda: (st_p.zero_(), extract.extract_records_plain(args[0], args[1], mask0, buf_p,
+                                                             st_p, 0, k=k, P=P),
+                 *buf_p, st_p)[2:],
+        10, results,
+    )
+    require(st_k.tolist() == [count0, 0], f"extract state {st_k.tolist()}")
+    del buf_k, buf_p
+    compare(
+        "bloom_lookup",
+        lambda: lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P),
+        lambda: lookup.pass4_lookup_plain(*args, mask0, slice_table, count0, k=k, P=P),
+        10, results,
+    )
+    n_hit = int(lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P)[2])
+    require(n_hit > 0, "lookup found no junction in the first batch")
+    print(f"lookup: {n_hit} of {count0} candidates found among "
+          f"{slice_table.shape[0]} junctions")
+    del slice_table
+    torch.cuda.synchronize()
+
+    phase("slice: the Bloom engine (--tpu-engine bloom)")
+    for tag, (flags, layout) in BLOOM_RUNS.items():
+        out_b = os.path.join(WORK, f"slice_{tag}.dbg")
+        text, _wall = slice_run(tag, ["--tpu-engine", "bloom", "-k", str(k), *flags, fa,
+                                      "-o", out_b], phases=bloompipe.PHASES)
+        for name in BLOOM_PATH:
+            require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
+        require(f"({layout} layout)" in text, f"{tag}: not the {layout} layout")
+        n_rounds = ROUNDS if "-r" in flags else 1
+        require(sum(line.startswith("Round ") and "seconds" in line
+                    for line in text.splitlines()) == n_rounds, f"{tag}: not {n_rounds} rounds")
+        for line in text.splitlines():
+            if line.startswith(("Candidate marks", "False junctions")):
+                print(f"{tag}   {line}")
+        got = sha256(out_b)
+        require(got == slice_sha, f"{tag}: .dbg sha256 {got} != {slice_sha}")
+        print(f"{tag}: .dbg identical to the sort engine's")
+
+    phase("slice: the Bloom engine through the plain versions on the card")
+    out_ref = os.path.join(WORK, "slice_bloom_plain.dbg")
+    t0 = time.time()
+    bloompipe.build_junctions_bloom(
+        [fa], PipelineConfig(k=k, filter_bits=30, engine="bloom", positions_per_row=P,
+                             rows_per_batch=B),
+        out_ref, device=dev, reference=True)
+    torch.cuda.synchronize()
+    print(f"plain-version Bloom run: {time.time() - t0:.3f} s wall {label}")
+    require(sha256(out_ref) == slice_sha, "Bloom plain run .dbg differs")
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = []

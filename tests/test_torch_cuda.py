@@ -14,9 +14,11 @@ import torch
 
 from twopaco_tpu_torch import dna
 from twopaco_tpu_torch.kernels import build
-from twopaco_tpu_torch.ops import pack
-from twopaco_tpu_torch.passes import histogram, judge, partition, records, sort, stream
-from twopaco_tpu_torch.passes.pipeline import PipelineConfig
+from twopaco_tpu_torch.ops import bloom, pack
+from twopaco_tpu_torch.passes import (
+    extract, fill, histogram, judge, lookup, mark, partition, records, sort, stream,
+)
+from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, build_junctions
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
 from twopaco_tpu_torch.testing import oracle
 
@@ -283,3 +285,145 @@ def test_pipeline_rounds_cuda_equals_cpu(dev, tmp_path, monkeypatch, mode):
             counts = build.launch_counts()
             assert kernels | {"sort_records", "judge_compact"} <= set(counts), counts
     assert outs[0] == outs[1] and len(outs[0]) > 0
+
+
+# ---- the Bloom engine -------------------------------------------------
+
+BLOOM_CASES = [  # (layout, f, k): f = 34 takes the 64-bit probe indices
+    ("byte", 20, 25), ("bit", 20, 25), ("bit", 34, 25), ("block", 20, 25),
+    ("byte", 18, 101), ("bit", 16, 11), ("block", 16, 7), ("block", 12, 33),
+]
+
+
+def _filters_equal(a, b):
+    if a.dtype == torch.uint32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout,f,k", BLOOM_CASES)
+@pytest.mark.parametrize("gate", ["full", "narrow"])
+def test_bloom_fill_mark_kernels(dev, layout, f, k, gate):
+    """The filter after fill and the mask and count of mark equal the
+    plain versions' exactly."""
+    rng = np.random.default_rng(f * 7 + k)
+    B, P = 16, 512
+    args = _to(dev, *_genome_batch(rng, B, P, k))
+    cfg = PassConfig(k=k, f=f, layout=layout, positions_per_row=P, rows_per_batch=B)
+    low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
+    build.reset_launch_counts()
+    got = fill.bloom_fill(bloom.make_filter(f, layout, dev), *args, low, high, cfg=cfg)
+    assert build.launch_counts() == {"bloom_fill": 1}
+    want = fill.bloom_fill_plain(bloom.make_filter(f, layout, dev), *args, low, high, cfg=cfg)
+    assert _filters_equal(got, want) and bool(want.view(torch.uint8).any())
+    build.reset_launch_counts()
+    mk, ck = mark.bloom_mark(got, *args, low, high, cfg=cfg)
+    assert build.launch_counts() == {"bloom_mark": 1}
+    mp, cp = mark.bloom_mark_plain(got, *args, low, high, cfg=cfg)
+    assert torch.equal(mk, mp) and int(ck) == int(cp) > 0
+
+
+def _marked_batches(dev, k, nb, B=8, P=256, f=18):
+    rng = np.random.default_rng(k + nb)
+    cfg = PassConfig(k=k, f=f, layout="byte", positions_per_row=P, rows_per_batch=B)
+    ups = _upload_batches(dev, rng, nb, B, P, k)
+    filt = bloom.make_filter(f, "byte", dev)
+    for u in ups:
+        fill.bloom_fill_plain(filt, *u, 0, 0xFFFFFFFF, cfg=cfg)
+    return ups, [mark.bloom_mark_plain(filt, *u, 0, 0xFFFFFFFF, cfg=cfg) for u in ups]
+
+
+@pytest.mark.parametrize("k", [11, 25, 101])
+@pytest.mark.parametrize("short", [0, 5])  # 5: the buffer overflows
+def test_bloom_extract_kernel(dev, k, short):
+    """Several batches appended: the buffer and the (offset, overflow)
+    state equal the plain version's."""
+    B, P, nb = 8, 256, 3
+    ups, marked = _marked_batches(dev, k, nb, B, P)
+    total = sum(int(c) for _m, c in marked)
+    outs = []
+    for fn in (extract.extract_records, extract.extract_records_plain):
+        buf, state = extract.new_buffer(total - short, pack.n_words(k), dev)
+        build.reset_launch_counts()
+        for bi, (u, (m, _c)) in enumerate(zip(ups, marked)):
+            fn(u[0], u[1], m, buf, state, (1 << 33) + bi * B * P, k=k, P=P)
+        if fn is extract.extract_records:
+            assert build.launch_counts() == {"bloom_extract": nb}
+        outs.append((*buf, state))
+    for a, b in zip(*outs):
+        assert _equal(a, b)
+    assert outs[0][3].tolist() == [total, int(short > 0)]
+
+
+@pytest.mark.parametrize("k", [11, 25, 101])
+@pytest.mark.parametrize("table", ["all", "half", "empty"])
+def test_bloom_lookup_kernel(dev, k, table):
+    B, P = 8, 256
+    ups, marked = _marked_batches(dev, k, 1, B, P)
+    (u,), ((m, c),) = ups, marked
+    count = int(c)
+    buf, _state = extract.extract_records_plain(
+        u[0], u[1], m, *extract.new_buffer(count, pack.n_words(k), dev), 0, k=k, P=P)
+    tab = judge.judge_compact_plain(*sort.sort_records_plain(*buf))[0]
+    tab = {"all": tab, "half": tab[::2].contiguous(), "empty": tab[:0]}[table]
+    for cap in (count, max(1, count // 3)):  # a short cap keeps the first hits
+        build.reset_launch_counts()
+        got = lookup.pass4_lookup(*u, m, tab, cap, k=k, P=P)
+        assert build.launch_counts() == ({} if table == "empty" else {"bloom_lookup": 1})
+        want = lookup.pass4_lookup_plain(*u, m, tab, cap, k=k, P=P)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+    assert (int(want[2]) > 0) == (table != "empty")
+
+
+def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
+    """A CUDA tensor given to a Bloom wrapper launches its kernel: the
+    plain versions, made to raise here, are never called."""
+    def boom(*a, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for mod, name in ((fill, "bloom_fill_plain"), (mark, "bloom_mark_plain"),
+                      (extract, "extract_records_plain"), (lookup, "pass4_lookup_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    rng = np.random.default_rng(5)
+    k, B, P = 25, 8, 256
+    u = _to(dev, *_genome_batch(rng, B, P, k))
+    build.reset_launch_counts()
+    for layout, f in (("byte", 18), ("bit", 18), ("block", 18)):
+        cfg = PassConfig(k=k, f=f, layout=layout, positions_per_row=P, rows_per_batch=B)
+        filt = fill.bloom_fill(bloom.make_filter(f, layout, dev), *u, 0, 0xFFFFFFFF, cfg=cfg)
+        m, c = mark.bloom_mark(filt, *u, 0, 0xFFFFFFFF, cfg=cfg)
+    buf, state = extract.extract_records(
+        u[0], u[1], m, *extract.new_buffer(int(c), pack.n_words(k), dev), 0, k=k, P=P)
+    tab = judge.judge_compact(*sort.sort_records(*buf))[0]
+    lookup.pass4_lookup(*u, m, tab, int(c), k=k, P=P)
+    assert build.launch_counts() == {
+        "bloom_fill": 3, "bloom_mark": 3, "bloom_extract": 1, "sort_records": 1,
+        "judge_compact": 1, "bloom_lookup": 1,
+    }
+
+
+@pytest.mark.parametrize("layout,rounds,k", [
+    ("byte", 1, 25), ("bit", 3, 25), ("block", 2, 101), ("byte", 3, 11),
+])
+def test_bloom_pipeline_cuda_equals_cpu(dev, tmp_path, layout, rounds, k):
+    rng = np.random.default_rng(13)
+    base = oracle.generate_sequence(rng, 6000)
+    seqs = [base] + [oracle.mutate_sequence(rng, base, 0.03, 0.1) for _ in range(3)]
+    sequences = [(i, dna.encode(s)) for i, s in enumerate(seqs)]
+    cfg = PipelineConfig(k=k, rounds=rounds, filter_bits=20, layout=layout, engine="bloom",
+                         positions_per_row=256, rows_per_batch=8)
+    outs = []
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.dbg")
+        build.reset_launch_counts()
+        build_junctions(None, cfg, out, sequences=sequences, device=device)
+        outs.append(open(out, "rb").read())
+        if device == "cuda":
+            assert set(build.launch_counts()) == {
+                "bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
+                "judge_compact", "bloom_lookup",
+            }
+    sort_out = str(tmp_path / "sort.dbg")
+    build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
+    assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0

@@ -51,10 +51,16 @@ def test_config_from_jax():
         positions_per_row=256, rows_per_batch=4,
     )
     # the JAX sort_chunk default (2^26) crosses as it is; the port's own
-    # default, None, sizes rounds from the device's memory
+    # default, None, sizes rounds from the device's memory; the Bloom
+    # engine's fields cross too
     assert config_from_jax(jc) == PipelineConfig(
         k=31, rounds=1, abundance=7, positions_per_row=256, rows_per_batch=4,
-        sort_chunk=1 << 26,
+        sort_chunk=1 << 26, filter_bits=30, hash_functions=3,
+    )
+    bloom = JaxConfig(k=9, filter_bits=34, hash_functions=4, layout="block", engine="bloom")
+    assert config_from_jax(bloom) == PipelineConfig(
+        k=9, sort_chunk=1 << 26, filter_bits=34, hash_functions=4, layout="block",
+        engine="bloom",
     )
     assert config_from_jax(JaxConfig(k=25)) == PipelineConfig(k=25, sort_chunk=1 << 26)
     multi = JaxConfig(k=9, rounds=3, sort_chunk=4096, round_slack=1.5, force_wide=True)

@@ -5,20 +5,30 @@
 
 Flag-compatible with the reference binary: -k/--kvalue, -f/--filtersize
 XOR --filtermemory, -q/--hashfnumber, -r/--rounds, -t/--threads,
--a/--abundance, --tmpdir, -o/--outfile, positional FASTA files. The
-sort-join engine has no Bloom filter, so -f, --filtermemory and -q are
-checked and otherwise unused, as are -t and --tmpdir. -r N splits the
-run into at least N rounds by vertex hash (more when the input does not
-fit the device in N); the TWOPACO_* variables of passes/sortpipe.py pick
-the multi-round mode. --tpu-checkpoint DIR (the JAX package's flag)
-checkpoints each round, and a rerun resumes. --device picks the device:
-cuda (the default; raises when there is no card) or cpu (the plain
-PyTorch versions).
+-a/--abundance, --tmpdir, -o/--outfile, positional FASTA files; the JAX
+package's --tpu-engine, --tpu-layout, --tpu-positions, --tpu-rows and
+--tpu-checkpoint.
+
+--tpu-engine sort (the default) is the sort-join engine: it has no Bloom
+filter, so -f, --filtermemory and -q are checked and otherwise unused;
+-r N splits the run into at least N rounds by vertex hash (more when the
+input does not fit the device in N) and the TWOPACO_* variables of
+passes/sortpipe.py pick the multi-round mode. --tpu-engine bloom is the
+reference's Bloom-filter algorithm (passes/bloompipe.py): a 2^f-slot
+filter (--filtermemory GB: f = log2(GB * 8e9), as the reference) with q
+hash functions in the --tpu-layout (auto: byte up to f = 30, else bit;
+block: 256-bit blocks keyed by vertex), -r N rounds exactly, candidate
+masks spilled to --tmpdir above TWOPACO_MASK_SPILL_BYTES. Both write the
+same bytes. --tpu-checkpoint DIR checkpoints each round, and a rerun
+resumes. --device picks the device: cuda (the default; raises when there
+is no card) or cpu (the plain PyTorch versions). -t is accepted and
+unused.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 
@@ -67,6 +77,26 @@ def make_parser() -> argparse.ArgumentParser:
         help="Round-boundary checkpoint directory (resume on rerun)",
     )
     p.add_argument(
+        "--tpu-engine", choices=["sort", "bloom", "dist", "dist-bloom"],
+        default="sort",
+        help="Engine: sort-join (default) or Bloom two-pass; the "
+        "distributed engines are not ported yet",
+    )
+    p.add_argument(
+        "--tpu-layout", choices=["auto", "byte", "bit", "block"],
+        default="auto",
+        help="Bloom filter layout (bloom engine; block = vertex-blocked: "
+        "one 32-byte block holds all 8 edge extensions of a vertex)",
+    )
+    p.add_argument(
+        "--tpu-positions", type=int, default=None,
+        help="Window positions per row (default: by input size)",
+    )
+    p.add_argument(
+        "--tpu-rows", type=int, default=None,
+        help="Rows per batch (default: by input size)",
+    )
+    p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="cuda: the hand-written kernels (default); cpu: the plain "
         "PyTorch versions",
@@ -92,11 +122,15 @@ def main(argv: list[str] | None = None) -> int:
         )
         return 1
 
-    from twopaco_tpu_torch.passes.pipeline import PipelineConfig
-    from twopaco_tpu_torch.passes.sortpipe import (
-        build_junctions_sorted,
-        resolve_device,
-    )
+    if args.filtersize is not None:
+        filter_bits = args.filtersize
+    else:
+        # the reference's conversion (constructor.cpp:158): log2 of decimal
+        # GB * 8e9 bits, truncated
+        filter_bits = int(math.log2(args.filtermemory * 8e9))
+
+    from twopaco_tpu_torch.passes.pipeline import PipelineConfig, build_junctions
+    from twopaco_tpu_torch.passes.sortpipe import resolve_device
 
     device = resolve_device(args.device)  # raises without a card
     # the JAX package's batch tiers (cli/twopaco.py:148-156): the output
@@ -105,7 +139,9 @@ def main(argv: list[str] | None = None) -> int:
         total_sz = sum(os.path.getsize(f) for f in args.filenames)
     except OSError:
         total_sz = 0
-    positions, rows = (16384, 128) if total_sz >= (64 << 20) else (2048, 256)
+    tier = (16384, 128) if total_sz >= (64 << 20) else (2048, 256)
+    positions = args.tpu_positions if args.tpu_positions is not None else tier[0]
+    rows = args.tpu_rows if args.tpu_rows is not None else tier[1]
     try:
         cfg = PipelineConfig(
             k=args.kvalue,
@@ -113,13 +149,19 @@ def main(argv: list[str] | None = None) -> int:
             abundance=args.abundance,
             positions_per_row=positions,
             rows_per_batch=rows,
+            filter_bits=filter_bits,
+            hash_functions=args.hashfnumber,
+            layout=args.tpu_layout,
+            engine=args.tpu_engine,
         )
-        enum = build_junctions_sorted(
+        enum = build_junctions(
             args.filenames, cfg, out_path=args.outfile, log=print,
-            checkpoint_dir=args.tpu_checkpoint, device=device,
+            checkpoint_dir=args.tpu_checkpoint,
+            tmpdir=args.tmpdir if args.tmpdir != "." else None, device=device,
         )
     except (OSError, RuntimeError, ValueError) as e:
-        # FASTA errors, round overflows, inputs that fit no mode
+        # FASTA errors, round overflows, inputs that fit no mode, filters
+        # past their layout, engines not ported
         print(f"Error: {e}", file=sys.stderr)
         return 1
     print(f"Distinct junctions = {enum.vertices_count}")

@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "scan.cu", "records.cu", "sort.cu", "judge.cu", "partition.cu",
-    "assemble.cu", "compact.cu", "histogram.cu",
+    "assemble.cu", "compact.cu", "histogram.cu", "bloom_fill.cu",
+    "bloom_mark.cu", "bloom_extract.cu", "bloom_lookup.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -43,6 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
 _SZ = ctypes.c_size_t
+_LL = ctypes.c_longlong
+_TABS = ctypes.POINTER(ctypes.c_uint32)
 _SIGNATURES = {
     "tp_error_string": ([_I], ctypes.c_char_p),
     "tp_scan_scratch_words": ([_SZ], _SZ),
@@ -66,6 +69,18 @@ _SIGNATURES = {
         [_P] * 3 + [_SZ, _I] + [_P] * 3 + [ctypes.c_longlong] + [_P] * 5, _I
     ),
     "tp_histogram": ([_P] * 3 + [_I] * 5 + [_U32] * 4 + [_P] * 2, _I),
+    "tp_bloom_fill": (
+        [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I
+    ),
+    "tp_bloom_mark": (
+        [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 4, _I
+    ),
+    "tp_bloom_extract": (
+        [_P] * 2 + [_I] * 5 + [_P, _LL] + [_P] * 3 + [_LL] + [_P] * 5, _I
+    ),
+    "tp_bloom_lookup": (
+        [_P] * 3 + [_I] * 5 + [_P] * 2 + [_LL] * 2 + [_P] * 12, _I
+    ),
 }
 
 
@@ -167,6 +182,11 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = lib().tp_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def hash_tables(tables) -> ctypes.Array:
+    """The four Buzhash char tables as the 16 u32 a Bloom kernel takes."""
+    return (ctypes.c_uint32 * 16)(*(v for t in tables for v in t))
 
 
 def stream_ptr() -> int:

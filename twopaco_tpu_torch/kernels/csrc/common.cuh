@@ -33,7 +33,8 @@ cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
 extern "C" size_t tp_scan_scratch_words(size_t n);
 
 // ---- the per-position record, shared by every kernel that reads the
-// upload form of a window batch (records.cu, partition.cu, histogram.cu)
+// upload form of a window batch (records.cu, partition.cu, histogram.cu
+// and the Bloom engine's bloom_*.cu)
 //
 // Upload form (ops/pack.py pack_codes_host): 2-bit chars packed
 // little-first (char j at bits 2*(j%16) of word j/16) plus an N bitmask
@@ -102,17 +103,27 @@ __device__ __forceinline__ uint32_t tp_comp4(uint32_t c) {
     return c < 4 ? 3u - c : 4u;
 }
 
-// Vertex hash of position i: forward + reverse-complement Buzhash of the
-// k-char window, mod 2^32 (the same for both strands; N hashes as code 0)
-__device__ __forceinline__ uint32_t tp_vertex_hash(const TpRow& row, int i,
-                                                   int k, const TpTab& tab) {
-    const int s = i + 1;
-    uint32_t hf = 0, hr = 0;
+// Forward and reverse-complement Buzhash of the k-char window starting at
+// char s (N hashes as code 0):
+//     hf = XOR_j rotl(T[c_{s+j}], k-1-j),  hr = XOR_j rotl(T[3-c_{s+j}], j)
+__device__ __forceinline__ void tp_strand_hashes(const TpRow& row, int s,
+                                                 int k, const TpTab& tab,
+                                                 uint32_t& hf, uint32_t& hr) {
+    hf = 0;
+    hr = 0;
     for (int j = 0; j < k; ++j) {
         const uint32_t c = row.code(s + j);
         hf ^= tp_rotl32(tab.t[c], (uint32_t)(k - 1 - j));
         hr ^= tp_rotl32(tab.t[3u - c], (uint32_t)j);
     }
+}
+
+// Vertex hash of position i: hf + hr of its k-char window, mod 2^32 (the
+// same for both strands)
+__device__ __forceinline__ uint32_t tp_vertex_hash(const TpRow& row, int i,
+                                                   int k, const TpTab& tab) {
+    uint32_t hf, hr;
+    tp_strand_hashes(row, i + 1, k, tab, hf, hr);
     return hf + hr;
 }
 
@@ -123,26 +134,14 @@ __device__ __forceinline__ bool tp_position_ok(const TpRow& row, int i, int k,
     return i < valid && row.definite(i + 1, i + k);
 }
 
-// The record of position i: writes its w canonical (lexicographic min of
-// the two strands) k-mer words, MSB-first and left-aligned, to wout and
-// returns its payload in | out<<8 | is_rc<<16 | real<<17 (in/out in
-// canonical orientation; N = 4 stays N under complement). A position
-// that has no record (tp_position_ok false) or whose vertex hash lies
-// outside [low, high] gets all-ones sentinel words and payload 0, so it
-// sorts after every k-mer. *hv receives the vertex hash.
-//
-// The canonical strand is chosen by comparing words as they are
-// generated, so no per-thread word arrays are kept for any k.
-__device__ __forceinline__ uint32_t tp_build_record(
-    const TpRow& row, int i, int k, int w, int valid, uint32_t low,
-    uint32_t high, const TpTab& tab, uint32_t* __restrict__ wout,
-    uint32_t* hv) {
-    const uint32_t h = tp_vertex_hash(row, i, k, tab);
-    *hv = h;
-    if (!(tp_position_ok(row, i, k, valid) && h >= low && h <= high)) {
-        for (int m = 0; m < w; ++m) wout[m] = 0xffffffffu;
-        return 0u;
-    }
+// The canonical record of position i (whose window holds no N): writes
+// its w canonical (lexicographic min of the two strands) k-mer words,
+// MSB-first and left-aligned, to wout and returns its payload in | out<<8 |
+// is_rc<<16 | real<<17 (in/out in canonical orientation; N = 4 stays N
+// under complement). The canonical strand is chosen by comparing words as
+// they are generated, so no per-thread word arrays are kept for any k.
+__device__ __forceinline__ uint32_t tp_canonical_record(
+    const TpRow& row, int i, int k, int w, uint32_t* __restrict__ wout) {
     const int s = i + 1;
     bool is_rc = false;
     for (int m = 0; m < w; ++m) {
@@ -161,5 +160,83 @@ __device__ __forceinline__ uint32_t tp_build_record(
     const uint32_t out = is_rc ? tp_comp4(prev) : next;
     return in | (out << 8) | ((uint32_t)is_rc << 16) | TP_REAL;
 }
+
+// The sort record of position i: tp_canonical_record when the position
+// has a record (tp_position_ok) and its vertex hash lies in [low, high];
+// else all-ones sentinel words and payload 0, so it sorts after every
+// k-mer. *hv receives the vertex hash.
+__device__ __forceinline__ uint32_t tp_build_record(
+    const TpRow& row, int i, int k, int w, int valid, uint32_t low,
+    uint32_t high, const TpTab& tab, uint32_t* __restrict__ wout,
+    uint32_t* hv) {
+    const uint32_t h = tp_vertex_hash(row, i, k, tab);
+    *hv = h;
+    if (!(tp_position_ok(row, i, k, valid) && h >= low && h <= high)) {
+        for (int m = 0; m < w; ++m) wout[m] = 0xffffffffu;
+        return 0u;
+    }
+    return tp_canonical_record(row, i, k, w, wout);
+}
+
+// ---- the Bloom engine's hashes (ops/buzhash.py out_edge_sym, in_edge_sym,
+// probe_indices_from_sym), shared by bloom_fill.cu and bloom_mark.cu
+
+// The four char tables (TABLE_1 .. TABLE_4): tables 1-2 give 32-bit probe
+// indices, all four 64-bit ones (f > 32)
+struct TpTabs {
+    TpTab t[4];
+};
+
+// Strand-symmetric hash of the out-edge W·c from W's strand hashes:
+//     (rotl(hf, 1) ^ T[c]) + (rotl(T[3-c], k) ^ hr)
+__device__ __forceinline__ uint32_t tp_out_edge(uint32_t hf, uint32_t hr,
+                                                const TpTab& t, uint32_t c,
+                                                int k) {
+    return (tp_rotl32(hf, 1u) ^ t.t[c]) +
+           (tp_rotl32(t.t[3u - c], (uint32_t)k) ^ hr);
+}
+
+// ... and of the in-edge c·W: (rotl(T[c], k) ^ hf) + (rotl(hr, 1) ^ T[3-c])
+__device__ __forceinline__ uint32_t tp_in_edge(uint32_t hf, uint32_t hr,
+                                               const TpTab& t, uint32_t c,
+                                               int k) {
+    return (tp_rotl32(t.t[c], (uint32_t)k) ^ hf) +
+           (tp_rotl32(hr, 1u) ^ t.t[3u - c]);
+}
+
+// Edge hashes e[t] of the out-edge (out) or in-edge with char c under
+// the first nt (2 or 4) tables, from the vertex's strand hashes
+__device__ __forceinline__ void tp_edge_hashes(const uint32_t* hf,
+                                               const uint32_t* hr,
+                                               const TpTabs& tabs, int nt,
+                                               bool out, uint32_t c, int k,
+                                               uint32_t* e) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+        if (t < nt)
+            e[t] = out ? tp_out_edge(hf[t], hr[t], tabs.t[t], c, k)
+                       : tp_in_edge(hf[t], hr[t], tabs.t[t], c, k);
+}
+
+// Kirsch-Mitzenmacher index j of an edge, mod 2^f: f <= 32 from the u32
+// pair (e0, e1), f > 32 (f <= 63) from H1 = e2 << 32 | e0 and H2 = e3 << 32
+// | e1 as one 64-bit multiply-add; the step H2 is made odd. The block
+// layout's in-block bits are the f = 8 indices.
+__device__ __forceinline__ uint64_t tp_km_index(const uint32_t* e,
+                                                uint32_t j, int f) {
+    if (f <= 32) {
+        const uint32_t h = e[0] + j * (e[1] | 1u);
+        return f == 32 ? h : (h & ((1u << f) - 1u));
+    }
+    const uint64_t h1 = ((uint64_t)e[2] << 32) | e[0];
+    const uint64_t h2 = ((uint64_t)e[3] << 32) | e[1] | 1ull;
+    return (h1 + (uint64_t)j * h2) & ((1ull << f) - 1ull);
+}
+
+// The Bloom layouts (ops/bloom.py)
+constexpr int TP_LAYOUT_BYTE = 0;
+constexpr int TP_LAYOUT_BIT = 1;
+constexpr int TP_LAYOUT_BLOCK = 2;
+constexpr int TP_BLOCK_WORDS = 8;  // a block: 256 bits
 
 }  // namespace

@@ -14,8 +14,14 @@ once from prefix-XOR scans:
     S'         = exclusive prefix-XOR of G'
     H'(p, n)   = rotr(S'[p+n] ^ S'[p], p mod 32)
 
-The vertex hash h(W) + h'(W) mod 2^32 is the same for both strands. Math
-is on int64 tensors holding u32 values (see ops/pack.py).
+The vertex hash h(W) + h'(W) mod 2^32 is the same for both strands, and
+so are the edge hashes below (out-edge W·c, in-edge c·W), from which the
+Bloom engine derives its Kirsch-Mitzenmacher probe indices:
+
+    H(W·x)     = rotl(H(W), 1) ^ T[x]        (append)
+    H(x·W)     = rotl(T[x], |W|) ^ H(W)      (prepend)
+
+Math is on int64 tensors holding u32 values (see ops/pack.py).
 """
 
 from __future__ import annotations
@@ -83,3 +89,59 @@ def window_hashes(s_f, s_r, n: int, n_out: int):
     d_f = s_f[..., n : n + n_out] ^ s_f[..., :n_out]
     d_r = s_r[..., n : n + n_out] ^ s_r[..., :n_out]
     return rotl(d_f, p + (n - 1)), rotr(d_r, p)
+
+
+def _rot_const(t: int, s: int) -> int:
+    s %= 32
+    return ((t << s) | (t >> ((32 - s) % 32))) & MASK32
+
+
+def out_edge_sym(hf, hr, table, c, k: int):
+    """Strand-symmetric hash of the out-edge W·c of k-char windows W.
+
+    forward: H(W·c) = rotl(H(W), 1) ^ T[c]
+    rc:      H(rc(W·c)) = H(comp(c)·rc(W)) = rotl(T[comp(c)], k) ^ H(rc W)
+    c is an int or a tensor of codes (N reads as A, as in the JAX package).
+    """
+    if isinstance(c, int):
+        ef = rotl(hf, 1) ^ table[c]
+        er = _rot_const(table[3 - c], k) ^ hr
+    else:
+        ef = rotl(hf, 1) ^ _lookup(c, table)
+        er = _lookup(3 - (c.to(torch.int64) & 3), [_rot_const(t, k) for t in table]) ^ hr
+    return (ef + er) & MASK32
+
+
+def in_edge_sym(hf, hr, table, c, k: int):
+    """Strand-symmetric hash of the in-edge c·W.
+
+    forward: H(c·W) = rotl(T[c], k) ^ H(W)
+    rc:      H(rc(c·W)) = H(rc(W)·comp(c)) = rotl(H(rc W), 1) ^ T[comp(c)]
+    """
+    if isinstance(c, int):
+        ef = _rot_const(table[c], k) ^ hf
+        er = rotl(hr, 1) ^ table[3 - c]
+    else:
+        ef = _lookup(c, [_rot_const(t, k) for t in table]) ^ hf
+        er = rotl(hr, 1) ^ _lookup(3 - (c.to(torch.int64) & 3), table)
+    return (ef + er) & MASK32
+
+
+def probe_indices_from_sym(e1, e2, q: int, f: int, e3=None, e4=None):
+    """Kirsch-Mitzenmacher probe indices (..., q) from symmetric edge
+    hashes: (H1 + j * (H2 | 1)) mod 2^f for j < q.
+
+    f <= 32: H1 = e1, H2 = e2 (u32). f > 32: H1 = e3 << 32 | e1 and
+    H2 = e4 << 32 | e2 (u64), the sum built from 32-bit halves so that no
+    int64 overflows (f <= 63)."""
+    if f <= 32:
+        h2 = e2 | 1
+        return torch.stack([(e1 + j * h2) & ((1 << f) - 1) for j in range(q)], dim=-1)
+    if f > 63:
+        raise ValueError(f"probe indices of f = {f} > 63 bits do not fit int64")
+    out = []
+    for j in range(q):
+        lo = e1 + j * (e2 | 1)
+        hi = (e3 + j * e4 + (lo >> 32)) & ((1 << (f - 32)) - 1)
+        out.append((hi << 32) | (lo & MASK32))
+    return torch.stack(out, dim=-1)

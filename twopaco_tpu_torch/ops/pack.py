@@ -115,6 +115,11 @@ def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return lt
 
 
+def lex_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a == b over the last (word) axis -> bool (...)."""
+    return (a == b).all(dim=-1)
+
+
 def canonical(words: torch.Tensor, rcwords: torch.Tensor):
     """-> (canon (..., w), is_rc bool (...)): lexicographic min of the
     two strands (strict for odd k: no odd-length 2-bit palindromes)."""

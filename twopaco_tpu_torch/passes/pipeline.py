@@ -1,11 +1,10 @@
-"""Pipeline configuration, run statistics, the junction dictionary, and
-the junction-list writer (host numpy).
+"""Pipeline configuration, run statistics, the junction dictionary, the
+junction-list writer (host numpy), and the engine dispatch.
 
-The port of twopaco_tpu/passes/pipeline.py:45-594 (the sort-join
-engine's part of it). Output is
-deterministic and byte-identical to the JAX package: canonical
-orientation is the lexicographic min(kmer, rc), ids are ranks in the
-sorted junction table, and stub ids are assigned in input order.
+The port of twopaco_tpu/passes/pipeline.py:45-638. Output is
+deterministic and byte-identical to the JAX package whatever the engine:
+canonical orientation is the lexicographic min(kmer, rc), ids are ranks
+in the sorted junction table, and stub ids are assigned in input order.
 """
 
 from __future__ import annotations
@@ -16,15 +15,44 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from typing import Callable, Sequence
 
 import numpy as np
 
 from twopaco_tpu_torch import dna
 from twopaco_tpu_torch.io import junctions as junction_io
 from twopaco_tpu_torch.io import windows
+from twopaco_tpu_torch.ops import bloom
 
 INVALID_VERTEX = (1 << 63) - 1
 STUB_ID_OFFSET = 42  # reference: vertexenumerator.h:419 (verticesCount + 42)
+ENGINES = ("sort", "bloom", "dist", "dist-bloom")
+
+
+@dataclass(frozen=True)
+class PassConfig:
+    """The Bloom passes' shapes and filter (twopaco_tpu passes/kernels.py
+    PassConfig): k, q hash functions, a 2^f-slot filter in `layout`
+    (byte, bit or block), batches of B rows x P positions."""
+
+    k: int
+    q: int = 5
+    f: int = 25
+    layout: str = "byte"
+    positions_per_row: int = 2048  # P
+    rows_per_batch: int = 256  # B
+
+    @property
+    def w(self) -> int:
+        return dna.n_words(self.k)
+
+    @property
+    def P(self) -> int:
+        return self.positions_per_row
+
+    @property
+    def B(self) -> int:
+        return self.rows_per_batch
 
 
 @dataclass(frozen=True)
@@ -39,6 +67,10 @@ class PipelineConfig:
     sort_chunk: int | None = None
     round_slack: float = 1.25  # round buffer slack over an even split
     force_wide: bool = False  # the >= 2^32-slot merge layout on any input
+    filter_bits: int = 25  # f: Bloom slots = 2^f (reference -f)
+    hash_functions: int = 5  # q (reference -q)
+    layout: str = "auto"  # Bloom layout: auto | byte | bit | block
+    engine: str = "sort"  # sort (sort-join) | bloom; dist* are not ported
 
     def __post_init__(self) -> None:
         # even k breaks canonicalization (palindromes tie with their own
@@ -53,6 +85,24 @@ class PipelineConfig:
     def w(self) -> int:
         return dna.n_words(self.k)
 
+    def resolve_layout(self) -> str:
+        """The Bloom layout of the filter: `layout`, checked against its
+        capacity, or for 'auto' the byte layout up to 2^30 slots and the
+        bit layout up to 2^35 (twopaco_tpu pipeline.py:77)."""
+        slots = 1 << self.filter_bits
+        if self.layout != "auto":
+            bloom.check_layout_slots(slots, self.layout)
+            return self.layout
+        return bloom.choose_layout_slots(slots)
+
+    def pass_config(self) -> PassConfig:
+        return PassConfig(
+            k=self.k, q=self.hash_functions, f=self.filter_bits,
+            layout=self.resolve_layout(),
+            positions_per_row=self.positions_per_row,
+            rows_per_batch=self.rows_per_batch,
+        )
+
     def window_config(self) -> windows.WindowConfig:
         return windows.WindowConfig(
             k=self.k,
@@ -62,10 +112,9 @@ class PipelineConfig:
 
 
 def config_from_jax(cfg) -> PipelineConfig:
-    """The port's config for a twopaco_tpu PipelineConfig (read by
-    attribute, so this module needs no JAX). The Bloom-engine fields
-    (filter_bits, hash_functions, layout) have no counterpart: the
-    sort-join engine has no filter."""
+    """The port's config for a twopaco_tpu PipelineConfig, every field
+    carried, the Bloom engine's (filter_bits, hash_functions, layout,
+    engine) included (read by attribute, so this module needs no JAX)."""
     return PipelineConfig(
         k=cfg.k,
         rounds=cfg.rounds,
@@ -75,6 +124,10 @@ def config_from_jax(cfg) -> PipelineConfig:
         sort_chunk=cfg.sort_chunk,
         round_slack=cfg.round_slack,
         force_wide=cfg.force_wide,
+        filter_bits=cfg.filter_bits,
+        hash_functions=cfg.hash_functions,
+        layout=cfg.layout,
+        engine=cfg.engine,
     )
 
 
@@ -385,3 +438,41 @@ def emit_junctions_packed(
     if timings is not None:
         timings["emit_write"] = time.time() - t0
     return len(keys) + len(stub_flat), len(stub_flat)
+
+
+def build_junctions(
+    input_paths: Sequence[str] | None,
+    config: PipelineConfig,
+    out_path: str | None = None,
+    sequences: Sequence[tuple[int, np.ndarray]] | None = None,
+    log: Callable[[str], None] = lambda s: None,
+    checkpoint_dir: str | None = None,
+    tmpdir: str | None = None,
+    *,
+    device="cuda",
+    reference: bool = False,
+):
+    """Run the engine config.engine names (twopaco_tpu pipeline.py:597):
+    the sort-join engine (passes/sortpipe.py) or the Bloom engine
+    (passes/bloompipe.py; tmpdir holds its spilled candidate masks).
+    Arguments as build_junctions_sorted's. -> Enumerator."""
+    if config.engine == "sort":
+        from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
+
+        return build_junctions_sorted(
+            input_paths, config, out_path, sequences, log, checkpoint_dir,
+            device=device, reference=reference,
+        )
+    if config.engine == "bloom":
+        from twopaco_tpu_torch.passes.bloompipe import build_junctions_bloom
+
+        return build_junctions_bloom(
+            input_paths, config, out_path, sequences, log, checkpoint_dir,
+            tmpdir, device=device, reference=reference,
+        )
+    if config.engine in ENGINES:
+        raise NotImplementedError(
+            f"--tpu-engine {config.engine} is not ported yet (ROADMAP A8): "
+            "use the sort or bloom engine"
+        )
+    raise ValueError(f"unknown engine {config.engine!r}; one of {ENGINES}")

@@ -38,14 +38,10 @@ def vertex_hashes_plain(codes, valid, *, k: int, P: int):
     return hv, ok
 
 
-def batch_records_plain(packed, nmask, valid, *, k: int, P: int):
-    """Ungated records of every position of a batch (twopaco_tpu
-    sortpipe.py:103 _batch_records), plain PyTorch.
-
-    -> (canon (B*P, w) int64 canonical words, payload (B*P,) int64 = in |
-    out<<8 | is_rc<<16 without the real bit, hv (B*P,) int64, ok (B*P,)
-    bool)"""
-    codes = pack.unpack_codes(packed, nmask, P + k + 1).to(torch.int64)
+def canonical_records_plain(codes, *, k: int, P: int):
+    """codes (B, P+k+1) int64 -> (canon (B*P, w) int64 canonical words of
+    every position, payload (B*P,) int64 = in | out<<8 | is_rc<<16 without
+    the real bit), whatever the position's window holds."""
     B = codes.shape[0]
     cm = torch.where(codes < 4, codes, 0)
     words_all = pack.kmer_words(cm, k, P + 2)  # offset j = chars [j, j+k)
@@ -54,11 +50,23 @@ def batch_records_plain(packed, nmask, valid, *, k: int, P: int):
     canon, is_rc = pack.canonical(words_all[:, 1 : P + 1], rc_all[:, 1 : P + 1])
     prev = codes[:, 0:P]
     nxt = codes[:, k + 1 : k + 1 + P]
-    hv, ok = vertex_hashes_plain(codes, valid, k=k, P=P)
     in_code = torch.where(is_rc, _comp4(nxt), prev)
     out_code = torch.where(is_rc, _comp4(prev), nxt)
     payload = in_code | (out_code << 8) | (is_rc.to(torch.int64) << 16)
-    return canon.reshape(B * P, -1), payload.reshape(-1), hv.reshape(-1), ok.reshape(-1)
+    return canon.reshape(B * P, -1), payload.reshape(-1)
+
+
+def batch_records_plain(packed, nmask, valid, *, k: int, P: int):
+    """Ungated records of every position of a batch (twopaco_tpu
+    sortpipe.py:103 _batch_records), plain PyTorch.
+
+    -> (canon (B*P, w) int64 canonical words, payload (B*P,) int64 = in |
+    out<<8 | is_rc<<16 without the real bit, hv (B*P,) int64, ok (B*P,)
+    bool)"""
+    codes = pack.unpack_codes(packed, nmask, P + k + 1).to(torch.int64)
+    canon, payload = canonical_records_plain(codes, k=k, P=P)
+    hv, ok = vertex_hashes_plain(codes, valid, k=k, P=P)
+    return canon, payload, hv.reshape(-1), ok.reshape(-1)
 
 
 def build_sort_records_plain(

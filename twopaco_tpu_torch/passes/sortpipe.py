@@ -294,6 +294,48 @@ def _complete_checkpoint_intervals(directory, config, n_slots, fingerprint):
 # ---- the run ---------------------------------------------------------
 
 
+def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: RunStats):
+    """The host front of every engine: read the FASTA files (unless
+    `sequences` is given), cut the window batches, pack them 2 bits a char
+    plus an N mask (2.25 bits a char over the link) and upload them, with
+    the `read`, `windows` and `upload` times in stats.
+
+    -> (sequences, batches, uploads = [(packed, nmask, valid)] on dev)"""
+    t0 = time.time()
+    if sequences is None:
+        sequences = [
+            (sid, codes)
+            for sid, _hdr, codes in fasta_io.read_all_records(input_paths)
+        ]
+    stats.timings["read"] = time.time() - t0
+    t0 = time.time()
+    batches = list(windows.iter_window_batches(iter(sequences), config.window_config()))
+    stats.total_positions = sum(int(b.valid.sum()) for b in batches)
+    stats.timings["windows"] = time.time() - t0
+    if not batches:
+        raise ValueError(f"no input sequence has {config.k} or more chars")
+    t0 = time.time()
+    packed_np = [pack.pack_codes_host(b.codes) for b in batches]
+    upload = sum(p.nbytes + m.nbytes for p, m in packed_np)
+    free = _free_bytes(dev)
+    if free is not None and upload > free:
+        raise RuntimeError(
+            f"the input's upload needs {_gib(upload)} of device memory, "
+            f"{_gib(free)} is free"
+        )
+    uploads = [
+        (
+            torch.from_numpy(p).to(dev),
+            torch.from_numpy(m).to(dev),
+            torch.from_numpy(b.valid).to(dev),
+        )
+        for (p, m), b in zip(packed_np, batches)
+    ]
+    _sync(dev)
+    stats.timings["upload"] = time.time() - t0
+    return sequences, batches, uploads
+
+
 def build_junctions_sorted(
     input_paths: Sequence[str] | None,
     config: PipelineConfig,
@@ -322,17 +364,7 @@ def build_junctions_sorted(
     stats.timings.update(dict.fromkeys(PHASES, 0.0))
     t_start = time.time()
 
-    t0 = time.time()
-    if sequences is None:
-        sequences = [
-            (sid, codes)
-            for sid, _hdr, codes in fasta_io.read_all_records(input_paths)
-        ]
-    stats.timings["read"] = time.time() - t0
-    t0 = time.time()
-    batches = list(windows.iter_window_batches(iter(sequences), config.window_config()))
-    stats.total_positions = sum(int(b.valid.sum()) for b in batches)
-    stats.timings["windows"] = time.time() - t0
+    sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats)
     bp = B * P
     nb = len(batches)
     n_slots = nb * bp
@@ -347,31 +379,7 @@ def build_junctions_sorted(
         f"Engine = sort-join ({dev.type})\nVertex length = {k}\n"
         f"Record slots = {n_slots}\nCapacity = {w} words"
     )
-    if nb == 0:
-        raise ValueError(f"no input sequence has {k} or more chars")
-
-    # 2-bit packed chars + N bitmask: 2.25 bits a char over the link
-    t0 = time.time()
-    packed_np = [pack.pack_codes_host(b.codes) for b in batches]
-    upload = sum(p.nbytes + m.nbytes for p, m in packed_np)
-    free = _free_bytes(dev)
-    if free is not None and upload > free:
-        raise RuntimeError(
-            f"the input's upload needs {_gib(upload)} of device memory, "
-            f"{_gib(free)} is free"
-        )
-    uploads = [
-        (
-            torch.from_numpy(p).to(dev),
-            torch.from_numpy(m).to(dev),
-            torch.from_numpy(b.valid).to(dev),
-        )
-        for (p, m), b in zip(packed_np, batches)
-    ]
-    del packed_np
     bases = [b.row0 * P for b in batches]
-    _sync(dev)
-    stats.timings["upload"] = time.time() - t0
 
     free = _free_bytes(dev)
     n_rounds, round_buf = plan_rounds(config, n_slots, bp, free)
