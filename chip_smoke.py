@@ -34,7 +34,25 @@
    -f 30 -r 4, each with the counters reset just before and read just
    after; each must launch the Bloom kernels and the sort and judge of
    its verify pass and write SLICE_SHA256; then a Bloom run through the
-   plain versions on the card, the same bytes again.
+   plain versions on the card, the same bytes again;
+9. holds the distributed engine's four kernels against their plain
+   versions at the slice's shapes: route (D=4, one batch's shard, by the
+   slice's measured word0 bounds and by the uniform split), the word0
+   histogram on one batch, judge_records on one batch of the slice's
+   shape cut from the starts of all 8 genomes (a slice batch holds one
+   genome, so no junction), and the occurrence sort on the -r 1 round's
+   occurrences; then sharded_sort_step on that batch over 4 shards of
+   the card, whose table and occurrences must equal the one-shard sort +
+   judge_records;
+10. runs the slice through the distributed engine, each with the counters
+   reset just before and read just after, each launching its kernels and
+   writing SLICE_SHA256: build_junctions_dist over a LocalMesh of 4
+   shards of the card at -r 1 and -r 4, the CLI's `--tpu-engine dist`
+   (one shard), build_junctions_multihost in a child process under a
+   one-rank NCCL group, and the 4-shard run through the plain versions;
+   and times the merge's final occurrence sort both ways (np.sort
+   default and kind="stable") on the sort engine's and the 4-shard run's
+   occurrences.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
 package is missing, or if any phase fails. The last line of standard
@@ -86,6 +104,14 @@ REPLACES = {
                       "twopaco_tpu/passes/kernels.py:420"),
     "bloom_lookup": ("twopaco_tpu_torch/kernels/csrc/bloom_lookup.cu",
                      "twopaco_tpu/passes/kernels.py:506"),
+    "route": ("twopaco_tpu_torch/kernels/csrc/route.cu",
+              "twopaco_tpu/parallel/sortshard.py:52"),
+    "word0_histogram": ("twopaco_tpu_torch/kernels/csrc/histogram.cu",
+                        "twopaco_tpu/parallel/distpipe.py:102"),
+    "judge_records": ("twopaco_tpu_torch/kernels/csrc/judge.cu",
+                      "twopaco_tpu/passes/sortpipe.py:375"),
+    "sort_occurrences": ("twopaco_tpu_torch/kernels/csrc/occ_pack.cu",
+                         "twopaco_tpu/passes/sortpipe.py:762"),
 }
 # the run whose launch counts each kernel reports: its own path
 PATH_OF = {
@@ -93,7 +119,32 @@ PATH_OF = {
     "partition": "resident", "assemble": "resident", "compact": "stream",
     "histogram": "histogram", "bloom_fill": "bloom_byte", "bloom_mark": "bloom_byte",
     "bloom_extract": "bloom_byte", "bloom_lookup": "bloom_byte",
+    "route": "dist_r1", "word0_histogram": "dist_r1", "judge_records": "step",
+    "sort_occurrences": "dist_r1",
 }
+D4 = 4  # shards of the card in the distributed runs
+# the kernels each distributed path must launch
+DIST_PATH = ("word0_histogram", "build_records", "route", "compact", "sort_records",
+             "judge_compact", "sort_occurrences")
+MH_CHILD = r"""
+import json, sys, time
+import torch
+from twopaco_tpu_torch.kernels import build
+from twopaco_tpu_torch.parallel import multihost
+from twopaco_tpu_torch.passes.pipeline import PipelineConfig
+spec = json.loads(sys.argv[1])
+build.reset_launch_counts()
+t0 = time.time()
+enum = multihost.build_junctions_multihost(
+    [spec["fa"]], PipelineConfig(**spec["config"]), out_path=spec["out"], device="cuda")
+torch.cuda.synchronize()
+import torch.distributed as dist
+print("MH_RESULT " + json.dumps(dict(
+    launches=build.launch_counts(), wall=time.time() - t0, vertices=enum.vertices_count,
+    world=dist.get_world_size(), backend=dist.get_backend(),
+    timings=enum.stats.timings)), flush=True)
+dist.destroy_process_group()
+"""
 # the Bloom engine's runs of the slice: flags, and the layout each must use
 BLOOM_RUNS = {
     "bloom_byte": (["-f", "30"], "byte"),
@@ -120,6 +171,14 @@ def sha256(path: str) -> str:
         for chunk in iter(lambda: f.read(1 << 24), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def card_line() -> str:
@@ -219,6 +278,48 @@ def phase_times(text) -> dict:
     }
 
 
+@contextlib.contextmanager
+def capture_merge(store: dict):
+    """Keep the entries the next run hands sortpipe.merge_fetched."""
+    from twopaco_tpu_torch.passes import sortpipe
+
+    orig = sortpipe.merge_fetched
+
+    def capture(fetched, *a, **kw):
+        store["fetched"] = list(fetched)
+        return orig(fetched, *a, **kw)
+
+    sortpipe.merge_fetched = capture
+    try:
+        yield store
+    finally:
+        sortpipe.merge_fetched = orig
+
+
+def occ_sort_times(tag, fetched, w, label, reps=5):
+    """The merge's final occurrence sort on a run's entries, both np.sort
+    kinds, host seconds (mean of reps on copies of one buffer)."""
+    import numpy as np
+
+    from twopaco_tpu_torch.passes import sortpipe
+
+    _table, inv = sortpipe.merge_tables(fetched, w)
+    buf = sortpipe.packed_occurrences(fetched, inv, 32)
+    times = {}
+    for kind in ("quicksort", "stable", "stable", "quicksort"):
+        dt = 0.0
+        for _ in range(reps):
+            b = buf.copy()
+            t0 = time.time()
+            b.sort(kind=kind)
+            dt += time.time() - t0
+        times.setdefault(kind, []).append(dt / reps)
+        require(np.array_equal(b, np.sort(buf)), f"{tag}: np.sort kind {kind} differs")
+    print(f"merge occurrence sort {tag}: {len(buf)} keys in {len(fetched)} entries, "
+          + ", ".join(f"{k}={sum(v) / len(v):.4f} s" for k, v in times.items())
+          + f" (host of {label}; the merge sorts with kind=stable)")
+
+
 def main() -> int:
     import torch
 
@@ -233,9 +334,11 @@ def main() -> int:
         from twopaco_tpu_torch.kernels import build
         from twopaco_tpu_torch.ops import pack
         from twopaco_tpu_torch.ops import bloom
+        from twopaco_tpu_torch.parallel import distpipe, sortshard
+        from twopaco_tpu_torch.parallel.mesh import LocalMesh
         from twopaco_tpu_torch.passes import (
-            bloompipe, extract, fill, histogram, judge, lookup, mark, partition,
-            records, sort, sortpipe, stream,
+            bloompipe, extract, fill, histogram, judge, lookup, mark, occ, partition,
+            records, route, sort, sortpipe, stream,
         )
         from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
@@ -279,6 +382,7 @@ def main() -> int:
 
     phase("kernels vs plain versions")
     results: dict = {}
+    launches: dict = {}  # a path's launch counts, read just after its run
 
     def upload(batch):
         p, m = pack.pack_codes_host(batch.codes)
@@ -328,7 +432,8 @@ def main() -> int:
             lambda: judge.judge_compact_plain(*srt, ab),
             3, results,
         )
-    slice_table = judge.judge_compact(*srt)[0].clone()  # for the Bloom lookup
+    slice_table, slice_occ_pos, slice_occ_id = (
+        t.clone() for t in judge.judge_compact(*srt)[:3])  # Bloom lookup, occurrence sort
     del srt
     torch.cuda.synchronize()
 
@@ -408,7 +513,81 @@ def main() -> int:
     err = max_abs_err(*rounds)
     require(err == 0 and not rounds[0][3], f"stream round differs or overflows ({err})")
     print(f"stream round 0: buffer of {st_slots} slots exact, no overflow")
-    del rounds, uploads, recs
+    del rounds, recs
+    torch.cuda.synchronize()
+
+    phase(f"distributed kernels vs plain versions (D={D4} shapes)")
+    mesh4 = LocalMesh([torch.device("cuda", 0)] * D4)
+    _n_rounds4, route_cap = distpipe.plan_dist(cfg, mesh4, n_slots, None)
+    # the slice's word0 histogram, as the path measures it, for the bounds
+    whist = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    for u in uploads:
+        histogram.word0_histogram(*u, k=k, P=P, out=whist)
+    bounds = distpipe.route_bounds_from_hist(whist.cpu().numpy().astype(np.int64), D4)
+    bounds_d = pack.as_u32(torch.from_numpy(bounds.astype(np.int64)).to(dev))
+    print(f"word0 bounds of the slice: {bounds.tolist()}, route cap {route_cap}")
+    del uploads, whist
+    # batch 0, shard 0's rows: B/D rows at base 0
+    recs4 = records.build_sort_records(*(a[: B // D4] for a in args), 0, k=k, P=P)
+    for bnd in (bounds_d, None):
+        compare("route",
+                lambda: route.route_records(*recs4, D4, route_cap, bounds=bnd),
+                lambda: route.route_records_plain(*recs4, D4, route_cap, bounds=bnd),
+                10, results)
+    sent = route.route_records(*recs4, D4, route_cap, bounds=bounds_d)
+    require(int(sent[3]) == 0, "route: the slice's shard overflowed its cap")
+    print("route: per-shard records of batch 0, shard 0: "
+          f"{[int(x) for x in (pack.as_i64(sent[1]) >> 17 & 1).sum(dim=1)]}")
+    del recs4, sent
+    compare("word0_histogram",
+            lambda: histogram.word0_histogram(*args, k=k, P=P),
+            lambda: histogram.word0_histogram_plain(*args, k=k, P=P), 10, results)
+    # a batch of the slice's shapes whose rows are the first B/8 rows of
+    # each genome (a slice batch holds one genome: no junction in it)
+    mix = next(windows.iter_window_batches(
+        iter([(i, c[: B // len(seqs) * P]) for i, c in seqs]), cfg.window_config()))
+    args_mix = upload(mix)
+    bsrt = sort.sort_records(*records.build_sort_records(*args_mix, 0, k=k, P=P))
+    compare("judge_records", lambda: judge.judge_records(*bsrt[:2]),
+            lambda: judge.judge_records_plain(*bsrt[:2]), 10, results)
+    compare("sort_occurrences",
+            lambda: occ.sort_occurrences(slice_occ_pos, slice_occ_id, id_bits=32,
+                                         pos_limit=n_slots),
+            lambda: occ.sort_occurrences_plain(slice_occ_pos, slice_occ_id, id_bits=32,
+                                               pos_limit=n_slots),
+            5, results)
+    print(f"sort_occurrences: the -r 1 round's {slice_occ_pos.shape[0]} occurrences")
+    del slice_occ_pos, slice_occ_id
+
+    phase(f"sharded_sort_step on one batch of the 8 genomes ({D4} shards of the card)")
+    p0, m0 = pack.pack_codes_host(mix.codes)
+    parts = [mesh4.put_rows(a) for a in (p0, m0, mix.valid)]
+    batch4 = {s: tuple(x[s] for x in parts) for s in mesh4.shards}
+    scfg4 = sortshard.SortShardConfig(base=PassConfig(k=k, positions_per_row=P,
+                                                      rows_per_batch=B), n_shards=D4)
+    step = sortshard.sharded_sort_step(mesh4, scfg4)
+    build.reset_launch_counts()
+    blocks, nj4, no4, over4 = step(batch4, 0, 0xFFFFFFFF, judge.NO_ABUNDANCE)
+    torch.cuda.synchronize()
+    launches["step"] = build.launch_counts()
+    print(f"step: launches {launches['step']}")
+    for name in ("build_records", "route", "sort_records", "judge_records"):
+        require(launches["step"].get(name, 0) > 0, f"step: no launch of {name}")
+    kf1, keep1, ids1, _g1, nj1, no1 = judge.judge_records(*bsrt[:2])
+    require(over4 == 0 and (nj4, no4) == (nj1, no1) and nj1 > 0,
+            f"step counts {(nj4, no4, over4)} != one shard's {(nj1, no1, 0)}")
+    table4 = torch.cat([pack.take_u32(sw, kf.nonzero().squeeze(1))
+                        for sw, _p, kf, _g in blocks.values()])
+    table1 = pack.take_u32(bsrt[0], kf1.nonzero().squeeze(1))
+    require(max_abs_err([table4], [table1]) == 0, "step: table differs from one shard's")
+    occ4 = torch.cat([torch.stack([p[g != 0], g[g != 0]]) for _w, p, _k, g in blocks.values()],
+                     dim=1)
+    occ1 = torch.stack([bsrt[2][keep1], ids1[keep1].to(torch.int64)])
+    o4, o1 = (o[:, torch.sort(o[0]).indices] for o in (occ4, occ1))
+    require(torch.equal(o4, o1), "step: occurrences differ from one shard's")
+    print(f"step: {nj4} junctions, {no4} occurrences, no overflow; table and "
+          f"occurrences equal the one-shard sort + judge_records")
+    del blocks, bsrt, batch4, parts, args_mix
     torch.cuda.synchronize()
 
     phase("golden sha256 (JAX package outputs)")
@@ -430,7 +609,6 @@ def main() -> int:
     torch.cuda.synchronize()
 
     bases_n = SLICE["n_seqs"] * SLICE["length"]
-    launches = {}
 
     def slice_run(tag, argv, env=None, phases=sortpipe.PHASES):
         """One CLI run of the slice with the counters zeroed just before
@@ -455,8 +633,9 @@ def main() -> int:
 
     phase("slice: port CLI on the 8 x 8 Mbase input")
     out = os.path.join(WORK, "slice.dbg")
-    slice_run("r1", ["-k", str(k), "-f", "30", fa, "-o", out])
-    for name in ("build_records", "sort_records", "judge_compact"):
+    with capture_merge({}) as sort_r1:
+        slice_run("r1", ["-k", str(k), "-f", "30", fa, "-o", out])
+    for name in ("build_records", "sort_records", "judge_compact", "sort_occurrences"):
         require(launches["r1"].get(name, 0) > 0, f"{name}: no launch in the slice run")
     slice_sha = sha256(out)
     size_dbg = os.path.getsize(out)
@@ -593,6 +772,80 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"plain-version Bloom run: {time.time() - t0:.3f} s wall {label}")
     require(sha256(out_ref) == slice_sha, "Bloom plain run .dbg differs")
+
+    phase(f"slice: the distributed engine ({D4} shards of the card, the CLI, multi-process)")
+
+    def dist_run(tag, rounds, reference=False):
+        """build_junctions_dist over mesh4 -> entries handed to the merge."""
+        out_d = os.path.join(WORK, f"slice_{tag}.dbg")
+        lines = []
+        build.reset_launch_counts()
+        t0 = time.time()
+        with capture_merge({}) as got:
+            enum = distpipe.build_junctions_dist(
+                [fa], PipelineConfig(k=k, rounds=rounds, positions_per_row=P, rows_per_batch=B),
+                mesh4, out_d, log=lines.append, device=dev, reference=reference)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches[tag] = build.launch_counts()
+        print(f"{tag}: launches {launches[tag]}")
+        print(f"{tag} phases (s) {label}: " + ", ".join(
+            f"{n}={enum.stats.timings[n]:.3f}" for n in (*distpipe.PHASES, "total")))
+        lines = "\n".join(lines).splitlines()
+        for line in lines:
+            if line.startswith("Splitting") or (line.startswith("Round ") and "seconds" in line):
+                print(f"{tag}   {line}")
+        require(sha256(out_d) == slice_sha, f"{tag}: .dbg differs from SLICE_SHA256")
+        print(f"{tag}: {bases_n} bases in {wall:.3f} s wall = {bases_n / wall / 1e6:.2f} "
+              f"Mbases/s {label}; .dbg is SLICE_SHA256")
+        return got["fetched"], lines
+
+    fetched4, lines = dist_run("dist_r1", 1)
+    for name in DIST_PATH:
+        require(launches["dist_r1"].get(name, 0) > 0, f"dist_r1: no launch of {name}")
+    require(len(fetched4) == D4, f"dist_r1: {len(fetched4)} merge entries, not {D4}")
+    _fetched, lines = dist_run("dist_r4", ROUNDS)
+    for name in (*DIST_PATH, "histogram"):
+        require(launches["dist_r4"].get(name, 0) > 0, f"dist_r4: no launch of {name}")
+    require(sum(line.startswith("Round ") and "seconds" in line for line in lines) == ROUNDS,
+            f"dist_r4: not {ROUNDS} rounds")
+    del _fetched
+    out_c = os.path.join(WORK, "slice_dist_cli.dbg")
+    slice_run("dist_cli", ["--tpu-engine", "dist", "-k", str(k), "-f", "30", fa, "-o", out_c],
+              phases=distpipe.PHASES)
+    for name in DIST_PATH:
+        require(launches["dist_cli"].get(name, 0) > 0, f"dist_cli: no launch of {name}")
+    require(sha256(out_c) == slice_sha, "dist_cli: .dbg differs from SLICE_SHA256")
+    print("dist_cli: .dbg is SLICE_SHA256")
+
+    out_m = os.path.join(WORK, "slice_multihost.dbg")
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    spec = dict(fa=fa, out=out_m, config=dict(k=k, positions_per_row=P, rows_per_batch=B))
+    t0 = time.time()
+    child = subprocess.run([sys.executable, "-c", MH_CHILD, json.dumps(spec)], cwd=ROOT,
+                           env=env, capture_output=True, text=True, timeout=600)
+    res = [line for line in child.stdout.splitlines() if line.startswith("MH_RESULT ")]
+    require(child.returncode == 0 and res,
+            f"multihost child exited {child.returncode}:\n{child.stdout[-3000:]}"
+            f"{child.stderr[-3000:]}")
+    mh = json.loads(res[-1][len("MH_RESULT "):])
+    launches["multihost"] = mh["launches"]
+    print(f"multihost: {mh['world']} rank over {mh['backend']}, launches {mh['launches']}, "
+          f"run {mh['wall']:.3f} s ({time.time() - t0:.3f} s with the process start) {label}")
+    for name in DIST_PATH:
+        require(mh["launches"].get(name, 0) > 0, f"multihost: no launch of {name}")
+    require(mh["backend"] == "nccl", f"multihost ran over {mh['backend']}, not NCCL")
+    require(sha256(out_m) == slice_sha, "multihost: .dbg differs from SLICE_SHA256")
+    print("multihost: .dbg is SLICE_SHA256")
+
+    dist_run("dist_plain", 1, reference=True)
+    require(launches["dist_plain"] == {}, "the plain-version run launched kernels")
+
+    phase("the merge's final occurrence sort, both np.sort kinds")
+    occ_sort_times("sort -r 1", sort_r1["fetched"], w, label)
+    occ_sort_times(f"dist -r 1 ({D4} shards)", fetched4, w, label)
+    del fetched4
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = []

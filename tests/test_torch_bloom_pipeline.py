@@ -175,10 +175,15 @@ def test_cli_bloom_byte_identical(tmp_path, flags):
 def test_cli_engine_and_filter_errors(tmp_path, capsys):
     fa = _tiny_fasta(tmp_path)
     out = str(tmp_path / "o.dbg")
-    for engine in ("dist", "dist-bloom"):
-        assert port_main(["-k", "25", "-f", "20", "--tpu-engine", engine, "--device", "cpu",
-                          fa, "-o", out]) == 1
-        assert "not ported yet (ROADMAP A8)" in capsys.readouterr().err
+    # dist runs (tests/test_torch_distpipe.py); dist-bloom is not ported
+    assert port_main(["-k", "25", "-f", "20", "--tpu-engine", "dist-bloom", "--device", "cpu",
+                      fa, "-o", out]) == 1
+    assert "not ported yet (ROADMAP A8)" in capsys.readouterr().err
+    assert not os.path.exists(out)
+    assert port_main(["-k", "25", "-f", "20", "--tpu-engine", "dist", "--device", "cpu",
+                      fa, "-o", out]) == 0
+    dist = open(out, "rb").read()
+    os.remove(out)
     # a filter past its layout's cap exits 1 with the JAX package's message
     assert port_main(["-k", "25", "-f", "31", "--tpu-engine", "bloom", "--tpu-layout",
                       "byte", "--device", "cpu", fa, "-o", out]) == 1
@@ -188,15 +193,18 @@ def test_cli_engine_and_filter_errors(tmp_path, capsys):
     assert port_main(["-k", "25", "-f", "40", "--device", "cpu", fa, "-o", out]) == 0
     f40 = open(out, "rb").read()
     assert port_main(["-k", "25", "-f", "20", "--device", "cpu", fa, "-o", out]) == 0
-    assert open(out, "rb").read() == f40
+    assert open(out, "rb").read() == f40 == dist
 
 
 def test_build_junctions_dispatch(tmp_path):
     seqs = _seqs(_genomes(3, length=600, n=2))
-    for engine in ("dist", "dist-bloom"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            build_junctions(None, PipelineConfig(k=9, engine=engine), None, sequences=seqs,
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        build_junctions(None, PipelineConfig(k=9, engine="dist-bloom"), None, sequences=seqs,
+                        device="cpu")
+    dist = build_junctions(None, PipelineConfig(k=9, engine="dist", positions_per_row=128,
+                                                rows_per_batch=4), None, sequences=seqs,
+                           device="cpu")
+    assert dist.vertices_count > 0
     with pytest.raises(ValueError, match="unknown engine"):
         build_junctions(None, PipelineConfig(k=9, engine="hash"), None, sequences=seqs,
                         device="cpu")

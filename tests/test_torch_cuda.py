@@ -13,10 +13,14 @@ import pytest
 import torch
 
 from twopaco_tpu_torch import dna
+from twopaco_tpu_torch.io import windows
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import bloom, pack
+from twopaco_tpu_torch.parallel import distpipe, sortshard
+from twopaco_tpu_torch.parallel.mesh import LocalMesh
 from twopaco_tpu_torch.passes import (
-    extract, fill, histogram, judge, lookup, mark, partition, records, sort, stream,
+    extract, fill, histogram, judge, lookup, mark, occ, partition, records, route, sort,
+    stream,
 )
 from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, build_junctions
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
@@ -165,7 +169,8 @@ def test_pipeline_cuda_equals_cpu(dev, tmp_path, k):
         outs.append(open(out, "rb").read())
         if device == "cuda":
             counts = build.launch_counts()
-            assert set(counts) == {"build_records", "sort_records", "judge_compact"}
+            assert set(counts) == {"build_records", "sort_records", "judge_compact",
+                                   "sort_occurrences"}
     assert outs[0] == outs[1] and len(outs[0]) > 0
 
 
@@ -424,6 +429,156 @@ def test_bloom_pipeline_cuda_equals_cpu(dev, tmp_path, layout, rounds, k):
                 "bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
                 "judge_compact", "bloom_lookup",
             }
+    sort_out = str(tmp_path / "sort.dbg")
+    build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
+    assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0
+
+
+# ---- the distributed engine's kernels (route, judge_records, word0
+# histogram, occurrence sort) and the engine on a 4-shard LocalMesh
+
+
+@pytest.mark.parametrize("m,w,D,bounds,cap", [
+    (70_001, 2, 4, False, 30_000), (70_001, 2, 4, True, 30_000), (70_001, 2, 4, True, 9_000),
+    (100_003, 1, 8, False, 20_000), (30_011, 7, 3, True, 12_000), (0, 2, 4, False, 128),
+    (5_000, 2, 1, True, 6_000),
+])
+def test_route_kernel(dev, m, w, D, bounds, cap):
+    """Send buffers and the overflow count equal the plain version's
+    exactly; the count is each owner's records past cap (some cases
+    overflow)."""
+    rng = np.random.default_rng(m + D)
+    words_np, pay_np, pos_np = _random_records(rng, m, w)
+    words, pay, pos = _to(dev, words_np, pay_np, pos_np)
+    bnd = None
+    w0 = words_np[:, 0].astype(np.int64)
+    owner = (w0 * D) >> 32
+    if bounds:
+        cuts = np.sort(rng.choice(1 << 32, size=D - 1, replace=False)).astype(np.int64)
+        bnd = pack.as_u32(torch.tensor(cuts, device=dev))
+        owner = np.searchsorted(cuts, w0, side="left")
+    per_owner = np.bincount(owner[(pay_np >> 17) & 1 == 1], minlength=D)
+    dropped = int(np.maximum(per_owner - cap, 0).sum())
+    over = torch.full((1,), 5, dtype=torch.int64, device=dev)
+    build.reset_launch_counts()
+    got = route.route_records(words, pay, pos, D, cap, bounds=bnd, overflow=over.clone())
+    assert build.launch_counts() == {"route": 1}
+    want = route.route_records_plain(words, pay, pos, D, cap, bounds=bnd, overflow=over.clone())
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+    assert int(want[3]) == 5 + dropped
+
+
+@pytest.mark.parametrize("m,w", [(1, 2), (5000, 2), (200_001, 2), (40_000, 7)])
+@pytest.mark.parametrize("abundance", [NO_AB, 3])
+def test_judge_records_kernel(dev, m, w, abundance):
+    rng = np.random.default_rng(m * 5 + w)
+    sw, spay, _spos = sort.sort_records_plain(*_to(dev, *_random_records(rng, m, w, dup_frac=0.8)))
+    build.reset_launch_counts()
+    got = judge.judge_records(sw, spay, abundance)
+    assert build.launch_counts() == {"judge_records": 1}
+    want = judge.judge_records_plain(sw, spay, abundance)
+    assert got[3:] == want[3:]
+    for a, b in zip(got[:3], want[:3]):
+        assert _equal(a, b)
+
+
+@pytest.mark.parametrize("k", [11, 25, 33, 101])
+def test_word0_histogram_kernel(dev, k):
+    rng = np.random.default_rng(k)
+    B, P = 16, 2048
+    args = _to(dev, *_genome_batch(rng, B, P, k))
+    build.reset_launch_counts()
+    got = histogram.word0_histogram(*args, k=k, P=P)
+    got = histogram.word0_histogram(*args, k=k, P=P, out=got)
+    assert build.launch_counts() == {"word0_histogram": 2}
+    want = histogram.word0_histogram_plain(*args, k=k, P=P)
+    assert torch.equal(got.cpu(), 2 * want.cpu()) and int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("n,id_bits,pos_limit", [
+    (0, 32, 1 << 32), (1, 32, 1 << 32), (4097, 32, 1 << 20), (200_001, 32, 1 << 32),
+    (300_000, 31, 1 << 33), (50_000, 20, 1 << 40),
+])
+def test_sort_occurrences_kernel(dev, n, id_bits, pos_limit):
+    rng = np.random.default_rng(n + id_bits)
+    pos = rng.choice(pos_limit, size=n, replace=False) if pos_limit <= 1 << 33 else (
+        np.unique(rng.integers(0, pos_limit, size=2 * n))[:n])
+    rng.shuffle(pos)
+    lid = rng.integers(1, 1 << min(id_bits - 1, 30), size=len(pos))
+    ids = np.where(rng.random(len(pos)) < 0.5, -lid, lid).astype(np.int32)
+    args = _to(dev, pos.astype(np.int64), ids)
+    build.reset_launch_counts()
+    got = occ.sort_occurrences(*args, id_bits=id_bits, pos_limit=pos_limit)
+    assert build.launch_counts() == {"sort_occurrences": 1}
+    want = occ.sort_occurrences_plain(*args, id_bits=id_bits, pos_limit=pos_limit)
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+    assert int(got[1]) == 0
+
+
+def test_sort_occurrences_kernel_flags_bad(dev):
+    pos = torch.tensor([5, 100, -1, 7, 8], dtype=torch.int64, device=dev)
+    ids = torch.tensor([1, 2, 3, 0, 1 << 20], dtype=torch.int32, device=dev)
+    got = occ.sort_occurrences(pos, ids, id_bits=20, pos_limit=100)
+    want = occ.sort_occurrences_plain(pos, ids, id_bits=20, pos_limit=100)
+    assert int(got[1]) == int(want[1]) == 4
+
+
+def _dist_inputs(seed=14, length=6000):
+    rng = np.random.default_rng(seed)
+    base = oracle.generate_sequence(rng, length)
+    seqs = [base] + [oracle.mutate_sequence(rng, base, 0.03, 0.1) for _ in range(3)]
+    return [(i, dna.encode(s)) for i, s in enumerate(seqs)]
+
+
+def test_sharded_sort_step_kernels(dev):
+    """The distributed step on 4 shards of one card: kernels and plain
+    versions give the same blocks and counts."""
+    k, P, B = 25, 256, 8
+    mesh = LocalMesh([dev] * 4)
+    cfg = PipelineConfig(k=k, positions_per_row=P, rows_per_batch=B)
+    # two rows of each genome's start, so junctions form inside the batch
+    seqs = [(i, c[: 2 * P]) for i, c in _dist_inputs()]
+    b = next(windows.iter_window_batches(iter(seqs), cfg.window_config()))
+    assert len(set(b.seq_id.tolist())) == 4
+    p, m = pack.pack_codes_host(b.codes)
+    parts = [mesh.put_rows(a) for a in (p, m, b.valid)]
+    batch = {s: tuple(x[s] for x in parts) for s in mesh.shards}
+    scfg = sortshard.SortShardConfig(base=PassConfig(k=k, positions_per_row=P,
+                                                     rows_per_batch=B), n_shards=4)
+    build.reset_launch_counts()
+    got = sortshard.sharded_sort_step(mesh, scfg)(batch, 0, 0xFFFFFFFF, NO_AB)
+    assert build.launch_counts() == {"build_records": 4, "route": 4, "sort_records": 4,
+                                     "judge_records": 4}
+    want = sortshard.sharded_sort_step(mesh, scfg, ops=sortshard.PLAIN)(
+        batch, 0, 0xFFFFFFFF, NO_AB)
+    assert got[1:] == want[1:] and got[1] > 0 and got[3] == 0
+    for s in mesh.shards:
+        for a, b_ in zip(got[0][s], want[0][s]):
+            assert _equal(a, b_)
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_dist_engine_cuda_equals_plain(dev, tmp_path, rounds):
+    """build_junctions_dist on a LocalMesh of 4 shards of one card: the
+    kernels' .dbg equals the plain run's and the sort engine's."""
+    sequences = _dist_inputs()
+    cfg = PipelineConfig(k=25, rounds=rounds, positions_per_row=256, rows_per_batch=8)
+    outs = []
+    for reference in (False, True):
+        out = str(tmp_path / f"{reference}.dbg")
+        build.reset_launch_counts()
+        distpipe.build_junctions_dist(None, cfg, LocalMesh([dev] * 4), out,
+                                      sequences=sequences, device=dev, reference=reference)
+        outs.append(open(out, "rb").read())
+        counts = build.launch_counts()
+        if reference:
+            assert counts == {}
+        else:
+            want = {"word0_histogram", "build_records", "route", "compact", "sort_records",
+                    "judge_compact", "sort_occurrences"} | ({"histogram"} if rounds > 1 else set())
+            assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
     assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0

@@ -144,7 +144,9 @@ def test_overflow_raises(tmp_path, monkeypatch, mode):
 
 @pytest.fixture(scope="module")
 def fetched_rounds():
-    """The port's fetched rounds of a -r 3 run, and its batches."""
+    """The port's fetched rounds of a -r 3 run as raw entries (the run
+    hands the merge sorted keys, tests/test_torch_occ.py), and its
+    batches."""
     got = {}
 
     def capture(fetched, batches, *a, **kw):
@@ -159,7 +161,7 @@ def fetched_rounds():
     finally:
         sortpipe.merge_fetched = orig
     assert len(got["fetched"]) == 3
-    return got["fetched"], got["batches"]
+    return [sortpipe.raw_entry(e) for e in got["fetched"]], got["batches"]
 
 
 def _jax_fetched(fetched):

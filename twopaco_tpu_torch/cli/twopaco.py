@@ -18,8 +18,11 @@ reference's Bloom-filter algorithm (passes/bloompipe.py): a 2^f-slot
 filter (--filtermemory GB: f = log2(GB * 8e9), as the reference) with q
 hash functions in the --tpu-layout (auto: byte up to f = 30, else bit;
 block: 256-bit blocks keyed by vertex), -r N rounds exactly, candidate
-masks spilled to --tmpdir above TWOPACO_MASK_SPILL_BYTES. Both write the
-same bytes. --tpu-checkpoint DIR checkpoints each round, and a rerun
+masks spilled to --tmpdir above TWOPACO_MASK_SPILL_BYTES. --tpu-engine
+dist is the distributed sort-join engine (parallel/distpipe.py) over one
+shard per visible CUDA device (one CPU shard with --device cpu); -r N as
+the sort engine's. All three write the same bytes; dist-bloom is not
+ported. --tpu-checkpoint DIR checkpoints each round, and a rerun
 resumes. --device picks the device: cuda (the default; raises when there
 is no card) or cpu (the plain PyTorch versions). -t is accepted and
 unused.
@@ -79,8 +82,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--tpu-engine", choices=["sort", "bloom", "dist", "dist-bloom"],
         default="sort",
-        help="Engine: sort-join (default) or Bloom two-pass; the "
-        "distributed engines are not ported yet",
+        help="Engine: sort-join (default), Bloom two-pass, or the "
+        "distributed sort-join over the visible devices; dist-bloom is not "
+        "ported yet",
     )
     p.add_argument(
         "--tpu-layout", choices=["auto", "byte", "bit", "block"],
@@ -161,7 +165,7 @@ def main(argv: list[str] | None = None) -> int:
         )
     except (OSError, RuntimeError, ValueError) as e:
         # FASTA errors, round overflows, inputs that fit no mode, filters
-        # past their layout, engines not ported
+        # past their layout, rows not a multiple of the devices, dist-bloom
         print(f"Error: {e}", file=sys.stderr)
         return 1
     print(f"Distinct junctions = {enum.vertices_count}")

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "scan.cu", "records.cu", "sort.cu", "judge.cu", "partition.cu",
     "assemble.cu", "compact.cu", "histogram.cu", "bloom_fill.cu",
-    "bloom_mark.cu", "bloom_extract.cu", "bloom_lookup.cu",
+    "bloom_mark.cu", "bloom_extract.cu", "bloom_lookup.cu", "route.cu",
+    "occ_pack.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -59,6 +60,9 @@ _SIGNATURES = {
     "tp_judge_compact": (
         [_P, _P, _P, _SZ, _I, _I, ctypes.c_ulonglong] + [_P] * 7, _I
     ),
+    "tp_judge_records": (
+        [_P, _P, _SZ, _I, _I, ctypes.c_ulonglong] + [_P] * 7, _I
+    ),
     "tp_partition_count_words": ([_SZ, _I], _SZ),
     "tp_partition_max_parts": ([], _I),
     "tp_partition_records": (
@@ -69,6 +73,11 @@ _SIGNATURES = {
         [_P] * 3 + [_SZ, _I] + [_P] * 3 + [ctypes.c_longlong] + [_P] * 5, _I
     ),
     "tp_histogram": ([_P] * 3 + [_I] * 5 + [_U32] * 4 + [_P] * 2, _I),
+    "tp_word0_histogram": ([_P] * 3 + [_I] * 5 + [_P] * 2, _I),
+    "tp_route_count_words": ([_SZ, _I], _SZ),
+    "tp_route_max_shards": ([], _I),
+    "tp_route_records": ([_P] * 3 + [_SZ, _I, _I, _P, _I] + [_P] * 9, _I),
+    "tp_sort_occurrences": ([_P, _P, _SZ, _I, _LL] + [_P] * 7, _I),
     "tp_bloom_fill": (
         [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I
     ),

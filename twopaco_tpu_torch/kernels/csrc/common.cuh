@@ -32,6 +32,17 @@ cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
 
 extern "C" size_t tp_scan_scratch_words(size_t n);
 
+// Stable LSD radix sort of n u64 keys by bits [lo, hi), in place in key
+// (sort.cu; key_alt: n u64 of scratch; counts and incl:
+// tp_sort_count_words(n) u32 each; scratch: tp_scan_scratch_words of that).
+// Used by the occurrence sort (occ_pack.cu).
+cudaError_t tp_radix_sort_u64(uint64_t* key, uint64_t* key_alt, size_t n,
+                              int lo, int hi, uint32_t* counts,
+                              uint32_t* incl, uint32_t* scratch,
+                              cudaStream_t st);
+
+extern "C" size_t tp_sort_count_words(size_t n);
+
 // ---- the per-position record, shared by every kernel that reads the
 // upload form of a window batch (records.cu, partition.cu, histogram.cu
 // and the Bloom engine's bloom_*.cu)

@@ -18,6 +18,14 @@
 // is small enough to spread a strided batch over many SMs (16 blocks at
 // stride 4, 64 at stride 1 for 256 rows of 2048) while the 2^15-word
 // zeroing and flush stay a minor share of a block's work.
+//
+// The second entry, tp_word0_histogram, replaces
+// twopaco_tpu/parallel/distpipe.py:102 word0_histogram: the same positions,
+// binned by the top 16 bits of their canonical k-mer's first word, which
+// is min(forward word0, reverse-complement word0) (the two strands' words
+// differ first at word 0 unless their word 0 is equal, when either is the
+// canonical one). It measures the mass the dist engine's routing bounds
+// split evenly.
 #include "common.cuh"
 
 namespace {
@@ -27,6 +35,7 @@ constexpr int HIST_THREADS = 1024;
 constexpr int HIST_CHUNK = 8192;  // positions a block counts (< 2^16)
 constexpr size_t HIST_SMEM = HIST_BINS / 2 * sizeof(uint32_t);
 
+template <bool WORD0>
 __global__ void __launch_bounds__(HIST_THREADS)
     k_histogram(const uint32_t* __restrict__ packed,
                 const uint32_t* __restrict__ nmask,
@@ -44,7 +53,9 @@ __global__ void __launch_bounds__(HIST_THREADS)
         const int i = (int)(t - (long long)b * P);
         const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
         if (!tp_position_ok(row, i, k, valid[b])) continue;
-        const uint32_t bin = tp_vertex_hash(row, i, k, tab) >> 16;
+        const uint32_t bin =
+            WORD0 ? min(row.fw_word(i + 1, k, 0), row.rc_word(i + 1, k, 0)) >> 16
+                  : tp_vertex_hash(row, i, k, tab) >> 16;
         atomicAdd(&bins[bin >> 1], 1u << (16 * (bin & 1)));
     }
     __syncthreads();
@@ -55,6 +66,23 @@ __global__ void __launch_bounds__(HIST_THREADS)
     }
 }
 
+template <bool WORD0>
+int launch_histogram(const void* packed, const void* nmask, const void* valid,
+                     int rows, int P, int k, int RW, int NW, TpTab tab,
+                     void* hist, void* stream) {
+    const long long n = (long long)rows * P;
+    if (n == 0) return 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        k_histogram<WORD0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)HIST_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    k_histogram<WORD0><<<tp_blocks((size_t)n, HIST_CHUNK), HIST_THREADS,
+                         HIST_SMEM, (cudaStream_t)stream>>>(
+        (const uint32_t*)packed, (const uint32_t*)nmask,
+        (const int32_t*)valid, rows, P, k, RW, NW, tab, (uint32_t*)hist);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // hist: 2^16 u32 counts, added to (the caller zeroes it once a run).
@@ -62,16 +90,13 @@ extern "C" int tp_histogram(const void* packed, const void* nmask,
                             const void* valid, int rows, int P, int k, int RW,
                             int NW, uint32_t t0, uint32_t t1, uint32_t t2,
                             uint32_t t3, void* hist, void* stream) {
-    const long long n = (long long)rows * P;
-    if (n == 0) return 0;
-    cudaError_t e = cudaFuncSetAttribute(
-        k_histogram, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)HIST_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    const TpTab tab{{t0, t1, t2, t3}};
-    k_histogram<<<tp_blocks((size_t)n, HIST_CHUNK), HIST_THREADS, HIST_SMEM,
-                  (cudaStream_t)stream>>>(
-        (const uint32_t*)packed, (const uint32_t*)nmask,
-        (const int32_t*)valid, rows, P, k, RW, NW, tab, (uint32_t*)hist);
-    return (int)cudaGetLastError();
+    return launch_histogram<false>(packed, nmask, valid, rows, P, k, RW, NW,
+                                   TpTab{{t0, t1, t2, t3}}, hist, stream);
+}
+
+extern "C" int tp_word0_histogram(const void* packed, const void* nmask,
+                                  const void* valid, int rows, int P, int k,
+                                  int RW, int NW, void* hist, void* stream) {
+    return launch_histogram<true>(packed, nmask, valid, rows, P, k, RW, NW,
+                                  TpTab{{0, 0, 0, 0}}, hist, stream);
 }

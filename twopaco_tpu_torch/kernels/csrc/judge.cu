@@ -3,7 +3,9 @@
 //
 // Replaces twopaco_tpu/passes/sortpipe.py:453 judge_compact_fused (helpers
 // twopaco_tpu/ops/segments.py:85 _fwd_chunk, :105 _bwd_chunk, :155
-// _cumsum_chunk; semantic twin sortpipe.py:375 judge_records).
+// _cumsum_chunk) and, by the second entry tp_judge_records, sortpipe.py:375
+// judge_records: the same group math, no compaction, one (keep_first, keep,
+// id) per record, for the distributed step (parallel/sortshard.py).
 //
 // Over records sorted by k-mer words (sentinel rows last, one group):
 //   1. group starts (words differ from the previous row) and, by the
@@ -141,6 +143,63 @@ __global__ void k_n_groups(const uint32_t* __restrict__ gsc,
     *dst = (long long)gsc[n - 1] - (is_real(pay[n - 1]) ? 0 : 1);
 }
 
+// grank[g] = rank of junction group g (its start row's rank)
+__global__ void k_grank(const uint32_t* __restrict__ kf,
+                        const uint32_t* __restrict__ rank,
+                        const uint32_t* __restrict__ gsc, size_t n,
+                        uint32_t* __restrict__ grank) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n && kf[i]) grank[gsc[i] - 1] = rank[i];
+}
+
+// Per record: keep_first (a junction group's first row), keep (a row of a
+// junction group), id = +-rank by strand or 0; of = keep as u32 for the
+// occurrence count
+__global__ void k_record_ids(const uint32_t* __restrict__ pay,
+                             const uint32_t* __restrict__ gsc,
+                             const uint32_t* __restrict__ grank,
+                             const uint32_t* __restrict__ kf, size_t n,
+                             uint8_t* __restrict__ keep_first,
+                             uint8_t* __restrict__ keep,
+                             int32_t* __restrict__ ids,
+                             uint32_t* __restrict__ of) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int32_t r = (int32_t)grank[gsc[i] - 1];
+    keep_first[i] = kf[i] != 0;
+    keep[i] = r != 0;
+    ids[i] = ((pay[i] >> 16) & 1u) ? -r : r;
+    of[i] = r != 0;
+}
+
+// Steps 1-4 of the header, shared by both entries: ng, gsc, the group
+// accumulators, kf and the rank scan, and n_groups, n_junc in cnt[0..1].
+cudaError_t judge_groups(const uint32_t* wd, const uint32_t* py, size_t n,
+                         int w, int check_abundance,
+                         unsigned long long abundance, uint32_t* ng,
+                         uint32_t* gsc, uint32_t* kf, uint32_t* rank, Acc acc,
+                         uint32_t* sc, long long* cnt, cudaStream_t st) {
+    const unsigned nb = tp_blocks(n, TP_THREADS);
+    cudaError_t e = cudaMemsetAsync(acc.bits, 0, 5 * n * sizeof(uint32_t), st);
+    if (e != cudaSuccess) return e;
+    k_group_start<<<nb, TP_THREADS, 0, st>>>(wd, n, w, ng);
+    TP_LAUNCH_CHECK();
+    e = tp_scan_inclusive_u32(ng, gsc, n, sc, st);
+    if (e != cudaSuccess) return e;
+    k_accumulate<<<nb, TP_THREADS, 0, st>>>(py, gsc, n, check_abundance, acc);
+    TP_LAUNCH_CHECK();
+    k_keep_first<<<nb, TP_THREADS, 0, st>>>(ng, py, gsc, n, check_abundance,
+                                            abundance, acc, kf);
+    TP_LAUNCH_CHECK();
+    e = tp_scan_inclusive_u32(kf, rank, n, sc, st);
+    if (e != cudaSuccess) return e;
+    k_n_groups<<<1, 1, 0, st>>>(gsc, py, n, cnt);
+    TP_LAUNCH_CHECK();
+    k_last<<<1, 1, 0, st>>>(rank, n, cnt + 1);
+    TP_LAUNCH_CHECK();
+    return cudaSuccess;
+}
+
 }  // namespace
 
 // Scratch (sized by the caller): 9 * n u32 words plus the scan scratch
@@ -165,25 +224,11 @@ extern "C" int tp_judge_compact(const void* words, const void* pay,
     uint32_t* rank = wk + 3 * n;  // inclusive scan of kf, later occ offsets
     Acc acc{wk + 4 * n, wk + 5 * n, wk + 6 * n, wk + 7 * n, wk + 8 * n};
 
-    cudaError_t e = cudaMemsetAsync(acc.bits, 0, 5 * n * sizeof(uint32_t), st);
-    if (e != cudaSuccess) return (int)e;
-    k_group_start<<<nb, TP_THREADS, 0, st>>>(wd, n, w, ng);
-    TP_LAUNCH_CHECK();
-    e = tp_scan_inclusive_u32(ng, gsc, n, sc, st);
-    if (e != cudaSuccess) return (int)e;
-    k_accumulate<<<nb, TP_THREADS, 0, st>>>(py, gsc, n, check_abundance, acc);
-    TP_LAUNCH_CHECK();
-    k_keep_first<<<nb, TP_THREADS, 0, st>>>(ng, py, gsc, n, check_abundance,
-                                            abundance, acc, kf);
-    TP_LAUNCH_CHECK();
-    e = tp_scan_inclusive_u32(kf, rank, n, sc, st);
+    cudaError_t e = judge_groups(wd, py, n, w, check_abundance, abundance, ng,
+                                 gsc, kf, rank, acc, sc, cnt, st);
     if (e != cudaSuccess) return (int)e;
     k_table<<<nb, TP_THREADS, 0, st>>>(wd, kf, rank, gsc, n, w, acc.grank,
                                        (uint32_t*)table);
-    TP_LAUNCH_CHECK();
-    k_n_groups<<<1, 1, 0, st>>>(gsc, py, n, cnt);
-    TP_LAUNCH_CHECK();
-    k_last<<<1, 1, 0, st>>>(rank, n, cnt + 1);
     TP_LAUNCH_CHECK();
     uint32_t* of = ng;
     uint32_t* occ_ofs = rank;
@@ -197,5 +242,41 @@ extern "C" int tp_judge_compact(const void* words, const void* pay,
                                            (int32_t*)occ_id);
     TP_LAUNCH_CHECK();
     k_last<<<1, 1, 0, st>>>(occ_ofs, n, cnt + 2);
+    return (int)cudaGetLastError();
+}
+
+// Scratch as tp_judge_compact's. Outputs per record: keep_first, keep (u8),
+// ids (int32); counts: n_groups, n_junc, n_occ (int64).
+extern "C" int tp_judge_records(const void* words, const void* pay, size_t n,
+                                int w, int check_abundance,
+                                unsigned long long abundance, void* work,
+                                void* scratch, void* keep_first, void* keep,
+                                void* ids, void* counts, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    long long* cnt = (long long*)counts;
+    if (n == 0) return (int)cudaMemsetAsync(cnt, 0, 3 * sizeof(long long), st);
+    const unsigned nb = tp_blocks(n, TP_THREADS);
+    const uint32_t* py = (const uint32_t*)pay;
+    uint32_t* sc = (uint32_t*)scratch;
+    uint32_t* wk = (uint32_t*)work;
+    uint32_t* ng = wk;
+    uint32_t* gsc = wk + n;
+    uint32_t* kf = wk + 2 * n;
+    uint32_t* rank = wk + 3 * n;  // later the occurrence count's scan
+    Acc acc{wk + 4 * n, wk + 5 * n, wk + 6 * n, wk + 7 * n, wk + 8 * n};
+    cudaError_t e = judge_groups((const uint32_t*)words, py, n, w,
+                                 check_abundance, abundance, ng, gsc, kf,
+                                 rank, acc, sc, cnt, st);
+    if (e != cudaSuccess) return (int)e;
+    k_grank<<<nb, TP_THREADS, 0, st>>>(kf, rank, gsc, n, acc.grank);
+    TP_LAUNCH_CHECK();
+    uint32_t* of = ng;
+    k_record_ids<<<nb, TP_THREADS, 0, st>>>(py, gsc, acc.grank, kf, n,
+                                            (uint8_t*)keep_first,
+                                            (uint8_t*)keep, (int32_t*)ids, of);
+    TP_LAUNCH_CHECK();
+    e = tp_scan_inclusive_u32(of, rank, n, sc, st);
+    if (e != cudaSuccess) return (int)e;
+    k_last<<<1, 1, 0, st>>>(rank, n, cnt + 2);
     return (int)cudaGetLastError();
 }

@@ -20,6 +20,9 @@
 // so the scatter is stable without a sort inside the tile. Onesweep-style
 // chained scans and wider digits would cut the passes; that is later
 // work.
+//
+// tp_radix_sort_u64 exposes the digit passes over a bit range of bare u64
+// keys (no carried index) to occ_pack.cu.
 #include "common.cuh"
 
 namespace {
@@ -107,7 +110,7 @@ __global__ void k_radix_scatter(const uint64_t* __restrict__ key_in,
             uint32_t dst = s_base[d] + __popc(lower);
             for (int v = 0; v < warp; ++v) dst += s_wc[v][d];
             key_out[dst] = kk;
-            idx_out[dst] = idx_in[i];
+            if (idx_out) idx_out[dst] = idx_in[i];  // null: keys only
         }
         __syncthreads();
         uint32_t tot = 0;
@@ -145,11 +148,11 @@ struct Bufs {
     uint32_t* scratch;
 };
 
-// Digit passes over bits [0, bits) of key; an even pass count leaves the
-// result in (key, idx).
-cudaError_t radix_passes(Bufs& b, size_t n, int bits, cudaStream_t st) {
+// Digit passes over bits [lo, hi) of key (hi <= 64); an even pass count
+// leaves the result in (key, idx). idx may be null (keys only).
+cudaError_t radix_passes(Bufs& b, size_t n, int lo, int hi, cudaStream_t st) {
     const size_t nt = (n + RADIX_TILE - 1) / RADIX_TILE;
-    for (int shift = 0; shift < bits; shift += RADIX_BITS) {
+    for (int shift = lo; shift < hi; shift += RADIX_BITS) {
         k_radix_hist<<<(unsigned)nt, TP_THREADS, 0, st>>>(b.key, n, shift,
                                                          b.counts, nt);
         TP_LAUNCH_CHECK();
@@ -171,6 +174,26 @@ cudaError_t radix_passes(Bufs& b, size_t n, int bits, cudaStream_t st) {
 }
 
 }  // namespace
+
+// Stable sort of n u64 keys by bits [lo, hi) (0 <= lo < hi <= 64), in
+// place in key (key_alt is scratch of n u64); counts, incl and scratch as
+// tp_sort_records'. An odd digit count gets one more pass (below lo when
+// lo >= 8), so the result always lands back in key.
+cudaError_t tp_radix_sort_u64(uint64_t* key, uint64_t* key_alt, size_t n,
+                              int lo, int hi, uint32_t* counts,
+                              uint32_t* incl, uint32_t* scratch,
+                              cudaStream_t st) {
+    if (n == 0) return cudaSuccess;
+    const int passes = (hi - lo + RADIX_BITS - 1) / RADIX_BITS;
+    if (passes & 1) {
+        if (lo >= RADIX_BITS)
+            lo -= RADIX_BITS;
+        else
+            hi = lo + (passes + 1) * RADIX_BITS;  // last shift lo + 56 < 64
+    }
+    Bufs b{key, key_alt, nullptr, nullptr, counts, incl, scratch};
+    return radix_passes(b, n, lo, hi, st);
+}
 
 // Scratch (all sized by the caller): key, key_alt (n u64); idx, idx_alt
 // (n u32); counts, incl (256 * ceil(n / 4096) u32); scan scratch
@@ -195,7 +218,7 @@ extern "C" int tp_sort_records(const void* words, const void* pay,
     if (w <= 2) {
         k_make_key<<<nb, TP_THREADS, 0, st>>>(wd, n, w, b.key, b.idx);
         TP_LAUNCH_CHECK();
-        const cudaError_t e = radix_passes(b, n, 32 * w, st);
+        const cudaError_t e = radix_passes(b, n, 0, 32 * w, st);
         if (e != cudaSuccess) return (int)e;
     } else {
         k_iota<<<nb, TP_THREADS, 0, st>>>(b.idx, n);
@@ -203,7 +226,7 @@ extern "C" int tp_sort_records(const void* words, const void* pay,
         for (int j = w - 1; j >= 0; --j) {
             k_word_key<<<nb, TP_THREADS, 0, st>>>(wd, b.idx, n, w, j, b.key);
             TP_LAUNCH_CHECK();
-            const cudaError_t e = radix_passes(b, n, 32, st);
+            const cudaError_t e = radix_passes(b, n, 0, 32, st);
             if (e != cudaSuccess) return (int)e;
         }
     }

@@ -1,8 +1,9 @@
 """Judge + compact: junction groups, rank ids, compacted outputs.
 
-The port of twopaco_tpu/passes/sortpipe.py:453 judge_compact_fused
-(semantic twin :375 judge_records). CUDA tensors go through
-kernels/csrc/judge.cu; CPU tensors through `judge_compact_plain`.
+The port of twopaco_tpu/passes/sortpipe.py:453 judge_compact_fused and of
+its semantic twin :375 judge_records (per record, no compaction: the
+distributed step's judge). CUDA tensors go through kernels/csrc/judge.cu;
+CPU tensors through `judge_compact_plain` and `judge_records_plain`.
 
 Over records sorted by k-mer words, a group is the run of equal words.
 A group is a junction iff it is real (not the sentinel group) and has
@@ -34,11 +35,11 @@ def _empty(w: int, device):
     )
 
 
-def judge_compact_plain(words, payload, pos, abundance: int = NO_ABUNDANCE):
-    """Plain PyTorch version of judge_compact (any device)."""
-    m, w = words.shape
-    if m == 0:
-        return _empty(w, words.device)
+def _groups_plain(words, payload, abundance: int):
+    """The group math of both judges, plain PyTorch: -> (ng group starts,
+    gid group of each row, keep_g junction groups, grank 1-based rank of
+    each junction group (0 elsewhere), greal real groups)."""
+    m = words.shape[0]
     wd = pack.as_i64(words)
     p = pack.as_i64(payload)
     ng = torch.ones(m, dtype=torch.bool, device=words.device)
@@ -65,12 +66,25 @@ def judge_compact_plain(words, payload, pos, abundance: int = NO_ABUNDANCE):
         size = group_sum(torch.ones_like(rg))
         keep_g &= size <= min(abundance, (1 << 63) - 1)
     grank = torch.cumsum(keep_g.to(torch.int64), 0) * keep_g
+    return ng, gid, keep_g, grank, greal
+
+
+def _signed_ids(payload, r):
+    is_rc = ((pack.as_i64(payload) >> 16) & 1) == 1
+    return torch.where(is_rc, -r, r)
+
+
+def judge_compact_plain(words, payload, pos, abundance: int = NO_ABUNDANCE):
+    """Plain PyTorch version of judge_compact (any device)."""
+    m, w = words.shape
+    if m == 0:
+        return _empty(w, words.device)
+    ng, gid, keep_g, grank, greal = _groups_plain(words, payload, abundance)
     first_rows = torch.nonzero(ng).squeeze(1)
     table = pack.take_u32(words, first_rows[keep_g])
     r = grank[gid]
     keep = r > 0
-    is_rc = ((p >> 16) & 1) == 1
-    occ_id = torch.where(is_rc, -r, r)[keep].to(torch.int32)
+    occ_id = _signed_ids(payload, r)[keep].to(torch.int32)
     return (
         table, pos[keep], occ_id,
         int(greal.sum()), int(keep_g.sum()), int(keep.sum()),
@@ -114,3 +128,61 @@ def judge_compact(words, payload, pos, abundance: int = NO_ABUNDANCE):
     build.count_launch("judge_compact")
     n_groups, n_junc, n_occ = counts.tolist()
     return table[:n_junc], occ_pos[:n_occ], occ_id[:n_occ], n_groups, n_junc, n_occ
+
+
+def judge_records_plain(words, payload, abundance: int = NO_ABUNDANCE):
+    """Plain PyTorch version of judge_records (any device)."""
+    m = words.shape[0]
+    dev = words.device
+    if m == 0:
+        none = torch.zeros(0, dtype=torch.bool, device=dev)
+        return none, none, torch.zeros(0, dtype=torch.int32, device=dev), 0, 0, 0
+    ng, gid, keep_g, grank, greal = _groups_plain(words, payload, abundance)
+    r = grank[gid]
+    keep = r > 0
+    keep_first = ng & keep
+    ids = _signed_ids(payload, r).to(torch.int32)
+    return (
+        keep_first, keep, ids,
+        int(greal.sum()), int(keep_g.sum()), int(keep.sum()),
+    )
+
+
+def judge_records(words, payload, abundance: int = NO_ABUNDANCE):
+    """Judge the sorted records of one shard, record by record
+    (twopaco_tpu sortpipe.py:375 judge_records).
+
+    words (m, w) uint32 sorted, payload (m,) uint32.
+    -> (keep_first (m,) bool: the first row of a junction group, keep (m,)
+        bool: a row of a junction group, ids (m,) int32 = +-rank of the
+        row's junction group by strand (0 outside them), n_groups (real
+        k-mer groups), n_junc, n_occ)
+    """
+    if build.on_cpu(words, payload):
+        return judge_records_plain(words, payload, abundance)
+    build.require(words, torch.uint32, "words")
+    build.require(payload, torch.uint32, "payload")
+    m, w = words.shape
+    if payload.shape != (m,):
+        raise ValueError("payload must have one entry per record")
+    if m >= 1 << 31:
+        raise ValueError(f"{m} records exceed the judge's u32 scans")
+    lib = build.lib()
+    dev = words.device
+    work = torch.empty(9 * m, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.tp_scan_scratch_words(m), dtype=torch.int32, device=dev)
+    keep_first = torch.empty(m, dtype=torch.bool, device=dev)
+    keep = torch.empty(m, dtype=torch.bool, device=dev)
+    ids = torch.empty(m, dtype=torch.int32, device=dev)
+    counts = torch.empty(3, dtype=torch.int64, device=dev)
+    check_ab = abundance < NO_ABUNDANCE
+    rc = lib.tp_judge_records(
+        words.data_ptr(), payload.data_ptr(), m, w, int(check_ab),
+        abundance if check_ab else 0,
+        *(t.data_ptr() for t in (work, scratch, keep_first, keep, ids, counts)),
+        build.stream_ptr(),
+    )
+    build.check(rc, "judge_records")
+    build.count_launch("judge_records")
+    n_groups, n_junc, n_occ = counts.tolist()
+    return keep_first, keep, ids, n_groups, n_junc, n_occ

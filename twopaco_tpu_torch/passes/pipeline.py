@@ -70,7 +70,7 @@ class PipelineConfig:
     filter_bits: int = 25  # f: Bloom slots = 2^f (reference -f)
     hash_functions: int = 5  # q (reference -q)
     layout: str = "auto"  # Bloom layout: auto | byte | bit | block
-    engine: str = "sort"  # sort (sort-join) | bloom; dist* are not ported
+    engine: str = "sort"  # sort (sort-join) | bloom | dist; dist-bloom is not ported
 
     def __post_init__(self) -> None:
         # even k breaks canonicalization (palindromes tie with their own
@@ -195,11 +195,15 @@ class RoundCheckpoint:
     parameters and an input fingerprint (a mismatch clears the directory
     rather than resuming wrongly). The reference keeps intermediate files
     but has no resume; rounds are deterministic here, so completed ones
-    can be reloaded verbatim. directory None: no checkpointing."""
+    can be reloaded verbatim. directory None: no checkpointing.
+    read_only: a reader beside the one writer of a multi-process run (it
+    opens after the writer has checked the directory, and writes
+    nothing)."""
 
-    def __init__(self, directory, meta: dict):
+    def __init__(self, directory, meta: dict, read_only: bool = False):
         self.dir = directory
-        if directory is None:
+        self.read_only = read_only
+        if directory is None or read_only:
             return
         os.makedirs(directory, exist_ok=True)
         self.meta = meta
@@ -228,7 +232,7 @@ class RoundCheckpoint:
         return {k: z[k] for k in z.files if k != "stats"}, rstats
 
     def save_round(self, r: int, rstats, **arrays) -> None:
-        if self.dir is None:
+        if self.dir is None or self.read_only:
             return
         tmp = self._path(r) + ".tmp.npz"  # .npz suffix: savez won't append
         np.savez(tmp, stats=np.asarray(json.dumps(rstats)), **arrays)
@@ -453,9 +457,11 @@ def build_junctions(
     reference: bool = False,
 ):
     """Run the engine config.engine names (twopaco_tpu pipeline.py:597):
-    the sort-join engine (passes/sortpipe.py) or the Bloom engine
-    (passes/bloompipe.py; tmpdir holds its spilled candidate masks).
-    Arguments as build_junctions_sorted's. -> Enumerator."""
+    the sort-join engine (passes/sortpipe.py), the Bloom engine
+    (passes/bloompipe.py; tmpdir holds its spilled candidate masks) or the
+    distributed sort-join engine (parallel/distpipe.py, one shard per
+    visible CUDA device, one CPU shard on the CPU). Arguments as
+    build_junctions_sorted's. -> Enumerator."""
     if config.engine == "sort":
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
 
@@ -470,9 +476,16 @@ def build_junctions(
             input_paths, config, out_path, sequences, log, checkpoint_dir,
             tmpdir, device=device, reference=reference,
         )
+    if config.engine == "dist":
+        from twopaco_tpu_torch.parallel.distpipe import build_junctions_dist
+
+        return build_junctions_dist(
+            input_paths, config, None, out_path, sequences, log, checkpoint_dir,
+            device=device, reference=reference,
+        )
     if config.engine in ENGINES:
         raise NotImplementedError(
-            f"--tpu-engine {config.engine} is not ported yet (ROADMAP A8): "
-            "use the sort or bloom engine"
+            f"--tpu-engine {config.engine} is not ported yet (ROADMAP A8): it "
+            "needs the hash-sharded Bloom filter; use the sort, bloom or dist engine"
         )
     raise ValueError(f"unknown engine {config.engine!r}; one of {ENGINES}")

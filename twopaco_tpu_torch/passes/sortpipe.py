@@ -8,10 +8,11 @@ The port of twopaco_tpu/passes/sortpipe.py:1008 build_junctions_sorted:
      whose hash lies in the round's interval) in a sort buffer, sorted by
      k-mer words (passes/sort.py), judged and compacted into the round's
      junction table and (position, +-id) occurrences (passes/judge.py),
-     fetched;
+     the occurrences sorted by position as u64 merge keys (passes/occ.py)
+     when the merge will take its packed path, fetched;
   3. host: merge the rounds' tables into the sorted global dictionary,
-     remap the round-local ids, sort the occurrences by position, and
-     write the junction list with stubs.
+     remap the round-local ids, merge the rounds' occurrences by position,
+     and write the junction list with stubs.
 
 Rounds split the hash space (the reference's -r semantics), so a round
 holds about 1/R of the records. How a round's buffer is filled is the
@@ -51,8 +52,9 @@ from twopaco_tpu_torch.io import fasta as fasta_io
 from twopaco_tpu_torch.io import windows
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
-from twopaco_tpu_torch.passes import histogram, judge, partition, records, sort, stream
+from twopaco_tpu_torch.passes import histogram, judge, occ, partition, records, sort, stream
 from twopaco_tpu_torch.passes.histogram import BIN_POW
+from twopaco_tpu_torch.passes.occ import OccKeys
 from twopaco_tpu_torch.passes.pipeline import (
     Enumerator,
     PipelineConfig,
@@ -84,18 +86,20 @@ class Ops:
     assemble: Callable
     compact: Callable
     histogram: Callable
+    occ: Callable
 
 
 KERNELS = Ops(
     records.build_sort_records, sort.sort_records, judge.judge_compact,
     partition.partition_batch, partition.assemble_round,
     stream.compact_append, histogram.histogram_vertex_hashes,
+    occ.sort_occurrences,
 )
 PLAIN = Ops(
     records.build_sort_records_plain, sort.sort_records_plain,
     judge.judge_compact_plain, partition.partition_batch_plain,
     partition.assemble_round_plain, stream.compact_append_plain,
-    histogram.histogram_vertex_hashes_plain,
+    histogram.histogram_vertex_hashes_plain, occ.sort_occurrences_plain,
 )
 
 
@@ -247,9 +251,11 @@ class _Checkpoint(RoundCheckpoint):
     """Sort-engine round checkpoint: each round's junction table and raw
     occurrences (twopaco_tpu sortpipe.py:901)."""
 
-    def __init__(self, directory, config, n_slots, intervals, fingerprint=None):
+    def __init__(self, directory, config, n_slots, intervals, fingerprint=None,
+                 read_only: bool = False):
         super().__init__(
-            directory, _checkpoint_meta(config, n_slots, intervals, fingerprint)
+            directory, _checkpoint_meta(config, n_slots, intervals, fingerprint),
+            read_only=read_only,
         )
 
     def load_round(self, r: int):
@@ -261,7 +267,8 @@ class _Checkpoint(RoundCheckpoint):
         return (arrays["table"], arrays["occ_pos"], arrays["occ_ids"]), rstats
 
     def save_round(self, r, entry, rstats) -> None:
-        table, occ_pos, occ_ids = entry
+        """Rounds are stored raw (sorted-key entries are decoded)."""
+        table, occ_pos, occ_ids = raw_entry(entry)
         super().save_round(r, rstats, table=table, occ_pos=occ_pos, occ_ids=occ_ids)
 
 
@@ -301,6 +308,12 @@ def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: Run
     the `read`, `windows` and `upload` times in stats.
 
     -> (sequences, batches, uploads = [(packed, nmask, valid)] on dev)"""
+    sequences, batches = read_batches(input_paths, sequences, config, stats)
+    return sequences, batches, upload_batches(batches, dev, stats)
+
+
+def read_batches(input_paths, sequences, config: PipelineConfig, stats: RunStats):
+    """load_batches' host half: -> (sequences, window batches)."""
     t0 = time.time()
     if sequences is None:
         sequences = [
@@ -314,8 +327,14 @@ def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: Run
     stats.timings["windows"] = time.time() - t0
     if not batches:
         raise ValueError(f"no input sequence has {config.k} or more chars")
+    return sequences, batches
+
+
+def upload_batches(batches, dev, stats: RunStats, rows: slice = slice(None)):
+    """The batches' rows `rows`, packed and uploaded to dev (the `upload`
+    time is added to stats). -> [(packed, nmask, valid)]"""
     t0 = time.time()
-    packed_np = [pack.pack_codes_host(b.codes) for b in batches]
+    packed_np = [pack.pack_codes_host(b.codes[rows]) for b in batches]
     upload = sum(p.nbytes + m.nbytes for p, m in packed_np)
     free = _free_bytes(dev)
     if free is not None and upload > free:
@@ -327,13 +346,13 @@ def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: Run
         (
             torch.from_numpy(p).to(dev),
             torch.from_numpy(m).to(dev),
-            torch.from_numpy(b.valid).to(dev),
+            torch.from_numpy(np.ascontiguousarray(b.valid[rows])).to(dev),
         )
         for (p, m), b in zip(packed_np, batches)
     ]
     _sync(dev)
-    stats.timings["upload"] = time.time() - t0
-    return sequences, batches, uploads
+    stats.timings["upload"] = stats.timings.get("upload", 0.0) + time.time() - t0
+    return uploads
 
 
 def build_junctions_sorted(
@@ -370,11 +389,8 @@ def build_junctions_sorted(
     n_slots = nb * bp
     # beyond 2^32 flat positions (~4.2 Gbases) the merge keys need more
     # than 32 position bits; TWOPACO_POS64=1 forces that layout for tests
-    wide = (
-        n_slots >= 1 << 32
-        or config.force_wide
-        or os.environ.get("TWOPACO_POS64") == "1"
-    )
+    wide = wide_layout(config, n_slots)
+    id_bits = key_id_bits(n_slots, len(sequences), wide)
     log(
         f"Engine = sort-join ({dev.type})\nVertex length = {k}\n"
         f"Record slots = {n_slots}\nCapacity = {w} words"
@@ -561,12 +577,14 @@ def build_junctions_sorted(
             sw, spay, spos, config.abundance
         )
         del sw, spay, spos
+        occ_d = finish_occurrences(ops, occ_pos_d, occ_id_d, id_bits, n_slots)
+        del occ_pos_d, occ_id_d
         _sync(dev)
         t_judge = time.time() - t0
 
         t0 = time.time()
-        entry = (table_d.cpu().numpy(), occ_pos_d.cpu().numpy(), occ_id_d.cpu().numpy())
-        del table_d, occ_pos_d, occ_id_d
+        entry = fetch_entry(table_d, occ_d, id_bits)
+        del table_d, occ_d
         t_fetch = time.time() - t0
         fetched.append(entry)
         stats.rounds.append(
@@ -597,29 +615,95 @@ def build_junctions_sorted(
 # ---- the host tail ---------------------------------------------------
 
 
+def wide_layout(config: PipelineConfig, n_slots: int) -> bool:
+    """Beyond 2^32 flat positions (~4.2 Gbases) the merge keys need more
+    than 32 position bits; TWOPACO_POS64=1 (or config.force_wide) forces
+    that layout on any input, for tests."""
+    return (
+        n_slots >= 1 << 32
+        or config.force_wide
+        or os.environ.get("TWOPACO_POS64") == "1"
+    )
+
+
+def merge_pos_bits(n_slots: int, wide: bool) -> int:
+    """Position bits of the merge's u64 keys (the rest hold the id)."""
+    return 32 if not wide else max(n_slots.bit_length(), 33)
+
+
+def _packed_merge(total_j: int, n_sequences: int, id_bits: int) -> bool:
+    """The merge takes its packed u64 path: every global id, stubs
+    included, fits id_bits - 1 bits."""
+    return total_j + 2 * n_sequences + 64 < (1 << (id_bits - 1))
+
+
+def key_id_bits(n_slots: int, n_sequences: int, wide: bool) -> int | None:
+    """id_bits of the sorted u64 keys a round hands the merge
+    (passes/occ.py), or None when the round stays raw: keys only when the
+    merge takes its packed path whatever the junction count (at most one
+    junction a slot)."""
+    id_bits = 64 - merge_pos_bits(n_slots, wide)
+    return id_bits if _packed_merge(n_slots, n_sequences, id_bits) else None
+
+
+def finish_occurrences(ops, occ_pos, occ_id, id_bits: int | None, n_slots: int):
+    """A judged round's occurrences as the merge takes them, on the
+    device: (keys, bad) from ops.occ when id_bits is set, else (occ_pos,
+    occ_id) as they are."""
+    if id_bits is None:
+        return occ_pos, occ_id
+    return ops.occ(occ_pos, occ_id, id_bits=id_bits, pos_limit=n_slots)
+
+
+def fetch_entry(table_d, occ_d, id_bits: int | None):
+    """The merge entry of a judged round (D2H): (table, occ_pos, occ_ids)
+    raw, or (table, OccKeys, None) for sorted keys; raises when the
+    occurrence sort flagged a position or id that does not fit its key."""
+    a, b = occ_d
+    table = table_d.cpu().numpy()
+    if id_bits is None:
+        return table, a.cpu().numpy(), b.cpu().numpy()
+    if int(b):
+        raise RuntimeError(
+            f"{int(b)} occurrences with a position or id outside the merge key "
+            "(corrupt round)"
+        )
+    return table, OccKeys(a.cpu().numpy().view(np.uint64), id_bits), None
+
+
+def raw_entry(entry):
+    """-> (table, occ_pos int64, signed local ids) of any merge entry."""
+    table, occ_pos, occ_ids = entry
+    if isinstance(occ_pos, OccKeys):
+        occ_pos, occ_ids = occ_pos.decode()
+    return table, occ_pos, occ_ids
+
+
 def merge_fetched(
     fetched, batches, config, out_path, stats, log, t_start,
     *, n_slots: int, wide: bool, n_sequences: int,
 ) -> Enumerator:
     """Merge the rounds and write the junction list (twopaco_tpu
-    sortpipe.py:1467). fetched = [(table (nj, w) uint32 sorted, occ_pos
-    int64, occ_ids = +-(1-based row of table))] per round; the rounds'
-    k-mer sets are disjoint. Picks the packed u64 merge when every id and
-    position fits one key, else the unpacked int64 merge.
+    sortpipe.py:1467). fetched = one entry a round (or a shard's block of
+    one): (table (nj, w) uint32 sorted, occ_pos int64, occ_ids = +-(1-based
+    row of table)) raw, or (table, OccKeys, None) with the occurrences as
+    position-sorted u64 keys (passes/occ.py); the entries' k-mer sets are
+    disjoint. Picks the packed u64 merge when every id and position fits
+    one key, else the unpacked int64 merge.
 
     u64 keys: position in the high pos_bits, biased signed id below.
     Inputs under 2^32 slots split 32/32 (u32 views: fast paths); wide
     runs split at the position width while the ids still fit."""
-    total_j = sum(len(t) for t, _, _ in fetched)
-    pos_bits = 32 if not wide else max(n_slots.bit_length(), 33)
-    id_bits = 64 - pos_bits
-    if total_j + 2 * n_sequences + 64 < (1 << (id_bits - 1)):
+    total_j = sum(len(e[0]) for e in fetched)
+    pos_bits = merge_pos_bits(n_slots, wide)
+    if _packed_merge(total_j, n_sequences, 64 - pos_bits):
         return merge_rounds_packed(
             fetched, batches, config, out_path, stats, log, t_start,
             pos_bits=pos_bits,
         )
+    raw = [raw_entry(e) for e in fetched]
     return merge_rounds_and_emit(
-        [t for t, _, _ in fetched], [(p, i) for _, p, i in fetched],
+        [t for t, _, _ in raw], [(p, i) for _, p, i in raw],
         batches, config, out_path, stats, log, t_start,
     )
 
@@ -648,60 +732,11 @@ def merge_rounds_packed(
     0, and on a position past pos_bits."""
     id_bits = 64 - pos_bits
     t0 = time.time()
-    tables = [t for t, _, _ in fetched if len(t)]
-    if tables:
-        cat = np.concatenate(tables)
-        keys = _merge_keys(cat, config.w)
-        order = np.argsort(keys)
-        table = np.ascontiguousarray(cat[order])
-        sorted_keys = keys[order]
-        if len(sorted_keys) > 1 and not bool((sorted_keys[1:] > sorted_keys[:-1]).all()):
-            raise AssertionError(
-                "duplicate junction keys across rounds — hash intervals "
-                "must partition the k-mer space"
-            )
-        del sorted_keys
-        inv = np.empty(len(keys), np.int64)
-        inv[order] = np.arange(len(keys), dtype=np.int64)
-    else:
-        table = np.zeros((0, config.w), np.uint32)
-        inv = np.zeros(0, np.int64)
-
-    total_o = sum(len(oi) for _, _, oi in fetched)
-    buf = big_empty(total_o, np.uint64)
-    ofs = row_ofs = 0
-    bias = np.int64(1) << (id_bits - 1)
-    for rtab, pos, oi in fetched:
-        remap = inv[row_ofs : row_ofs + len(rtab)]
-        row_ofs += len(rtab)
-        n = len(oi)
-        if n == 0:
-            continue
-        idx = np.abs(oi.astype(np.int64)) - 1
-        # a corrupt id would otherwise point at a plausible junction
-        if int(idx.max()) >= len(remap):
-            raise RuntimeError(
-                f"occurrence id out of range: max index {int(idx.max())} >= "
-                f"table size {len(remap)}"
-            )
-        if int(idx.min()) < 0:
-            raise RuntimeError("occurrence id 0 (corrupt round)")
-        if int(pos.max()) >> pos_bits or int(pos.min()) < 0:
-            raise RuntimeError(f"occurrence position outside {pos_bits} bits")
-        gid = remap[idx] + 1
-        np.negative(gid, where=oi < 0, out=gid)
-        gid += bias
-        seg64 = buf[ofs : ofs + n]
-        if pos_bits == 32:
-            # the two u32 halves through a view (little-endian: [0] = id)
-            seg = seg64.view(np.uint32).reshape(-1, 2)
-            seg[:, 1] = pos
-            seg[:, 0] = gid
-        else:
-            np.left_shift(pos.astype(np.int64).view(np.uint64), np.uint64(id_bits), out=seg64)
-            np.bitwise_or(seg64, gid.view(np.uint64), out=seg64)
-        ofs += n
-    buf.sort()
+    table, inv = merge_tables(fetched, config.w)
+    buf = packed_occurrences(fetched, inv, pos_bits)
+    # sorted-key entries arrive as sorted runs: timsort ("stable") merges
+    # them, 5-10x faster than the default quicksort here (PERF.md)
+    buf.sort(kind="stable")
     stats.timings["merge"] = time.time() - t0
 
     stats.distinct_junctions = len(table)
@@ -719,6 +754,85 @@ def merge_rounds_packed(
     stats.timings["total"] = time.time() - t_start
     log(f"Distinct junctions = {enum.vertices_count}")
     return enum
+
+
+def merge_tables(fetched, w: int):
+    """-> (the global table: the entries' tables sorted, inv: entry table
+    row (concatenated in entry order) -> global row). Raises on a k-mer in
+    two entries."""
+    tables = [t for t, _, _ in fetched if len(t)]
+    if not tables:
+        return np.zeros((0, w), np.uint32), np.zeros(0, np.int64)
+    cat = np.concatenate(tables)
+    keys = _merge_keys(cat, w)
+    order = np.argsort(keys)
+    sorted_keys = keys[order]
+    if len(sorted_keys) > 1 and not bool((sorted_keys[1:] > sorted_keys[:-1]).all()):
+        raise AssertionError(
+            "duplicate junction keys across rounds — hash intervals "
+            "must partition the k-mer space"
+        )
+    inv = np.empty(len(keys), np.int64)
+    inv[order] = np.arange(len(keys), dtype=np.int64)
+    return np.ascontiguousarray(cat[order]), inv
+
+
+def packed_occurrences(fetched, inv, pos_bits: int) -> np.ndarray:
+    """Every entry's occurrences as u64 keys with global ids, unsorted
+    across entries: (n_occ,) uint64. inv maps the entries' concatenated
+    table rows to global rows. A raw entry's keys are built here; a
+    sorted-key entry only has its low id_bits rewritten, so it stays one
+    position-sorted run."""
+    id_bits = 64 - pos_bits
+    id_mask = np.uint64((1 << id_bits) - 1)
+    buf = big_empty(sum(len(e[1]) for e in fetched), np.uint64)
+    ofs = row_ofs = 0
+    bias = np.int64(1) << (id_bits - 1)
+    for rtab, pos, oi in fetched:
+        remap = inv[row_ofs : row_ofs + len(rtab)]
+        row_ofs += len(rtab)
+        n = len(pos)
+        if n == 0:
+            continue
+        seg64 = buf[ofs : ofs + n]
+        keyed = isinstance(pos, OccKeys)
+        if keyed:
+            if pos.id_bits != id_bits:
+                raise ValueError(f"keys of {pos.id_bits} id bits in a {id_bits}-bit merge")
+            seg64[:] = pos.keys
+            if id_bits == 32:  # little-endian: u32 [0] = id
+                oi = seg64.view(np.uint32).reshape(-1, 2)[:, 0].astype(np.int64) - bias
+            else:
+                oi = (seg64 & id_mask).view(np.int64) - bias
+        idx = np.abs(oi.astype(np.int64)) - 1
+        # a corrupt id would otherwise point at a plausible junction
+        if int(idx.max()) >= len(remap):
+            raise RuntimeError(
+                f"occurrence id out of range: max index {int(idx.max())} >= "
+                f"table size {len(remap)}"
+            )
+        if int(idx.min()) < 0:
+            raise RuntimeError("occurrence id 0 (corrupt round)")
+        if not keyed and (int(pos.max()) >> pos_bits or int(pos.min()) < 0):
+            raise RuntimeError(f"occurrence position outside {pos_bits} bits")
+        gid = remap[idx] + 1
+        np.negative(gid, where=oi < 0, out=gid)
+        gid += bias
+        if pos_bits == 32:
+            # the two u32 halves through a view (little-endian: [0] = id)
+            seg = seg64.view(np.uint32).reshape(-1, 2)
+            if not keyed:
+                seg[:, 1] = pos
+            seg[:, 0] = gid
+        else:
+            if keyed:
+                np.bitwise_and(seg64, ~id_mask, out=seg64)
+            else:
+                np.left_shift(pos.astype(np.int64).view(np.uint64), np.uint64(id_bits),
+                              out=seg64)
+            np.bitwise_or(seg64, gid.view(np.uint64), out=seg64)
+        ofs += n
+    return buf
 
 
 def merge_rounds_and_emit(
