@@ -52,7 +52,28 @@
    one-rank NCCL group, and the 4-shard run through the plain versions;
    and times the merge's final occurrence sort both ways (np.sort
    default and kind="stable") on the sort engine's and the 4-shard run's
-   occurrences.
+   occurrences;
+11. holds the dist-bloom engine's four kernels (bloom_shard.cu: bucket,
+   fill, probe, mark finish) against their plain versions at one slice
+   batch's shard, the sharded filter filled with the whole slice: byte
+   layout at f=30 over 4 shards of the card (the whole filter also filled
+   by the plain versions and compared, and the batch's mask equal to the
+   Bloom engine's), bit layout at f=36 (64-bit global and local slots), 3
+   shards (255 rows a batch), and a tiny cap whose overflow counts must
+   match;
+12. runs the slice through the dist-bloom engine, each with the counters
+   reset just before and read just after, each launching the four
+   entries and the dist engine's kernels and writing SLICE_SHA256:
+   build_junctions_dist(bloom_gate=True) over 4 shards of the card at -f 30
+   and at -f 36 (the bit layout, 8 GiB of filter, which the Bloom engine
+   refuses on one card) at -r 1 and -r 4, the CLI's `--tpu-engine
+   dist-bloom -f 30` (one shard), build_junctions_multihost(bloom_gate=True)
+   in a one-rank NCCL child process, and the 4-shard -f 30 run through the
+   plain versions.
+
+Every kernel comparison also prints the kernel's bound (the larger of the
+bytes it must move over 3.35 TB/s and its integer operations over 67 T/s)
+and, where one PyTorch call computes the same function, that call's time.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
 package is missing, or if any phase fails. The last line of standard
@@ -112,6 +133,14 @@ REPLACES = {
                       "twopaco_tpu/passes/sortpipe.py:375"),
     "sort_occurrences": ("twopaco_tpu_torch/kernels/csrc/occ_pack.cu",
                          "twopaco_tpu/passes/sortpipe.py:762"),
+    "shard_bucket": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
+                     "twopaco_tpu/parallel/sharded.py:112"),
+    "shard_fill": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
+                   "twopaco_tpu/parallel/sharded.py:143"),
+    "shard_probe": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
+                    "twopaco_tpu/parallel/sharded.py:149"),
+    "shard_mark_finish": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
+                          "twopaco_tpu/parallel/sharded.py:155"),
 }
 # the run whose launch counts each kernel reports: its own path
 PATH_OF = {
@@ -120,12 +149,16 @@ PATH_OF = {
     "histogram": "histogram", "bloom_fill": "bloom_byte", "bloom_mark": "bloom_byte",
     "bloom_extract": "bloom_byte", "bloom_lookup": "bloom_byte",
     "route": "dist_r1", "word0_histogram": "dist_r1", "judge_records": "step",
-    "sort_occurrences": "dist_r1",
+    "sort_occurrences": "dist_r1", "shard_bucket": "dist_bloom_r1",
+    "shard_fill": "dist_bloom_r1", "shard_probe": "dist_bloom_r1",
+    "shard_mark_finish": "dist_bloom_r1",
 }
 D4 = 4  # shards of the card in the distributed runs
 # the kernels each distributed path must launch
 DIST_PATH = ("word0_histogram", "build_records", "route", "compact", "sort_records",
              "judge_compact", "sort_occurrences")
+DIST_BLOOM_PATH = (*DIST_PATH, "shard_bucket", "shard_fill", "shard_probe",
+                   "shard_mark_finish")
 MH_CHILD = r"""
 import json, sys, time
 import torch
@@ -136,7 +169,8 @@ spec = json.loads(sys.argv[1])
 build.reset_launch_counts()
 t0 = time.time()
 enum = multihost.build_junctions_multihost(
-    [spec["fa"]], PipelineConfig(**spec["config"]), out_path=spec["out"], device="cuda")
+    [spec["fa"]], PipelineConfig(**spec["config"]), out_path=spec["out"], device="cuda",
+    bloom_gate=spec["bloom_gate"])
 torch.cuda.synchronize()
 import torch.distributed as dist
 print("MH_RESULT " + json.dumps(dict(
@@ -154,6 +188,12 @@ BLOOM_RUNS = {
 }
 BLOOM_PATH = ("bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
               "judge_compact", "bloom_lookup")
+
+
+# one H100 SXM's published peaks (NVIDIA's data sheet, at a 700 W limit):
+# 3.35 TB/s of HBM, 67 TFLOP/s of float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -218,6 +258,8 @@ def max_abs_err(got, want) -> int:
         require(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
         if a.dtype == torch.uint32 and torch.equal(a.view(torch.int32), b.view(torch.int32)):
             continue  # equal (and a GiB-sized filter needs no int64 copy)
+        if a.dtype != torch.uint32 and torch.equal(a, b):
+            continue
         if a.dtype == torch.uint32:
             a, b = pack.as_i64(a), pack.as_i64(b)
         if a.numel():
@@ -225,23 +267,54 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def compare(name, kernel, plain, reps, results):
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (nested tuples and lists included)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif hasattr(t, "element_size"):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(n_bytes: int, ops: int = 0):
+    """The least time the card could take: (ms, "bytes" or "operations"),
+    the larger of the bytes over the memory rate and the operations over
+    the peak rate for their type (integer work counted at the float32
+    CUDA-core rate)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name, kernel, plain, reps, results, in_bytes=0, ops=0, out_bytes=None,
+            library=None):
     """Run kernel and plain on the same inputs: exact agreement, and
-    times taken in turns (plain, kernel, kernel, plain)."""
+    times taken in turns (plain, kernel, kernel, plain). The bound counts
+    in_bytes read, out_bytes written (default: the kernel's outputs) and
+    ops integer operations; library: one PyTorch call computing the same
+    function, timed beside them (never used by the port)."""
     import torch
 
-    err = max_abs_err(kernel(), plain())
+    got = kernel()
+    err = max_abs_err(got, plain())
     torch.cuda.synchronize()
     require(err == 0, f"{name}: kernel disagrees with its plain version (max abs err {err})")
+    bound_ms, bound_by = bound(in_bytes + (nbytes(got) if out_bytes is None else out_bytes), ops)
+    del got
     p1 = timed(plain, reps)
     k1 = timed(kernel, reps)
     k2 = timed(kernel, reps)
     p2 = timed(plain, reps)
-    results.setdefault(name, []).append(
-        dict(max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-    )
+    lib_ms = timed(library, reps) if library is not None else None
+    results.setdefault(name, []).append(dict(
+        max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms,
+    ))
     print(f"compare {name}: exact, kernel {(k1 + k2) / 2:.3f} ms, "
-          f"plain {(p1 + p2) / 2:.3f} ms")
+          f"plain {(p1 + p2) / 2:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+          + (f", library {lib_ms:.3f} ms" if lib_ms is not None else ""))
 
 
 def phase(name):
@@ -334,11 +407,11 @@ def main() -> int:
         from twopaco_tpu_torch.kernels import build
         from twopaco_tpu_torch.ops import pack
         from twopaco_tpu_torch.ops import bloom
-        from twopaco_tpu_torch.parallel import distpipe, sortshard
+        from twopaco_tpu_torch.parallel import distpipe, sharded, sortshard
         from twopaco_tpu_torch.parallel.mesh import LocalMesh
         from twopaco_tpu_torch.passes import (
             bloompipe, extract, fill, histogram, judge, lookup, mark, occ, partition,
-            records, route, sort, sortpipe, stream,
+            records, route, shardbloom, sort, sortpipe, stream,
         )
         from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
@@ -396,7 +469,7 @@ def main() -> int:
             "build_records",
             lambda: records.build_sort_records(*args, 0, k=k, P=P, low=low, high=high),
             lambda: records.build_sort_records_plain(*args, 0, k=k, P=P, low=low, high=high),
-            10, results,
+            10, results, in_bytes=nbytes(args), ops=B * P * 6 * k,
         )
     cfg101 = PipelineConfig(k=101, positions_per_row=P, rows_per_batch=B)
     b101 = next(windows.iter_window_batches(iter(seqs), cfg101.window_config()))
@@ -405,7 +478,7 @@ def main() -> int:
         "build_records_k101",
         lambda: records.build_sort_records(*args101, 0, k=101, P=P),
         lambda: records.build_sort_records_plain(*args101, 0, k=101, P=P),
-        5, results,
+        5, results, in_bytes=nbytes(args101), ops=B * P * 6 * 101,
     )
     # the slice's whole round buffer, built as the main path builds it
     w = cfg.w
@@ -421,8 +494,19 @@ def main() -> int:
             out=tuple(t[off : off + B * P] for t in buf),
         )
     torch.cuda.synchronize()
+    # the library call: a stable torch.sort of the records' packed u64 keys
+    # (w = 2 words, made signed-order), then the three gathers
+    key = ((pack.as_i64(buf[0][:, 0]) - (1 << 31)) << 32) | pack.as_i64(buf[0][:, 1])
+
+    def sort_library():
+        order = torch.sort(key, stable=True).indices
+        return (buf[0].view(torch.int32).index_select(0, order),
+                buf[1].view(torch.int32).index_select(0, order), buf[2].index_select(0, order))
+
     compare("sort_records", lambda: sort.sort_records(*buf),
-            lambda: sort.sort_records_plain(*buf), 3, results)
+            lambda: sort.sort_records_plain(*buf), 3, results, in_bytes=nbytes(buf),
+            library=sort_library if w == 2 else None)
+    del key
     srt = sort.sort_records(*buf)
     del buf
     for ab in (judge.NO_ABUNDANCE, 4):
@@ -430,7 +514,7 @@ def main() -> int:
             "judge_compact",
             lambda: judge.judge_compact(*srt, ab),
             lambda: judge.judge_compact_plain(*srt, ab),
-            3, results,
+            3, results, in_bytes=nbytes(srt),
         )
     slice_table, slice_occ_pos, slice_occ_id = (
         t.clone() for t in judge.judge_compact(*srt)[:3])  # Bloom lookup, occurrence sort
@@ -448,7 +532,7 @@ def main() -> int:
             "histogram",
             lambda: histogram.histogram_vertex_hashes(*args, k=k, P=P, stride=stride),
             lambda: histogram.histogram_vertex_hashes_plain(*args, k=k, P=P, stride=stride),
-            10, results,
+            10, results, in_bytes=nbytes(args), ops=B * P // stride * 4 * k,
         )
     hist_k = histogram.histogram_scan(uploads, k=k, P=P, stride=hist_stride)
     hist_p = histogram.histogram_scan(
@@ -466,7 +550,7 @@ def main() -> int:
                                           part_cap=part_cap),
         lambda: partition.partition_batch_plain(*args, highs_d, 0, 0xFFFFFFFF, k=k,
                                                 P=P, part_cap=part_cap),
-        5, results,
+        5, results, in_bytes=nbytes(args, highs_d), ops=B * P * 6 * k,
     )
     *blocks, counts = partition.partition_scan(
         uploads, highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=part_cap)
@@ -488,6 +572,7 @@ def main() -> int:
             lambda: partition.assemble_round(r, *blocks, bases_d, asm_slots),
             lambda: partition.assemble_round_plain(r, *blocks, bases_d, asm_slots),
             5 if r == 0 else 1, results,
+            in_bytes=int(counts[:, r].sum()) * sortpipe.block_bytes(w) + nbytes(bases_d),
         )
     del blocks
     # stream compaction: one batch's round-0 records appended, then a
@@ -502,7 +587,8 @@ def main() -> int:
                  *buf_k, st_k)[2:],
         lambda: (st_p.zero_(), stream.compact_append_plain(*recs, buf_p, st_p, st_slots - bp),
                  *buf_p, st_p)[2:],
-        10, results,
+        10, results, in_bytes=nbytes(recs),
+        out_bytes=int((pack.as_i64(recs[1]) >> 17 & 1).sum()) * (4 * w + 12) + nbytes(st_k),
     )
     del buf_k, buf_p
     rounds = [
@@ -533,7 +619,7 @@ def main() -> int:
         compare("route",
                 lambda: route.route_records(*recs4, D4, route_cap, bounds=bnd),
                 lambda: route.route_records_plain(*recs4, D4, route_cap, bounds=bnd),
-                10, results)
+                10, results, in_bytes=nbytes(recs4, bnd))
     sent = route.route_records(*recs4, D4, route_cap, bounds=bounds_d)
     require(int(sent[3]) == 0, "route: the slice's shard overflowed its cap")
     print("route: per-shard records of batch 0, shard 0: "
@@ -541,7 +627,8 @@ def main() -> int:
     del recs4, sent
     compare("word0_histogram",
             lambda: histogram.word0_histogram(*args, k=k, P=P),
-            lambda: histogram.word0_histogram_plain(*args, k=k, P=P), 10, results)
+            lambda: histogram.word0_histogram_plain(*args, k=k, P=P), 10, results,
+            in_bytes=nbytes(args), ops=B * P * 2 * k)
     # a batch of the slice's shapes whose rows are the first B/8 rows of
     # each genome (a slice batch holds one genome: no junction in it)
     mix = next(windows.iter_window_batches(
@@ -549,13 +636,18 @@ def main() -> int:
     args_mix = upload(mix)
     bsrt = sort.sort_records(*records.build_sort_records(*args_mix, 0, k=k, P=P))
     compare("judge_records", lambda: judge.judge_records(*bsrt[:2]),
-            lambda: judge.judge_records_plain(*bsrt[:2]), 10, results)
+            lambda: judge.judge_records_plain(*bsrt[:2]), 10, results,
+            in_bytes=nbytes(bsrt[:2]))
+    # the library call: torch.sort of the occurrences' int64 merge keys
+    okey = (slice_occ_pos << 32) | (slice_occ_id.to(torch.int64) + (1 << 31))
     compare("sort_occurrences",
             lambda: occ.sort_occurrences(slice_occ_pos, slice_occ_id, id_bits=32,
                                          pos_limit=n_slots),
             lambda: occ.sort_occurrences_plain(slice_occ_pos, slice_occ_id, id_bits=32,
                                                pos_limit=n_slots),
-            5, results)
+            5, results, in_bytes=nbytes(slice_occ_pos, slice_occ_id),
+            library=lambda: torch.sort(okey))
+    del okey
     print(f"sort_occurrences: the -r 1 round's {slice_occ_pos.shape[0]} occurrences")
     del slice_occ_pos, slice_occ_id
 
@@ -702,16 +794,28 @@ def main() -> int:
         for u in uploads:
             fill.bloom_fill(filt_k, *u, *full, cfg=bcfg)
             fill.bloom_fill_plain(filt_p, *u, *full, cfg=bcfg)
+        # the bound's filter traffic: one slot a distinct insert (fill), one
+        # probe a position in the round (mark); hashing: 4 operations a char
+        # a table
+        codes0 = fill.batch_codes(args[0], args[1], bcfg)
+        slot_b = 1 if lay == "byte" else 4
+        if lay == "block":
+            n_ins = int(fill.fill_indices_block(codes0, args[2], *full, bcfg)[2].sum()) * bcfg.q
+        else:
+            n_ins = int(fill.fill_indices(codes0, args[2], *full, bcfg)[1].sum())
+        n_base = int(mark.mark_common(codes0, args[2], *full, bcfg, fill.ALL_TABLES[:1])[2].sum())
+        hash_ops = B * P * len(fill.tables(bcfg)) * 4 * k
+        del codes0
         # OR is idempotent: every repeat of a fill leaves the same filter
         compare("bloom_fill",
                 lambda: (fill.bloom_fill(filt_k, *args, *full, cfg=bcfg),),
                 lambda: (fill.bloom_fill_plain(filt_p, *args, *full, cfg=bcfg),),
-                5, results)
+                5, results, in_bytes=nbytes(args), out_bytes=n_ins * slot_b, ops=hash_ops)
         del filt_p
         compare("bloom_mark",
                 lambda: mark.bloom_mark(filt_k, *args, *full, cfg=bcfg),
                 lambda: mark.bloom_mark_plain(filt_k, *args, *full, cfg=bcfg),
-                5, results)
+                5, results, in_bytes=nbytes(args) + n_base * slot_b, ops=hash_ops)
         bmask, bcount = mark.bloom_mark(filt_k, *args, *full, cfg=bcfg)
         print(f"Bloom {lay} f={bcfg.f}: filter {filt_k.numel() * filt_k.element_size()} "
               f"bytes, {int(bcount)} candidates of {B * P} positions")
@@ -727,7 +831,8 @@ def main() -> int:
         lambda: (st_p.zero_(), extract.extract_records_plain(args[0], args[1], mask0, buf_p,
                                                              st_p, 0, k=k, P=P),
                  *buf_p, st_p)[2:],
-        10, results,
+        10, results, in_bytes=nbytes(args[:2], mask0), out_bytes=count0 * (4 * w + 12),
+        ops=count0 * 6 * k,
     )
     require(st_k.tolist() == [count0, 0], f"extract state {st_k.tolist()}")
     del buf_k, buf_p
@@ -735,7 +840,7 @@ def main() -> int:
         "bloom_lookup",
         lambda: lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P),
         lambda: lookup.pass4_lookup_plain(*args, mask0, slice_table, count0, k=k, P=P),
-        10, results,
+        10, results, in_bytes=nbytes(args, mask0) + count0 * 4 * w, ops=count0 * 6 * k,
     )
     n_hit = int(lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P)[2])
     require(n_hit > 0, "lookup found no junction in the first batch")
@@ -775,16 +880,21 @@ def main() -> int:
 
     phase(f"slice: the distributed engine ({D4} shards of the card, the CLI, multi-process)")
 
-    def dist_run(tag, rounds, reference=False):
-        """build_junctions_dist over mesh4 -> entries handed to the merge."""
+    def dist_run(tag, rounds, reference=False, filter_bits=None):
+        """build_junctions_dist over mesh4 (with the Bloom gate of a
+        2^filter_bits-slot filter when given) -> (entries handed to the
+        merge, log lines)."""
         out_d = os.path.join(WORK, f"slice_{tag}.dbg")
         lines = []
+        gate = dict(filter_bits=filter_bits) if filter_bits else {}
         build.reset_launch_counts()
         t0 = time.time()
         with capture_merge({}) as got:
             enum = distpipe.build_junctions_dist(
-                [fa], PipelineConfig(k=k, rounds=rounds, positions_per_row=P, rows_per_batch=B),
-                mesh4, out_d, log=lines.append, device=dev, reference=reference)
+                [fa], PipelineConfig(k=k, rounds=rounds, positions_per_row=P, rows_per_batch=B,
+                                     **gate),
+                mesh4, out_d, log=lines.append, device=dev, reference=reference,
+                bloom_gate=bool(filter_bits))
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches[tag] = build.launch_counts()
@@ -793,7 +903,8 @@ def main() -> int:
             f"{n}={enum.stats.timings[n]:.3f}" for n in (*distpipe.PHASES, "total")))
         lines = "\n".join(lines).splitlines()
         for line in lines:
-            if line.startswith("Splitting") or (line.startswith("Round ") and "seconds" in line):
+            if line.startswith(("Splitting", "Filter size", "Candidate marks")) or (
+                    line.startswith("Round ") and "seconds" in line):
                 print(f"{tag}   {line}")
         require(sha256(out_d) == slice_sha, f"{tag}: .dbg differs from SLICE_SHA256")
         print(f"{tag}: {bases_n} bases in {wall:.3f} s wall = {bases_n / wall / 1e6:.2f} "
@@ -818,26 +929,33 @@ def main() -> int:
     require(sha256(out_c) == slice_sha, "dist_cli: .dbg differs from SLICE_SHA256")
     print("dist_cli: .dbg is SLICE_SHA256")
 
-    out_m = os.path.join(WORK, "slice_multihost.dbg")
-    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
-               MASTER_PORT=str(free_port()))
-    spec = dict(fa=fa, out=out_m, config=dict(k=k, positions_per_row=P, rows_per_batch=B))
-    t0 = time.time()
-    child = subprocess.run([sys.executable, "-c", MH_CHILD, json.dumps(spec)], cwd=ROOT,
-                           env=env, capture_output=True, text=True, timeout=600)
-    res = [line for line in child.stdout.splitlines() if line.startswith("MH_RESULT ")]
-    require(child.returncode == 0 and res,
-            f"multihost child exited {child.returncode}:\n{child.stdout[-3000:]}"
-            f"{child.stderr[-3000:]}")
-    mh = json.loads(res[-1][len("MH_RESULT "):])
-    launches["multihost"] = mh["launches"]
-    print(f"multihost: {mh['world']} rank over {mh['backend']}, launches {mh['launches']}, "
-          f"run {mh['wall']:.3f} s ({time.time() - t0:.3f} s with the process start) {label}")
-    for name in DIST_PATH:
-        require(mh["launches"].get(name, 0) > 0, f"multihost: no launch of {name}")
-    require(mh["backend"] == "nccl", f"multihost ran over {mh['backend']}, not NCCL")
-    require(sha256(out_m) == slice_sha, "multihost: .dbg differs from SLICE_SHA256")
-    print("multihost: .dbg is SLICE_SHA256")
+    def multihost_run(tag, kernels, **config):
+        """build_junctions_multihost in a child process under a one-rank
+        NCCL group, the launch counters read in the child."""
+        out_m = os.path.join(WORK, f"slice_{tag}.dbg")
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        spec = dict(fa=fa, out=out_m, bloom_gate="filter_bits" in config,
+                    config=dict(k=k, positions_per_row=P, rows_per_batch=B, **config))
+        t0 = time.time()
+        child = subprocess.run([sys.executable, "-c", MH_CHILD, json.dumps(spec)], cwd=ROOT,
+                               env=env, capture_output=True, text=True, timeout=600)
+        res = [line for line in child.stdout.splitlines() if line.startswith("MH_RESULT ")]
+        require(child.returncode == 0 and res,
+                f"{tag} child exited {child.returncode}:\n{child.stdout[-3000:]}"
+                f"{child.stderr[-3000:]}")
+        mh = json.loads(res[-1][len("MH_RESULT "):])
+        launches[tag] = mh["launches"]
+        print(f"{tag}: {mh['world']} rank over {mh['backend']}, launches {mh['launches']}, "
+              f"run {mh['wall']:.3f} s ({time.time() - t0:.3f} s with the process start) "
+              f"{label}")
+        for name in kernels:
+            require(mh["launches"].get(name, 0) > 0, f"{tag}: no launch of {name}")
+        require(mh["backend"] == "nccl", f"{tag} ran over {mh['backend']}, not NCCL")
+        require(sha256(out_m) == slice_sha, f"{tag}: .dbg differs from SLICE_SHA256")
+        print(f"{tag}: .dbg is SLICE_SHA256")
+
+    multihost_run("multihost", DIST_PATH)
 
     dist_run("dist_plain", 1, reference=True)
     require(launches["dist_plain"] == {}, "the plain-version run launched kernels")
@@ -846,6 +964,132 @@ def main() -> int:
     occ_sort_times("sort -r 1", sort_r1["fetched"], w, label)
     occ_sort_times(f"dist -r 1 ({D4} shards)", fetched4, w, label)
     del fetched4
+
+    phase("dist-bloom kernels vs plain versions (one slice batch, shards of the card)")
+    uploads = [upload(b) for b in batches]
+    for lay, f_bits, n_sh, rows_b, tiny in (
+        ("byte", 30, D4, B, False), ("bit", 36, D4, B, False),
+        ("byte", 30, 3, B - B % 3, False), ("byte", 30, D4, B, True),
+    ):
+        scfg = sharded.ShardedConfig(
+            base=PassConfig(k=k, f=f_bits, layout=lay, positions_per_row=P,
+                            rows_per_batch=rows_b), n_shards=n_sh)
+        meshc = LocalMesh([dev] * n_sh)
+        per = rows_b // n_sh
+        n_pos = per * P
+        nt = 4 if f_bits > 32 else 2
+        slot_b = 1 if lay == "byte" else 4
+
+        def shard_batch(u):
+            return {s: tuple(a[s * per : (s + 1) * per] for a in u) for s in meshc.shards}
+
+        b0 = shard_batch(uploads[0])
+        a0 = b0[0]
+        cap_f, cap_m = (1024, 1024) if tiny else (scfg.fill_cap, scfg.mark_cap)
+        for marking, cap in ((False, cap_f), (True, cap_m)):
+            fn, fn_p = ((shardbloom.bucket_mark, shardbloom.bucket_mark_plain) if marking
+                        else (shardbloom.bucket_fill, shardbloom.bucket_fill_plain))
+            compare("shard_bucket",
+                    lambda: fn(*a0, *full, cfg=scfg.base, n_shards=n_sh, cap=cap),
+                    lambda: fn_p(*a0, *full, cfg=scfg.base, n_shards=n_sh, cap=cap),
+                    5, results, in_bytes=nbytes(a0),
+                    ops=n_pos * (nt * 4 * k + (8 if marking else 4) * 5 * 4))
+            over_t = int(fn_p(*a0, *full, cfg=scfg.base, n_shards=n_sh, cap=cap)[-1])
+            require((over_t > 0) == tiny, f"shard_bucket cap {cap}: overflow {over_t}")
+            print(f"shard_bucket {'mark' if marking else 'fill'} {lay} f={f_bits} "
+                  f"D={n_sh} cap {cap}: overflow {over_t}, equal to the plain version's")
+        if tiny:
+            continue
+        # the whole slice into the sharded filter, as the main path fills it
+        filt = sharded.make_sharded_filter(meshc, scfg)
+        fill_k = sharded.sharded_fill_step(meshc, scfg)
+        over = None
+        for u in uploads:
+            over = fill_k(filt, shard_batch(u), *full, over)
+        require(int(meshc.all_gather(over).sum()) == 0, "sharded fill overflowed")
+        if (lay, f_bits, n_sh) == ("byte", 30, D4):
+            filt_p = sharded.make_sharded_filter(meshc, scfg)
+            fill_p = sharded.sharded_fill_step(meshc, scfg, sortshard.PLAIN)
+            over = None
+            for u in uploads:
+                over = fill_p(filt_p, shard_batch(u), *full, over)
+            err = max_abs_err([filt[s] for s in meshc.shards], [filt_p[s] for s in meshc.shards])
+            require(err == 0, f"sharded filter of the slice differs from the plain one ({err})")
+            print(f"sharded filter of the whole slice ({n_sh} shards): equal to the plain fill's")
+            del filt_p
+        # batch 0: shard 0's received fill slots, into an empty shard
+        sends = {s: (shardbloom.bucket_fill(*b0[s], *full, cfg=scfg.base, n_shards=n_sh,
+                                            cap=cap_f)[0],) for s in meshc.shards}
+        recv_f = meshc.all_to_all(sends)[0][0]
+        del sends
+        valid_f = recv_f[recv_f != shardbloom.SENT]
+        fk, fp = torch.zeros_like(filt[0]), torch.zeros_like(filt[0])
+        compare("shard_fill", lambda: (shardbloom.fill_local(fk, recv_f, lay),),
+                lambda: (shardbloom.fill_local_plain(fp, recv_f, lay),), 5, results,
+                in_bytes=nbytes(recv_f), out_bytes=valid_f.numel() * slot_b,
+                library=(lambda: fp.index_fill_(0, valid_f, 1)) if lay == "byte" else None)
+        del fk, fp
+        # batch 0's probes, exchanged, probed against the slice's filter
+        sends, slots = {}, {}
+        for s in meshc.shards:
+            send, slots[s], _o = shardbloom.bucket_mark(*b0[s], *full, cfg=scfg.base,
+                                                        n_shards=n_sh, cap=cap_m)
+            sends[s] = (send,)
+        recv_m = meshc.all_to_all(sends)
+        del sends
+        r0 = recv_m[0][0]
+        valid_m = r0[r0 != shardbloom.SENT]
+        compare("shard_probe", lambda: (shardbloom.probe_local(filt[0], r0, lay),),
+                lambda: (shardbloom.probe_local_plain(filt[0], r0, lay),), 5, results,
+                in_bytes=nbytes(r0) + valid_m.numel() * slot_b,
+                library=(lambda: filt[0].index_select(0, valid_m)) if lay == "byte" else None)
+        hits = {s: (shardbloom.probe_local(filt[s], recv_m[s][0], lay).view(n_sh, cap_m),)
+                for s in meshc.shards}
+        back = meshc.all_to_all(hits)
+        del hits, recv_m
+        compare("shard_mark_finish",
+                lambda: shardbloom.mark_finish(back[0][0], slots[0], *a0, *full, cfg=scfg.base),
+                lambda: shardbloom.mark_finish_plain(back[0][0], slots[0], *a0, *full,
+                                                     cfg=scfg.base),
+                5, results, in_bytes=nbytes(back[0][0], slots[0], a0), ops=n_pos * 4 * k)
+        marked = [shardbloom.mark_finish(back[s][0], slots[s], *b0[s], *full, cfg=scfg.base)
+                  for s in meshc.shards]
+        n_cand = sum(int(c) for _m, c in marked)
+        print(f"dist-bloom {lay} f={f_bits} D={n_sh}: shard filter "
+              f"{nbytes(filt[0])} bytes; batch 0, shard 0: {valid_f.numel()} fill slots, "
+              f"{valid_m.numel()} probes; batch 0: {n_cand} candidates")
+        if (lay, f_bits, n_sh) == ("byte", 30, D4):
+            same = torch.equal(torch.cat([m for m, _c in marked]), mask0)
+            require(same and n_cand == count0,
+                    f"sharded mark of batch 0 ({n_cand}) differs from the Bloom engine's "
+                    f"({count0})")
+            print("dist-bloom byte f=30: batch 0's mask equals the Bloom engine's")
+        del filt, back, slots, marked, recv_f, valid_f, r0, valid_m
+        torch.cuda.synchronize()
+    del uploads, mask0
+
+    phase(f"slice: the dist-bloom engine ({D4} shards of the card, the CLI, multi-process)")
+    for tag, rounds, f_bits, layout in (
+        ("dist_bloom_r1", 1, 30, "byte"), ("dist_bloom_f36", 1, 36, "bit"),
+        ("dist_bloom_f36_r4", ROUNDS, 36, "bit"),
+    ):
+        _fetched, lines = dist_run(tag, rounds, filter_bits=f_bits)
+        for name in DIST_BLOOM_PATH:
+            require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
+        require(any(f"({layout} layout" in line for line in lines), f"{tag}: not {layout}")
+        require(sum(line.startswith("Round ") and "seconds" in line for line in lines)
+                == rounds, f"{tag}: not {rounds} rounds")
+    del _fetched
+    out_c = os.path.join(WORK, "slice_dist_bloom_cli.dbg")
+    slice_run("dist_bloom_cli", ["--tpu-engine", "dist-bloom", "-k", str(k), "-f", "30", fa,
+                                 "-o", out_c], phases=distpipe.PHASES)
+    for name in DIST_BLOOM_PATH:
+        require(launches["dist_bloom_cli"].get(name, 0) > 0, f"dist_bloom_cli: no {name}")
+    require(sha256(out_c) == slice_sha, "dist_bloom_cli: .dbg differs from SLICE_SHA256")
+    print("dist_bloom_cli: .dbg is SLICE_SHA256")
+    multihost_run("multihost_bloom", DIST_BLOOM_PATH, filter_bits=30)
+    dist_run("dist_bloom_plain", 1, reference=True, filter_bits=30)
+    require(launches["dist_bloom_plain"] == {}, "the plain dist-bloom run launched kernels")
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = []
@@ -855,7 +1099,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[PATH_OF[name]][name],
             max_abs_err=max(r["max_abs_err"] for r in rs),
-            ms=rs[0]["ms"], plain_ms=rs[0]["plain_ms"],
+            **{key: rs[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
         ))
     print(card)
     print(json.dumps({"kernels": kernels}))

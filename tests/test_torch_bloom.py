@@ -87,7 +87,7 @@ def test_bloom_fill_probe(layout):
     valid = rng.random(4096) < 0.7
     jf = jbloom.fill(jbloom.make_filter(f, layout), jnp.asarray(idx.astype(np.uint32)),
                      jnp.asarray(valid), layout)
-    tf = bloom.fill(bloom.make_filter(f, layout), torch.from_numpy(idx),
+    tf = bloom.fill(bloom.make_filter(f, layout, "cpu"), torch.from_numpy(idx),
                     torch.from_numpy(valid), layout)
     assert np.array_equal(np.asarray(jf), tf.numpy())
     allidx = np.arange(1 << f)
@@ -106,8 +106,8 @@ def test_bloom_fill_idempotent_and_bit_matches_byte():
     f = 14
     idx = torch.from_numpy(rng.integers(0, 1 << f, size=3000))
     valid = torch.from_numpy(rng.random(3000) < 0.5)
-    fb = bloom.fill(bloom.make_filter(f, "byte"), idx, valid, "byte")
-    fbit = bloom.fill(bloom.make_filter(f, "bit"), idx, valid, "bit")
+    fb = bloom.fill(bloom.make_filter(f, "byte", "cpu"), idx, valid, "byte")
+    fbit = bloom.fill(bloom.make_filter(f, "bit", "cpu"), idx, valid, "bit")
     again = bloom.fill(fbit.clone(), idx, valid, "bit")
     assert torch.equal(again.view(torch.int32), fbit.view(torch.int32))
     allidx = torch.arange(1 << f)
@@ -126,7 +126,7 @@ def test_bloom_blocks():
     assert np.array_equal(_np(jbits), _t(tbits))
     jf = jbloom.fill_blocks(jbloom.make_filter(f, "block"), jnp.asarray(block.astype(np.int32)),
                             jbits, jnp.asarray(valid))
-    tf = bloom.fill_blocks(bloom.make_filter(f, "block"), torch.from_numpy(block), tbits,
+    tf = bloom.fill_blocks(bloom.make_filter(f, "block", "cpu"), torch.from_numpy(block), tbits,
                            torch.from_numpy(valid))
     assert np.array_equal(np.asarray(jf), tf.numpy())
     pbits = torch.from_numpy(rng.integers(0, 256, size=(64, 8, q)))
@@ -142,7 +142,7 @@ def test_bloom_blocks():
         np.asarray(jbloom.block_index(jnp.asarray(hv.numpy().astype(np.uint32)), 20)),
     )
     with pytest.raises(ValueError, match="f >= 8"):
-        bloom.make_filter(7, "block")
+        bloom.make_filter(7, "block", "cpu")
 
 
 def _err(fn, *a, **kw):
@@ -209,7 +209,7 @@ def test_fill_and_mark(layout, k):
     for low, high in (FULL, SUB):
         jfilt = jk.pass1_fill(jbloom.make_filter(F, layout), jcodes, jvalid,
                               jnp.uint32(low), jnp.uint32(high), cfg=jcfg)
-        tfilt = fill.bloom_fill(bloom.make_filter(F, layout), *targs, low, high, cfg=tcfg)
+        tfilt = fill.bloom_fill(bloom.make_filter(F, layout, "cpu"), *targs, low, high, cfg=tcfg)
         assert np.array_equal(np.asarray(jfilt), tfilt.numpy())
         assert int(np.asarray(jfilt).astype(bool).sum()) > 0
         jmask, jcount = jk.pass2_mark(jfilt, jcodes, jvalid, jnp.uint32(low),
@@ -233,7 +233,7 @@ def _marked(k, layout="byte", seed=0):
     codes, valid, row0 = _batch(k, seed)
     jcodes, jvalid, targs = _forms(codes, valid)
     jcfg, tcfg = _cfgs(k, layout)
-    filt = fill.bloom_fill(bloom.make_filter(F, layout), *targs, *FULL, cfg=tcfg)
+    filt = fill.bloom_fill(bloom.make_filter(F, layout, "cpu"), *targs, *FULL, cfg=tcfg)
     tmask, tcount = mark.bloom_mark(filt, *targs, *FULL, cfg=tcfg)
     return jcodes, jvalid, targs, jcfg, tmask, int(tcount), row0
 

@@ -175,15 +175,26 @@ def test_cli_bloom_byte_identical(tmp_path, flags):
 def test_cli_engine_and_filter_errors(tmp_path, capsys):
     fa = _tiny_fasta(tmp_path)
     out = str(tmp_path / "o.dbg")
-    # dist runs (tests/test_torch_distpipe.py); dist-bloom is not ported
+    # dist and dist-bloom run (tests/test_torch_distpipe.py), the JAX
+    # dist-bloom CLI's bytes
     assert port_main(["-k", "25", "-f", "20", "--tpu-engine", "dist-bloom", "--device", "cpu",
-                      fa, "-o", out]) == 1
-    assert "not ported yet (ROADMAP A8)" in capsys.readouterr().err
-    assert not os.path.exists(out)
+                      fa, "-o", out]) == 0
+    assert "bloom-gated sort-join over 1 shards (cpu)" in capsys.readouterr().out
+    dist_bloom = open(out, "rb").read()
+    jout = out + ".jax"
+    assert jax_main(["-k", "25", "-f", "20", "--tpu-engine", "dist-bloom", fa, "-o", jout]) == 0
+    assert open(jout, "rb").read() == dist_bloom
+    os.remove(out)
     assert port_main(["-k", "25", "-f", "20", "--tpu-engine", "dist", "--device", "cpu",
                       fa, "-o", out]) == 0
     dist = open(out, "rb").read()
+    assert dist == dist_bloom
     os.remove(out)
+    # dist-bloom on one shard: the one-device layout caps, the JAX message
+    assert port_main(["-k", "25", "-f", "36", "--tpu-engine", "dist-bloom", "--device", "cpu",
+                      fa, "-o", out]) == 1
+    assert "supported layouts (max 2^35 slots" in capsys.readouterr().err
+    assert not os.path.exists(out)
     # a filter past its layout's cap exits 1 with the JAX package's message
     assert port_main(["-k", "25", "-f", "31", "--tpu-engine", "bloom", "--tpu-layout",
                       "byte", "--device", "cpu", fa, "-o", out]) == 1
@@ -198,13 +209,14 @@ def test_cli_engine_and_filter_errors(tmp_path, capsys):
 
 def test_build_junctions_dispatch(tmp_path):
     seqs = _seqs(_genomes(3, length=600, n=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        build_junctions(None, PipelineConfig(k=9, engine="dist-bloom"), None, sequences=seqs,
-                        device="cpu")
-    dist = build_junctions(None, PipelineConfig(k=9, engine="dist", positions_per_row=128,
-                                                rows_per_batch=4), None, sequences=seqs,
-                           device="cpu")
-    assert dist.vertices_count > 0
+    outs = {}
+    for engine in ("dist-bloom", "dist", "sort"):
+        outs[engine] = str(tmp_path / f"{engine}.dbg")
+        enum = build_junctions(None, PipelineConfig(k=9, engine=engine, filter_bits=18,
+                                                    positions_per_row=128, rows_per_batch=4),
+                               outs[engine], sequences=seqs, device="cpu")
+        assert enum.vertices_count > 0
+    assert len({open(o, "rb").read() for o in outs.values()}) == 1
     with pytest.raises(ValueError, match="unknown engine"):
         build_junctions(None, PipelineConfig(k=9, engine="hash"), None, sequences=seqs,
                         device="cpu")

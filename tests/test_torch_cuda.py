@@ -16,11 +16,11 @@ from twopaco_tpu_torch import dna
 from twopaco_tpu_torch.io import windows
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import bloom, pack
-from twopaco_tpu_torch.parallel import distpipe, sortshard
+from twopaco_tpu_torch.parallel import distpipe, sharded, sortshard
 from twopaco_tpu_torch.parallel.mesh import LocalMesh
 from twopaco_tpu_torch.passes import (
-    extract, fill, histogram, judge, lookup, mark, occ, partition, records, route, sort,
-    stream,
+    extract, fill, histogram, judge, lookup, mark, occ, partition, records, route,
+    shardbloom, sort, stream,
 )
 from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, build_junctions
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
@@ -577,6 +577,195 @@ def test_dist_engine_cuda_equals_plain(dev, tmp_path, rounds):
             assert counts == {}
         else:
             want = {"word0_histogram", "build_records", "route", "compact", "sort_records",
+                    "judge_compact", "sort_occurrences"} | ({"histogram"} if rounds > 1 else set())
+            assert set(counts) == want, counts
+    sort_out = str(tmp_path / "sort.dbg")
+    build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
+    assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0
+
+
+# ---- the dist-bloom engine: bloom_shard.cu's four entries, the gated
+# record build, and the engine on a 4-shard LocalMesh
+
+
+def _shard_cfg(k, f, layout, q, P, B, D):
+    return sharded.ShardedConfig(
+        base=PassConfig(k=k, q=q, f=f, layout=layout, positions_per_row=P, rows_per_batch=B),
+        n_shards=D)
+
+
+@pytest.mark.parametrize("D,layout,f", [
+    (1, "byte", 20), (3, "byte", 20), (4, "bit", 22), (8, "bit", 20), (4, "bit", 36),
+    (3, "bit", 33), (8, "byte", 40),
+])
+@pytest.mark.parametrize("mode", ["fill", "mark"])
+@pytest.mark.parametrize("tiny", [False, True])
+def test_shard_bucket_kernel(dev, D, layout, f, mode, tiny):
+    """Send slots, probe slots and the overflow count equal the plain
+    version's exactly (32- and 64-bit indices; a tiny cap overflows)."""
+    k, P, B, q = 25, 512, 8, 3
+    rng = np.random.default_rng(D * 100 + f)
+    args = _to(dev, *_genome_batch(rng, B, P, k))
+    scfg = _shard_cfg(k, f, layout, q, P, B * D, D)
+    cap = 64 if tiny else (scfg.fill_cap if mode == "fill" else scfg.mark_cap)
+    fn = shardbloom.bucket_fill if mode == "fill" else shardbloom.bucket_mark
+    plain = shardbloom.bucket_fill_plain if mode == "fill" else shardbloom.bucket_mark_plain
+    over = torch.full((1,), 7, dtype=torch.int64, device=dev)
+    build.reset_launch_counts()
+    got = fn(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=cap, overflow=over.clone())
+    assert build.launch_counts() == {"shard_bucket": 1}
+    want = plain(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=cap,
+                 overflow=over.clone())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (int(want[-1]) > 7) == tiny
+    assert bool((want[0] != shardbloom.SENT).any())
+
+
+@pytest.mark.parametrize("D,layout,f", [
+    (1, "byte", 20), (3, "byte", 21), (4, "bit", 20), (8, "bit", 24), (4, "bit", 34),
+    (3, "bit", 33),
+])
+@pytest.mark.parametrize("gate", ["full", "narrow"])
+def test_sharded_fill_mark_kernels(dev, D, layout, f, gate):
+    """sharded_fill_step and sharded_mark_step over D shards of the card:
+    every filter shard, mask, count and overflow equals the plain run's."""
+    k, P, q = 25, 256, 3
+    B = 2 * D
+    rng = np.random.default_rng(f + D)
+    low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
+    scfg = _shard_cfg(k, f, layout, q, P, B, D)
+    mesh = LocalMesh([dev] * D)
+    batches = []
+    for _ in range(3):
+        parts = [mesh.put_rows(a) for a in _genome_batch(rng, B, P, k)]
+        batches.append({s: tuple(x[s] for x in parts) for s in mesh.shards})
+    runs = []
+    for ops in (sortshard.KERNELS, sortshard.PLAIN):
+        filt = sharded.make_sharded_filter(mesh, scfg)
+        fill_step = sharded.sharded_fill_step(mesh, scfg, ops)
+        mark_step = sharded.sharded_mark_step(mesh, scfg, ops)
+        build.reset_launch_counts()
+        over = None
+        for b in batches:
+            over = fill_step(filt, b, low, high, over)
+        marked = [mark_step(filt, b, low, high) for b in batches]
+        counts = build.launch_counts()
+        if ops is sortshard.KERNELS:
+            n = 3 * D
+            assert counts == {"shard_bucket": 2 * n, "shard_fill": n, "shard_probe": n,
+                              "shard_mark_finish": n}
+        else:
+            assert counts == {}
+        runs.append((filt, over, marked))
+    (fk, ok, mk), (fp, op, mp) = runs
+    for s in mesh.shards:
+        assert _filters_equal(fk[s], fp[s])
+        assert int(ok[s]) == int(op[s]) == 0
+    assert any(bool(fk[s].view(torch.uint8).any()) for s in mesh.shards)
+    for (masks_k, count_k, over_k), (masks_p, count_p, over_p) in zip(mk, mp):
+        for s in mesh.shards:
+            assert torch.equal(masks_k[s], masks_p[s])
+            assert int(count_k[s]) == int(count_p[s])
+            assert int(over_k[s]) == int(over_p[s]) == 0
+    assert sum(int(c[s]) for _m, c, _o in mk for s in mesh.shards) > 0
+
+
+def test_shard_probe_and_mark_finish_unsent_probes(dev):
+    """Probes past a tiny cap are not sent and read as misses, in the
+    kernels as in the plain versions (the counts may then differ from a
+    full cap's, and the engine raises on the overflow)."""
+    k, P, q, D = 25, 256, 3, 4
+    rng = np.random.default_rng(3)
+    args = _to(dev, *_genome_batch(rng, 8, P, k))
+    scfg = _shard_cfg(k, 20, "byte", q, P, 8 * D, D)
+    filt = bloom.make_filter(20, "byte", dev, slots=scfg.local_slots)
+    filt[::3] = 1
+    outs = []
+    for bucket, probe, finish in (
+        (shardbloom.bucket_mark, shardbloom.probe_local, shardbloom.mark_finish),
+        (shardbloom.bucket_mark_plain, shardbloom.probe_local_plain,
+         shardbloom.mark_finish_plain),
+    ):
+        send, slots, over = bucket(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=500)
+        hits = probe(filt, send, "byte")  # one shard receiving its own sends
+        outs.append((send, slots, over, hits, *finish(hits, slots, *args, 0, 0xFFFFFFFF,
+                                                         cfg=scfg.base)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[1][2]) > 0 and int(outs[1][5]) > 0
+
+
+@pytest.mark.parametrize("k", [11, 25, 101])
+def test_build_records_gated_kernel(dev, k):
+    """The candidate mask gate: records of positions whose bit is 0 become
+    sentinels with payload 0, as the plain version's; no mask is the
+    ungated build."""
+    rng = np.random.default_rng(k + 1)
+    B, P = 16, 512
+    args = _to(dev, *_genome_batch(rng, B, P, k))
+    mask = torch.from_numpy(rng.integers(0, 256, size=(B, P // 8)).astype(np.uint8)).to(dev)
+    build.reset_launch_counts()
+    got = records.build_sort_records(*args, 77, k=k, P=P, low=1 << 29, high=3 << 30, mask=mask)
+    assert build.launch_counts() == {"build_records": 1}
+    want = records.build_sort_records_plain(*args, 77, k=k, P=P, low=1 << 29, high=3 << 30,
+                                            mask=mask)
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+    ungated = records.build_sort_records(*args, 77, k=k, P=P, low=1 << 29, high=3 << 30)
+    real = pack.as_i64(got[1]) >> 17 & 1
+    assert 0 < int(real.sum()) < int((pack.as_i64(ungated[1]) >> 17 & 1).sum())
+
+
+def test_shard_wrappers_never_reach_the_plain_code(dev, monkeypatch):
+    """CUDA tensors given to the dist-bloom wrappers launch their kernels:
+    the plain versions, made to raise here, are never called."""
+    def boom(*a, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("bucket_fill_plain", "bucket_mark_plain", "fill_local_plain",
+                 "probe_local_plain", "mark_finish_plain"):
+        monkeypatch.setattr(shardbloom, name, boom)
+    monkeypatch.setattr(records, "build_sort_records_plain", boom)
+    k, P, D = 25, 256, 4
+    rng = np.random.default_rng(9)
+    args = _to(dev, *_genome_batch(rng, 8, P, k))
+    scfg = _shard_cfg(k, 20, "bit", 3, P, 8 * D, D)
+    filt = bloom.make_filter(20, "bit", dev, slots=scfg.local_slots)
+    build.reset_launch_counts()
+    send, _over = shardbloom.bucket_fill(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D,
+                                         cap=scfg.fill_cap)
+    shardbloom.fill_local(filt, send, "bit")
+    send, slots, _over = shardbloom.bucket_mark(*args, 0, 0xFFFFFFFF, cfg=scfg.base,
+                                                n_shards=D, cap=scfg.mark_cap)
+    hits = shardbloom.probe_local(filt, send, "bit")
+    mask, _count = shardbloom.mark_finish(hits, slots, *args, 0, 0xFFFFFFFF, cfg=scfg.base)
+    records.build_sort_records(*args, 0, k=k, P=P, mask=mask)
+    assert build.launch_counts() == {"shard_bucket": 2, "shard_fill": 1, "shard_probe": 1,
+                                     "shard_mark_finish": 1, "build_records": 1}
+
+
+@pytest.mark.parametrize("rounds,layout", [(1, "byte"), (2, "bit")])
+def test_dist_bloom_engine_cuda_equals_plain(dev, tmp_path, rounds, layout):
+    """build_junctions_dist(bloom_gate=True) on a LocalMesh of 4 shards of
+    one card: the kernels' .dbg equals the plain run's and the sort
+    engine's."""
+    sequences = _dist_inputs()
+    cfg = PipelineConfig(k=25, rounds=rounds, filter_bits=22, layout=layout,
+                         positions_per_row=256, rows_per_batch=8)
+    outs = []
+    for reference in (False, True):
+        out = str(tmp_path / f"{reference}.dbg")
+        build.reset_launch_counts()
+        distpipe.build_junctions_dist(None, cfg, LocalMesh([dev] * 4), out, sequences=sequences,
+                                      device=dev, reference=reference, bloom_gate=True)
+        outs.append(open(out, "rb").read())
+        counts = build.launch_counts()
+        if reference:
+            assert counts == {}
+        else:
+            want = {"word0_histogram", "shard_bucket", "shard_fill", "shard_probe",
+                    "shard_mark_finish", "build_records", "route", "compact", "sort_records",
                     "judge_compact", "sort_occurrences"} | ({"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")

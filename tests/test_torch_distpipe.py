@@ -1,9 +1,9 @@
 """The port's distributed engine end to end on the CPU (the plain versions,
 a LocalMesh of 8 CPU shards) against twopaco_tpu's build_junctions_dist
 (the conftest's 8 virtual CPU devices) and the port's sort engine: the
-.dbg must be byte-identical in every case of tests/test_distpipe.py (the
-dist-bloom case excluded), through a checkpoint resume, the measurement
-passes and the CLI."""
+.dbg must be byte-identical in every case of tests/test_distpipe.py, the
+Bloom gate (dist-bloom) included, through a checkpoint resume, the
+measurement passes and the CLI."""
 
 import os
 
@@ -22,7 +22,7 @@ from twopaco_tpu.passes import kernels as jkernels
 from twopaco_tpu.testing import oracle
 from twopaco_tpu_torch.cli.twopaco import main as port_main
 from twopaco_tpu_torch.ops import pack
-from twopaco_tpu_torch.parallel import distpipe
+from twopaco_tpu_torch.parallel import distpipe, sharded
 from twopaco_tpu_torch.parallel.mesh import LocalMesh
 from twopaco_tpu_torch.passes import histogram, sortpipe
 from twopaco_tpu_torch.passes.pipeline import PipelineConfig, build_junctions, config_from_jax
@@ -49,13 +49,15 @@ def _at_rich(seed=5, n=4, length=4000):
     ]
 
 
-def _three_ways(tmp_path, jcfg, seqs, **kw):
+def _three_ways(tmp_path, jcfg, seqs, bloom_gate=False, **kw):
     """-> (JAX dist bytes, port dist bytes, port sort bytes, port dist enum)."""
     jout, dout, sout = (str(tmp_path / n) for n in ("jax.dbg", "dist.dbg", "sort.dbg"))
-    jdist.build_junctions_dist(None, jcfg, mesh=make_mesh(D), out_path=jout, sequences=seqs)
+    jdist.build_junctions_dist(None, jcfg, mesh=make_mesh(D), out_path=jout, sequences=seqs,
+                               bloom_gate=bloom_gate)
     cfg = config_from_jax(jcfg)
     enum = distpipe.build_junctions_dist(None, cfg, LocalMesh(["cpu"] * D), dout,
-                                         sequences=seqs, device="cpu", **kw)
+                                         sequences=seqs, device="cpu", bloom_gate=bloom_gate,
+                                         **kw)
     sortpipe.build_junctions_sorted(None, cfg, sout, sequences=seqs, device="cpu")
     return tuple(open(p, "rb").read() for p in (jout, dout, sout)) + (enum,)
 
@@ -132,6 +134,97 @@ def test_dist_engine_checkpoint_resume(tmp_path):
     resumed = run("resumed.dbg", checkpoint_dir=ck, log=lines.append)
     assert sum("restored from checkpoint" in s for s in lines) == 2
     assert plain == first == resumed == open(jout, "rb").read()
+
+
+@pytest.mark.parametrize("rounds,layout", [(1, "byte"), (2, "byte"), (1, "bit"), (2, "bit")])
+def test_dist_bloom_byte_identical(tmp_path, rounds, layout):
+    """dist-bloom (tests/test_distpipe.py:176): the filter sharded over 8
+    shards, only candidates routed; the JAX engine's and the sort engine's
+    bytes, and the JAX run's candidate marks."""
+    jcfg = JaxConfig(k=9, rounds=rounds, filter_bits=18, hash_functions=2, layout=layout,
+                     positions_per_row=128, rows_per_batch=8)
+    lines = []
+    jb, db, sb, enum = _three_ways(tmp_path, jcfg, _corpus(seed=31), bloom_gate=True,
+                                   log=lines.append)
+    assert jb == db == sb and len(db) > 0
+    assert len(enum.stats.rounds) == rounds
+    assert any(f"bloom-gated sort-join over {D} shards" in s for s in lines)
+    assert any(f"({layout} layout, 32768 slots a shard)" in s for s in lines)
+    marks = sum(r["marks"] for r in enum.stats.rounds)
+    assert enum.stats.occurrences - enum.stats.stub_ids <= marks < enum.stats.total_positions
+    for key in ("fill", "mark"):
+        assert enum.stats.timings[key] > 0
+
+
+def test_dist_bloom_three_shards(tmp_path):
+    """D=3 (local slots padded to 32, owners by index mod 3): the sort
+    engine's bytes, -r 1 and -r 2."""
+    seqs = _corpus(seed=17)
+    for rounds in (1, 2):
+        cfg = PipelineConfig(k=11, rounds=rounds, filter_bits=17, hash_functions=3,
+                             positions_per_row=128, rows_per_batch=6)
+        out, sout = str(tmp_path / "db.dbg"), str(tmp_path / "s.dbg")
+        distpipe.build_junctions_dist(None, cfg, LocalMesh(["cpu"] * 3), out, sequences=seqs,
+                                      device="cpu", bloom_gate=True)
+        sortpipe.build_junctions_sorted(None, cfg, sout, sequences=seqs, device="cpu")
+        assert open(out, "rb").read() == open(sout, "rb").read()
+
+
+def test_dist_bloom_checkpoint_resume(tmp_path):
+    """A resumed dist-bloom run (round 1 recomputed) writes the bytes of
+    the uncheckpointed run."""
+    cfg = PipelineConfig(k=9, rounds=3, filter_bits=18, hash_functions=2,
+                         positions_per_row=128, rows_per_batch=8)
+    seqs = _corpus(seed=13)
+    ck = str(tmp_path / "ckpt")
+
+    def run(name, **kw):
+        out = str(tmp_path / name)
+        distpipe.build_junctions_dist(None, cfg, LocalMesh(["cpu"] * 4), out, sequences=seqs,
+                                      device="cpu", bloom_gate=True, **kw)
+        return open(out, "rb").read()
+
+    plain = run("plain.dbg")
+    first = run("first.dbg", checkpoint_dir=ck)
+    os.remove(os.path.join(ck, "round_1.npz"))
+    lines = []
+    resumed = run("resumed.dbg", checkpoint_dir=ck, log=lines.append)
+    assert sum("restored from checkpoint" in s for s in lines) == 2
+    assert plain == first == resumed
+
+
+def test_dist_bloom_route_overflows_raise(tmp_path, monkeypatch):
+    """A fill that cannot be sent is a false negative: it raises before any
+    mark. A mark probe that cannot be sent raises as a route drop."""
+    cfg = PipelineConfig(k=9, filter_bits=18, hash_functions=2, positions_per_row=128,
+                         rows_per_batch=8)
+    out = str(tmp_path / "o.dbg")
+    lines = []
+    monkeypatch.setattr(sharded.ShardedConfig, "fill_cap", property(lambda self: 16))
+    with pytest.raises(RuntimeError, match=r"sharded Bloom fill route overflow \(\d+\)"):
+        distpipe.build_junctions_dist(None, cfg, LocalMesh(["cpu"] * 4), out,
+                                      sequences=_corpus(), device="cpu", bloom_gate=True,
+                                      log=lines.append)
+    assert not any("seconds" in s for s in lines) and not os.path.exists(out)
+    monkeypatch.undo()
+    monkeypatch.setattr(sharded.ShardedConfig, "mark_cap", property(lambda self: 16))
+    with pytest.raises(RuntimeError, match="distributed record buffer overflow"):
+        distpipe.build_junctions_dist(None, cfg, LocalMesh(["cpu"] * 4), out,
+                                      sequences=_corpus(), device="cpu", bloom_gate=True)
+
+
+def test_dist_bloom_refusals():
+    seqs = _corpus()
+    with pytest.raises(ValueError, match="single-chip only; use --tpu-layout bit"):
+        distpipe.build_junctions_dist(
+            None, PipelineConfig(k=9, filter_bits=18, layout="block", positions_per_row=128,
+                                 rows_per_batch=8),
+            LocalMesh(["cpu"] * 4), None, sequences=seqs, device="cpu", bloom_gate=True)
+    # one shard: -f 36 passes the bit layout's cap, as the Bloom engine's
+    with pytest.raises(ValueError, match="per device"):
+        distpipe.build_junctions_dist(
+            None, PipelineConfig(k=9, filter_bits=36, positions_per_row=128, rows_per_batch=8),
+            LocalMesh(["cpu"]), None, sequences=seqs, device="cpu", bloom_gate=True)
 
 
 def test_word0_histogram_matches_jax():

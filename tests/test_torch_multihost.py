@@ -2,8 +2,10 @@
 processes: 4 gloo processes on the CPU, one shard each, rendezvous on
 localhost through torchrun's variables (RANK, WORLD_SIZE, MASTER_ADDR,
 MASTER_PORT), as tests/test_multihost.py does with jax.distributed. Rank
-0 must write the single-device sort engine's bytes, narrow and wide, and
-a checkpointed run must resume across a fresh set of processes.
+0 must write the single-device sort engine's bytes, narrow and wide, with
+and without the Bloom gate (dist-bloom: the sharded filter's exchanges
+cross the processes), and a checkpointed run must resume across a fresh
+set of processes.
 
 Run as a script, this file is the worker: it reads its parameters from
 TWOPACO_MH_SPEC (JSON) and prints one MH_RESULT line.
@@ -96,6 +98,20 @@ def test_four_process_byte_identical(fixture_paths, wide):
     assert open(out, "rb").read() == golden
 
 
+def test_four_process_bloom_gate_byte_identical(fixture_paths):
+    """dist-bloom across 4 real processes (tests/test_multihost.py:132):
+    the fill and mark all_to_alls of the hash-sharded filter cross gloo,
+    and rank 0 writes the sort engine's bytes."""
+    fa, golden, n_vert, tmp = fixture_paths
+    out = str(tmp / "mh_bloom.dbg")
+    results = _launch({"fa": fa, "out": out, "bloom_gate": True,
+                       "config": dict(CONFIG, filter_bits=18, hash_functions=3)})
+    for rank, r in results.items():
+        assert (r["rank"], r["shards"], r["vertices"]) == (rank, N_PROC, n_vert)
+    assert results[0]["marks"] > 0
+    assert open(out, "rb").read() == golden
+
+
 def test_four_process_checkpoint_resume(fixture_paths):
     """Rank 0 writes the round files; a fresh set of processes resumes
     (round 1 recomputed, round 0 restored) and writes the same bytes."""
@@ -139,12 +155,14 @@ def _worker() -> None:
     enum = build_junctions_multihost(
         [spec["fa"]], PipelineConfig(**spec["config"]), out_path=spec["out"],
         log=lines.append, checkpoint_dir=spec.get("checkpoint_dir"), device="cpu",
+        bloom_gate=spec.get("bloom_gate", False),
     )
     print("MH_RESULT " + json.dumps({
         "rank": dist.get_rank(),
         "shards": dist.get_world_size(),
         "vertices": enum.vertices_count,
         "restored": sum("restored from checkpoint" in s for s in lines),
+        "marks": sum(r["marks"] for r in enum.stats.rounds),
     }), flush=True)
     dist.destroy_process_group()
 

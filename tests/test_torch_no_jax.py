@@ -20,8 +20,10 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "twopaco_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+need = {"twopaco_tpu_torch.parallel.sharded", "twopaco_tpu_torch.passes.shardbloom",
+        "twopaco_tpu_torch.parallel.distpipe", "twopaco_tpu_torch.parallel.multihost"}
+print(len(names), bad, sorted(need - set(names)))
+sys.exit(1 if bad or len(names) < 15 or not need <= set(names) else 0)
 """
 
 

@@ -21,8 +21,10 @@ block: 256-bit blocks keyed by vertex), -r N rounds exactly, candidate
 masks spilled to --tmpdir above TWOPACO_MASK_SPILL_BYTES. --tpu-engine
 dist is the distributed sort-join engine (parallel/distpipe.py) over one
 shard per visible CUDA device (one CPU shard with --device cpu); -r N as
-the sort engine's. All three write the same bytes; dist-bloom is not
-ported. --tpu-checkpoint DIR checkpoints each round, and a rerun
+the sort engine's. --tpu-engine dist-bloom is the dist engine gated by a
+Bloom filter of 2^f slots sharded over those shards (parallel/sharded.py;
+the layout resolved for a shard's ceil(2^f / D) slots, byte or bit: the
+block layout is refused). All four write the same bytes. --tpu-checkpoint DIR checkpoints each round, and a rerun
 resumes. --device picks the device: cuda (the default; raises when there
 is no card) or cpu (the plain PyTorch versions). -t is accepted and
 unused.
@@ -82,15 +84,16 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--tpu-engine", choices=["sort", "bloom", "dist", "dist-bloom"],
         default="sort",
-        help="Engine: sort-join (default), Bloom two-pass, or the "
-        "distributed sort-join over the visible devices; dist-bloom is not "
-        "ported yet",
+        help="Engine: sort-join (default), Bloom two-pass, the distributed "
+        "sort-join over the visible devices, or the same gated by a Bloom "
+        "filter sharded over them (dist-bloom)",
     )
     p.add_argument(
         "--tpu-layout", choices=["auto", "byte", "bit", "block"],
         default="auto",
-        help="Bloom filter layout (bloom engine; block = vertex-blocked: "
-        "one 32-byte block holds all 8 edge extensions of a vertex)",
+        help="Bloom filter layout (bloom and dist-bloom engines; block = "
+        "vertex-blocked, bloom only: one 32-byte block holds all 8 edge "
+        "extensions of a vertex)",
     )
     p.add_argument(
         "--tpu-positions", type=int, default=None,
@@ -164,8 +167,8 @@ def main(argv: list[str] | None = None) -> int:
             tmpdir=args.tmpdir if args.tmpdir != "." else None, device=device,
         )
     except (OSError, RuntimeError, ValueError) as e:
-        # FASTA errors, round overflows, inputs that fit no mode, filters
-        # past their layout, rows not a multiple of the devices, dist-bloom
+        # FASTA errors, round and route overflows, inputs that fit no mode,
+        # filters past their layout, rows not a multiple of the devices
         print(f"Error: {e}", file=sys.stderr)
         return 1
     print(f"Distinct junctions = {enum.vertices_count}")

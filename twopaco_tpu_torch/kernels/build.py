@@ -33,7 +33,7 @@ SOURCES = (
     "scan.cu", "records.cu", "sort.cu", "judge.cu", "partition.cu",
     "assemble.cu", "compact.cu", "histogram.cu", "bloom_fill.cu",
     "bloom_mark.cu", "bloom_extract.cu", "bloom_lookup.cu", "route.cu",
-    "occ_pack.cu",
+    "occ_pack.cu", "bloom_shard.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -53,7 +53,7 @@ _SIGNATURES = {
     "tp_sort_count_words": ([_SZ], _SZ),
     "tp_build_records": (
         [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _U32, _U32,
-         _U32, _U32, _U32, _U32, _P, _P, _P, _P],
+         _U32, _U32, _U32, _U32, _P, _P, _P, _P, _P],
         _I,
     ),
     "tp_sort_records": ([_P, _P, _P, _SZ, _I] + [_P] * 11, _I),
@@ -89,6 +89,14 @@ _SIGNATURES = {
     ),
     "tp_bloom_lookup": (
         [_P] * 3 + [_I] * 5 + [_P] * 2 + [_LL] * 2 + [_P] * 12, _I
+    ),
+    "tp_shard_bucket": (
+        [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 5 + [_P] * 8, _I
+    ),
+    "tp_shard_fill_apply": ([_P, _SZ, _I, _P, _P], _I),
+    "tp_shard_probe": ([_P, _SZ, _I, _P, _P, _P], _I),
+    "tp_shard_mark_finish": (
+        [_P] * 5 + [_I] * 5 + [_U32] * 2 + [_TABS, _I] + [_P] * 3, _I
     ),
 }
 

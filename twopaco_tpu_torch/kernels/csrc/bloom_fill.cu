@@ -30,11 +30,6 @@
 
 namespace {
 
-__device__ __forceinline__ bool within(uint32_t h, uint32_t low,
-                                       uint32_t high) {
-    return h >= low && h <= high;
-}
-
 // Set the q slots of edge hashes e (byte or bit layout)
 __device__ __forceinline__ void set_slots(void* filt, int layout,
                                           const uint32_t* e, int q, int f) {
@@ -68,50 +63,30 @@ __global__ void k_bloom_fill(const uint32_t* __restrict__ packed,
     const int b = (int)(t / P);
     const int i = (int)(t - (long long)b * P);
     const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-    if (!tp_position_ok(row, i, k, valid[b])) return;
     const int nt = (layout != TP_LAYOUT_BLOCK && f > 32) ? 4 : 2;
-    uint32_t hf[4], hr[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-        if (u < nt) tp_strand_hashes(row, i + 1, k, tabs.t[u], hf[u], hr[u]);
-    const uint32_t hv = hf[0] + hr[0];
-    const uint32_t hvn = tp_vertex_hash(row, i + 1, k, tabs.t[0]);
-    const bool in_v = within(hv, low, high);
-    const bool in_n = row.definite(i + 2, i + k + 1) && within(hvn, low, high);
-    const uint32_t prev = row.ext(i);
-    const uint32_t next = row.ext(i + k + 1);
-    const uint32_t c0 = next < 4 ? next : 0u;
+    TpFillPos p;
+    if (!tp_fill_position(row, i, k, valid[b], low, high, tabs, nt, p)) return;
     uint32_t e[4];
     if (layout == TP_LAYOUT_BLOCK) {
         uint32_t* fw = (uint32_t*)filt;
         const uint32_t bmask = (1u << (f - 8)) - 1u;
-        tp_edge_hashes(hf, hr, tabs, 2, true, c0, k, e);
-        if (in_v) set_block(fw, hv & bmask, e, q);
-        if (in_n && next < 4) set_block(fw, hvn & bmask, e, q);
-        if (!in_v) return;
-        if (next >= 4) {
-            tp_edge_hashes(hf, hr, tabs, 2, true, 3u, k, e);
-            set_block(fw, hv & bmask, e, q);
-        }
-        if (prev >= 4) {
-            tp_edge_hashes(hf, hr, tabs, 2, false, 0u, k, e);
-            set_block(fw, hv & bmask, e, q);
-            tp_edge_hashes(hf, hr, tabs, 2, false, 3u, k, e);
-            set_block(fw, hv & bmask, e, q);
+        tp_fill_edge(p, tabs, 2, 0, k, e);
+        if (p.in_v) set_block(fw, p.hv & bmask, e, q);
+        if (p.in_n && p.next < 4) set_block(fw, p.hvn & bmask, e, q);
+        if (!p.in_v) return;
+        const unsigned dummies = tp_fill_slots(p) & ~1u;
+        for (int s = 1; s < 4; ++s) {
+            if (!((dummies >> s) & 1u)) continue;
+            tp_fill_edge(p, tabs, 2, s, k, e);
+            set_block(fw, p.hv & bmask, e, q);
         }
         return;
     }
-    if (!(in_v || in_n)) return;
-    tp_edge_hashes(hf, hr, tabs, nt, true, c0, k, e);
-    set_slots(filt, layout, e, q, f);
-    if (next >= 4) {
-        tp_edge_hashes(hf, hr, tabs, nt, true, 3u, k, e);
-        set_slots(filt, layout, e, q, f);
-    }
-    if (prev >= 4) {
-        tp_edge_hashes(hf, hr, tabs, nt, false, 0u, k, e);
-        set_slots(filt, layout, e, q, f);
-        tp_edge_hashes(hf, hr, tabs, nt, false, 3u, k, e);
+    if (!(p.in_v || p.in_n)) return;
+    const unsigned slots = tp_fill_slots(p);
+    for (int s = 0; s < 4; ++s) {
+        if (!((slots >> s) & 1u)) continue;
+        tp_fill_edge(p, tabs, nt, s, k, e);
         set_slots(filt, layout, e, q, f);
     }
 }

@@ -22,7 +22,8 @@
 // position, hashes in registers, each edge's probes stop at the first
 // clear slot and each side's loop at a count of 2 (the decision only asks
 // "> 1"); a warp's 32 decisions are gathered with one ballot, so a lane of
-// every 8 writes its byte and lane 0 adds the warp's count.
+// every 8 writes its byte and lane 0 adds the warp's count (the decision and
+// the packing are common.cuh's, shared with bloom_shard.cu).
 #include "common.cuh"
 
 namespace {
@@ -64,47 +65,26 @@ __global__ void k_bloom_mark(const uint32_t* __restrict__ packed,
         const int b = (int)(t / P);
         const int i = (int)(t - (long long)b * P);
         const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-        if (tp_position_ok(row, i, k, valid[b])) {
-            const int nt = (layout != TP_LAYOUT_BLOCK && f > 32) ? 4 : 2;
-            uint32_t hf[4], hr[4];
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-                if (u < nt)
-                    tp_strand_hashes(row, i + 1, k, tabs.t[u], hf[u], hr[u]);
+        const int nt = (layout != TP_LAYOUT_BLOCK && f > 32) ? 4 : 2;
+        uint32_t hf[4], hr[4];
+        if (tp_mark_position(row, i, k, valid[b], low, high, tabs, nt, hf, hr)) {
             const uint32_t hv = hf[0] + hr[0];
-            if (hv >= low && hv <= high) {
-                const uint32_t* blk =
-                    layout == TP_LAYOUT_BLOCK
-                        ? (const uint32_t*)filt +
-                              (size_t)(hv & ((1u << (f - 8)) - 1u)) *
-                                  TP_BLOCK_WORDS
-                        : nullptr;
-                uint32_t e[4];
-                // side 0: in-edges c·V against prev; side 1: out-edges V·c
-                for (int side = 0; side < 2 && !cand; ++side) {
-                    const uint32_t own = side ? row.ext(i + k + 1) : row.ext(i);
-                    int cnt = own >= 4 ? 2 : 0;
-                    for (uint32_t c = 0; c < 4 && cnt <= 1; ++c) {
-                        if (c == own) {
-                            ++cnt;
-                            continue;
-                        }
-                        tp_edge_hashes(hf, hr, tabs, nt, side == 1, c, k, e);
-                        cnt += layout == TP_LAYOUT_BLOCK
-                                   ? probe_block(blk, e, q)
-                                   : probe_slots(filt, layout, e, q, f);
-                    }
-                    cand = cnt > 1;
-                }
-            }
+            const uint32_t* blk =
+                layout == TP_LAYOUT_BLOCK
+                    ? (const uint32_t*)filt +
+                          (size_t)(hv & ((1u << (f - 8)) - 1u)) * TP_BLOCK_WORDS
+                    : nullptr;
+            uint32_t e[4];
+            cand = tp_mark_decide(row.ext(i), row.ext(i + k + 1),
+                                  [&](int side, uint32_t c) {
+                tp_edge_hashes(hf, hr, tabs, nt, side == 1, c, k, e);
+                return layout == TP_LAYOUT_BLOCK
+                           ? probe_block(blk, e, q)
+                           : probe_slots(filt, layout, e, q, f);
+            });
         }
     }
-    const unsigned ballot = __ballot_sync(0xffffffffu, cand);
-    const int lane = threadIdx.x & 31;
-    if (t < n && (lane & 7) == 0)
-        mask[t >> 3] = (uint8_t)(__brev((ballot >> lane) & 0xffu) >> 24);
-    if (lane == 0 && ballot)
-        atomicAdd(count, (unsigned long long)__popc(ballot));
+    tp_pack_candidates(cand, t, n, mask, count);
 }
 
 }  // namespace

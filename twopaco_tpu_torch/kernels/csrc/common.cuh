@@ -250,4 +250,220 @@ constexpr int TP_LAYOUT_BIT = 1;
 constexpr int TP_LAYOUT_BLOCK = 2;
 constexpr int TP_BLOCK_WORDS = 8;  // a block: 256 bits
 
+// ---- the Bloom passes' view of a position, shared by bloom_fill.cu,
+// bloom_mark.cu and bloom_shard.cu
+
+// Fill (twopaco_tpu kernels.py:130 fill_indices, :179 fill_indices_block):
+// a position with a record (tp_position_ok) gets the strand hashes of its
+// vertex V under the first nt tables, the vertex hashes of V and of V_next
+// (the next position's vertex), whether each counts for the round [low,
+// high] (V_next only when its window holds no N), and its prev and next
+// chars (4 = N).
+struct TpFillPos {
+    uint32_t hf[4], hr[4];
+    uint32_t hv, hvn, prev, next;
+    bool in_v, in_n;
+};
+
+__device__ __forceinline__ bool tp_fill_position(const TpRow& row, int i,
+                                                 int k, int valid,
+                                                 uint32_t low, uint32_t high,
+                                                 const TpTabs& tabs, int nt,
+                                                 TpFillPos& p) {
+    if (!tp_position_ok(row, i, k, valid)) return false;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        if (u < nt)
+            tp_strand_hashes(row, i + 1, k, tabs.t[u], p.hf[u], p.hr[u]);
+    p.hv = p.hf[0] + p.hr[0];
+    p.hvn = tp_vertex_hash(row, i + 1, k, tabs.t[0]);
+    p.in_v = p.hv >= low && p.hv <= high;
+    p.in_n = row.definite(i + 2, i + k + 1) && p.hvn >= low && p.hvn <= high;
+    p.prev = row.ext(i);
+    p.next = row.ext(i + k + 1);
+    return true;
+}
+
+// The byte and bit layouts' edges of a position in the round: slot 0 the
+// out-edge V·next (V·A when next is N), 1 the dummy V·T when next is N, 2
+// and 3 the dummy in-edges A·V and T·V when prev is N. -> bit e set when
+// slot e is inserted.
+__device__ __forceinline__ unsigned tp_fill_slots(const TpFillPos& p) {
+    return 1u | (p.next >= 4 ? 2u : 0u) | (p.prev >= 4 ? 12u : 0u);
+}
+
+// Edge hashes of fill slot e under the first nt tables
+__device__ __forceinline__ void tp_fill_edge(const TpFillPos& p,
+                                             const TpTabs& tabs, int nt,
+                                             int e, int k, uint32_t* eh) {
+    const uint32_t c = e == 0 ? (p.next < 4 ? p.next : 0u) : (e == 2 ? 0u : 3u);
+    tp_edge_hashes(p.hf, p.hr, tabs, nt, e < 2, c, k, eh);
+}
+
+// Mark (twopaco_tpu kernels.py:273 mark_indices): true for a position with
+// a record whose vertex hash lies in [low, high] (mark_decide's `base`);
+// hf, hr get the strand hashes of the first nt tables (nt >= 1).
+__device__ __forceinline__ bool tp_mark_position(const TpRow& row, int i,
+                                                 int k, int valid,
+                                                 uint32_t low, uint32_t high,
+                                                 const TpTabs& tabs, int nt,
+                                                 uint32_t* hf, uint32_t* hr) {
+    if (!tp_position_ok(row, i, k, valid)) return false;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        if (u < nt) tp_strand_hashes(row, i + 1, k, tabs.t[u], hf[u], hr[u]);
+    const uint32_t hv = hf[0] + hr[0];
+    return hv >= low && hv <= high;
+}
+
+// The candidate decision of a vertex in the round (kernels.py:315
+// mark_decide, the reference's CandidateCheckingWorker):
+//     in  = 2 [prev is N] + sum_c ([c == prev] or hit(0, c))  > 1, or
+//     out = 2 [next is N] + sum_c ([c == next] or hit(1, c))  > 1
+// over c in ACGT; hit(side, c) is the Bloom hit of the in-edge c·V (side
+// 0) or the out-edge V·c (side 1), asked only while it can change the
+// answer.
+template <class Hit>
+__device__ __forceinline__ bool tp_mark_decide(uint32_t prev, uint32_t next,
+                                               Hit hit) {
+    for (int side = 0; side < 2; ++side) {
+        const uint32_t own = side ? next : prev;
+        int cnt = own >= 4 ? 2 : 0;
+        for (uint32_t c = 0; c < 4 && cnt <= 1; ++c)
+            cnt += c == own ? 1 : (int)hit(side, c);
+        if (cnt > 1) return true;
+    }
+    return false;
+}
+
+// A warp's 32 decisions into the packed mask (kernels.py:336 pack_mask: 8
+// positions a byte, MSB first) and their count added to *count. Every lane
+// of the warp calls it; lane l holds position t (t >= n: none), and the
+// block's threads are consecutive positions from a multiple of 32.
+__device__ __forceinline__ void tp_pack_candidates(
+    bool cand, long long t, long long n, uint8_t* __restrict__ mask,
+    unsigned long long* __restrict__ count) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, cand);
+    const int lane = threadIdx.x & 31;
+    if (t < n && (lane & 7) == 0)
+        mask[t >> 3] = (uint8_t)(__brev((ballot >> lane) & 0xffu) >> 24);
+    if (lane == 0 && ballot)
+        atomicAdd(count, (unsigned long long)__popc(ballot));
+}
+
+// ---- stable owner bucketing, shared by route.cu and bloom_shard.cu: n
+// elements, each owned by one of D shards or by none, go to (D, cap) send
+// slots, each owner's in element order. Per-tile owner counts
+// (tp_tile_owner_counts) are scanned owner-major (tp_scan_inclusive_u32)
+// and a stable scatter (tp_stable_scatter) ranks each element; slots past
+// an owner's count are cleared and the elements past cap counted
+// (tp_route_finish). A tile is TP_ROUTE_TILE elements (a block);
+// tp_route_count_words (route.cu) sizes the count table.
+
+constexpr int TP_ROUTE_ROUNDS = 16;
+constexpr int TP_ROUTE_TILE = TP_THREADS * TP_ROUTE_ROUNDS;
+constexpr int TP_ROUTE_MAX = 4096;  // shards a call may route to
+
+// counts[d * nt + tile] = elements of tile blockIdx.x owned by shard d;
+// owner_of(i) >= D: no owner. Dynamic shared memory: D u32.
+template <class OwnerOf>
+__device__ __forceinline__ void tp_tile_owner_counts(
+    size_t n, int D, uint32_t* __restrict__ counts, size_t nt,
+    OwnerOf owner_of) {
+    extern __shared__ uint32_t tp_hist[];
+    for (int d = threadIdx.x; d < D; d += TP_THREADS) tp_hist[d] = 0;
+    __syncthreads();
+    const size_t base = (size_t)blockIdx.x * TP_ROUTE_TILE;
+    for (int j = threadIdx.x; j < TP_ROUTE_TILE; j += TP_THREADS) {
+        const size_t i = base + j;
+        if (i < n) {
+            const uint32_t d = owner_of(i);
+            if (d < (uint32_t)D) atomicAdd(&tp_hist[d], 1u);
+        }
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < D; d += TP_THREADS)
+        counts[(size_t)d * nt + blockIdx.x] = tp_hist[d];
+}
+
+// Stable scatter of tile blockIdx.x: the tile is walked in rounds of
+// TP_THREADS consecutive elements; an element's rank among its owner's is
+// the owner's running base for the tile, plus the owner's counts in lower
+// warps of the round, plus its rank among equal owners in its own warp
+// (match masks). put(i, d, rank) gets every owned element (a rank may
+// reach past cap: put drops it). Dynamic shared memory: (1 + TP_WARPS) * D
+// u32.
+template <class OwnerOf, class Put>
+__device__ __forceinline__ void tp_stable_scatter(
+    size_t n, int D, const uint32_t* __restrict__ counts,
+    const uint32_t* __restrict__ incl, size_t nt, OwnerOf owner_of, Put put) {
+    extern __shared__ uint32_t tp_rank[];
+    uint32_t* s_base = tp_rank;      // [D]
+    uint32_t* s_wc = tp_rank + D;    // [TP_WARPS][D]
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    for (int d = tid; d < D; d += TP_THREADS) {
+        const size_t first = (size_t)d * nt;
+        const size_t slot = first + blockIdx.x;
+        // offset of this tile's first element among owner d's elements
+        s_base[d] = (incl[slot] - counts[slot]) - (incl[first] - counts[first]);
+        for (int v = 0; v < TP_WARPS; ++v) s_wc[v * D + d] = 0;
+    }
+    __syncthreads();
+    const size_t base = (size_t)blockIdx.x * TP_ROUTE_TILE;
+    for (int r = 0; r < TP_ROUTE_ROUNDS; ++r) {
+        const size_t i = base + (size_t)r * TP_THREADS + tid;
+        const uint32_t oi = i < n ? owner_of(i) : (uint32_t)D;
+        const bool live = oi < (uint32_t)D;
+        // dead lanes get distinct non-owner values and never write
+        const uint32_t d = live ? oi : (uint32_t)D + lane;
+        const unsigned peers = __match_any_sync(0xffffffffu, d);
+        const unsigned lower = peers & ((1u << lane) - 1u);
+        if (live && lower == 0) s_wc[warp * D + d] = __popc(peers);
+        __syncthreads();
+        if (live) {
+            uint32_t dst = s_base[d] + __popc(lower);
+            for (int v = 0; v < warp; ++v) dst += s_wc[v * D + d];
+            put(i, d, dst);
+        }
+        __syncthreads();
+        for (int dd = tid; dd < D; dd += TP_THREADS) {
+            uint32_t tot = 0;
+            for (int v = 0; v < TP_WARPS; ++v) {
+                tot += s_wc[v * D + dd];
+                s_wc[v * D + dd] = 0;
+            }
+            s_base[dd] += tot;
+        }
+        __syncthreads();
+    }
+}
+
+__device__ __forceinline__ uint32_t tp_owner_total(const uint32_t* counts,
+                                                   const uint32_t* incl,
+                                                   size_t nt, int d) {
+    const size_t first = (size_t)d * nt;
+    return incl[first + nt - 1] - (incl[first] - counts[first]);
+}
+
+// Thread t: clear(t) for every send slot t = d * cap + j past owner d's
+// count, and the elements of owner t past cap added to *overflow. Launch
+// over max(D * cap, D) threads.
+template <class Clear>
+__device__ __forceinline__ void tp_route_finish(
+    const uint32_t* __restrict__ counts, const uint32_t* __restrict__ incl,
+    size_t nt, int D, int cap, unsigned long long* __restrict__ overflow,
+    Clear clear) {
+    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t < (size_t)D) {
+        const uint32_t tot = tp_owner_total(counts, incl, nt, (int)t);
+        if (tot > (uint32_t)cap)
+            atomicAdd(overflow, (unsigned long long)(tot - (uint32_t)cap));
+    }
+    if (t >= (size_t)D * cap) return;
+    const int d = (int)(t / cap);
+    if (t - (size_t)d * cap >= tp_owner_total(counts, incl, nt, d)) clear(t);
+}
+
 }  // namespace

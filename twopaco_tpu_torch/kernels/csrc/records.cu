@@ -7,7 +7,10 @@
 //
 // Per position i of row b: the record of common.cuh tp_build_record
 // (canonical words, payload, vertex-hash gate [low, high]) and
-// pos = pos_base + b*P + i (int64).
+// pos = pos_base + b*P + i (int64). With a candidate mask `gate` (the
+// dist-bloom engine's, twopaco_tpu/parallel/distpipe.py:168: (B, P/8) u8,
+// MSB first), a position whose bit is 0 gets the sentinel record (all-ones
+// words, payload 0) whatever it holds.
 //
 // Bound: per-thread integer work (about 4k char extractions and k
 // rotates) over an input of 0.28 bytes a position and an output of
@@ -25,6 +28,7 @@ __global__ void k_build_records(const uint32_t* __restrict__ packed,
                                 int P, int k, int w, int RW, int NW,
                                 long long pos_base, uint32_t low,
                                 uint32_t high, TpTab tab,
+                                const uint8_t* __restrict__ gate,
                                 uint32_t* __restrict__ out_words,
                                 uint32_t* __restrict__ out_pay,
                                 long long* __restrict__ out_pos) {
@@ -33,20 +37,27 @@ __global__ void k_build_records(const uint32_t* __restrict__ packed,
     const int b = (int)(t / P);
     const int i = (int)(t - (long long)b * P);
     const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-    uint32_t hv;
-    out_pay[t] = tp_build_record(row, i, k, w, valid[b], low, high, tab,
-                                 out_words + (size_t)t * w, &hv);
+    uint32_t* wout = out_words + (size_t)t * w;
+    if (gate != nullptr && !((gate[t >> 3] >> (7 - (t & 7))) & 1u)) {
+        for (int m = 0; m < w; ++m) wout[m] = 0xffffffffu;
+        out_pay[t] = 0u;
+    } else {
+        uint32_t hv;
+        out_pay[t] = tp_build_record(row, i, k, w, valid[b], low, high, tab,
+                                     wout, &hv);
+    }
     out_pos[t] = pos_base + t;
 }
 
 }  // namespace
 
+// gate: the packed candidate mask (B*P/8 u8, P % 8 == 0), or null for none.
 extern "C" int tp_build_records(const void* packed, const void* nmask,
                                 const void* valid, int B, int P, int k,
                                 int RW, int NW, long long pos_base,
                                 uint32_t low, uint32_t high, uint32_t t0,
                                 uint32_t t1, uint32_t t2, uint32_t t3,
-                                void* out_words, void* out_pay,
+                                const void* gate, void* out_words, void* out_pay,
                                 void* out_pos, void* stream) {
     const long long n = (long long)B * P;
     if (n == 0) return 0;
@@ -56,6 +67,6 @@ extern "C" int tp_build_records(const void* packed, const void* nmask,
                       (cudaStream_t)stream>>>(
         (const uint32_t*)packed, (const uint32_t*)nmask,
         (const int32_t*)valid, B, P, k, w, RW, NW, pos_base, low, high, tab,
-        (uint32_t*)out_words, (uint32_t*)out_pay, (long long*)out_pos);
+        (const uint8_t*)gate, (uint32_t*)out_words, (uint32_t*)out_pay, (long long*)out_pos);
     return (int)cudaGetLastError();
 }

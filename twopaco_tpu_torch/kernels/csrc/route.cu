@@ -19,16 +19,13 @@
 // atomics) scanned owner-major by the shared scan (scan.cu), and a scatter
 // that ranks equal owners inside a warp with match masks and across warps
 // with per-warp counts in shared memory, so each owner's slots keep the
-// record order exactly.
+// record order exactly (the bucketing helpers of common.cuh, shared with
+// bloom_shard.cu).
 #include <algorithm>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int ROUTE_ROUNDS = 16;
-constexpr int ROUTE_TILE = TP_THREADS * ROUTE_ROUNDS;
-constexpr int ROUTE_MAX = 4096;  // shards a call may route to
 
 __global__ void k_route_owner(const uint32_t* __restrict__ words,
                               const uint32_t* __restrict__ pay, size_t n,
@@ -59,26 +56,10 @@ __global__ void k_route_owner(const uint32_t* __restrict__ words,
 // counts[d * nt + tile] = records of the tile owned by shard d
 __global__ void k_route_hist(const uint32_t* __restrict__ owner, size_t n,
                              int D, uint32_t* __restrict__ counts, size_t nt) {
-    extern __shared__ uint32_t h[];
-    for (int d = threadIdx.x; d < D; d += TP_THREADS) h[d] = 0;
-    __syncthreads();
-    const size_t base = (size_t)blockIdx.x * ROUTE_TILE;
-    for (int j = threadIdx.x; j < ROUTE_TILE; j += TP_THREADS) {
-        const size_t i = base + j;
-        if (i < n) {
-            const uint32_t d = owner[i];
-            if (d < (uint32_t)D) atomicAdd(&h[d], 1u);
-        }
-    }
-    __syncthreads();
-    for (int d = threadIdx.x; d < D; d += TP_THREADS)
-        counts[(size_t)d * nt + blockIdx.x] = h[d];
+    tp_tile_owner_counts(n, D, counts, nt, [&](size_t i) { return owner[i]; });
 }
 
-// Stable scatter into the send slots: the tile is walked in rounds of
-// TP_THREADS consecutive records; a record's slot is its owner's running
-// base for the tile, plus the counts of its owner in lower warps of the
-// walk round, plus its rank among equal owners in its own warp.
+// Stable scatter into the send slots (common.cuh tp_stable_scatter)
 __global__ void k_route_scatter(const uint32_t* __restrict__ owner,
                                 const uint32_t* __restrict__ words,
                                 const uint32_t* __restrict__ pay,
@@ -89,59 +70,15 @@ __global__ void k_route_scatter(const uint32_t* __restrict__ owner,
                                 uint32_t* __restrict__ send_w,
                                 uint32_t* __restrict__ send_pay,
                                 long long* __restrict__ send_pos) {
-    extern __shared__ uint32_t sm[];
-    uint32_t* s_base = sm;      // [D]
-    uint32_t* s_wc = sm + D;    // [TP_WARPS][D]
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    for (int d = tid; d < D; d += TP_THREADS) {
-        const size_t first = (size_t)d * nt;
-        const size_t slot = first + blockIdx.x;
-        // offset of this tile's first record among owner d's records
-        s_base[d] = (incl[slot] - counts[slot]) - (incl[first] - counts[first]);
-        for (int v = 0; v < TP_WARPS; ++v) s_wc[v * D + d] = 0;
-    }
-    __syncthreads();
-    const size_t base = (size_t)blockIdx.x * ROUTE_TILE;
-    for (int r = 0; r < ROUTE_ROUNDS; ++r) {
-        const size_t i = base + (size_t)r * TP_THREADS + tid;
-        const uint32_t oi = i < n ? owner[i] : (uint32_t)D;
-        const bool live = oi < (uint32_t)D;
-        // dead lanes get distinct non-owner values and never write
-        const uint32_t d = live ? oi : (uint32_t)D + lane;
-        const unsigned peers = __match_any_sync(0xffffffffu, d);
-        const unsigned lower = peers & ((1u << lane) - 1u);
-        if (live && lower == 0) s_wc[warp * D + d] = __popc(peers);
-        __syncthreads();
-        if (live) {
-            uint32_t dst = s_base[d] + __popc(lower);
-            for (int v = 0; v < warp; ++v) dst += s_wc[v * D + d];
-            if (dst < (uint32_t)cap) {
-                const size_t o = (size_t)d * cap + dst;
-                for (int m = 0; m < w; ++m) send_w[o * w + m] = words[i * w + m];
-                send_pay[o] = pay[i];
-                send_pos[o] = pos[i];
-            }
-        }
-        __syncthreads();
-        for (int dd = tid; dd < D; dd += TP_THREADS) {
-            uint32_t tot = 0;
-            for (int v = 0; v < TP_WARPS; ++v) {
-                tot += s_wc[v * D + dd];
-                s_wc[v * D + dd] = 0;
-            }
-            s_base[dd] += tot;
-        }
-        __syncthreads();
-    }
-}
-
-__device__ __forceinline__ uint32_t owner_total(const uint32_t* counts,
-                                                const uint32_t* incl,
-                                                size_t nt, int d) {
-    const size_t first = (size_t)d * nt;
-    return incl[first + nt - 1] - (incl[first] - counts[first]);
+    tp_stable_scatter(
+        n, D, counts, incl, nt, [&](size_t i) { return owner[i]; },
+        [&](size_t i, uint32_t d, uint32_t dst) {
+            if (dst >= (uint32_t)cap) return;
+            const size_t o = (size_t)d * cap + dst;
+            for (int m = 0; m < w; ++m) send_w[o * w + m] = words[i * w + m];
+            send_pay[o] = pay[i];
+            send_pos[o] = pos[i];
+        });
 }
 
 // Sentinels in every slot past an owner's count, and the records dropped
@@ -153,19 +90,11 @@ __global__ void k_route_finish(const uint32_t* __restrict__ counts,
                                uint32_t* __restrict__ send_pay,
                                long long* __restrict__ send_pos,
                                unsigned long long* __restrict__ overflow) {
-    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < (size_t)D) {
-        const uint32_t tot = owner_total(counts, incl, nt, (int)t);
-        if (tot > (uint32_t)cap)
-            atomicAdd(overflow, (unsigned long long)(tot - (uint32_t)cap));
-    }
-    if (t >= (size_t)D * cap) return;
-    const int d = (int)(t / cap);
-    if (t - (size_t)d * cap >= owner_total(counts, incl, nt, d)) {
+    tp_route_finish(counts, incl, nt, D, cap, overflow, [&](size_t t) {
         for (int m = 0; m < w; ++m) send_w[t * w + m] = 0xffffffffu;
         send_pay[t] = 0u;
         send_pos[t] = 0;
-    }
+    });
 }
 
 }  // namespace
@@ -173,10 +102,10 @@ __global__ void k_route_finish(const uint32_t* __restrict__ counts,
 // Words of the per-tile owner count table (and of its scan) for n records
 // routed to D shards.
 extern "C" size_t tp_route_count_words(size_t n, int D) {
-    return (size_t)D * std::max<size_t>((n + ROUTE_TILE - 1) / ROUTE_TILE, 1);
+    return (size_t)D * std::max<size_t>((n + TP_ROUTE_TILE - 1) / TP_ROUTE_TILE, 1);
 }
 
-extern "C" int tp_route_max_shards() { return ROUTE_MAX; }
+extern "C" int tp_route_max_shards() { return TP_ROUTE_MAX; }
 
 // bounds: D - 1 u32, or null for the uniform split. Scratch (sized by the
 // caller): owner (n u32), counts and incl (tp_route_count_words u32), the
@@ -188,10 +117,10 @@ extern "C" int tp_route_records(const void* words, const void* pay,
                                 void* counts, void* incl, void* scratch,
                                 void* send_w, void* send_pay, void* send_pos,
                                 void* overflow, void* stream) {
-    if (D < 1 || D > ROUTE_MAX || cap < 1) return (int)cudaErrorInvalidValue;
+    if (D < 1 || D > TP_ROUTE_MAX || cap < 1) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     // an empty batch still owns tile 0 (all zero counts): every slot sentinel
-    const size_t nt = std::max<size_t>((n + ROUTE_TILE - 1) / ROUTE_TILE, 1);
+    const size_t nt = std::max<size_t>((n + TP_ROUTE_TILE - 1) / TP_ROUTE_TILE, 1);
     uint32_t* own = (uint32_t*)owner;
     uint32_t* cnt = (uint32_t*)counts;
     uint32_t* inc = (uint32_t*)incl;

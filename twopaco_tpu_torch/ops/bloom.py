@@ -62,14 +62,18 @@ def check_layout_slots(slots: int, layout: str) -> None:
         )
 
 
-def make_filter(f: int, layout: str, device="cpu") -> torch.Tensor:
-    """An empty filter: 2^f uint8 slots (byte) or 2^(f-5) uint32 words."""
+def make_filter(f: int, layout: str, device, slots: int | None = None) -> torch.Tensor:
+    """An empty filter on `device`: 2^f uint8 slots (byte) or 2^(f-5)
+    uint32 words (bit, block). slots: another slot count (byte, bit; a
+    multiple of 32 for bit), as a shard of the dist-bloom engine's
+    filter holds."""
     if layout == "byte":
-        return torch.zeros(1 << f, dtype=torch.uint8, device=device)
+        return torch.zeros(slots or 1 << f, dtype=torch.uint8, device=device)
     if layout in ("bit", "block"):
         if layout == "block" and f < 8:
             raise ValueError("block layout needs f >= 8")
-        return torch.zeros(1 << max(f - 5, 0), dtype=torch.uint32, device=device)
+        words = slots // 32 if slots else 1 << max(f - 5, 0)
+        return torch.zeros(words, dtype=torch.uint32, device=device)
     raise ValueError(layout)
 
 

@@ -1,12 +1,12 @@
 """The distributed sort-join engine: FASTA in, .dbg out, over a mesh of D
 shards (parallel/mesh.py).
 
-The port of twopaco_tpu/parallel/distpipe.py:329 build_junctions_dist
-(without its Bloom gate, `dist-bloom`, ROADMAP A8). The same contract as
-the single-device engines: deterministic, byte-identical output. Hash
-intervals split the run across time (rounds, as the sort engine's -r);
-k-mer ranges split each round across space (shards), so a round's
-records are spread over D sorts of 1/D the size each.
+The port of twopaco_tpu/parallel/distpipe.py:329 build_junctions_dist,
+with its Bloom gate (bloom_gate=True, `--tpu-engine dist-bloom`). The same
+contract as the single-device engines: deterministic, byte-identical
+output. Hash intervals split the run across time (rounds, as the sort
+engine's -r); k-mer ranges split each round across space (shards), so a
+round's records are spread over D sorts of 1/D the size each.
 
   1. measurement: the canonical word0 histogram of every batch
      (passes/histogram.py word0_histogram) gives the routing bounds, D
@@ -17,6 +17,13 @@ records are spread over D sorts of 1/D the size each.
      gated to the round (records.cu), routed by the bounds (route.cu),
      exchanged (mesh.all_to_all), and the received real records appended
      to the shard's round buffer (compact.cu) at a device-side offset;
+     with the Bloom gate, the round first fills a Bloom filter sharded by
+     slot over the mesh with every batch (parallel/sharded.py, a fill
+     overflow raises), and each batch's records are built only at the
+     positions its sharded mark finds candidate (the rest become
+     sentinels, which route drops): only candidates are routed, sorted
+     and judged, and every occurrence of a k-mer gets the same decision
+     (the filter holds all of its edges), so the bytes do not change;
   3. per round, per shard: sort (sort.cu) and judge + compact (judge.cu)
      of the buffer's records, the occurrences sorted by position as u64
      merge keys (occ_pack.cu); each (round, shard) block is one entry of
@@ -41,6 +48,9 @@ import torch
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
 from twopaco_tpu_torch.parallel.mesh import local_mesh, on_device
+from twopaco_tpu_torch.parallel.sharded import (
+    ShardedConfig, make_sharded_filter, sharded_fill_step, sharded_mark_step,
+)
 from twopaco_tpu_torch.parallel.sortshard import KERNELS, PLAIN
 from twopaco_tpu_torch.passes import sortpipe, stream
 from twopaco_tpu_torch.passes.histogram import BIN_POW
@@ -52,11 +62,13 @@ from twopaco_tpu_torch.passes.pipeline import (
     _input_fingerprint,
 )
 
-# the sort engine's phase keys, plus route: routing, exchange and append
+# the sort engine's phase keys, plus route (routing, exchange and append)
+# and the Bloom gate's fill and mark (0 without it)
 PHASES = (
-    "read", "windows", "upload", "hist", "build", "route", "sort", "judge",
-    "fetch", "merge", "emit",
+    "read", "windows", "upload", "hist", "fill", "mark", "build", "route", "sort",
+    "judge", "fetch", "merge", "emit",
 )
+ROUND_PHASES = ("fill", "mark", "build", "route", "sort", "judge", "fetch")
 
 
 @dataclass(frozen=True)
@@ -140,13 +152,16 @@ def build_junctions_dist(
     *,
     device="cuda",
     reference: bool = False,
+    bloom_gate: bool = False,
 ) -> Enumerator:
     """Mesh-parallel counterpart of sortpipe.build_junctions_sorted (same
     arguments, byte-identical output). mesh: a parallel/mesh.py mesh, by
     default one shard per visible CUDA device (device "cuda") or one CPU
     shard (device "cpu"). In a multi-process mesh every process calls this
     with the same arguments; rank 0 writes the .dbg and the checkpoints.
-    reference=True runs the plain versions on any device."""
+    reference=True runs the plain versions on any device. bloom_gate=True
+    (dist-bloom) routes only the candidates of a Bloom filter of 2^f slots
+    (config.filter_bits, hash_functions, layout) sharded over the mesh."""
     dev = sortpipe.resolve_device(device)
     if mesh is None:
         mesh = local_mesh(dev)
@@ -157,6 +172,12 @@ def build_junctions_dist(
         raise ValueError(
             f"rows_per_batch ({B}) must be a multiple of the mesh size ({D})"
         )
+    # the filter's layout is resolved for a shard's slots, so -f 36..40
+    # run once the mesh is wide enough (the layout's errors come first)
+    scfg = (
+        ShardedConfig(base=config.pass_config(shard_devices=D), n_shards=D)
+        if bloom_gate else None
+    )
     rows = B // D
     stats = RunStats()
     stats.timings.update(dict.fromkeys(PHASES, 0.0))
@@ -173,11 +194,25 @@ def build_junctions_dist(
     wide = sortpipe.wide_layout(config, n_slots)
     id_bits = sortpipe.key_id_bits(n_slots, len(sequences), wide)
     log(
-        f"Engine = distributed sort-join over {D} shards ({dev.type})\n"
-        f"Vertex length = {k}\nRecord slots = {n_slots}"
+        f"Engine = distributed {'bloom-gated ' if bloom_gate else ''}sort-join over {D} "
+        f"shards ({dev.type})\nVertex length = {k}\nRecord slots = {n_slots}"
     )
+    free = _shard_free(mesh)
+    if scfg is not None:
+        need = scfg.shard_bytes()
+        log(f"Hash functions = {config.hash_functions}\nFilter size = {1 << config.filter_bits} "
+            f"({scfg.base.layout} layout, {scfg.local_slots} slots a shard)")
+        if free is not None:
+            # each shard's filter and mark buffers live through its round
+            if need >= free:
+                raise RuntimeError(
+                    f"a shard's Bloom filter and mark buffers ({sortpipe._gib(need)}) do not "
+                    f"fit its free device memory ({sortpipe._gib(free)}): shard over more "
+                    "devices or lower -f/--filtermemory"
+                )
+            free -= need
 
-    n_rounds, route_cap = plan_dist(config, mesh, n_slots, _shard_free(mesh))
+    n_rounds, route_cap = plan_dist(config, mesh, n_slots, free)
     # measurement passes: routing bounds (canonical word0 mass) and round
     # intervals (vertex-hash mass)
     t0 = time.time()
@@ -233,17 +268,17 @@ def build_junctions_dist(
             continue
         log(f"Round {r}, {low}:{high}")
         entries, rstats = _run_round(mesh, ops, dcfg, batches, uploads, bounds_d,
-                                     low, high, config.abundance, id_bits, n_slots)
+                                     low, high, config.abundance, id_bits, n_slots, scfg)
         stats.rounds.append(rstats)
-        for key in ("build", "route", "sort", "judge", "fetch"):
+        for key in ROUND_PHASES:
             stats.timings[key] += rstats[f"t_{key}"]
         log(
             f"Round {r} seconds: " + " ".join(
-                f"{key}={rstats[f't_{key}']:.4f}"
-                for key in ("build", "route", "sort", "judge", "fetch")
+                f"{key}={rstats[f't_{key}']:.4f}" for key in ROUND_PHASES
             ) + f"\nTrue junctions = {rstats['true_junctions']}\n"
             f"Distinct k-mers = {rstats['hash_table_size']}\n"
-            f"Occurrences = {rstats['marks']}"
+            + (f"Candidate marks count = {rstats['marks']}" if bloom_gate
+               else f"Occurrences = {rstats['marks']}")
         )
         if checkpoint_dir is not None:
             entry = _round_entry(entries, w)
@@ -262,14 +297,40 @@ def build_junctions_dist(
     )
 
 
+def _fill_round(mesh, ops, scfg: ShardedConfig, uploads, n_batches: int, low: int,
+                high: int) -> dict:
+    """The round's sharded Bloom filter, filled with every batch -> {s:
+    shard}; raises on a fill that could not be sent (a false negative)."""
+    filt = make_sharded_filter(mesh, scfg)
+    step = sharded_fill_step(mesh, scfg, ops)
+    over = None
+    for b in range(n_batches):
+        over = step(filt, {s: uploads[s][b] for s in mesh.shards}, low, high, over)
+    n_over = int(mesh.all_gather(over).sum())
+    if n_over:
+        raise RuntimeError(
+            f"sharded Bloom fill route overflow ({n_over}) — raise ShardedConfig.slack"
+        )
+    return filt
+
+
 def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int,
-               high: int, abundance: int, id_bits: int | None, n_slots: int):
+               high: int, abundance: int, id_bits: int | None, n_slots: int,
+               scfg: ShardedConfig | None = None):
     """One round over the mesh -> (merge entries of every shard in shard
-    order, on every process; the round's stats)."""
+    order, on every process; the round's stats). scfg: the Bloom gate's
+    sharded filter, or None for none."""
     cfg = dcfg.base
     D, P, w = dcfg.n_shards, cfg.P, cfg.w
     rows = cfg.B // D
-    t_build = t_route = 0.0
+    t_fill = t_mark = t_build = t_route = 0.0
+    filt = marks = None
+    if scfg is not None:
+        t0 = time.time()
+        filt = _fill_round(mesh, ops, scfg, uploads, len(batches), low, high)
+        mark_step = sharded_mark_step(mesh, scfg, ops)
+        t_fill = time.time() - t0
+    masks = dict.fromkeys(mesh.shards)
     bufs, over = {}, {}
     recs = {}
     for s in mesh.shards:
@@ -282,11 +343,19 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
             torch.empty(rows * P, dtype=torch.int64, device=d),
         )
     for b, batch in enumerate(batches):
+        if filt is not None:
+            # mark probes that cannot be sent count as route drops
+            t0 = time.time()
+            masks, marks, over = mark_step(filt, {s: uploads[s][b] for s in mesh.shards},
+                                           low, high, over, marks)
+            for s in mesh.shards:
+                sortpipe._sync(mesh.device(s))
+            t_mark += time.time() - t0
         t0 = time.time()
         for s in mesh.shards:
             with on_device(mesh.device(s)):
                 ops.build(*uploads[s][b], (batch.row0 + s * rows) * P, k=cfg.k, P=P,
-                          low=low, high=high, out=recs[s])
+                          low=low, high=high, out=recs[s], mask=masks[s])
         for s in mesh.shards:
             sortpipe._sync(mesh.device(s))
         t1 = time.time()
@@ -305,9 +374,11 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
         t_build += t1 - t0
         t_route += time.time() - t1
 
+    del filt, masks  # the filter is freed before the finish
     # (route drops, buffer fill, buffer overflow) of every shard
     t0 = time.time()
     fill = mesh.all_gather({s: torch.cat([over[s], bufs[s][1]]) for s in mesh.shards})
+    n_marks = None if marks is None else int(mesh.all_gather(marks).sum())
     t_route += time.time() - t0
     overflow = int(fill[:, 0].sum() + fill[:, 2].sum())
     if overflow:
@@ -347,12 +418,12 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
     t_fetch += time.time() - t0
     rstats = dict(
         low=low, high=high,
-        marks=sum(g[3] for g in gathered),
+        marks=sum(g[3] for g in gathered) if n_marks is None else n_marks,
         hash_table_size=sum(g[1] for g in gathered),
         true_junctions=sum(g[2] for g in gathered),
         false_positives=0,
-        t_build=t_build, t_route=t_route, t_sort=t_sort, t_judge=t_judge,
-        t_fetch=t_fetch,
+        t_fill=t_fill, t_mark=t_mark, t_build=t_build, t_route=t_route, t_sort=t_sort,
+        t_judge=t_judge, t_fetch=t_fetch,
     )
     return [g[0] for g in gathered], rstats
 

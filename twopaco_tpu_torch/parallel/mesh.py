@@ -33,6 +33,10 @@ import numpy as np
 import torch
 
 
+# the types the collectives carry a tensor of another type as (same width)
+_WIRE = {torch.uint32: torch.int32, torch.uint64: torch.int64, torch.bool: torch.uint8}
+
+
 def on_device(dev: torch.device):
     """Context in which a shard's kernels launch: its CUDA device current
     (kernels/build.py on_cpu raises otherwise), nothing on the CPU."""
@@ -135,16 +139,16 @@ class ProcessMesh(_Mesh):
 
     def all_to_all(self, send):
         """One all_to_all_single per tensor: block d of this rank's send
-        goes to rank d (uint32 travels as int32: the collectives' types)."""
+        goes to rank d (uint32, uint64 and bool travel as int32, int64 and
+        uint8 views: the collectives' types)."""
         (s,) = self.shards
         out = []
         for x in send[s]:
             x = x.contiguous()
-            xs = x.view(torch.int32) if x.dtype == torch.uint32 else x
+            xs = x.view(_WIRE.get(x.dtype, x.dtype))
             y = torch.empty_like(xs)
             self._dist.all_to_all_single(y, xs)
-            y = y.view(x.dtype) if x.dtype == torch.uint32 else y
-            out.append(y.reshape(-1, *x.shape[2:]))
+            out.append(y.view(x.dtype).reshape(-1, *x.shape[2:]))
         return {s: tuple(out)}
 
     def all_gather(self, values) -> np.ndarray:

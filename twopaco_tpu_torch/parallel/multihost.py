@@ -66,11 +66,13 @@ def build_junctions_multihost(
     *,
     device="cuda",
     reference: bool = False,
+    bloom_gate: bool = False,
 ):
     """initialize(), then build over a ProcessMesh of every rank; rank 0
     writes and logs. checkpoint_dir must be on a filesystem every process
     reads (rank 0 writes the round files, a barrier orders the reads).
-    -> Enumerator (on every rank)."""
+    bloom_gate=True: the dist-bloom engine, its filter sharded over the
+    ranks. -> Enumerator (on every rank)."""
     from twopaco_tpu_torch.parallel.distpipe import build_junctions_dist
     from twopaco_tpu_torch.parallel.mesh import ProcessMesh
 
@@ -79,5 +81,5 @@ def build_junctions_multihost(
     return build_junctions_dist(
         input_paths, config, mesh, out_path if mesh.is_writer() else None, sequences,
         log if mesh.is_writer() else (lambda s: None), checkpoint_dir,
-        device=dev, reference=reference,
+        device=dev, reference=reference, bloom_gate=bloom_gate,
     )

@@ -24,14 +24,17 @@ import numpy as np
 import torch
 
 from twopaco_tpu_torch.parallel.mesh import on_device
-from twopaco_tpu_torch.passes import histogram, judge, occ, records, route, sort, stream
+from twopaco_tpu_torch.passes import (
+    histogram, judge, occ, records, route, shardbloom, sort, stream,
+)
 from twopaco_tpu_torch.passes.pipeline import PassConfig
 
 
 @dataclass(frozen=True)
 class Ops:
-    """The device functions of the distributed engine: the kernels'
-    wrappers, or their plain PyTorch versions."""
+    """The device functions of the distributed engine and its Bloom gate
+    (parallel/sharded.py): the kernels' wrappers, or their plain PyTorch
+    versions."""
 
     build: Callable
     route: Callable
@@ -42,18 +45,27 @@ class Ops:
     occ: Callable
     histogram: Callable
     word0: Callable
+    bucket_fill: Callable
+    bucket_mark: Callable
+    fill_local: Callable
+    probe_local: Callable
+    mark_finish: Callable
 
 
 KERNELS = Ops(
     records.build_sort_records, route.route_records, stream.compact_append,
     sort.sort_records, judge.judge_compact, judge.judge_records,
     occ.sort_occurrences, histogram.histogram_vertex_hashes, histogram.word0_histogram,
+    shardbloom.bucket_fill, shardbloom.bucket_mark, shardbloom.fill_local,
+    shardbloom.probe_local, shardbloom.mark_finish,
 )
 PLAIN = Ops(
     records.build_sort_records_plain, route.route_records_plain,
     stream.compact_append_plain, sort.sort_records_plain, judge.judge_compact_plain,
     judge.judge_records_plain, occ.sort_occurrences_plain,
     histogram.histogram_vertex_hashes_plain, histogram.word0_histogram_plain,
+    shardbloom.bucket_fill_plain, shardbloom.bucket_mark_plain, shardbloom.fill_local_plain,
+    shardbloom.probe_local_plain, shardbloom.mark_finish_plain,
 )
 
 

@@ -162,7 +162,17 @@ def check_filter(filt, cfg) -> None:
 
 
 def check_batch(packed, nmask, valid, cfg) -> None:
-    """Types and shapes of an upload-form batch for a Bloom kernel."""
+    """Types and shapes of an upload-form batch for a Bloom kernel, and
+    the layout's capacity for a whole 2^f-slot filter on one device."""
+    check_upload(packed, nmask, valid, cfg)
+    if cfg.layout not in LAYOUTS:
+        raise ValueError(f"unknown Bloom layout {cfg.layout!r}")
+    bloom.check_layout_slots(1 << cfg.f, cfg.layout)
+
+
+def check_upload(packed, nmask, valid, cfg) -> None:
+    """Types and shapes of an upload-form batch of P positions a row, and
+    q >= 1 hash functions."""
     build.require(packed, torch.uint32, "packed")
     build.require(nmask, torch.uint32, "nmask")
     build.require(valid, torch.int32, "valid")
@@ -175,9 +185,6 @@ def check_batch(packed, nmask, valid, cfg) -> None:
         )
     if cfg.P % 8:
         raise ValueError(f"P = {cfg.P} must be a multiple of 8 (packed masks)")
-    if cfg.layout not in LAYOUTS:
-        raise ValueError(f"unknown Bloom layout {cfg.layout!r}")
-    bloom.check_layout_slots(1 << cfg.f, cfg.layout)
     if cfg.q < 1:
         raise ValueError(f"q = {cfg.q}: at least one hash function")
 

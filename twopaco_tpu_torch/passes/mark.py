@@ -21,7 +21,9 @@ from twopaco_tpu_torch.passes import fill
 _MSB_FIRST = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
-def _mark_common(codes, valid, low: int, high: int, cfg, tabs):
+def mark_common(codes, valid, low: int, high: int, cfg, tabs):
+    """-> ([(hf, hr)] per table of tabs at the P positions, vertex hash hv,
+    base (a record, hv in [low, high]), prev, nxt): (B, P) each."""
     k, P = cfg.k, cfg.P
     state = fill.hash_state(codes, cfg, tabs, P + 1)  # offsets 0 .. P
     defV = pack.window_all_definite(codes, k, P + 1)[:, 1 : P + 1]
@@ -44,7 +46,7 @@ def _edge_syms(hfhr, tabs, k):
 def mark_indices(codes, valid, low: int, high: int, cfg):
     """Byte and bit layouts: -> (idx (B, P, 8, q), base, prev, nxt)."""
     tabs = fill.tables(cfg)
-    hfhr, _hv, base, prev, nxt = _mark_common(codes, valid, low, high, cfg, tabs)
+    hfhr, _hv, base, prev, nxt = mark_common(codes, valid, low, high, cfg, tabs)
     idx = torch.stack([fill.probe_idx(s, cfg) for s in _edge_syms(hfhr, tabs, cfg.k)], dim=2)
     return idx, base, prev, nxt
 
@@ -52,7 +54,7 @@ def mark_indices(codes, valid, low: int, high: int, cfg):
 def mark_indices_block(codes, valid, low: int, high: int, cfg):
     """Block layout: -> (block (B, P), bits (B, P, 8, q), base, prev, nxt)."""
     tabs = fill.tables(cfg)
-    hfhr, hv, base, prev, nxt = _mark_common(codes, valid, low, high, cfg, tabs)
+    hfhr, hv, base, prev, nxt = mark_common(codes, valid, low, high, cfg, tabs)
     bits = torch.stack(
         [bloom.block_bits(e1, e2, cfg.q) for e1, e2 in _edge_syms(hfhr, tabs, cfg.k)], dim=2
     )

@@ -70,7 +70,7 @@ class PipelineConfig:
     filter_bits: int = 25  # f: Bloom slots = 2^f (reference -f)
     hash_functions: int = 5  # q (reference -q)
     layout: str = "auto"  # Bloom layout: auto | byte | bit | block
-    engine: str = "sort"  # sort (sort-join) | bloom | dist; dist-bloom is not ported
+    engine: str = "sort"  # sort (sort-join) | bloom | dist | dist-bloom
 
     def __post_init__(self) -> None:
         # even k breaks canonicalization (palindromes tie with their own
@@ -85,20 +85,25 @@ class PipelineConfig:
     def w(self) -> int:
         return dna.n_words(self.k)
 
-    def resolve_layout(self) -> str:
-        """The Bloom layout of the filter: `layout`, checked against its
-        capacity, or for 'auto' the byte layout up to 2^30 slots and the
-        bit layout up to 2^35 (twopaco_tpu pipeline.py:77)."""
-        slots = 1 << self.filter_bits
+    def resolve_layout(self, shard_devices: int = 1) -> str:
+        """The Bloom layout of the filter (shard) a device holds: `layout`,
+        checked against its capacity, or for 'auto' the byte layout up to
+        2^30 slots and the bit layout up to 2^35 (twopaco_tpu
+        pipeline.py:77). shard_devices > 1: the dist-bloom engine, whose
+        shards hold ceil(2^f / D) slots each, so -f 38 fits the bit layout
+        over 8 shards."""
+        slots = -(-(1 << self.filter_bits) // shard_devices)
         if self.layout != "auto":
             bloom.check_layout_slots(slots, self.layout)
             return self.layout
         return bloom.choose_layout_slots(slots)
 
-    def pass_config(self) -> PassConfig:
+    def pass_config(self, shard_devices: int = 1) -> PassConfig:
+        """The Bloom passes' shapes with the layout of a filter sharded over
+        shard_devices (1: one device's whole filter)."""
         return PassConfig(
             k=self.k, q=self.hash_functions, f=self.filter_bits,
-            layout=self.resolve_layout(),
+            layout=self.resolve_layout(shard_devices),
             positions_per_row=self.positions_per_row,
             rows_per_batch=self.rows_per_batch,
         )
@@ -460,7 +465,8 @@ def build_junctions(
     the sort-join engine (passes/sortpipe.py), the Bloom engine
     (passes/bloompipe.py; tmpdir holds its spilled candidate masks) or the
     distributed sort-join engine (parallel/distpipe.py, one shard per
-    visible CUDA device, one CPU shard on the CPU). Arguments as
+    visible CUDA device, one CPU shard on the CPU), without or with its
+    hash-sharded Bloom gate (dist-bloom). Arguments as
     build_junctions_sorted's. -> Enumerator."""
     if config.engine == "sort":
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
@@ -476,16 +482,11 @@ def build_junctions(
             input_paths, config, out_path, sequences, log, checkpoint_dir,
             tmpdir, device=device, reference=reference,
         )
-    if config.engine == "dist":
+    if config.engine in ("dist", "dist-bloom"):
         from twopaco_tpu_torch.parallel.distpipe import build_junctions_dist
 
         return build_junctions_dist(
             input_paths, config, None, out_path, sequences, log, checkpoint_dir,
-            device=device, reference=reference,
-        )
-    if config.engine in ENGINES:
-        raise NotImplementedError(
-            f"--tpu-engine {config.engine} is not ported yet (ROADMAP A8): it "
-            "needs the hash-sharded Bloom filter; use the sort, bloom or dist engine"
+            device=device, reference=reference, bloom_gate=config.engine == "dist-bloom",
         )
     raise ValueError(f"unknown engine {config.engine!r}; one of {ENGINES}")

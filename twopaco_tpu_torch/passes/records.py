@@ -16,6 +16,7 @@ from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import buzhash as bz
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
+from twopaco_tpu_torch.passes.mark import unpack_mask
 
 REAL = 1 << 17  # payload bit of a real (in-round) record
 
@@ -71,11 +72,13 @@ def batch_records_plain(packed, nmask, valid, *, k: int, P: int):
 
 def build_sort_records_plain(
     packed, nmask, valid, pos_base: int, *, k: int, P: int,
-    low: int = 0, high: int = MASK32, out=None,
+    low: int = 0, high: int = MASK32, out=None, mask=None,
 ):
     """Plain PyTorch version of build_sort_records (any device)."""
     canon, payload, hv, ok = batch_records_plain(packed, nmask, valid, k=k, P=P)
     ok = ok & (hv >= low) & (hv <= high)
+    if mask is not None:
+        ok = ok & unpack_mask(mask, P).reshape(-1)
     payload = torch.where(ok, payload | REAL, 0)
     words = torch.where(ok[:, None], canon, MASK32)
     res = (
@@ -94,7 +97,7 @@ def build_sort_records_plain(
 
 def build_sort_records(
     packed, nmask, valid, pos_base: int, *, k: int, P: int,
-    low: int = 0, high: int = MASK32, out=None,
+    low: int = 0, high: int = MASK32, out=None, mask=None,
 ):
     """One record per vertex position of a batch of B rows x P positions.
 
@@ -106,15 +109,19 @@ def build_sort_records(
     all-ones sentinel rows with payload 0.
 
     out: optional (words (B*P, w) uint32, payload (B*P,) uint32, pos
-    (B*P,) int64) slices of the round buffer to write into.
+    (B*P,) int64) slices of the round buffer to write into. mask: optional
+    (B, P/8) uint8 candidate mask (MSB first, the dist-bloom engine's
+    gate, twopaco_tpu distpipe.py:168): a position whose bit is 0 becomes
+    a sentinel row with payload 0 too.
     -> (words, payload = in | out<<8 | is_rc<<16 | real<<17, pos)
     """
     B = packed.shape[0]
     n, w = B * P, pack.n_words(k)
-    if build.on_cpu(packed, nmask, valid):
+    gates = () if mask is None else (mask,)
+    if build.on_cpu(packed, nmask, valid, *gates):
         return build_sort_records_plain(
             packed, nmask, valid, pos_base, k=k, P=P, low=low, high=high,
-            out=out,
+            out=out, mask=mask,
         )
     R = P + k + 1
     build.require(packed, torch.uint32, "packed")
@@ -125,6 +132,11 @@ def build_sort_records(
             f"batch shapes {tuple(packed.shape)}, {tuple(nmask.shape)}, "
             f"{tuple(valid.shape)} do not hold rows of {R} chars"
         )
+    if mask is not None:
+        build.require(mask, torch.uint8, "mask")
+        if P % 8 or mask.shape != (B, P // 8):
+            raise ValueError(f"mask: expected ({B}, {P // 8}) with P % 8 == 0, got "
+                             f"{tuple(mask.shape)} at P = {P}")
     dev = packed.device
     if out is None:
         out = (
@@ -144,7 +156,8 @@ def build_sort_records(
     rc = build.lib().tp_build_records(
         packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, P, k,
         packed.shape[1], nmask.shape[1], int(pos_base), int(low), int(high),
-        *bz.TABLE_1, words.data_ptr(), payload.data_ptr(), pos.data_ptr(),
+        *bz.TABLE_1, mask.data_ptr() if mask is not None else None,
+        words.data_ptr(), payload.data_ptr(), pos.data_ptr(),
         build.stream_ptr(),
     )
     build.check(rc, "build_sort_records")
