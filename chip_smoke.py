@@ -133,8 +133,10 @@ REPLACES = {
                       "twopaco_tpu/passes/sortpipe.py:375"),
     "sort_occurrences": ("twopaco_tpu_torch/kernels/csrc/occ_pack.cu",
                          "twopaco_tpu/passes/sortpipe.py:762"),
-    "shard_bucket": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
-                     "twopaco_tpu/parallel/sharded.py:112"),
+    "shard_bucket_fill": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
+                          "twopaco_tpu/parallel/sharded.py:112"),
+    "shard_bucket_mark": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
+                          "twopaco_tpu/parallel/sharded.py:112"),
     "shard_fill": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
                    "twopaco_tpu/parallel/sharded.py:143"),
     "shard_probe": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
@@ -149,16 +151,16 @@ PATH_OF = {
     "histogram": "histogram", "bloom_fill": "bloom_byte", "bloom_mark": "bloom_byte",
     "bloom_extract": "bloom_byte", "bloom_lookup": "bloom_byte",
     "route": "dist_r1", "word0_histogram": "dist_r1", "judge_records": "step",
-    "sort_occurrences": "dist_r1", "shard_bucket": "dist_bloom_r1",
-    "shard_fill": "dist_bloom_r1", "shard_probe": "dist_bloom_r1",
-    "shard_mark_finish": "dist_bloom_r1",
+    "sort_occurrences": "dist_r1", "shard_bucket_fill": "dist_bloom_r1",
+    "shard_bucket_mark": "dist_bloom_r1", "shard_fill": "dist_bloom_r1",
+    "shard_probe": "dist_bloom_r1", "shard_mark_finish": "dist_bloom_r1",
 }
 D4 = 4  # shards of the card in the distributed runs
 # the kernels each distributed path must launch
 DIST_PATH = ("word0_histogram", "build_records", "route", "compact", "sort_records",
              "judge_compact", "sort_occurrences")
-DIST_BLOOM_PATH = (*DIST_PATH, "shard_bucket", "shard_fill", "shard_probe",
-                   "shard_mark_finish")
+DIST_BLOOM_PATH = (*DIST_PATH, "shard_bucket_fill", "shard_bucket_mark", "shard_fill",
+                   "shard_probe", "shard_mark_finish")
 MH_CHILD = r"""
 import json, sys, time
 import torch
@@ -989,7 +991,7 @@ def main() -> int:
         for marking, cap in ((False, cap_f), (True, cap_m)):
             fn, fn_p = ((shardbloom.bucket_mark, shardbloom.bucket_mark_plain) if marking
                         else (shardbloom.bucket_fill, shardbloom.bucket_fill_plain))
-            compare("shard_bucket",
+            compare("shard_bucket_mark" if marking else "shard_bucket_fill",
                     lambda: fn(*a0, *full, cfg=scfg.base, n_shards=n_sh, cap=cap),
                     lambda: fn_p(*a0, *full, cfg=scfg.base, n_shards=n_sh, cap=cap),
                     5, results, in_bytes=nbytes(a0),
@@ -1047,11 +1049,14 @@ def main() -> int:
                 for s in meshc.shards}
         back = meshc.all_to_all(hits)
         del hits, recv_m
+        # the finish reads its probe slots, the upload form and one hit a
+        # sent probe (not the whole returned block)
+        sent_m = int((slots[0] >= 0).sum())
         compare("shard_mark_finish",
                 lambda: shardbloom.mark_finish(back[0][0], slots[0], *a0, *full, cfg=scfg.base),
                 lambda: shardbloom.mark_finish_plain(back[0][0], slots[0], *a0, *full,
                                                      cfg=scfg.base),
-                5, results, in_bytes=nbytes(back[0][0], slots[0], a0), ops=n_pos * 4 * k)
+                5, results, in_bytes=nbytes(slots[0], a0) + sent_m, ops=n_pos * 4 * k)
         marked = [shardbloom.mark_finish(back[s][0], slots[s], *b0[s], *full, cfg=scfg.base)
                   for s in meshc.shards]
         n_cand = sum(int(c) for _m, c in marked)

@@ -596,13 +596,14 @@ def _shard_cfg(k, f, layout, q, P, B, D):
 
 @pytest.mark.parametrize("D,layout,f", [
     (1, "byte", 20), (3, "byte", 20), (4, "bit", 22), (8, "bit", 20), (4, "bit", 36),
-    (3, "bit", 33), (8, "byte", 40),
+    (3, "bit", 33), (8, "byte", 40), (11, "byte", 20), (20, "bit", 36),
 ])
 @pytest.mark.parametrize("mode", ["fill", "mark"])
 @pytest.mark.parametrize("tiny", [False, True])
 def test_shard_bucket_kernel(dev, D, layout, f, mode, tiny):
     """Send slots, probe slots and the overflow count equal the plain
-    version's exactly (32- and 64-bit indices; a tiny cap overflows)."""
+    version's exactly (32- and 64-bit indices; more than eight shards take
+    more than one pass of owners; a tiny cap overflows)."""
     k, P, B, q = 25, 512, 8, 3
     rng = np.random.default_rng(D * 100 + f)
     args = _to(dev, *_genome_batch(rng, B, P, k))
@@ -613,7 +614,7 @@ def test_shard_bucket_kernel(dev, D, layout, f, mode, tiny):
     over = torch.full((1,), 7, dtype=torch.int64, device=dev)
     build.reset_launch_counts()
     got = fn(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=cap, overflow=over.clone())
-    assert build.launch_counts() == {"shard_bucket": 1}
+    assert build.launch_counts() == {f"shard_bucket_{mode}": 1}
     want = plain(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=cap,
                  overflow=over.clone())
     for a, b in zip(got, want):
@@ -653,8 +654,8 @@ def test_sharded_fill_mark_kernels(dev, D, layout, f, gate):
         counts = build.launch_counts()
         if ops is sortshard.KERNELS:
             n = 3 * D
-            assert counts == {"shard_bucket": 2 * n, "shard_fill": n, "shard_probe": n,
-                              "shard_mark_finish": n}
+            assert counts == {"shard_bucket_fill": n, "shard_bucket_mark": n, "shard_fill": n,
+                              "shard_probe": n, "shard_mark_finish": n}
         else:
             assert counts == {}
         runs.append((filt, over, marked))
@@ -741,7 +742,8 @@ def test_shard_wrappers_never_reach_the_plain_code(dev, monkeypatch):
     hits = shardbloom.probe_local(filt, send, "bit")
     mask, _count = shardbloom.mark_finish(hits, slots, *args, 0, 0xFFFFFFFF, cfg=scfg.base)
     records.build_sort_records(*args, 0, k=k, P=P, mask=mask)
-    assert build.launch_counts() == {"shard_bucket": 2, "shard_fill": 1, "shard_probe": 1,
+    assert build.launch_counts() == {"shard_bucket_fill": 1, "shard_bucket_mark": 1,
+                                     "shard_fill": 1, "shard_probe": 1,
                                      "shard_mark_finish": 1, "build_records": 1}
 
 
@@ -764,9 +766,9 @@ def test_dist_bloom_engine_cuda_equals_plain(dev, tmp_path, rounds, layout):
         if reference:
             assert counts == {}
         else:
-            want = {"word0_histogram", "shard_bucket", "shard_fill", "shard_probe",
-                    "shard_mark_finish", "build_records", "route", "compact", "sort_records",
-                    "judge_compact", "sort_occurrences"} | ({"histogram"} if rounds > 1 else set())
+            want = {"word0_histogram", "shard_bucket_fill", "shard_bucket_mark", "shard_fill",
+                    "shard_probe", "shard_mark_finish", "build_records", "route", "compact",
+                    "sort_records", "judge_compact", "sort_occurrences"} | ({"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")

@@ -74,6 +74,16 @@ def test_bucket_routing_and_overflow():
     np.testing.assert_array_equal(np.where(s >= 0, back.reshape(-1)[np.maximum(s, 0)], False), un)
 
 
+@pytest.mark.parametrize("D,cap", [(1, 1 << 31), (4, 1 << 29), (3, 715_827_883)])
+def test_bucket_refuses_send_slots_past_int32(D, cap):
+    """A send slot owner * cap + rank must fit the int32 probe slots: past
+    2^31 the plain version would read a sent probe as unsent, so it
+    refuses (before allocating the send slots), as the kernel path does."""
+    idx = torch.arange(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int32 probe slots"):
+        shardbloom.bucket_indices_plain(idx, torch.ones(8, dtype=torch.bool), D, cap)
+
+
 @pytest.mark.parametrize("D,f,cap_scale", [(3, 18, 1.0), (8, 18, 1.0), (8, 40, 1.0), (4, 18, 0.05)])
 @pytest.mark.parametrize("mode", ["fill", "mark"])
 def test_bucket_matches_jax(D, f, cap_scale, mode):
@@ -101,6 +111,31 @@ def test_bucket_matches_jax(D, f, cap_scale, mode):
     np.testing.assert_array_equal(_u64(got[0]), np.asarray(want))
     assert int(got[-1]) == int(wover)
     assert (int(wover) > 0) == (cap_scale < 1)
+
+
+def test_mark_probe_slots_match_unbucket():
+    """bucket_mark's probe slots, (8q, B*P) edge-hash major: each of a
+    shard's real mark probes reads its hit back as _unbucket returns it,
+    under a cap that leaves some probes unsent."""
+    D, q, B = 4, 2, 8
+    jscfg, tscfg = _configs(18, q, "byte", B, D)
+    b = _batches(B)[0]
+    rows = slice(0, B // D)
+    idx, base, _p, _n = jk.mark_indices(jnp.asarray(b.codes[rows]), jnp.asarray(b.valid[rows]),
+                                        *FULL, jscfg.base)
+    val = jnp.broadcast_to(base[:, :, None, None], idx.shape)
+    cap = tscfg.cap(idx.size) // 3
+    _want, route, wover = jsh._bucket(idx.astype(jnp.uint64).reshape(-1), val.reshape(-1),
+                                      jscfg, cap)
+    _send, slots, over = shardbloom.bucket_mark(*_upload(b.codes[rows], b.valid[rows]), *FULL,
+                                                cfg=tscfg.base, n_shards=D, cap=cap)
+    assert slots.shape == (8 * q, (B // D) * P)
+    assert int(over) == int(wover) > 0
+    back = np.random.default_rng(1).integers(0, 2, size=(D, cap)).astype(bool)
+    un = np.asarray(jsh._unbucket(jnp.asarray(back), route, idx.size))
+    s = slots.numpy()
+    got = np.where(s >= 0, back.reshape(-1)[np.maximum(s, 0)], False)
+    np.testing.assert_array_equal(got.T.reshape(-1), un)
 
 
 def _run_both(D, layout, f, q, rounds_gate=FULL, B=None):

@@ -17,7 +17,8 @@
 //                         hold all-ones, the indices past cap are dropped
 //                         and counted. In mark mode it also writes each
 //                         probe's send slot owner*cap + rank (all-ones where
-//                         the probe is not sent);
+//                         the probe is not sent), edge-hash major: probe j
+//                         of position t at j * B*P + t;
 // and, after the exchange (the mesh's all_to_all),
 //   tp_shard_fill_apply   sets the received local slots in its shard;
 //   tp_shard_probe        reads them: one u8 hit a slot (all-ones: 0);
@@ -28,14 +29,18 @@
 //                         packs the candidate mask MSB first, adding the
 //                         count to an int64.
 //
-// Bound: bytes. Per position 4q or 8q u64 indices are written, read twice
-// and scattered (40-80 q bytes), the send slots are cleared; the fill and
-// probe touch one byte or u32 word a received slot at random over a shard
-// of up to 2 GiB. Design: the hashes stay in registers (common.cuh, shared
-// with bloom_fill.cu and bloom_mark.cu); the indices go through one flat u64
-// scratch array, bucketed by route.cu's stable counting scatter (per-tile
-// owner counts scanned owner-major by scan.cu, ranks by warp match masks:
-// common.cuh), so the send slots equal the plain version's exactly; owner
+// Bound: bytes. The bucketing reads the upload form and writes the send
+// slots (and the probe slots); the fill and probe touch one byte or u32
+// word a received slot at random over a shard of up to 2 GiB. Design: one
+// thread a position, a tile a block of TP_THREADS positions; the hashes and
+// indices stay in registers (common.cuh, shared with bloom_fill.cu and
+// bloom_mark.cu) and are computed again in each pass, never stored. A count
+// pass gives per-tile owner counts, scanned owner-major by scan.cu; the
+// scatter pass ranks each index by the exclusive prefix of its thread's
+// owner counts over the tile (warp shuffles, then the lower warps' totals)
+// and its order among its own thread's indices, so the send slots equal
+// the plain version's exactly. Owners go in chunks of SHARD_DC, one
+// register counter each (D > SHARD_DC: one more hash pass a chunk). Owner
 // and local slot use 32-bit division while the index fits 32 bits (f <= 32)
 // and 64-bit past it.
 #include <algorithm>
@@ -46,6 +51,7 @@ namespace {
 
 constexpr uint64_t SENT = ~0ull;  // an index that is not sent / empty slot
 constexpr uint32_t NOT_SENT = 0xffffffffu;
+constexpr int SHARD_DC = 8;  // owners counted in registers a pass
 
 __device__ __forceinline__ uint32_t owner_of(uint64_t x, int D) {
     if (x == SENT) return (uint32_t)D;
@@ -58,72 +64,163 @@ __device__ __forceinline__ uint64_t local_of(uint64_t x, int D) {
                           : x / (uint64_t)D;
 }
 
-// Thread t = position b*P + i writes indices [t*per, (t+1)*per) of idx,
-// per = 4q (fill) or 8q (mark); indices not inserted or not probed are
-// SENT. Mark mode also sets the position's probe slots to NOT_SENT.
-__global__ void k_shard_indices(const uint32_t* __restrict__ packed,
-                                const uint32_t* __restrict__ nmask,
-                                const int32_t* __restrict__ valid, int B,
-                                int P, int k, int RW, int NW, uint32_t low,
-                                uint32_t high, TpTabs tabs, int q, int f,
-                                int mark, uint64_t* __restrict__ idx,
-                                uint32_t* __restrict__ probe_slot) {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)B * P) return;
-    const int b = (int)(t / P);
-    const int i = (int)(t - (long long)b * P);
-    const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-    const int nt = f > 32 ? 4 : 2;
-    const int edges = mark ? 8 : 4;
-    uint64_t* out = idx + (size_t)t * edges * q;
-    uint32_t e[4];
-    if (mark) {
-        uint32_t hf[4], hr[4];
-        const bool base =
-            tp_mark_position(row, i, k, valid[b], low, high, tabs, nt, hf, hr);
-        // slots 0..3: in-edges c·V, 4..7: out-edges V·c, c = A, C, G, T
-        for (int s = 0; s < 8; ++s) {
-            if (base) tp_edge_hashes(hf, hr, tabs, nt, s >= 4, s & 3u, k, e);
-            for (int j = 0; j < q; ++j)
-                out[s * q + j] = base ? tp_km_index(e, (uint32_t)j, f) : SENT;
+// One batch of a shard: B rows of the upload form, P positions a row, the
+// round [low, high], q hashes into 2^f slots; mark = 0 fill, 1 mark.
+struct ShardBatch {
+    const uint32_t* packed;
+    const uint32_t* nmask;
+    const int32_t* valid;
+    int B, P, k, RW, NW;
+    uint32_t low, high;
+    TpTabs tabs;
+    int q, f, mark;
+
+    __device__ __forceinline__ long long n_pos() const {
+        return (long long)B * P;
+    }
+
+    // visit(j, x) for the per = 4q (fill) or 8q (mark) global indices x of
+    // position t = b*P + i in (edge, hash) order j; x = SENT where the
+    // index is not inserted or not probed.
+    template <class Visit>
+    __device__ __forceinline__ void indices(long long t, Visit visit) const {
+        const int b = (int)(t / P);
+        const int i = (int)(t - (long long)b * P);
+        const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
+        const int nt = f > 32 ? 4 : 2;
+        uint32_t e[4];
+        if (mark) {
+            uint32_t hf[4], hr[4];
+            const bool base = tp_mark_position(row, i, k, valid[b], low, high,
+                                               tabs, nt, hf, hr);
+            // slots 0..3: in-edges c·V, 4..7: out-edges V·c, c = A, C, G, T
+            for (int s = 0; s < 8; ++s) {
+                if (base) tp_edge_hashes(hf, hr, tabs, nt, s >= 4, s & 3u, k, e);
+                for (int j = 0; j < q; ++j)
+                    visit(s * q + j, base ? tp_km_index(e, (uint32_t)j, f) : SENT);
+            }
+            return;
         }
-        uint32_t* ps = probe_slot + (size_t)t * edges * q;
-        for (int j = 0; j < edges * q; ++j) ps[j] = NOT_SENT;
-        return;
+        TpFillPos p;
+        unsigned slots = 0;
+        if (tp_fill_position(row, i, k, valid[b], low, high, tabs, nt, p) &&
+            (p.in_v || p.in_n))
+            slots = tp_fill_slots(p);
+        for (int s = 0; s < 4; ++s) {
+            const bool on = (slots >> s) & 1u;
+            if (on) tp_fill_edge(p, tabs, nt, s, k, e);
+            for (int j = 0; j < q; ++j)
+                visit(s * q + j, on ? tp_km_index(e, (uint32_t)j, f) : SENT);
+        }
     }
-    TpFillPos p;
-    unsigned slots = 0;
-    if (tp_fill_position(row, i, k, valid[b], low, high, tabs, nt, p) &&
-        (p.in_v || p.in_n))
-        slots = tp_fill_slots(p);
-    for (int s = 0; s < 4; ++s) {
-        const bool on = (slots >> s) & 1u;
-        if (on) tp_fill_edge(p, tabs, nt, s, k, e);
-        for (int j = 0; j < q; ++j)
-            out[s * q + j] = on ? tp_km_index(e, (uint32_t)j, f) : SENT;
+
+    // cnt[c] = indices of position t owned by shard d0 + c (t >= n_pos: 0)
+    __device__ __forceinline__ void owner_counts(long long t, int D, int d0,
+                                                 uint32_t* cnt) const {
+#pragma unroll
+        for (int c = 0; c < SHARD_DC; ++c) cnt[c] = 0;
+        if (t >= n_pos()) return;
+        indices(t, [&](int, uint64_t x) {
+            const uint32_t o = owner_of(x, D);
+            if (o >= (uint32_t)D) return;
+#pragma unroll
+            for (int c = 0; c < SHARD_DC; ++c) cnt[c] += o - d0 == (uint32_t)c;
+        });
+    }
+};
+
+// counts[d * nt + tile] = indices of tile blockIdx.x (TP_THREADS positions)
+// owned by shard d
+__global__ void k_shard_count(ShardBatch bt, int D,
+                              uint32_t* __restrict__ counts, size_t nt) {
+    __shared__ uint32_t s_w[TP_WARPS][SHARD_DC];
+    const long long t = (long long)blockIdx.x * TP_THREADS + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    for (int d0 = 0; d0 < D; d0 += SHARD_DC) {
+        uint32_t cnt[SHARD_DC];
+        bt.owner_counts(t, D, d0, cnt);
+#pragma unroll
+        for (int c = 0; c < SHARD_DC; ++c) {
+            const uint32_t w = __reduce_add_sync(0xffffffffu, cnt[c]);
+            if (lane == 0) s_w[warp][c] = w;
+        }
+        __syncthreads();
+        const int c = threadIdx.x;
+        if (c < SHARD_DC && d0 + c < D) {
+            uint32_t tot = 0;
+            for (int v = 0; v < TP_WARPS; ++v) tot += s_w[v][c];
+            counts[(size_t)(d0 + c) * nt + blockIdx.x] = tot;
+        }
+        __syncthreads();
     }
 }
 
-__global__ void k_shard_hist(const uint64_t* __restrict__ idx, size_t n,
-                             int D, uint32_t* __restrict__ counts, size_t nt) {
-    tp_tile_owner_counts(n, D, counts, nt,
-                         [&](size_t i) { return owner_of(idx[i], D); });
-}
-
-__global__ void k_shard_scatter(const uint64_t* __restrict__ idx, size_t n,
-                                int D, int cap,
+// The stable scatter of tile blockIdx.x: an index's rank among its owner's
+// is the owner's offset for the tile (the scanned counts), plus the
+// owner's indices in lower threads of the tile, plus those before it in
+// its own thread. Ranks past cap are dropped (their probe slot NOT_SENT).
+__global__ void k_shard_scatter(ShardBatch bt, int D, int cap,
                                 const uint32_t* __restrict__ counts,
                                 const uint32_t* __restrict__ incl, size_t nt,
                                 uint64_t* __restrict__ send,
                                 uint32_t* __restrict__ probe_slot) {
-    tp_stable_scatter(
-        n, D, counts, incl, nt, [&](size_t i) { return owner_of(idx[i], D); },
-        [&](size_t i, uint32_t d, uint32_t rank) {
-            if (rank >= (uint32_t)cap) return;
-            const size_t o = (size_t)d * cap + rank;
-            send[o] = local_of(idx[i], D);
-            if (probe_slot != nullptr) probe_slot[i] = (uint32_t)o;
-        });
+    __shared__ uint32_t s_w[TP_WARPS][SHARD_DC];
+    __shared__ uint32_t s_base[SHARD_DC];
+    const long long n = bt.n_pos();
+    const long long t = (long long)blockIdx.x * TP_THREADS + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    for (int d0 = 0; d0 < D; d0 += SHARD_DC) {
+        const int c0 = threadIdx.x;
+        if (c0 < SHARD_DC && d0 + c0 < D) {
+            const size_t first = (size_t)(d0 + c0) * nt;
+            const size_t slot = first + blockIdx.x;
+            // offset of this tile's first index among owner d0 + c0's
+            s_base[c0] = (incl[slot] - counts[slot]) - (incl[first] - counts[first]);
+        }
+        uint32_t cur[SHARD_DC];
+        bt.owner_counts(t, D, d0, cur);
+#pragma unroll
+        for (int c = 0; c < SHARD_DC; ++c) {
+            uint32_t x = cur[c];
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
+                if (lane >= o) x += y;
+            }
+            if (lane == 31) s_w[warp][c] = x;
+            cur[c] = x - cur[c];  // exclusive within the warp
+        }
+        __syncthreads();
+#pragma unroll
+        for (int c = 0; c < SHARD_DC; ++c) {
+            uint32_t b = s_base[c];
+            for (int v = 0; v < warp; ++v) b += s_w[v][c];
+            cur[c] += b;
+        }
+        if (t < n)
+            bt.indices(t, [&](int j, uint64_t x) {
+                const uint32_t o = owner_of(x, D);
+                uint32_t* ps = probe_slot != nullptr
+                                   ? probe_slot + (size_t)j * n + t
+                                   : nullptr;
+                if (o >= (uint32_t)D) {
+                    if (ps != nullptr && d0 == 0) *ps = NOT_SENT;
+                    return;
+                }
+                const uint32_t c = o - (uint32_t)d0;
+                if (c >= (uint32_t)SHARD_DC) return;  // another chunk's
+                uint32_t r = 0;
+#pragma unroll
+                for (int cc = 0; cc < SHARD_DC; ++cc)
+                    if (c == (uint32_t)cc) r = cur[cc]++;
+                const bool sent = r < (uint32_t)cap;
+                if (sent) send[(size_t)o * cap + r] = local_of(x, D);
+                if (ps != nullptr) *ps = sent ? o * (uint32_t)cap + r : NOT_SENT;
+            });
+        __syncthreads();
+    }
 }
 
 __global__ void k_shard_finish(const uint32_t* __restrict__ counts,
@@ -178,17 +275,23 @@ __global__ void k_shard_mark_finish(const uint8_t* __restrict__ back,
         const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
         uint32_t hf[4], hr[4];
         if (tp_mark_position(row, i, k, valid[b], low, high, tabs, 1, hf, hr)) {
-            const uint32_t* ps = probe_slot + (size_t)t * 8 * q;
             cand = tp_mark_decide(row.ext(i), row.ext(i + k + 1),
                                   [&](int side, uint32_t c) {
-                const uint32_t* e = ps + (side * 4 + (int)c) * q;
-                for (int j = 0; j < q; ++j)
-                    if (e[j] == NOT_SENT || !back[e[j]]) return false;
+                const int e = (side * 4 + (int)c) * q;
+                for (int j = 0; j < q; ++j) {
+                    const uint32_t s = probe_slot[(size_t)(e + j) * n + t];
+                    if (s == NOT_SENT || !back[s]) return false;
+                }
                 return true;
             });
         }
     }
     tp_pack_candidates(cand, t, n, mask, count);
+}
+
+// tiles of TP_THREADS positions (at least one)
+size_t shard_tiles(size_t n_pos) {
+    return std::max<size_t>((n_pos + TP_THREADS - 1) / TP_THREADS, 1);
 }
 
 TpTabs load_tabs(const uint32_t* tabs) {
@@ -200,56 +303,45 @@ TpTabs load_tabs(const uint32_t* tabs) {
 
 }  // namespace
 
+// u32 words of each of tp_shard_bucket's count tables (counts, incl)
+extern "C" size_t tp_shard_count_words(size_t n_pos, int D) {
+    return (size_t)D * shard_tiles(n_pos);
+}
+
 // Bucket one batch's fill (mark = 0) or mark (mark = 1) indices by owner.
 // The batch: B rows of the upload form (packed, nmask, valid; RW, NW words a
 // row), P positions a row, the round [low, high]; tabs, q, f as
 // tp_bloom_fill (f > 32: 64-bit indices). Scratch (sized by the caller):
-// idx (B*P*per u64, per = 4q or 8q), counts and incl (tp_route_count_words
-// of B*P*per and D, u32), the scan scratch (tp_scan_scratch_words of that).
-// Outputs: send (D, cap) u64; probe_slot (B*P*8q u32, mark mode; null in
-// fill mode); overflow (one int64, added to).
+// counts and incl (tp_shard_count_words(B*P, D) u32), the scan scratch
+// (tp_scan_scratch_words of that). Outputs: send (D, cap) u64; probe_slot
+// ((8q, B*P) u32 in mark mode, null in fill mode); overflow (one int64,
+// added to).
 extern "C" int tp_shard_bucket(const void* packed, const void* nmask,
                                const void* valid, int B, int P, int k, int RW,
                                int NW, uint32_t low, uint32_t high,
                                const uint32_t* tabs, int q, int f, int mark,
-                               int D, int cap, void* idx, void* counts,
-                               void* incl, void* scratch, void* send,
-                               void* probe_slot, void* overflow,
-                               void* stream) {
+                               int D, int cap, void* counts, void* incl,
+                               void* scratch, void* send, void* probe_slot,
+                               void* overflow, void* stream) {
     if (D < 1 || D > TP_ROUTE_MAX || cap < 1 || q < 1 ||
         (mark && probe_slot == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    const size_t n_pos = (size_t)B * P;
-    const size_t n = n_pos * (mark ? 8 : 4) * q;
-    const size_t nt = std::max<size_t>((n + TP_ROUTE_TILE - 1) / TP_ROUTE_TILE, 1);
-    uint64_t* ix = (uint64_t*)idx;
+    const ShardBatch bt{(const uint32_t*)packed, (const uint32_t*)nmask,
+                        (const int32_t*)valid, B, P, k, RW, NW, low, high,
+                        load_tabs(tabs), q, f, mark};
+    const size_t nt = shard_tiles((size_t)B * P);
     uint32_t* cnt = (uint32_t*)counts;
     uint32_t* inc = (uint32_t*)incl;
-    uint32_t* ps = mark ? (uint32_t*)probe_slot : nullptr;
-    if (n_pos > 0) {
-        k_shard_indices<<<tp_blocks(n_pos, TP_THREADS), TP_THREADS, 0, st>>>(
-            (const uint32_t*)packed, (const uint32_t*)nmask,
-            (const int32_t*)valid, B, P, k, RW, NW, low, high, load_tabs(tabs),
-            q, f, mark, ix, ps);
-        TP_LAUNCH_CHECK();
-    }
-    k_shard_hist<<<(unsigned)nt, TP_THREADS, D * sizeof(uint32_t), st>>>(
-        ix, n, D, cnt, nt);
+    k_shard_count<<<(unsigned)nt, TP_THREADS, 0, st>>>(bt, D, cnt, nt);
     TP_LAUNCH_CHECK();
     cudaError_t e = tp_scan_inclusive_u32(cnt, inc, (size_t)D * nt,
                                           (uint32_t*)scratch, st);
     if (e != cudaSuccess) return (int)e;
-    if (n > 0) {
-        const size_t smem = (size_t)(1 + TP_WARPS) * D * sizeof(uint32_t);
-        e = cudaFuncSetAttribute(k_shard_scatter,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        k_shard_scatter<<<(unsigned)nt, TP_THREADS, smem, st>>>(
-            ix, n, D, cap, cnt, inc, nt, (uint64_t*)send, ps);
-        TP_LAUNCH_CHECK();
-    }
+    k_shard_scatter<<<(unsigned)nt, TP_THREADS, 0, st>>>(
+        bt, D, cap, cnt, inc, nt, (uint64_t*)send,
+        mark ? (uint32_t*)probe_slot : nullptr);
+    TP_LAUNCH_CHECK();
     const size_t slots = std::max((size_t)D * cap, (size_t)D);
     k_shard_finish<<<tp_blocks(slots, TP_THREADS), TP_THREADS, 0, st>>>(
         cnt, inc, nt, D, cap, (uint64_t*)send, (unsigned long long*)overflow);
@@ -280,7 +372,7 @@ extern "C" int tp_shard_probe(const void* recv, size_t n, int layout,
 
 // The candidate mask of a batch from the hits sent back: back (D*cap u8,
 // indexed by the probe slots of tp_shard_bucket's mark mode), probe_slot
-// (B*P*8q u32), the batch and round as tp_shard_bucket's. Outputs: mask
+// ((8q, B*P) u32), the batch and round as tp_shard_bucket's. Outputs: mask
 // (B*P/8 u8, P % 8 == 0), count (one int64, added to).
 extern "C" int tp_shard_mark_finish(const void* back, const void* probe_slot,
                                     const void* packed, const void* nmask,

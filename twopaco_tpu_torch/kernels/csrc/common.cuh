@@ -351,14 +351,14 @@ __device__ __forceinline__ void tp_pack_candidates(
         atomicAdd(count, (unsigned long long)__popc(ballot));
 }
 
-// ---- stable owner bucketing, shared by route.cu and bloom_shard.cu: n
-// elements, each owned by one of D shards or by none, go to (D, cap) send
-// slots, each owner's in element order. Per-tile owner counts
-// (tp_tile_owner_counts) are scanned owner-major (tp_scan_inclusive_u32)
-// and a stable scatter (tp_stable_scatter) ranks each element; slots past
-// an owner's count are cleared and the elements past cap counted
-// (tp_route_finish). A tile is TP_ROUTE_TILE elements (a block);
-// tp_route_count_words (route.cu) sizes the count table.
+// ---- stable owner bucketing (route.cu): n elements, each owned by one of
+// D shards or by none, go to (D, cap) send slots, each owner's in element
+// order. Per-tile owner counts (tp_tile_owner_counts) are scanned
+// owner-major (tp_scan_inclusive_u32) and a stable scatter
+// (tp_stable_scatter) ranks each element; slots past an owner's count are
+// cleared and the elements past cap counted (tp_route_finish, which
+// bloom_shard.cu's bucketing shares). A tile is TP_ROUTE_TILE elements (a
+// block); tp_route_count_words (route.cu) sizes the count table.
 
 constexpr int TP_ROUTE_ROUNDS = 16;
 constexpr int TP_ROUTE_TILE = TP_THREADS * TP_ROUTE_ROUNDS;

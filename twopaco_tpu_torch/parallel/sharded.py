@@ -84,12 +84,12 @@ class ShardedConfig:
 
     def shard_bytes(self) -> int:
         """Device bytes a shard holds through a round's mark: its filter,
-        and a batch's mark buffers (the flat u64 probes and their u32 send
-        slots, the u64 send and received slots, the u8 hits both ways)."""
+        and a batch's mark buffers (its probes' u32 send slots, the u64
+        send and received slots, the u8 hits both ways)."""
         filt = self.local_slots if self.base.layout == "byte" else self.local_slots // 8
         probes = self._indices(8)
         slots = self.n_shards * self.mark_cap
-        return filt + 12 * probes + 18 * slots
+        return filt + 4 * probes + 18 * slots
 
 
 def make_sharded_filter(mesh, scfg: ShardedConfig) -> dict:

@@ -16,7 +16,9 @@ go back along the same slots and mark_finish decides the candidates.
 
 Indices and local slots are int64 tensors holding the JAX package's u64
 bits: SENT (-1, all ones) is an empty send slot. A mark probe's send slot
-(owner * cap + rank) is int32, -1 where the probe is not sent.
+(owner * cap + rank) is int32, -1 where the probe is not sent; a batch's
+probe slots are (8q, B*P), edge-hash major (probe j of position t at [j,
+t]), so the kernels write and read them coalesced.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ def bucket_indices_plain(idx, valid, n_shards: int, cap: int, overflow=None):
     order, SENT past its count; probe slots (M,) int32; overflow: the valid
     indices past cap added to it)."""
     D = n_shards
+    if D * cap >= 1 << 31:
+        raise ValueError(f"{D} x {cap} send slots exceed the int32 probe slots")
     m = idx.numel()
     dev = idx.device
     owner = torch.where(valid, idx % D, D)
@@ -76,8 +80,9 @@ def bucket_mark_plain(packed, nmask, valid, low: int, high: int, *, cfg, n_shard
     idx, base, _prev, _nxt = mark.mark_indices(
         fill.batch_codes(packed, nmask, cfg), valid, low, high, cfg)
     probe_valid = base[:, :, None, None].expand(idx.shape)
-    return bucket_indices_plain(idx.reshape(-1), probe_valid.reshape(-1), n_shards, cap,
-                                overflow)
+    send, slots, overflow = bucket_indices_plain(idx.reshape(-1), probe_valid.reshape(-1),
+                                                 n_shards, cap, overflow)
+    return send, slots.view(-1, 8 * cfg.q).t().contiguous(), overflow
 
 
 def _check_shards(cfg, n_shards: int, cap: int, n: int) -> None:
@@ -85,8 +90,9 @@ def _check_shards(cfg, n_shards: int, cap: int, n: int) -> None:
         raise ValueError(f"the sharded filter has the byte or bit layout, not {cfg.layout!r}")
     if not 1 <= n_shards <= build.lib().tp_route_max_shards() or cap < 1:
         raise ValueError(f"{n_shards} shards or cap {cap} outside the kernel's range")
-    if n >= 1 << 32 or n_shards * cap >= (1 << 32) - 1:
-        raise ValueError("indices or send slots exceed the bucketing's u32 ranks")
+    if n >= 1 << 32 or n_shards * cap >= 1 << 31:
+        raise ValueError("indices or send slots exceed the bucketing's u32 ranks "
+                         "and int32 probe slots")
     if not 1 <= cfg.f <= 63:
         raise ValueError(f"f = {cfg.f}: the indices are at most 63 bits")
 
@@ -102,26 +108,24 @@ def _bucket(packed, nmask, valid, low, high, cfg, n_shards, cap, overflow, marki
     if overflow.device != dev:
         raise ValueError(f"overflow on {overflow.device}, batch on {dev}")
     lib = build.lib()
-    n_counts = lib.tp_route_count_words(n, n_shards)
+    n_counts = lib.tp_shard_count_words(B * cfg.P, n_shards)
 
-    def i32(count):
-        return torch.empty(count, dtype=torch.int32, device=dev)
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
 
-    idx = torch.empty(max(n, 1), dtype=torch.int64, device=dev)
     counts, incl = i32(n_counts), i32(n_counts)
     scratch = i32(lib.tp_scan_scratch_words(n_counts))
     send = torch.empty((n_shards, cap), dtype=torch.int64, device=dev)
-    probe_slot = i32(n) if marking else None
+    probe_slot = i32(8 * cfg.q, B * cfg.P) if marking else None
     rc = lib.tp_shard_bucket(
         packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, cfg.P, cfg.k,
         packed.shape[1], nmask.shape[1], int(low), int(high),
         build.hash_tables(fill.ALL_TABLES), cfg.q, cfg.f, int(marking), n_shards, cap,
-        idx.data_ptr(), counts.data_ptr(), incl.data_ptr(), scratch.data_ptr(),
-        send.data_ptr(), probe_slot.data_ptr() if marking else None, overflow.data_ptr(),
-        build.stream_ptr(),
+        counts.data_ptr(), incl.data_ptr(), scratch.data_ptr(), send.data_ptr(),
+        probe_slot.data_ptr() if marking else None, overflow.data_ptr(), build.stream_ptr(),
     )
     build.check(rc, "shard_bucket")
-    build.count_launch("shard_bucket")
+    build.count_launch("shard_bucket_mark" if marking else "shard_bucket_fill")
     return send, probe_slot, overflow
 
 
@@ -149,8 +153,9 @@ def bucket_mark(packed, nmask, valid, low: int, high: int, *, cfg, n_shards: int
     """The mark probes of one batch bucketed by owner shard: the 8q probes
     of mark.mark_indices of every position in the round (a record, vertex
     hash in [low, high]). Arguments as bucket_fill's.
-    -> (send (n_shards, cap) int64, probe slots (B*P*8*q,) int32: each
-    probe's owner * cap + rank, -1 where it is not sent; overflow)."""
+    -> (send (n_shards, cap) int64, probe slots (8*q, B*P) int32: probe j
+    of position t's owner * cap + rank at [j, t], -1 where it is not sent;
+    overflow)."""
     if build.on_cpu(packed, nmask, valid, *(() if overflow is None else (overflow,))):
         return bucket_mark_plain(packed, nmask, valid, low, high, cfg=cfg, n_shards=n_shards,
                                  cap=cap, overflow=overflow)
@@ -214,7 +219,7 @@ def mark_finish_plain(back, probe_slot, packed, nmask, valid, low: int, high: in
                                                    fill.ALL_TABLES[:1])
     sent = probe_slot >= 0
     got = back.reshape(-1)[probe_slot.clamp(min=0).to(torch.int64)] > 0
-    hits = (got & sent).reshape(*base.shape, 8, cfg.q).all(dim=-1)
+    hits = (got & sent).t().reshape(*base.shape, 8, cfg.q).all(dim=-1)
     cand = mark.mark_decide(hits, base, prev, nxt)
     count = _counter(count, cand.device)
     count += cand.sum()
@@ -240,8 +245,8 @@ def mark_finish(back, probe_slot, packed, nmask, valid, low: int, high: int, *, 
     B = packed.shape[0]
     build.require(back, torch.uint8, "back")
     build.require(probe_slot, torch.int32, "probe_slot")
-    if probe_slot.shape != (B * cfg.P * 8 * cfg.q,):
-        raise ValueError(f"probe_slot: expected ({B * cfg.P * 8 * cfg.q},), "
+    if probe_slot.shape != (8 * cfg.q, B * cfg.P):
+        raise ValueError(f"probe_slot: expected ({8 * cfg.q}, {B * cfg.P}), "
                          f"got {tuple(probe_slot.shape)}")
     count = _counter(count, packed.device)
     build.require(count, torch.int64, "count")
