@@ -7,7 +7,8 @@
 2. builds the CUDA kernels from twopaco_tpu_torch/kernels/csrc;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the benchmark slice (exact: integer data), and times
-   both with CUDA events;
+   both with CUDA events; the round sort also on the slice's k = 101
+   round (sort_records_k101, 7 key words);
 4. runs the port's CLI on two inputs whose .dbg sha256 the JAX package
    gave (tests/golden/torch_port_sha256.json) and checks the bytes;
 5. runs the slice: 8 genomes x 8,000,000 bases (seed 2016) through
@@ -60,7 +61,7 @@
    by the plain versions and compared, and the batch's mask equal to the
    Bloom engine's), bit layout at f=36 (64-bit global and local slots), 3
    shards (255 rows a batch), and a tiny cap whose overflow counts must
-   match;
+   match; the byte fill is also timed into a zeroed shard, every slot new;
 12. runs the slice through the dist-bloom engine, each with the counters
    reset just before and read just after, each launching the four
    entries and the dist engine's kernels and writing SLICE_SHA256:
@@ -97,7 +98,9 @@ WORK = os.path.join(ROOT, "chip_smoke_work")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_sha256.json")
 SLICE = dict(n_seqs=8, length=8_000_000, seed=2016, k=25)
 # the slice's .dbg: the one-round run of the first port slice on an H100
-# (PERF.md); every later run of the slice must write these bytes
+# (PERF.md); every later run of the slice must write these bytes. The JAX
+# package's CLI wrote the same sha256 on the CPU (twopaco_tpu, 13 resident
+# rounds, TWOPACO_NATIVE=0), and so does the port's --device cpu run.
 SLICE_SHA256 = "86f34ccc5bb5aa29e69df2b13aa85d3068afe54aca0e3052f93fb731dec2e1cb"
 ROUNDS = 4
 MODE_VARS = ("TWOPACO_RESIDENT", "TWOPACO_GROUPED", "TWOPACO_RESIDENT_BYTES",
@@ -156,6 +159,7 @@ PATH_OF = {
     "shard_probe": "dist_bloom_r1", "shard_mark_finish": "dist_bloom_r1",
 }
 D4 = 4  # shards of the card in the distributed runs
+FILL_CHUNK = 4096  # received slots a block of bloom_shard.cu's fill
 # the kernels each distributed path must launch
 DIST_PATH = ("word0_histogram", "build_records", "route", "compact", "sort_records",
              "judge_compact", "sort_occurrences")
@@ -317,6 +321,28 @@ def compare(name, kernel, plain, reps, results, in_bytes=0, ops=0, out_bytes=Non
     print(f"compare {name}: exact, kernel {(k1 + k2) / 2:.3f} ms, "
           f"plain {(p1 + p2) / 2:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})"
           + (f", library {lib_ms:.3f} ms" if lib_ms is not None else ""))
+
+
+def fresh_fill_times(tag, filt, kernel, library, trials=10):
+    """Single launches of a fill and of its library call into a zeroed
+    filter, every slot new (the compare's repeats find them set): mean ms
+    of CUDA events around each launch, in turns."""
+    import torch
+
+    times = {"kernel": 0.0, "library": 0.0}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(trials):
+        for name, fn in (("library", library), ("kernel", kernel)):
+            filt.zero_()
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name] += start.elapsed_time(end) / trials
+    print(f"{tag} into a zeroed shard: kernel {times['kernel']:.4f} ms, "
+          f"library {times['library']:.4f} ms")
 
 
 def phase(name):
@@ -505,11 +531,11 @@ def main() -> int:
         return (buf[0].view(torch.int32).index_select(0, order),
                 buf[1].view(torch.int32).index_select(0, order), buf[2].index_select(0, order))
 
-    compare("sort_records", lambda: sort.sort_records(*buf),
-            lambda: sort.sort_records_plain(*buf), 3, results, in_bytes=nbytes(buf),
-            library=sort_library if w == 2 else None)
+    compare("sort_records", lambda: sort.sort_records(*buf, key_bits=2 * k),
+            lambda: sort.sort_records_plain(*buf, key_bits=2 * k), 3, results,
+            in_bytes=nbytes(buf), library=sort_library if w == 2 else None)
     del key
-    srt = sort.sort_records(*buf)
+    srt = sort.sort_records(*buf, key_bits=2 * k)
     del buf
     for ab in (judge.NO_ABUNDANCE, 4):
         compare(
@@ -521,6 +547,23 @@ def main() -> int:
     slice_table, slice_occ_pos, slice_occ_id = (
         t.clone() for t in judge.judge_compact(*srt)[:3])  # Bloom lookup, occurrence sort
     del srt
+    # the slice's round buffer at k = 101 (w = 7: a digit-pass group a
+    # word, the last cut to its 10 k-mer bits, and the final gather)
+    batches101 = list(windows.iter_window_batches(iter(seqs), cfg101.window_config()))
+    n101 = len(batches101) * B * P
+    buf101 = (torch.empty((n101, cfg101.w), dtype=torch.uint32, device=dev),
+              torch.empty(n101, dtype=torch.uint32, device=dev),
+              torch.empty(n101, dtype=torch.int64, device=dev))
+    for b in batches101:
+        off = b.row0 * P
+        records.build_sort_records(*upload(b), off, k=101, P=P,
+                                   out=tuple(t[off : off + B * P] for t in buf101))
+    del batches101
+    compare("sort_records_k101", lambda: sort.sort_records(*buf101, key_bits=202),
+            lambda: sort.sort_records_plain(*buf101, key_bits=202), 3, results,
+            in_bytes=nbytes(buf101))
+    print(f"sort_records_k101: the slice's k = 101 round, {n101} records of {cfg101.w} words")
+    del buf101
     torch.cuda.synchronize()
 
     phase(f"multi-round kernels vs plain versions (-r {ROUNDS} shapes)")
@@ -636,7 +679,8 @@ def main() -> int:
     mix = next(windows.iter_window_batches(
         iter([(i, c[: B // len(seqs) * P]) for i, c in seqs]), cfg.window_config()))
     args_mix = upload(mix)
-    bsrt = sort.sort_records(*records.build_sort_records(*args_mix, 0, k=k, P=P))
+    bsrt = sort.sort_records(*records.build_sort_records(*args_mix, 0, k=k, P=P),
+                             key_bits=2 * k)
     compare("judge_records", lambda: judge.judge_records(*bsrt[:2]),
             lambda: judge.judge_records_plain(*bsrt[:2]), 10, results,
             in_bytes=nbytes(bsrt[:2]))
@@ -1022,14 +1066,21 @@ def main() -> int:
         # batch 0: shard 0's received fill slots, into an empty shard
         sends = {s: (shardbloom.bucket_fill(*b0[s], *full, cfg=scfg.base, n_shards=n_sh,
                                             cap=cap_f)[0],) for s in meshc.shards}
-        recv_f = meshc.all_to_all(sends)[0][0]
+        recv_f = meshc.all_to_all(sends)[0][0].view(n_sh, cap_f)
         del sends
         valid_f = recv_f[recv_f != shardbloom.SENT]
         fk, fp = torch.zeros_like(filt[0]), torch.zeros_like(filt[0])
+        # the bound under the prefix rows: the sent slots read and set, and
+        # one 32-byte sector a block of FILL_CHUNK slots (its first slot)
+        chunks = n_sh * -(-cap_f // FILL_CHUNK)
         compare("shard_fill", lambda: (shardbloom.fill_local(fk, recv_f, lay),),
                 lambda: (shardbloom.fill_local_plain(fp, recv_f, lay),), 5, results,
-                in_bytes=nbytes(recv_f), out_bytes=valid_f.numel() * slot_b,
+                in_bytes=valid_f.numel() * 8 + chunks * 32, out_bytes=valid_f.numel() * slot_b,
                 library=(lambda: fp.index_fill_(0, valid_f, 1)) if lay == "byte" else None)
+        if lay == "byte":
+            fresh_fill_times(tag=f"shard_fill {lay} f={f_bits} D={n_sh}", filt=fk,
+                             kernel=lambda: shardbloom.fill_local(fk, recv_f, lay),
+                             library=lambda: fk.index_fill_(0, valid_f, 1))
         del fk, fp
         # batch 0's probes, exchanged, probed against the slice's filter
         sends, slots = {}, {}

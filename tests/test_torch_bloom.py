@@ -303,7 +303,7 @@ def test_sort_judge_equals_verify_records(k, abundance):
         jnp.asarray(words), jnp.asarray(in_c), jnp.asarray(out_c), jnp.uint64(abundance), w=w)
     want = np.asarray(sw)[np.asarray(keep_first)]
     table, _pos, _ids, t_groups, t_junc, _n_occ = judge.judge_compact(
-        *sort.sort_records(*buf), abundance)
+        *sort.sort_records(*buf, key_bits=2 * k), abundance)
     assert (t_groups, t_junc) == (int(n_groups), int(n_junc))
     assert np.array_equal(_t(pack.as_i64(table)), want.astype(np.int64))
     assert t_junc > 0 if abundance == NO_AB else t_junc < m
@@ -313,7 +313,7 @@ def test_sort_judge_equals_verify_records(k, abundance):
 def test_pass4_lookup(k):
     jcodes, jvalid, targs, jcfg, tmask, count, _ = _marked(k)
     buf, _state = _extract(targs, tmask, count, k)
-    table = judge.judge_compact(*sort.sort_records(*buf))[0]
+    table = judge.judge_compact(*sort.sort_records(*buf, key_bits=2 * k))[0]
     assert table.shape[0] > 0
     jpos, jids, jcnt = jk.pass4_lookup(jcodes, jnp.asarray(tmask.numpy()), jvalid,
                                        jnp.asarray(table.numpy()), cfg=jcfg, cap=count)

@@ -8,12 +8,14 @@ not have; this file imports no JAX.) Integer data: every comparison is
 exact.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from twopaco_tpu_torch import dna
-from twopaco_tpu_torch.io import windows
+from twopaco_tpu_torch.io import junctions, windows
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import bloom, pack
 from twopaco_tpu_torch.parallel import distpipe, sharded, sortshard
@@ -106,11 +108,90 @@ def test_sort_kernel(dev, m, w):
     rng = np.random.default_rng(m + w)
     args = _to(dev, *_random_records(rng, m, w))
     build.reset_launch_counts()
-    got = sort.sort_records(*args)
+    got = sort.sort_records(*args, key_bits=32 * w)
     assert build.launch_counts() == {"sort_records": 1}
-    want = sort.sort_records_plain(*args)
+    want = sort.sort_records_plain(*args, key_bits=32 * w)
     for a, b in zip(got, want):
         assert _equal(a, b)
+
+
+TILE = sort.SORT_TILE
+KEY_BITS_K = [9, 15, 17, 25, 31, 33, 101, 129, 603]
+
+
+def _sort_equal(dev, args, key_bits):
+    build.reset_launch_counts()
+    got = sort.sort_records(*args, key_bits=key_bits)
+    assert build.launch_counts() == {"sort_records": 1}
+    want = sort.sort_records_plain(*args, key_bits=key_bits)
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+
+
+@pytest.mark.parametrize("m", [0, 1, TILE - 1, TILE, TILE + 1, 100_003])
+@pytest.mark.parametrize("k", KEY_BITS_K)
+def test_sort_kernel_key_bits(dev, k, m):
+    """key_bits = 2k over random words (random bits below the k-mer, 80%
+    duplicates, sentinels): exact against the plain version, which masks
+    the same bits; tile edges and every word count."""
+    w = -(-2 * k // 32)
+    rng = np.random.default_rng(k * 1000 + m)
+    _sort_equal(dev, _to(dev, *_random_records(rng, m, w, dup_frac=0.8)), 2 * k)
+
+
+@pytest.mark.parametrize("k", [25, 33])
+def test_sort_kernel_large(dev, k):
+    """Past 2^24 records: thousands of tiles in the look-back."""
+    w = -(-2 * k // 32)
+    rng = np.random.default_rng(k)
+    _sort_equal(dev, _to(dev, *_random_records(rng, (1 << 24) + 5, w)), 2 * k)
+
+
+@pytest.mark.parametrize("k", [25, 33, 101])
+@pytest.mark.parametrize("sentinels", [False, True])
+def test_sort_kernel_one_kmer(dev, k, sentinels):
+    """One k-mer repeated (random padding below it): every record in one
+    digit of every pass, the look-back's worst skew; stable."""
+    w = -(-2 * k // 32)
+    rng = np.random.default_rng(k + sentinels)
+    m = 50 * TILE + 17
+    words, pay, pos = _random_records(rng, m, w, dup_frac=0.0, sent_frac=0.2 if sentinels else 0)
+    one = rng.integers(0, 1 << 32, size=w, dtype=np.uint64).astype(np.uint32)
+    one[0] &= 0x7FFFFFFF
+    keep = np.array([(((1 << b) - 1) << (32 - b)) & 0xFFFFFFFF
+                     for b in (min(32, max(0, 2 * k - 32 * j)) for j in range(w))], np.uint32)
+    real = (pay >> 17) & 1 == 1
+    words[real] = (words[real] & ~keep) | (one & keep)
+    _sort_equal(dev, _to(dev, words, pay, pos), 2 * k)
+
+
+def test_sort_scratch_bytes_match_the_kernel(dev):
+    lib = build.lib()
+    for n in (0, 1, TILE, TILE + 1, 64_487_424):
+        for passes in (1, 4, 7, 8, 26, 152):
+            assert lib.tp_sort_scratch_bytes(n, passes) == sort.scratch_bytes(n, passes)
+
+
+@pytest.mark.parametrize("k", [25, 33])
+def test_sort_allocations_within_work_bytes(dev, monkeypatch, k):
+    """Every tensor the wrapper allocates beyond its outputs fits
+    sort.work_bytes, which sortpipe.slot_bytes counts."""
+    w = -(-2 * k // 32)
+    m = 1_000_003
+    args = _to(dev, *_random_records(np.random.default_rng(k), m, w))
+    sizes = []
+    empty = torch.empty
+
+    def recording_empty(*a, **kw):
+        t = empty(*a, **kw)
+        sizes.append(t.numel() * t.element_size())
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    out = sort.sort_records(*args, key_bits=2 * k)
+    monkeypatch.undo()
+    outputs = sum(t.numel() * t.element_size() for t in out)
+    assert outputs < sum(sizes) <= outputs + sort.work_bytes(m, w)
 
 
 @pytest.mark.parametrize("m,w", [(1, 2), (5000, 2), (200_001, 2), (40_000, 7)])
@@ -118,7 +199,7 @@ def test_sort_kernel(dev, m, w):
 def test_judge_kernel(dev, m, w, abundance):
     rng = np.random.default_rng(m * 7 + w)
     sw, spay, spos = sort.sort_records_plain(
-        *_to(dev, *_random_records(rng, m, w, dup_frac=0.8))
+        *_to(dev, *_random_records(rng, m, w, dup_frac=0.8)), key_bits=32 * w
     )
     build.reset_launch_counts()
     got = judge.judge_compact(sw, spay, spos, abundance)
@@ -135,8 +216,8 @@ def test_kernels_on_genome_records(dev):
     k, B, P = 25, 64, 2048
     p, m, v = _genome_batch(rng, B, P, k, n_rate=0.001)
     recs = records.build_sort_records(*_to(dev, p, m, v), 0, k=k, P=P)
-    srt = sort.sort_records(*recs)
-    for a, b in zip(srt, sort.sort_records_plain(*recs)):
+    srt = sort.sort_records(*recs, key_bits=2 * k)
+    for a, b in zip(srt, sort.sort_records_plain(*recs, key_bits=2 * k)):
         assert _equal(a, b)
     got = judge.judge_compact(*srt)
     want = judge.judge_compact_plain(*srt)
@@ -149,7 +230,7 @@ def test_empty_round(dev):
     e32 = torch.empty(0, dtype=torch.uint32, device=dev)
     words = torch.empty((0, 2), dtype=torch.uint32, device=dev)
     pos = torch.empty(0, dtype=torch.int64, device=dev)
-    sw, spay, spos = sort.sort_records(words, e32, pos)
+    sw, spay, spos = sort.sort_records(words, e32, pos, key_bits=50)
     assert sw.shape == (0, 2)
     assert judge.judge_compact(sw, spay, spos)[3:] == (0, 0, 0)
 
@@ -369,7 +450,7 @@ def test_bloom_lookup_kernel(dev, k, table):
     count = int(c)
     buf, _state = extract.extract_records_plain(
         u[0], u[1], m, *extract.new_buffer(count, pack.n_words(k), dev), 0, k=k, P=P)
-    tab = judge.judge_compact_plain(*sort.sort_records_plain(*buf))[0]
+    tab = judge.judge_compact_plain(*sort.sort_records_plain(*buf, key_bits=2 * k))[0]
     tab = {"all": tab, "half": tab[::2].contiguous(), "empty": tab[:0]}[table]
     for cap in (count, max(1, count // 3)):  # a short cap keeps the first hits
         build.reset_launch_counts()
@@ -400,7 +481,7 @@ def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
         m, c = mark.bloom_mark(filt, *u, 0, 0xFFFFFFFF, cfg=cfg)
     buf, state = extract.extract_records(
         u[0], u[1], m, *extract.new_buffer(int(c), pack.n_words(k), dev), 0, k=k, P=P)
-    tab = judge.judge_compact(*sort.sort_records(*buf))[0]
+    tab = judge.judge_compact(*sort.sort_records(*buf, key_bits=2 * k))[0]
     lookup.pass4_lookup(*u, m, tab, int(c), k=k, P=P)
     assert build.launch_counts() == {
         "bloom_fill": 3, "bloom_mark": 3, "bloom_extract": 1, "sort_records": 1,
@@ -473,7 +554,8 @@ def test_route_kernel(dev, m, w, D, bounds, cap):
 @pytest.mark.parametrize("abundance", [NO_AB, 3])
 def test_judge_records_kernel(dev, m, w, abundance):
     rng = np.random.default_rng(m * 5 + w)
-    sw, spay, _spos = sort.sort_records_plain(*_to(dev, *_random_records(rng, m, w, dup_frac=0.8)))
+    sw, spay, _spos = sort.sort_records_plain(*_to(dev, *_random_records(rng, m, w, dup_frac=0.8)),
+                                              key_bits=32 * w)
     build.reset_launch_counts()
     got = judge.judge_records(sw, spay, abundance)
     assert build.launch_counts() == {"judge_records": 1}
@@ -499,6 +581,11 @@ def test_word0_histogram_kernel(dev, k):
 @pytest.mark.parametrize("n,id_bits,pos_limit", [
     (0, 32, 1 << 32), (1, 32, 1 << 32), (4097, 32, 1 << 20), (200_001, 32, 1 << 32),
     (300_000, 31, 1 << 33), (50_000, 20, 1 << 40),
+    # 0 to 6 digit passes over the position bits (an odd count builds the
+    # keys in the other buffer), the slice's 4.69 M occurrences among 2^26
+    # positions included
+    (1, 32, 1), (200, 40, 1 << 8), (60_000, 30, 1 << 16), (70_000, 30, 1 << 17),
+    (4_690_000, 32, 64_487_424), (2_000_000, 20, 1 << 44),
 ])
 def test_sort_occurrences_kernel(dev, n, id_bits, pos_limit):
     rng = np.random.default_rng(n + id_bits)
@@ -582,6 +669,65 @@ def test_dist_engine_cuda_equals_plain(dev, tmp_path, rounds):
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
     assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0
+
+
+@pytest.mark.parametrize("k", [25, 33])
+@pytest.mark.parametrize("bloom_gate", [False, True])
+def test_dist_engines_cut_key_bits_cuda(dev, tmp_path, k, bloom_gate):
+    """dist and dist-bloom at k = 25 (the u64 key cut to 50 bits) and 33
+    (the last word cut to 2), -r 2 over 4 shards of the card: the kernels'
+    .dbg equals the plain run's and the sort engine's."""
+    sequences = _dist_inputs(seed=k)
+    gate = dict(filter_bits=20, layout="bit") if bloom_gate else {}
+    cfg = PipelineConfig(k=k, rounds=2, positions_per_row=256, rows_per_batch=8, **gate)
+    outs = []
+    for reference in (False, True):
+        out = str(tmp_path / f"{reference}.dbg")
+        distpipe.build_junctions_dist(None, cfg, LocalMesh([dev] * 4), out, sequences=sequences,
+                                      device=dev, reference=reference, bloom_gate=bloom_gate)
+        outs.append(open(out, "rb").read())
+    sort_out = str(tmp_path / "sort.dbg")
+    build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
+    assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+
+def _partitions_equal(a, b):
+    """The same (chr, pos) occurrences, and the same partition of them into
+    junction classes, as scripts/check_parity.py partitions_equal (which
+    imports the JAX package): ids are never compared raw, a sign is a
+    strand."""
+    (ca, pa, ia), (cb, pb, ib) = a, b
+    if len(ia) != len(ib):
+        return False
+    oa, ob = np.lexsort((pa, ca)), np.lexsort((pb, cb))
+    if not (np.array_equal(ca[oa], cb[ob]) and np.array_equal(pa[oa], pb[ob])):
+        return False
+    ia, ib = np.abs(ia[oa]), np.abs(ib[ob])
+    pairs = (ia.astype(np.uint64) << np.uint64(32)) | ib.astype(np.uint64)
+    return len(np.unique(pairs)) == len(np.unique(ia)) == len(np.unique(ib))
+
+
+@pytest.mark.parametrize("k", [129, 603])
+@pytest.mark.parametrize("engine", ["sort", "bloom", "dist", "dist-bloom"])
+def test_large_k_engines_cuda(dev, tmp_path, k, engine):
+    """Every engine on the card at k = 129 and 603 on largek.fa: the
+    reference binary's junction positions and partition."""
+    cfg = PipelineConfig(k=k, filter_bits=16, engine=engine, positions_per_row=256,
+                         rows_per_batch=8)
+    out = str(tmp_path / "port.dbg")
+    fa = os.path.join(GOLDEN, "largek.fa")
+    build.reset_launch_counts()
+    if engine.startswith("dist"):
+        distpipe.build_junctions_dist([fa], cfg, LocalMesh([dev] * 4), out, device=dev,
+                                      bloom_gate=engine == "dist-bloom")
+    else:
+        build_junctions([fa], cfg, out, device="cuda")
+    assert build.launch_counts().get("sort_records", 0) > 0
+    assert _partitions_equal(junctions.read_junctions(out),
+                             junctions.read_junctions(os.path.join(GOLDEN, f"largek_k{k}.dbg")))
 
 
 # ---- the dist-bloom engine: bloom_shard.cu's four entries, the gated
@@ -670,6 +816,62 @@ def test_sharded_fill_mark_kernels(dev, D, layout, f, gate):
             assert int(count_k[s]) == int(count_p[s])
             assert int(over_k[s]) == int(over_p[s]) == 0
     assert sum(int(c[s]) for _m, c, _o in mk for s in mesh.shards) > 0
+
+
+FILL_CHUNK = 4096  # received slots a block of the fill kernel
+
+
+@pytest.mark.parametrize("D,layout,f", [(1, "byte", 22), (3, "byte", 22), (4, "bit", 24),
+                                        (20, "bit", 36), (20, "byte", 24)])
+@pytest.mark.parametrize("cap,aligned", [(3 * FILL_CHUNK + 6, True), (3 * FILL_CHUNK + 5, True),
+                                         (2 * FILL_CHUNK, False)])
+def test_fill_local_prefix_rows(dev, D, layout, f, cap, aligned):
+    """Hand-made received blocks, each row a prefix of sent slots then
+    SENT: empty rows, full rows (count == cap), counts at a chunk boundary
+    and one either side; even caps (16-byte loads), odd caps and a block
+    starting 8 bytes off 16 (8-byte loads). f = 36 over 20 shards: local
+    slots past 2^32. The filter equals the plain version's."""
+    scfg = _shard_cfg(25, f, layout, 2, 256, 8 * D, D)
+    rng = np.random.default_rng(D * 7 + cap)
+    counts = [0, cap, FILL_CHUNK - 1, FILL_CHUNK, FILL_CHUNK + 1, 2 * FILL_CHUNK,
+              int(rng.integers(0, cap + 1))]
+    recv_np = np.full((D, cap), -1, np.int64)
+    for d in range(D):
+        c = min(counts[(d + 1) % len(counts)], cap)
+        recv_np[d, :c] = rng.integers(0, scfg.local_slots, size=c)
+    flat = torch.full((D * cap + 1,), -1, dtype=torch.int64, device=dev)
+    recv = flat[0 if aligned else 1:][: D * cap].view(D, cap)
+    recv.copy_(torch.from_numpy(recv_np))
+    fk = bloom.make_filter(f, layout, dev, slots=scfg.local_slots)
+    fp = bloom.make_filter(f, layout, dev, slots=scfg.local_slots)
+    build.reset_launch_counts()
+    shardbloom.fill_local(fk, recv, layout)
+    assert build.launch_counts() == {"shard_fill": 1}
+    shardbloom.fill_local_plain(fp, recv, layout)
+    assert _filters_equal(fk, fp) and bool(fp.view(torch.uint8).any())
+    with pytest.raises(ValueError, match="block"):
+        shardbloom.fill_local(fk, recv.reshape(-1), layout)
+
+
+@pytest.mark.parametrize("D,layout,f", [(1, "byte", 20), (3, "byte", 21), (4, "bit", 22),
+                                        (20, "bit", 36)])
+def test_fill_local_bucketed_rows(dev, D, layout, f):
+    """The rows tp_shard_bucket writes, every shard's sends exchanged: the
+    filter equals the plain version's."""
+    k, P, q = 25, 512, 3
+    rng = np.random.default_rng(D + f)
+    scfg = _shard_cfg(k, f, layout, q, P, 4 * D, D)
+    mesh = LocalMesh([dev] * D)
+    parts = [mesh.put_rows(a) for a in _genome_batch(rng, 4 * D, P, k)]
+    sends = {s: (shardbloom.bucket_fill(*(x[s] for x in parts), 0, 0xFFFFFFFF, cfg=scfg.base,
+                                        n_shards=D, cap=scfg.fill_cap)[0],)
+             for s in mesh.shards}
+    recv = mesh.all_to_all(sends)[D - 1][0].view(D, scfg.fill_cap)
+    fk = bloom.make_filter(f, layout, dev, slots=scfg.local_slots)
+    fp = bloom.make_filter(f, layout, dev, slots=scfg.local_slots)
+    shardbloom.fill_local(fk, recv, layout)
+    shardbloom.fill_local_plain(fp, recv, layout)
+    assert _filters_equal(fk, fp) and bool(fp.view(torch.uint8).any())
 
 
 def test_shard_probe_and_mark_finish_unsent_probes(dev):

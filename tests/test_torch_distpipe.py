@@ -156,6 +156,18 @@ def test_dist_bloom_byte_identical(tmp_path, rounds, layout):
         assert enum.stats.timings[key] > 0
 
 
+@pytest.mark.parametrize("k", [25, 33])
+@pytest.mark.parametrize("bloom_gate", [False, True])
+def test_dist_engines_cut_key_bits(tmp_path, k, bloom_gate):
+    """k = 25 (w = 2: the u64 key cut to its 50 k-mer bits) and k = 33
+    (w = 3: the last word cut to 2 bits), dist and dist-bloom at -r 2: the
+    JAX engine's bytes and the sort engine's."""
+    gate = dict(filter_bits=18, hash_functions=2) if bloom_gate else {}
+    jcfg = JaxConfig(k=k, rounds=2, positions_per_row=128, rows_per_batch=8, **gate)
+    jb, db, sb, enum = _three_ways(tmp_path, jcfg, _corpus(seed=k), bloom_gate=bloom_gate)
+    assert jb == db == sb and len(db) > 0 and enum.vertices_count > 0
+
+
 def test_dist_bloom_three_shards(tmp_path):
     """D=3 (local slots padded to 32, owners by index mod 3): the sort
     engine's bytes, -r 1 and -r 2."""

@@ -3,6 +3,7 @@ twopaco_tpu_torch (CPU: the plain versions) must be byte-identical to
 the JAX package's sort engine on the same input and flags."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -15,7 +16,10 @@ from twopaco_tpu.passes import build_junctions
 from twopaco_tpu.testing import oracle
 from twopaco_tpu_torch.cli.twopaco import main as port_main
 from twopaco_tpu_torch.io import junctions
-from twopaco_tpu_torch.passes.pipeline import INVALID_VERTEX, config_from_jax
+from twopaco_tpu_torch.parallel import distpipe
+from twopaco_tpu_torch.parallel.mesh import LocalMesh
+from twopaco_tpu_torch.passes.pipeline import INVALID_VERTEX, PipelineConfig, config_from_jax
+from twopaco_tpu_torch.passes.pipeline import build_junctions as port_build_junctions
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -61,6 +65,37 @@ def test_large_k_golden_input(tmp_path, k):
     jcfg = JaxConfig(k=k, filter_bits=20, positions_per_row=256, rows_per_batch=4)
     jb, tb, enum = _both(tmp_path, jcfg, paths=[os.path.join(GOLDEN, "largek.fa")])
     assert jb == tb and enum.vertices_count > 0
+
+
+def _partition_equal(ours: str, golden: str) -> bool:
+    """Junction positions and their partition into junction classes equal
+    the reference binary's (scripts/check_parity.py; its ids are
+    urandom-seeded and never compared raw)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(GOLDEN), os.pardir, "scripts"))
+    import check_parity
+
+    return check_parity.partitions_equal(junctions.read_junctions(ours),
+                                         junctions.read_junctions(golden))
+
+
+@pytest.mark.parametrize("k", [129, 603])
+@pytest.mark.parametrize("engine", ["sort", "bloom", "dist", "dist-bloom"])
+def test_large_k_engines_match_reference_golden(tmp_path, k, engine):
+    """Every engine at k = 129 (w = 9) and 603 (w = 38, the reference's
+    largest k) on largek.fa: the reference binary's junction positions and
+    partition. The sort cuts the last word to its 2k - 32(w-1) k-mer bits
+    (2 and 14); the dist engines run over 4 CPU shards."""
+    cfg = PipelineConfig(k=k, filter_bits=16, engine=engine, positions_per_row=256,
+                         rows_per_batch=8)
+    out = str(tmp_path / "port.dbg")
+    fa = os.path.join(GOLDEN, "largek.fa")
+    if engine.startswith("dist"):
+        distpipe.build_junctions_dist([fa], cfg, LocalMesh(["cpu"] * 4), out, device="cpu",
+                                      bloom_gate=engine == "dist-bloom")
+    else:
+        port_build_junctions([fa], cfg, out, device="cpu")
+    assert os.path.getsize(out) > 0
+    assert _partition_equal(out, os.path.join(GOLDEN, f"largek_k{k}.dbg"))
 
 
 def test_abundance_byte_identical(tmp_path):

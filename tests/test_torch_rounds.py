@@ -23,7 +23,7 @@ from twopaco_tpu.passes import pipeline as jpipe
 from twopaco_tpu.passes import sortpipe as jsort
 from twopaco_tpu.testing import oracle
 from twopaco_tpu_torch.cli.twopaco import main as port_main
-from twopaco_tpu_torch.passes import histogram, partition, pipeline, sortpipe, stream
+from twopaco_tpu_torch.passes import histogram, partition, pipeline, sort, sortpipe, stream
 from twopaco_tpu_torch.passes.pipeline import RunStats, config_from_jax
 
 K, PR, BR = 11, 256, 4
@@ -294,6 +294,23 @@ def test_plan_rounds_from_device_memory(monkeypatch):
     n_big = 5000 * bp
     n_rounds, round_buf = sortpipe.plan_rounds(cfg, n_big, bp, None)
     assert round_buf < 1 << 31 and n_rounds * round_buf >= n_big
+
+
+@pytest.mark.parametrize("k", [9, 25, 31, 33, 101, 129, 603])
+def test_slot_bytes_counts_the_sort_work(k):
+    """A round's slots at slot_bytes each hold the records before and after
+    the sort and everything sort.py allocates for it: two key buffers, two
+    of the payloads and positions (w <= 2) or of the permutation, and the
+    look-back status array and histograms of its passes (at most 4w), for
+    any round from one batch of the smallest CLI tier up to 2^31 slots."""
+    w = pipeline.PipelineConfig(k=k).w
+    rec = 4 * w + 12
+    passes = sort.n_passes(w, 2 * k)
+    assert passes == -(-2 * k // 8) if w <= 2 else passes <= 4 * w
+    for n in (2048 * 256, 123 * 2048 * 256, (1 << 31) - 1):
+        assert sort.scratch_bytes(n, passes) <= sort.scratch_bytes(n, 4 * w)
+        assert sort.scratch_bytes(n, 4 * w) >= n * 2 // 3  # 256 u64 a 3072-record tile
+        assert n * sortpipe.slot_bytes(w) >= 2 * rec * n + sort.work_bytes(n, w)
 
 
 def test_resident_budget(monkeypatch):

@@ -50,13 +50,13 @@ _TABS = ctypes.POINTER(ctypes.c_uint32)
 _SIGNATURES = {
     "tp_error_string": ([_I], ctypes.c_char_p),
     "tp_scan_scratch_words": ([_SZ], _SZ),
-    "tp_sort_count_words": ([_SZ], _SZ),
+    "tp_sort_scratch_bytes": ([_SZ, _I], _SZ),
     "tp_build_records": (
         [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _U32, _U32,
          _U32, _U32, _U32, _U32, _P, _P, _P, _P, _P],
         _I,
     ),
-    "tp_sort_records": ([_P, _P, _P, _SZ, _I] + [_P] * 11, _I),
+    "tp_sort_records": ([_P] * 3 + [_SZ, _I, _I] + [_P] * 7 + [_SZ] + [_P] * 4, _I),
     "tp_judge_compact": (
         [_P, _P, _P, _SZ, _I, _I, ctypes.c_ulonglong] + [_P] * 7, _I
     ),
@@ -77,7 +77,7 @@ _SIGNATURES = {
     "tp_route_count_words": ([_SZ, _I], _SZ),
     "tp_route_max_shards": ([], _I),
     "tp_route_records": ([_P] * 3 + [_SZ, _I, _I, _P, _I] + [_P] * 9, _I),
-    "tp_sort_occurrences": ([_P, _P, _SZ, _I, _LL] + [_P] * 7, _I),
+    "tp_sort_occurrences": ([_P, _P, _SZ, _I, _LL] + [_P] * 3 + [_SZ, _P, _P], _I),
     "tp_bloom_fill": (
         [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I
     ),
@@ -94,7 +94,7 @@ _SIGNATURES = {
     "tp_shard_bucket": (
         [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 5 + [_P] * 7, _I
     ),
-    "tp_shard_fill_apply": ([_P, _SZ, _I, _P, _P], _I),
+    "tp_shard_fill_apply": ([_P, _SZ, _SZ, _I, _P, _P], _I),
     "tp_shard_probe": ([_P, _SZ, _I, _P, _P, _P], _I),
     "tp_shard_mark_finish": (
         [_P] * 5 + [_I] * 5 + [_U32] * 2 + [_TABS, _I] + [_P] * 3, _I

@@ -23,25 +23,27 @@ inline unsigned tp_blocks(size_t n, size_t per_block) {
 }
 
 // Inclusive prefix sum of n u32 values (in may equal out). scratch holds
-// tp_scan_scratch_words(n) u32 words. Used by the radix sort (digit
-// offsets), the judge (group ids, ranks, compaction offsets), the round
-// partition (block offsets) and the stream compaction.
+// tp_scan_scratch_words(n) u32 words. Used by the judge (group ids, ranks,
+// compaction offsets), the round partition (block offsets), the stream
+// compaction and the owner bucketing.
 cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
                                   size_t n, uint32_t* scratch,
                                   cudaStream_t stream);
 
 extern "C" size_t tp_scan_scratch_words(size_t n);
 
-// Stable LSD radix sort of n u64 keys by bits [lo, hi), in place in key
-// (sort.cu; key_alt: n u64 of scratch; counts and incl:
-// tp_sort_count_words(n) u32 each; scratch: tp_scan_scratch_words of that).
-// Used by the occurrence sort (occ_pack.cu).
+// Stable LSD radix sort of n u64 keys by bits [lo, hi) (sort.cu) over
+// tp_radix_passes(lo, hi) digit passes that alternate between key and
+// key_alt: the result is in key after an even count, in key_alt after an
+// odd one. scratch: tp_sort_scratch_bytes(n, passes) bytes or more. Used
+// by the occurrence sort (occ_pack.cu).
 cudaError_t tp_radix_sort_u64(uint64_t* key, uint64_t* key_alt, size_t n,
-                              int lo, int hi, uint32_t* counts,
-                              uint32_t* incl, uint32_t* scratch,
-                              cudaStream_t st);
+                              int lo, int hi, void* scratch,
+                              size_t scratch_bytes, cudaStream_t st);
 
-extern "C" size_t tp_sort_count_words(size_t n);
+int tp_radix_passes(int lo, int hi);
+
+extern "C" size_t tp_sort_scratch_bytes(size_t n, int passes);
 
 // ---- the per-position record, shared by every kernel that reads the
 // upload form of a window batch (records.cu, partition.cu, histogram.cu

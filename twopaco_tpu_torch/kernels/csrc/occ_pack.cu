@@ -16,9 +16,15 @@
 // 0 or does not fit id_bits - 1 bits is counted in *bad (the caller raises;
 // its key would be meaningless).
 //
-// Bound: bytes moved, 16 a key for each 8-bit digit pass (4 passes for the
-// slice's 2^26 positions). Design: one thread per occurrence builds its key,
-// then sort.cu's stable digit passes run on the bare keys (no index).
+// Bound: bytes moved: the key build reads 12 bytes an occurrence and
+// writes 8, the histogram reads 8, and each 8-bit digit pass reads and
+// writes 8 a key (4 passes for the slice's 2^26 positions). Design: one
+// thread per occurrence builds its key, then sort.cu's one-sweep digit
+// passes run on the bare keys (no index). They alternate between the two
+// key buffers, so the keys are built in the one that leaves the sorted
+// keys in `keys`.
+#include <utility>
+
 #include "common.cuh"
 
 namespace {
@@ -41,12 +47,12 @@ __global__ void k_occ_keys(const long long* __restrict__ pos,
 }  // namespace
 
 // Outputs: keys (n u64, sorted), bad (one int64, added to). Scratch (sized
-// by the caller): keys_alt (n u64), counts and incl (tp_sort_count_words(n)
-// u32), the scan scratch (tp_scan_scratch_words of that).
+// by the caller): keys_alt (n u64), scratch of scratch_bytes >=
+// tp_sort_scratch_bytes(n, passes) bytes (sort.py scratch_bytes).
 extern "C" int tp_sort_occurrences(const void* pos, const void* ids, size_t n,
                                    int id_bits, long long pos_limit,
-                                   void* keys, void* keys_alt, void* counts,
-                                   void* incl, void* scratch, void* bad,
+                                   void* keys, void* keys_alt, void* scratch,
+                                   size_t scratch_bytes, void* bad,
                                    void* stream) {
     if (id_bits < 2 || id_bits > 62 || pos_limit < 1)
         return (int)cudaErrorInvalidValue;
@@ -55,12 +61,13 @@ extern "C" int tp_sort_occurrences(const void* pos, const void* ids, size_t n,
     if (id_bits + pos_bits > 64) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
     const cudaStream_t st = (cudaStream_t)stream;
+    const int lo = id_bits, hi = id_bits + pos_bits;
+    uint64_t* k0 = (uint64_t*)keys;
+    uint64_t* k1 = (uint64_t*)keys_alt;
+    if (tp_radix_passes(lo, hi) & 1) std::swap(k0, k1);
     k_occ_keys<<<tp_blocks(n, TP_THREADS), TP_THREADS, 0, st>>>(
-        (const long long*)pos, (const int32_t*)ids, n, id_bits, pos_limit,
-        (uint64_t*)keys, (unsigned long long*)bad);
+        (const long long*)pos, (const int32_t*)ids, n, id_bits, pos_limit, k0,
+        (unsigned long long*)bad);
     TP_LAUNCH_CHECK();
-    return (int)tp_radix_sort_u64((uint64_t*)keys, (uint64_t*)keys_alt, n,
-                                  id_bits, id_bits + pos_bits,
-                                  (uint32_t*)counts, (uint32_t*)incl,
-                                  (uint32_t*)scratch, st);
+    return (int)tp_radix_sort_u64(k0, k1, n, lo, hi, scratch, scratch_bytes, st);
 }

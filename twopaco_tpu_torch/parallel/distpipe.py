@@ -395,7 +395,7 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
             n = int(fill[s, 1])
             (bw, bpay, bpos), _state = bufs.pop(s)
             t0 = time.time()
-            sw, spay, spos = ops.sort(bw[:n], bpay[:n], bpos[:n])
+            sw, spay, spos = ops.sort(bw[:n], bpay[:n], bpos[:n], key_bits=2 * cfg.k)
             del bw, bpay, bpos
             sortpipe._sync(d)
             t1 = time.time()

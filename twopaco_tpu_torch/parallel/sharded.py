@@ -134,7 +134,7 @@ def sharded_fill_step(mesh, scfg: ShardedConfig, ops: Ops = KERNELS):
         del sends
         for s in mesh.shards:
             with on_device(mesh.device(s)):
-                ops.fill_local(filt[s], recv[s][0], cfg.layout)
+                ops.fill_local(filt[s], recv[s][0].view(D, cap), cfg.layout)
         return overflow
 
     return step

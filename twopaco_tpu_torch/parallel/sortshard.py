@@ -127,7 +127,7 @@ def sharded_sort_step(mesh, scfg: SortShardConfig, check_abundance: bool = False
         counts = {}
         for s in mesh.shards:
             with on_device(mesh.device(s)):
-                sw, spay, spos = ops.sort(*recv[s])
+                sw, spay, spos = ops.sort(*recv[s], key_bits=2 * cfg.k)
                 kf, _keep, ids, _ng, n_junc, n_occ = ops.judge_records(sw, spay, ab)
                 local[s] = (sw, spos, kf, ids)
                 counts[s] = torch.cat([

@@ -252,7 +252,7 @@ def build_junctions_bloom(
         # ---- exact verification: the sort engine's sort and judge -------
         t0 = time.time()
         if n_cand:
-            verdict = ops.judge(*ops.sort(*buf), config.abundance)
+            verdict = ops.judge(*ops.sort(*buf, key_bits=2 * k), config.abundance)
             junc_words = verdict[0].cpu().numpy()
             n_groups, n_junc = verdict[3], verdict[4]
             del verdict

@@ -184,14 +184,21 @@ def _check_local(filt, recv, layout: str) -> None:
 
 
 def fill_local(filt, recv, layout: str):
-    """Set the received local slots recv (int64, any shape; SENT: none) of
-    this shard's filter filt (the byte or bit layout of a shard of
-    parallel/sharded.py make_sharded_filter), in place. -> filt."""
+    """Set the received local slots of this shard's filter filt (the byte
+    or bit layout of a shard of parallel/sharded.py make_sharded_filter),
+    in place. -> filt.
+
+    recv: the (D, cap) int64 block the exchange delivered, row d from
+    shard d. Each row is a prefix of sent local slots followed by SENT, as
+    bucket_fill (sort.cu's tp_shard_bucket, JAX's _bucket) writes every
+    owner's row; the kernel reads each row only up to its first SENT."""
+    if recv.dim() != 2:
+        raise ValueError(f"received slots: expected a (D, cap) block, got {tuple(recv.shape)}")
     if build.on_cpu(filt, recv):
         return fill_local_plain(filt, recv, layout)
     _check_local(filt, recv, layout)
-    rc = build.lib().tp_shard_fill_apply(recv.data_ptr(), recv.numel(), LAYOUTS[layout],
-                                         filt.data_ptr(), build.stream_ptr())
+    rc = build.lib().tp_shard_fill_apply(recv.data_ptr(), recv.shape[0], recv.shape[1],
+                                         LAYOUTS[layout], filt.data_ptr(), build.stream_ptr())
     build.check(rc, "shard_fill_apply")
     build.count_launch("shard_fill")
     return filt

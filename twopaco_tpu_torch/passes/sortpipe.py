@@ -119,11 +119,16 @@ def resolve_device(device) -> torch.device:
 
 def slot_bytes(w: int) -> int:
     """Device bytes a record slot of a round needs at the round's peak:
-    the record (4w words + 4 payload + 8 position) twice around the sort,
-    the sort's 24 bytes of keys and indices, then the judge's 36 bytes of
-    work plus its table and occurrence outputs."""
+    the record (4w words + 4 payload + 8 position) twice around the sort
+    with the sort's work (sort.work_bytes: two buffers of keys and of what
+    travels with them, 40 bytes for w <= 2, 24 past it, and 2/3 of a byte
+    of look-back status rounded up to 1, whose remainder covers the 4 KiB a
+    word of histograms in any round of a batch or more); or the judge's 36
+    bytes of work with the record and its table and occurrence outputs,
+    whichever is larger."""
     rec = 4 * w + 12
-    return max(2 * rec + 24, rec + 36 + 4 * w + 12)
+    sort_slot = (40 if w <= 2 else 24) + -(-256 * 8 // sort.SORT_TILE)
+    return max(2 * rec + sort_slot, rec + 36 + 4 * w + 12)
 
 
 def block_bytes(w: int) -> int:
@@ -567,7 +572,7 @@ def build_junctions_sorted(
         t_build = time.time() - t0
 
         t0 = time.time()
-        sw, spay, spos = ops.sort(*buf)
+        sw, spay, spos = ops.sort(*buf, key_bits=2 * k)
         del buf
         _sync(dev)
         t_sort = time.time() - t0
