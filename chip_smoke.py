@@ -62,6 +62,12 @@
    Bloom engine's), bit layout at f=36 (64-bit global and local slots), 3
    shards (255 rows a batch), and a tiny cap whose overflow counts must
    match; the byte fill is also timed into a zeroed shard, every slot new;
+   the probe is also held against its plain version on hand-made received
+   blocks (rows of 0, cap, chunk-boundary and random sent counts; the mark
+   cap, and an odd cap starting 8 bytes off 16-byte alignment), and the
+   device kernels of one bucket call of each mode are listed with their
+   device times by torch.profiler (one bucketing kernel, no count or scan
+   kernel);
 12. runs the slice through the dist-bloom engine, each with the counters
    reset just before and read just after, each launching the four
    entries and the dist engine's kernels and writing SLICE_SHA256:
@@ -160,6 +166,7 @@ PATH_OF = {
 }
 D4 = 4  # shards of the card in the distributed runs
 FILL_CHUNK = 4096  # received slots a block of bloom_shard.cu's fill
+PROBE_CHUNK = 4096  # ... and of its probe
 # the kernels each distributed path must launch
 DIST_PATH = ("word0_histogram", "build_records", "route", "compact", "sort_records",
              "judge_compact", "sort_occurrences")
@@ -343,6 +350,46 @@ def fresh_fill_times(tag, filt, kernel, library, trials=10):
             times[name] += start.elapsed_time(end) / trials
     print(f"{tag} into a zeroed shard: kernel {times['kernel']:.4f} ms, "
           f"library {times['library']:.4f} ms")
+
+
+def device_kernels(fn) -> dict:
+    """{device kernel, copy or memset name: (launches, device ms)} of one
+    call of fn, by torch.profiler; names without the "void" and the
+    anonymous namespace, cut at their argument list."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+            out[name.split("(")[0].strip() or e.key] = (e.count, e.self_device_time_total / 1e3)
+    return out
+
+
+def prefix_block(seed, n_sh, cap, slots, dev, offset):
+    """A hand-made received (n_sh, cap) block: each row a prefix of random
+    local slots below `slots` (0, cap, a probe chunk less one, one, one
+    more, a random count), then SENT; offset 1: the block starts 8 bytes
+    off 16-byte alignment."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    counts = [0, cap, PROBE_CHUNK - 1, PROBE_CHUNK, PROBE_CHUNK + 1, int(rng.integers(0, cap + 1))]
+    blk = np.full((n_sh, cap), -1, np.int64)
+    for d in range(n_sh):
+        c = min(counts[(d + seed) % len(counts)], cap)
+        blk[d, :c] = rng.integers(0, slots, size=c)
+    flat = torch.full((n_sh * cap + 1,), -1, dtype=torch.int64, device=dev)
+    out = flat[offset:][: n_sh * cap].view(n_sh, cap)
+    out.copy_(torch.from_numpy(blk))
+    return out
 
 
 def phase(name):
@@ -1044,6 +1091,16 @@ def main() -> int:
             require((over_t > 0) == tiny, f"shard_bucket cap {cap}: overflow {over_t}")
             print(f"shard_bucket {'mark' if marking else 'fill'} {lay} f={f_bits} "
                   f"D={n_sh} cap {cap}: overflow {over_t}, equal to the plain version's")
+            if (lay, f_bits, n_sh, tiny) == ("byte", 30, D4, False):
+                kern = device_kernels(
+                    lambda: fn(*a0, *full, cfg=scfg.base, n_shards=n_sh, cap=cap))
+                names = " ".join(kern)
+                require(sum(c for kk, (c, _t) in kern.items() if "k_shard_bucket" in kk) == 1
+                        and "k_scan" not in names and "k_shard_count" not in names,
+                        f"shard_bucket: device launches of one call {kern}")
+                print(f"shard_bucket {'mark' if marking else 'fill'}: device launches of one "
+                      f"call ({sum(t for _c, t in kern.values()):.4f} ms on the device): "
+                      + ", ".join(f"{kk} x{c} {t:.4f} ms" for kk, (c, t) in kern.items()))
         if tiny:
             continue
         # the whole slice into the sharded filter, as the main path fills it
@@ -1090,13 +1147,34 @@ def main() -> int:
             sends[s] = (send,)
         recv_m = meshc.all_to_all(sends)
         del sends
-        r0 = recv_m[0][0]
+        r0 = recv_m[0][0].view(n_sh, cap_m)
         valid_m = r0[r0 != shardbloom.SENT]
+        n_sent = valid_m.numel()
+        # the bound under the prefix rows: the sent slots read (8 bytes and
+        # their filter slot), every hit written, and one 32-byte sector a
+        # block of PROBE_CHUNK slots (its first slot)
+        # (50 calls a timing, so that the host time before the first
+        # launch, more for the wrapper than for index_select, is spread thin)
+        p_chunks = n_sh * -(-cap_m // PROBE_CHUNK)
         compare("shard_probe", lambda: (shardbloom.probe_local(filt[0], r0, lay),),
-                lambda: (shardbloom.probe_local_plain(filt[0], r0, lay),), 5, results,
-                in_bytes=nbytes(r0) + valid_m.numel() * slot_b,
+                lambda: (shardbloom.probe_local_plain(filt[0], r0, lay),), 50, results,
+                in_bytes=n_sent * (8 + slot_b) + p_chunks * 32,
                 library=(lambda: filt[0].index_select(0, valid_m)) if lay == "byte" else None)
-        hits = {s: (shardbloom.probe_local(filt[s], recv_m[s][0], lay).view(n_sh, cap_m),)
+        print(f"shard_probe {lay} f={f_bits} D={n_sh}: {n_sent} sent of {r0.numel()} slots; "
+              f"their random filter sectors, {n_sent} x 32 B over 3.35 TB/s: "
+              f"{n_sent * 32 / HBM_BYTES_PER_S * 1e3:.4f} ms (beside the bound)")
+        if n_sh == D4:
+            for off, cap_h in ((0, cap_m), (1, cap_m + 5)):
+                blk = prefix_block(f_bits + off, n_sh, cap_h, scfg.local_slots, dev, off)
+                sent_h = int((blk != shardbloom.SENT).sum())
+                compare("shard_probe", lambda: (shardbloom.probe_local(filt[0], blk, lay),),
+                        lambda: (shardbloom.probe_local_plain(filt[0], blk, lay),), 2, results,
+                        in_bytes=sent_h * (8 + slot_b) + n_sh * -(-cap_h // PROBE_CHUNK) * 32)
+                print(f"shard_probe {lay} f={f_bits}: hand-made prefix rows, cap {cap_h}, "
+                      f"offset {8 * off} bytes, {sent_h} sent: exact")
+                del blk
+        hits = {s: (shardbloom.probe_local(filt[s], recv_m[s][0].view(n_sh, cap_m),
+                                           lay).view(n_sh, cap_m),)
                 for s in meshc.shards}
         back = meshc.all_to_all(hits)
         del hits, recv_m

@@ -742,30 +742,113 @@ def _shard_cfg(k, f, layout, q, P, B, D):
 
 @pytest.mark.parametrize("D,layout,f", [
     (1, "byte", 20), (3, "byte", 20), (4, "bit", 22), (8, "bit", 20), (4, "bit", 36),
-    (3, "bit", 33), (8, "byte", 40), (11, "byte", 20), (20, "bit", 36),
+    (3, "bit", 33), (8, "byte", 40), (11, "byte", 20), (20, "bit", 36), (9, "byte", 20),
+    (300, "bit", 36), (300, "byte", 20), (4, "bit", 32),
 ])
 @pytest.mark.parametrize("mode", ["fill", "mark"])
 @pytest.mark.parametrize("tiny", [False, True])
 def test_shard_bucket_kernel(dev, D, layout, f, mode, tiny):
     """Send slots, probe slots and the overflow count equal the plain
-    version's exactly (32- and 64-bit indices; more than eight shards take
-    more than one pass of owners; a tiny cap overflows)."""
+    version's exactly (32- and 64-bit indices, f = 32 the first that
+    travels as u64; up to 300 owners in shared-memory counters; a
+    tiny cap overflows inside the first tile). test_shard_bucket_kernel_tiles
+    adds many tiles, gates, empty rows and caps crossed mid-tile."""
     k, P, B, q = 25, 512, 8, 3
     rng = np.random.default_rng(D * 100 + f)
     args = _to(dev, *_genome_batch(rng, B, P, k))
     scfg = _shard_cfg(k, f, layout, q, P, B * D, D)
-    cap = 64 if tiny else (scfg.fill_cap if mode == "fill" else scfg.mark_cap)
+    cap = min(64, 2048 // D) if tiny else (scfg.fill_cap if mode == "fill" else scfg.mark_cap)
+    want = _bucket_equal(args, scfg, cap, mode)
+    assert (int(want[-1]) > 7) == tiny
+    assert bool((want[0] != shardbloom.SENT).any())
+
+
+def _bucket_equal(args, scfg, cap, mode, low=0, high=0xFFFFFFFF):
+    """One launch of the bucket kernel; its send slots, probe slots and
+    overflow (added to 7) equal the plain version's. -> the plain's."""
     fn = shardbloom.bucket_fill if mode == "fill" else shardbloom.bucket_mark
     plain = shardbloom.bucket_fill_plain if mode == "fill" else shardbloom.bucket_mark_plain
-    over = torch.full((1,), 7, dtype=torch.int64, device=dev)
+    D = scfg.n_shards
+    over = torch.full((1,), 7, dtype=torch.int64, device=args[0].device)
     build.reset_launch_counts()
-    got = fn(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=cap, overflow=over.clone())
+    got = fn(*args, low, high, cfg=scfg.base, n_shards=D, cap=cap, overflow=over.clone())
     assert build.launch_counts() == {f"shard_bucket_{mode}": 1}
-    want = plain(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=cap,
-                 overflow=over.clone())
+    want = plain(*args, low, high, cfg=scfg.base, n_shards=D, cap=cap, overflow=over.clone())
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert (int(want[-1]) > 7) == tiny
+    return want
+
+
+@pytest.mark.parametrize("D", [1, 4, 9, 300, 4096])
+@pytest.mark.parametrize("f", [24, 32, 36])
+def test_shard_scratch_bytes_match_the_kernel(dev, D, f):
+    """passes/shardbloom.py scratch_bytes mirrors tp_shard_scratch_bytes
+    (the tile plan included); the kernel has no plan (0) exactly where
+    tile_fits says no, and there the wrapper refuses."""
+    lib = build.lib()
+    for q in (1, 3, 5, 16, 64, 2000):
+        for mark in (0, 1):
+            fits = shardbloom.tile_fits(D, q, f, bool(mark))
+            for n in (0, 1, 255, 256, 131072):
+                got = lib.tp_shard_scratch_bytes(n, D, q, f, mark)
+                assert (got != 0) == fits
+                if fits:
+                    assert got == shardbloom.scratch_bytes(n, D, q, f, bool(mark))
+    if D == 4 and f == 36:
+        assert not shardbloom.tile_fits(D, 2000, f, True)
+        scfg = _shard_cfg(25, f, "bit", 2000, 64, 4 * D, D)
+        args = _to(dev, *_genome_batch(np.random.default_rng(0), 4, 64, 25))
+        with pytest.raises(ValueError, match="shared memory"):
+            shardbloom.bucket_mark(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=64)
+
+
+# D, layout, f, q, rows a shard, P, round gate, valid counts, cap
+BUCKET_TILE_CASES = {
+    "512_tiles": (4, "byte", 30, 5, 64, 2048, "full", "genome", "path"),
+    "narrow_gate": (4, "byte", 24, 3, 16, 1024, "narrow", "genome", "path"),
+    "empty_rows": (4, "bit", 22, 3, 16, 512, "full", "zero_short", "path"),
+    "D9": (9, "byte", 24, 3, 16, 512, "full", "genome", "path"),
+    "D300": (300, "byte", 20, 3, 8, 512, "narrow", "zero_short", "path"),
+    "D300_64bit": (300, "bit", 36, 2, 8, 512, "full", "genome", "path"),
+    "cap_mid_tile": (4, "byte", 30, 5, 16, 2048, "full", "genome", "half"),
+    "cap_mid_tile_64bit": (3, "bit", 36, 3, 16, 1024, "narrow", "zero_short", "half"),
+    "q64_64bit": (4, "bit", 36, 64, 4, 512, "full", "genome", "path"),
+    "q1000_one_position": (4, "bit", 36, 1000, 2, 64, "narrow", "zero_short", "path"),
+}
+
+
+@pytest.mark.parametrize("case", list(BUCKET_TILE_CASES))
+@pytest.mark.parametrize("mode", ["fill", "mark"])
+def test_shard_bucket_kernel_tiles(dev, case, mode):
+    """The one-sweep bucketing across tiles: a batch of 512 tiles (the
+    look-back over tiles that finish out of order), a narrow round gate,
+    rows with valid 0 and short valid counts (empty and partial tiles),
+    D = 9 and 300 owners, a cap that an owner's run crosses inside a
+    tile, and large q (tiles of 8 positions at q = 64, of one at q =
+    1000): everything equals the plain version's."""
+    D, layout, f, q, B, P, gate, valid, cap_kind = BUCKET_TILE_CASES[case]
+    k = 25
+    rng = np.random.default_rng(len(case) * 31 + f)
+    p, m, v = _genome_batch(rng, B, P, k)
+    if valid == "zero_short":
+        v[::3] = 0
+        v[1::3] = 37
+    args = _to(dev, p, m, v)
+    low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
+    scfg = _shard_cfg(k, f, layout, q, P, B * D, D)
+    cap = scfg.fill_cap if mode == "fill" else scfg.mark_cap
+    tpos = shardbloom.tile_positions(D, q, f, mode == "mark")
+    if case == "512_tiles":
+        assert -(-B * P // tpos) >= 512
+    if case.startswith("q"):
+        assert tpos == ({"fill": 16, "mark": 8} if q == 64 else {"fill": 1, "mark": 1})[mode]
+    if cap_kind == "half":
+        send = shardbloom.bucket_fill_plain if mode == "fill" else shardbloom.bucket_mark_plain
+        per_owner = (send(*args, low, high, cfg=scfg.base, n_shards=D, cap=cap)[0]
+                     != shardbloom.SENT).sum(dim=1)
+        cap = int(per_owner[1]) // 2 + 5
+    want = _bucket_equal(args, scfg, cap, mode, low, high)
+    assert (int(want[-1]) > 7) == (cap_kind == "half")
     assert bool((want[0] != shardbloom.SENT).any())
 
 
@@ -851,6 +934,47 @@ def test_fill_local_prefix_rows(dev, D, layout, f, cap, aligned):
     assert _filters_equal(fk, fp) and bool(fp.view(torch.uint8).any())
     with pytest.raises(ValueError, match="block"):
         shardbloom.fill_local(fk, recv.reshape(-1), layout)
+
+
+PROBE_CHUNK = 4096  # received slots a block of the probe kernel
+
+
+@pytest.mark.parametrize("D,layout,f", [(1, "byte", 22), (3, "byte", 22), (4, "bit", 24),
+                                        (20, "bit", 36), (20, "byte", 24)])
+@pytest.mark.parametrize("cap,aligned", [(3 * PROBE_CHUNK + 16, True),
+                                         (3 * PROBE_CHUNK + 5, True),
+                                         (3 * PROBE_CHUNK + 6, True), (2 * PROBE_CHUNK, False)])
+def test_probe_local_prefix_rows(dev, D, layout, f, cap, aligned):
+    """Hand-made received blocks, each row a prefix of sent slots then
+    SENT: empty rows, full rows (count == cap), counts at a chunk boundary
+    and one either side; caps of 0, 1 and 2 mod 4 (rows and hits starting
+    off their alignment), and a block starting 8 bytes off 16. f = 36 over
+    20 shards: local slots past 2^32. The hits equal the plain version's
+    everywhere, zeros past each prefix."""
+    scfg = _shard_cfg(25, f, layout, 2, 256, 8 * D, D)
+    rng = np.random.default_rng(D * 7 + cap)
+    counts = [0, cap, PROBE_CHUNK - 1, PROBE_CHUNK, PROBE_CHUNK + 1, 2 * PROBE_CHUNK,
+              int(rng.integers(0, cap + 1))]
+    recv_np = np.full((D, cap), -1, np.int64)
+    for d in range(D):
+        c = min(counts[(d + 1) % len(counts)], cap)
+        recv_np[d, :c] = rng.integers(0, scfg.local_slots, size=c)
+    flat = torch.full((D * cap + 1,), -1, dtype=torch.int64, device=dev)
+    recv = flat[0 if aligned else 1:][: D * cap].view(D, cap)
+    recv.copy_(torch.from_numpy(recv_np))
+    filt = bloom.make_filter(f, layout, dev, slots=scfg.local_slots)
+    gen = torch.Generator(device=dev).manual_seed(D + cap)
+    fb = filt.view(torch.uint8)
+    fb.copy_(torch.randint(0, 256 if layout == "bit" else 2, fb.shape, generator=gen,
+                           device=dev, dtype=torch.uint8))
+    build.reset_launch_counts()
+    got = shardbloom.probe_local(filt, recv, layout)
+    assert build.launch_counts() == {"shard_probe": 1}
+    want = shardbloom.probe_local_plain(filt, recv, layout)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int((recv != shardbloom.SENT).sum())
+    with pytest.raises(ValueError, match="block"):
+        shardbloom.probe_local(filt, recv.reshape(-1), layout)
 
 
 @pytest.mark.parametrize("D,layout,f", [(1, "byte", 20), (3, "byte", 21), (4, "bit", 22),

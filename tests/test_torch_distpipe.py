@@ -168,6 +168,17 @@ def test_dist_engines_cut_key_bits(tmp_path, k, bloom_gate):
     assert jb == db == sb and len(db) > 0 and enum.vertices_count > 0
 
 
+def test_dist_bloom_many_hash_functions(tmp_path):
+    """q = 64 (512 mark probes a position, the bucketing kernel's tile cut
+    to 8 positions at f >= 32): the JAX engine's bytes and the sort
+    engine's."""
+    jcfg = JaxConfig(k=9, filter_bits=18, hash_functions=64, positions_per_row=128,
+                     rows_per_batch=8)
+    jb, db, sb, enum = _three_ways(tmp_path, jcfg, _corpus(seed=64, length=1200),
+                                   bloom_gate=True)
+    assert jb == db == sb and len(db) > 0 and enum.vertices_count > 0
+
+
 def test_dist_bloom_three_shards(tmp_path):
     """D=3 (local slots padded to 32, owners by index mod 3): the sort
     engine's bytes, -r 1 and -r 2."""

@@ -90,10 +90,15 @@ def test_bucket_matches_jax(D, f, cap_scale, mode):
     """The fill and mark indices of a shard's rows bucketed by owner: send
     buffers byte-equal to _bucket's of kernels.fill_indices /
     mark_indices, 64-bit indices at f=40, a cap that overflows."""
-    B = 2 * D
-    q = 3
+    wover = _bucket_vs_jax(D, f, 3, 2 * D, cap_scale, mode, _batches(2 * D)[0])
+    assert (wover > 0) == (cap_scale < 1)
+
+
+def _bucket_vs_jax(D, f, q, B, cap_scale, mode, b):
+    """bucket_fill / bucket_mark of batch b's first B/D rows against
+    _bucket over kernels.fill_indices / mark_indices (the bit layout):
+    send buffers byte-equal, overflow equal. -> the overflow."""
     jscfg, tscfg = _configs(f, q, "bit", B, D)
-    b = _batches(B)[0]
     rows = slice(0, B // D)
     codes, valid = jnp.asarray(b.codes[rows]), jnp.asarray(b.valid[rows])
     edges = 4 if mode == "fill" else 8
@@ -110,7 +115,8 @@ def test_bucket_matches_jax(D, f, cap_scale, mode):
     got = fn(*_upload(b.codes[rows], b.valid[rows]), *FULL, cfg=tscfg.base, n_shards=D, cap=cap)
     np.testing.assert_array_equal(_u64(got[0]), np.asarray(want))
     assert int(got[-1]) == int(wover)
-    assert (int(wover) > 0) == (cap_scale < 1)
+    assert int((got[0] != shardbloom.SENT).sum()) + int(wover) == int(np.asarray(val).sum())
+    return int(wover)
 
 
 def test_mark_probe_slots_match_unbucket():
@@ -238,3 +244,108 @@ def test_make_sharded_filter_shapes():
                    for t in filt.values())
     with pytest.raises(TypeError):
         bloom.make_filter(10, "byte")  # no default device
+
+
+PROBE_CHUNK = 4096  # received slots a block of bloom_shard.cu's probe
+
+
+@pytest.mark.parametrize("layout", ["byte", "bit"])
+@pytest.mark.parametrize("D,cap", [(3, 2 * PROBE_CHUNK + 5), (7, PROBE_CHUNK + 16)])
+def test_probe_local_prefix_rows_match_jax(layout, D, cap):
+    """Hand-made received blocks, each row a prefix of sent local slots
+    then SENT (empty rows, full rows, counts at a chunk boundary and one
+    either side): the plain probe's hits equal _local_probe's, SENT slots
+    read 0, in the byte and bit layouts."""
+    rng = np.random.default_rng(D * 11 + cap)
+    slots = 1 << 16
+    counts = [0, cap, PROBE_CHUNK - 1, PROBE_CHUNK, PROBE_CHUNK + 1, int(rng.integers(0, cap))]
+    recv = np.full((D, cap), -1, np.int64)
+    for d in range(D):
+        c = counts[d % len(counts)]
+        recv[d, :c] = rng.integers(0, slots, size=c)
+    if layout == "byte":
+        filt = rng.integers(0, 2, size=slots).astype(np.uint8)
+    else:
+        filt = rng.integers(0, 1 << 32, size=slots // 32, dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(jsh._local_probe(jnp.asarray(filt), jnp.asarray(recv.view(np.uint64)),
+                                       layout))
+    tfilt = torch.from_numpy(filt.view(np.int32)).view(torch.uint32) if layout == "bit" \
+        else torch.from_numpy(filt)
+    got = shardbloom.probe_local(tfilt, torch.from_numpy(recv), layout)
+    assert got.dtype == torch.uint8 and got.shape == (D * cap,)
+    np.testing.assert_array_equal(got.numpy().reshape(D, cap), want.astype(np.uint8))
+    assert 0 < int(got.sum()) < int((recv != -1).sum())
+    assert not got.numpy().reshape(D, cap)[recv == -1].any()
+
+
+@pytest.mark.parametrize("fn", ["probe_local", "fill_local"])
+def test_local_steps_refuse_a_flat_block(fn):
+    """probe_local and fill_local take the (D, cap) received block: a flat
+    one raises ValueError (on the CPU as on the card)."""
+    filt = bloom.make_filter(10, "byte", "cpu")
+    recv = torch.full((3, 8), -1, dtype=torch.int64)
+    recv[0, :2] = torch.tensor([5, 9])
+    getattr(shardbloom, fn)(filt, recv, "byte")
+    with pytest.raises(ValueError, match=r"\(D, cap\) block"):
+        getattr(shardbloom, fn)(filt, recv.reshape(-1), "byte")
+
+
+@pytest.mark.parametrize("f,layout", [(18, "byte"), (36, "bit")])
+@pytest.mark.parametrize("mode", ["fill", "mark"])
+def test_bucket_gated_rows_match_jax(f, layout, mode):
+    """bucket_fill_plain and bucket_mark_plain on a batch with valid-0 and
+    short rows under a narrow round gate: send buffers byte-equal to
+    _bucket's over kernels.fill_indices / mark_indices, overflow equal."""
+    D, q, B = 4, 3, 16
+    jscfg, tscfg = _configs(f, q, layout, B, D)
+    b = _batches(B, seed=7)[0]
+    rows = slice(0, B // D)
+    codes = b.codes[rows]
+    valid = np.array(b.valid[rows], np.int32)
+    valid[0] = 0
+    valid[2] = 37
+    low, high = 1 << 30, 3 << 30
+    if mode == "fill":
+        idx, val = jk.fill_indices(jnp.asarray(codes), jnp.asarray(valid), low, high, jscfg.base)
+    else:
+        idx, base, _p, _n = jk.mark_indices(jnp.asarray(codes), jnp.asarray(valid), low, high,
+                                            jscfg.base)
+        val = jnp.broadcast_to(base[:, :, None, None], idx.shape)
+    cap = tscfg.fill_cap if mode == "fill" else tscfg.mark_cap
+    want, _route, wover = jsh._bucket(idx.astype(jnp.uint64).reshape(-1), val.reshape(-1),
+                                      jscfg, cap)
+    fn = shardbloom.bucket_fill_plain if mode == "fill" else shardbloom.bucket_mark_plain
+    got = fn(*_upload(codes, valid), low, high, cfg=tscfg.base, n_shards=D, cap=cap)
+    np.testing.assert_array_equal(_u64(got[0]), np.asarray(want))
+    assert int(got[-1]) == int(wover) == 0
+    sent = int((got[0] != shardbloom.SENT).sum())
+    assert 0 < sent == int(np.asarray(val).sum())
+    full = fn(*_upload(codes, b.valid[rows]), *FULL, cfg=tscfg.base, n_shards=D, cap=cap)
+    assert sent < int((full[0] != shardbloom.SENT).sum())
+
+
+@pytest.mark.parametrize("q,f,D", [(64, 36, 4), (64, 40, 8), (2000, 36, 4), (5, 30, 4)])
+def test_shard_bytes_at_any_q(q, f, D):
+    """ShardedConfig.shard_bytes counts the bucketing's scratch at any q:
+    a tile shrinks to fewer positions as q grows (down to one) and never
+    raises; only the kernel refuses a q whose one position overflows its
+    block (2000 at f = 36)."""
+    scfg = sharded.ShardedConfig(
+        base=PassConfig(k=25, q=q, f=f, layout="bit", positions_per_row=2048,
+                        rows_per_batch=64 * D), n_shards=D)
+    n_pos = 64 * 2048
+    scratch = shardbloom.scratch_bytes(n_pos, D, q, f, marking=True)
+    assert scfg.shard_bytes() == (scfg.local_slots // 8 + 4 * n_pos * 8 * q
+                                  + 18 * D * scfg.mark_cap + scratch)
+    tpos = shardbloom.tile_positions(D, q, f, marking=True)
+    assert scratch == -(-n_pos // tpos) * D * 8 + 8
+    assert tpos == (8 if q == 64 else 1 if q == 2000 else 256)
+    assert shardbloom.tile_fits(D, q, f, marking=True) == (q < 2000)
+    assert shardbloom.tile_fits(D, q, f, marking=False)
+
+
+@pytest.mark.parametrize("mode", ["fill", "mark"])
+def test_bucket_many_hashes_match_jax(mode):
+    """q = 64 at f = 36 (64-bit indices, 512 mark probes a position: the
+    kernel's tile is 8 positions): the port's bucketing equals _bucket's."""
+    assert _bucket_vs_jax(4, 36, 64, 8, 1.0, mode, _batches(8, seed=3)[0]) == 0

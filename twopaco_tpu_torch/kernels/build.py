@@ -90,12 +90,12 @@ _SIGNATURES = {
     "tp_bloom_lookup": (
         [_P] * 3 + [_I] * 5 + [_P] * 2 + [_LL] * 2 + [_P] * 12, _I
     ),
-    "tp_shard_count_words": ([_SZ, _I], _SZ),
+    "tp_shard_scratch_bytes": ([_SZ, _I, _I, _I, _I], _SZ),
     "tp_shard_bucket": (
-        [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 5 + [_P] * 7, _I
+        [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 5 + [_P, _SZ] + [_P] * 4, _I
     ),
     "tp_shard_fill_apply": ([_P, _SZ, _SZ, _I, _P, _P], _I),
-    "tp_shard_probe": ([_P, _SZ, _I, _P, _P, _P], _I),
+    "tp_shard_probe": ([_P, _SZ, _SZ, _I, _P, _P, _P], _I),
     "tp_shard_mark_finish": (
         [_P] * 5 + [_I] * 5 + [_U32] * 2 + [_TABS, _I] + [_P] * 3, _I
     ),

@@ -20,10 +20,11 @@
 //                         the probe is not sent), edge-hash major: probe j
 //                         of position t at j * B*P + t;
 // and, after the exchange (the mesh's all_to_all),
-//   tp_shard_fill_apply   sets the received local slots in its shard,
-//                         reading each received row only up to its
-//                         first unsent slot (rows are prefixes);
+//   tp_shard_fill_apply   sets the received local slots in its shard;
 //   tp_shard_probe        reads them: one u8 hit a slot (all-ones: 0);
+// both read each received row only up to its first unsent slot (a row is
+// a prefix of sent slots, then all-ones: the bucketing writes each owner's
+// in rank order);
 // and, after the hits come back along the same slots,
 //   tp_shard_mark_finish  gathers each position's 8q hits through its send
 //                         slots, ANDs each edge's q, decides (the vertex
@@ -33,22 +34,52 @@
 //
 // Bound: bytes. The bucketing reads the upload form and writes the send
 // slots (and the probe slots); the fill and probe touch one byte or u32
-// word a received slot at random over a shard of up to 2 GiB. The fill
-// reads only the sent prefix of each received row (under a sixth of the
-// slots at the slice's batch): a block a chunk of a row, which exits at
-// once when its chunk starts unsent. Design of the bucketing: one
-// thread a position, a tile a block of TP_THREADS positions; the hashes and
-// indices stay in registers (common.cuh, shared with bloom_fill.cu and
-// bloom_mark.cu) and are computed again in each pass, never stored. A count
-// pass gives per-tile owner counts, scanned owner-major by scan.cu; the
-// scatter pass ranks each index by the exclusive prefix of its thread's
-// owner counts over the tile (warp shuffles, then the lower warps' totals)
-// and its order among its own thread's indices, so the send slots equal
-// the plain version's exactly. Owners go in chunks of SHARD_DC, one
-// register counter each (D > SHARD_DC: one more hash pass a chunk). Owner
-// and local slot use 32-bit division while the index fits 32 bits (f <= 32)
-// and 64-bit past it.
+// word a received slot at random over a shard of up to 2 GiB.
+//
+// The bucketing is one sweep (the scheme of sort.cu's k_onesweep). A
+// block takes the next tile of consecutive positions (256, fewer as q
+// grows, down to one) from an atomic counter, so it only waits on tiles
+// that started; the stages of a tile, barrier to barrier:
+// - hash: a thread takes a run of RUN positions of one row, hashes the
+//   first window from scratch and rolls the strand hashes one char at a
+//   time, hf' = rotl(hf, 1) ^ rotl(T[out], k) ^ T[in] and its mirror for
+//   hr (N reads as code 0, as the from-scratch hash reads it). The char
+//   tables and their rotations sit in shared memory, never indexed out of
+//   the parameter space at run time. Each position leaves its strand
+//   hashes and its gate (the edges it inserts or probes) in shared memory;
+// - indices: a thread a (position, edge) computes the edge's hashes once
+//   and its q indices into shared memory, in the flat order;
+// - rank: each warp ranks its contiguous part of them by owner, stably: up
+//   to 32 owners a ballot an owner with lane d counting owner d's, more
+//   (up to TP_ROUTE_MAX) match masks and u16 counters in shared memory
+//   (the match path alone at D=4 took the slice's fill bucketing from
+//   17.9 to 25.3 ms, H100);
+// - publish and stage: the tile's per-owner totals go to u64 status words
+//   (value | flag), the local slots are staged in shared memory owner-major;
+// - look-back: a warp an owner reads the status words of 32 earlier tiles
+//   at a time, back to the nearest inclusive prefix, and publishes its own;
+// - write: consecutive threads store consecutive send slots of each owner's
+//   run of the tile (ranks past cap dropped), and in mark mode each probe's
+//   send slot, coalesced along the positions.
+// Hashing runs on a quarter of the block and, like the ranking, is bound by
+// issue and latency, not bytes; the mark mode's write stage by its stores.
+// A finish kernel writes the unsent tail of every owner's row and adds the
+// indices past cap to the overflow, from the last tile's prefixes (a block
+// a chunk of a row; chunks below the row's count exit at once). Indices
+// travel as u32 while f < 32 and as u64 from f = 32; owners and local
+// slots come from a multiply-shift divisor while an index is below 2^31.
+//
+// The probe: a block a PROBE_CHUNK-slot chunk of a row, as the fill. A
+// chunk that starts unsent writes zeros and reads nothing more; otherwise
+// consecutive threads load consecutive slots, each thread issues all its
+// filter reads, then stores its hits. Its time is the filter's random
+// reads. One slot a lane keeps a warp's read on 32 consecutive slots, so
+// a slot the batch probes twice a few slots apart (an edge from both of
+// its vertices) is one request; 4 slots a lane (16-byte loads) spread it
+// over 128 slots and measured slower.
 #include <algorithm>
+#include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -56,185 +87,429 @@ namespace {
 
 constexpr uint64_t SENT = ~0ull;  // an index that is not sent / empty slot
 constexpr uint32_t NOT_SENT = 0xffffffffu;
-constexpr int SHARD_DC = 8;  // owners counted in registers a pass
-constexpr int FILL_CHUNK = 4096;  // received slots a fill block
+constexpr int FILL_CHUNK = 4096;   // received slots a fill block
+constexpr int PROBE_CHUNK = 4096;  // received slots a probe block
+constexpr int TAIL_CHUNK = 4096;   // send slots a block of the tail
+constexpr int PROBE_ITEMS = PROBE_CHUNK / TP_THREADS;  // slots a thread
+constexpr int RUN = 4;             // positions a hashing thread rolls over
+constexpr int TILE_MAX = 256;      // positions a bucketing tile, at most
+// dynamic shared memory a bucketing block: two blocks an SM where they
+// fit, one at most
+constexpr size_t SMEM_TARGET = 112 * 1024;
+constexpr size_t SMEM_MAX = 226 * 1024;
+constexpr uint64_t ST_AGG = 1ull << 32;   // status: the tile's own count
+constexpr uint64_t ST_INCL = 2ull << 32;  // ... the prefix over tiles 0 .. t
 
-__device__ __forceinline__ uint32_t owner_of(uint64_t x, int D) {
-    if (x == SENT) return (uint32_t)D;
-    return (x >> 32) == 0 ? (uint32_t)x % (uint32_t)D
-                          : (uint32_t)(x % (uint64_t)D);
+// The bucketing's tile: tpos positions (a power of two), per indices a
+// position, items = per * tpos rounded up to the block's warps, wi a warp
+struct Geo {
+    int per, tpos, items, wi;
+    size_t smem;
+};
+
+// Shared bytes of a tile: the flat indices and the staged local slots
+// (w64: u64, else u32), the u16 in-tile ranks, the strand hashes (4
+// tables, hf and hr) and gate word of each position, per owner the tile's
+// total, offset in the tile (D + 1) and offset in the send row, and the
+// warps' u16 owner counters.
+size_t geo_smem(int tpos, int per, int D, bool w64) {
+    const size_t items = ((size_t)tpos * per + TP_THREADS - 1) / TP_THREADS * TP_THREADS;
+    return items * (2 * (w64 ? 8 : 4) + 2) + (size_t)tpos * 9 * 4 +
+           (size_t)(3 * D + 1) * 4 + (size_t)TP_WARPS * D * 2;
 }
 
-__device__ __forceinline__ uint64_t local_of(uint64_t x, int D) {
-    return (x >> 32) == 0 ? (uint64_t)((uint32_t)x / (uint32_t)D)
-                          : x / (uint64_t)D;
+// The largest tile (TILE_MAX halved while over SMEM_TARGET, down to one
+// position); false when even one position exceeds SMEM_MAX
+bool plan_geo(int D, int q, int f, int mark, Geo& g) {
+    g.per = (mark ? 8 : 4) * q;
+    const bool w64 = f >= 32;
+    g.tpos = TILE_MAX;
+    while (g.tpos > 1 && geo_smem(g.tpos, g.per, D, w64) > SMEM_TARGET)
+        g.tpos /= 2;
+    g.smem = geo_smem(g.tpos, g.per, D, w64);
+    g.items = (g.tpos * g.per + TP_THREADS - 1) / TP_THREADS * TP_THREADS;
+    g.wi = g.items / TP_WARPS;
+    return g.smem <= SMEM_MAX && g.items < 65536;
 }
 
-// One batch of a shard: B rows of the upload form, P positions a row, the
-// round [low, high], q hashes into 2^f slots; mark = 0 fill, 1 mark.
-struct ShardBatch {
+size_t bucket_tiles(size_t n_pos, int tpos) {
+    return std::max<size_t>((n_pos + tpos - 1) / tpos, 1);
+}
+
+// Scratch: the status words (tiles x D u64), then the tile counter
+size_t bucket_scratch(size_t n_pos, int D, const Geo& g) {
+    return bucket_tiles(n_pos, g.tpos) * (size_t)D * 8 + 8;
+}
+
+// floor(x / d) for x < 2^31 as (x * m) >> s, m = ceil(2^(31+l) / d), l =
+// ceil(log2 d), m < 2^32 (Granlund and Montgomery 1994): a runtime
+// divisor without the division's instruction sequence
+struct Div31 {
+    uint32_t m;
+    int s;
+};
+
+Div31 make_div31(uint32_t d) {
+    int l = 0;
+    while ((1ull << l) < d) ++l;
+    return {(uint32_t)(((1ull << (31 + l)) + d - 1) / d), 31 + l};
+}
+
+__device__ __forceinline__ uint32_t div31(uint32_t x, Div31 v) {
+    return (uint32_t)(((uint64_t)x * v.m) >> v.s);
+}
+
+struct BucketArgs {
     const uint32_t* packed;
     const uint32_t* nmask;
     const int32_t* valid;
     int B, P, k, RW, NW;
     uint32_t low, high;
-    TpTabs tabs;
-    int q, f, mark;
-
-    __device__ __forceinline__ long long n_pos() const {
-        return (long long)B * P;
-    }
-
-    // visit(j, x) for the per = 4q (fill) or 8q (mark) global indices x of
-    // position t = b*P + i in (edge, hash) order j; x = SENT where the
-    // index is not inserted or not probed.
-    template <class Visit>
-    __device__ __forceinline__ void indices(long long t, Visit visit) const {
-        const int b = (int)(t / P);
-        const int i = (int)(t - (long long)b * P);
-        const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-        const int nt = f > 32 ? 4 : 2;
-        uint32_t e[4];
-        if (mark) {
-            uint32_t hf[4], hr[4];
-            const bool base = tp_mark_position(row, i, k, valid[b], low, high,
-                                               tabs, nt, hf, hr);
-            // slots 0..3: in-edges c·V, 4..7: out-edges V·c, c = A, C, G, T
-            for (int s = 0; s < 8; ++s) {
-                if (base) tp_edge_hashes(hf, hr, tabs, nt, s >= 4, s & 3u, k, e);
-                for (int j = 0; j < q; ++j)
-                    visit(s * q + j, base ? tp_km_index(e, (uint32_t)j, f) : SENT);
-            }
-            return;
-        }
-        TpFillPos p;
-        unsigned slots = 0;
-        if (tp_fill_position(row, i, k, valid[b], low, high, tabs, nt, p) &&
-            (p.in_v || p.in_n))
-            slots = tp_fill_slots(p);
-        for (int s = 0; s < 4; ++s) {
-            const bool on = (slots >> s) & 1u;
-            if (on) tp_fill_edge(p, tabs, nt, s, k, e);
-            for (int j = 0; j < q; ++j)
-                visit(s * q + j, on ? tp_km_index(e, (uint32_t)j, f) : SENT);
-        }
-    }
-
-    // cnt[c] = indices of position t owned by shard d0 + c (t >= n_pos: 0)
-    __device__ __forceinline__ void owner_counts(long long t, int D, int d0,
-                                                 uint32_t* cnt) const {
-#pragma unroll
-        for (int c = 0; c < SHARD_DC; ++c) cnt[c] = 0;
-        if (t >= n_pos()) return;
-        indices(t, [&](int, uint64_t x) {
-            const uint32_t o = owner_of(x, D);
-            if (o >= (uint32_t)D) return;
-#pragma unroll
-            for (int c = 0; c < SHARD_DC; ++c) cnt[c] += o - d0 == (uint32_t)c;
-        });
-    }
+    uint32_t tab[16];  // TABLE_1 .. TABLE_4, 4 words each
+    int q, f, D, cap;
+    Geo g;
+    int tpos_log2;
+    Div31 by_d;  // index div D
+    uint64_t* send;
+    uint32_t* probe_slot;  // mark mode
+    uint64_t* status;
+    uint32_t* tile_ctr;
 };
 
-// counts[d * nt + tile] = indices of tile blockIdx.x (TP_THREADS positions)
-// owned by shard d
-__global__ void k_shard_count(ShardBatch bt, int D,
-                              uint32_t* __restrict__ counts, size_t nt) {
-    __shared__ uint32_t s_w[TP_WARPS][SHARD_DC];
-    const long long t = (long long)blockIdx.x * TP_THREADS + threadIdx.x;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    for (int d0 = 0; d0 < D; d0 += SHARD_DC) {
-        uint32_t cnt[SHARD_DC];
-        bt.owner_counts(t, D, d0, cnt);
-#pragma unroll
-        for (int c = 0; c < SHARD_DC; ++c) {
-            const uint32_t w = __reduce_add_sync(0xffffffffu, cnt[c]);
-            if (lane == 0) s_w[warp][c] = w;
-        }
-        __syncthreads();
-        const int c = threadIdx.x;
-        if (c < SHARD_DC && d0 + c < D) {
-            uint32_t tot = 0;
-            for (int v = 0; v < TP_WARPS; ++v) tot += s_w[v][c];
-            counts[(size_t)(d0 + c) * nt + blockIdx.x] = tot;
-        }
-        __syncthreads();
+// Owner (x mod D) and local slot (x div D) of a global index
+template <bool W64>
+__device__ __forceinline__ uint32_t split_index(
+    typename std::conditional<W64, uint64_t, uint32_t>::type x, int D, Div31 by_d,
+    uint64_t& local) {
+    if (W64 && (uint64_t)x >> 31) {
+        local = (uint64_t)x / (uint64_t)D;
+        return (uint32_t)((uint64_t)x - local * (uint64_t)D);
     }
+    const uint32_t l = div31((uint32_t)x, by_d);
+    local = l;
+    return (uint32_t)x - l * (uint32_t)D;
 }
 
-// The stable scatter of tile blockIdx.x: an index's rank among its owner's
-// is the owner's offset for the tile (the scanned counts), plus the
-// owner's indices in lower threads of the tile, plus those before it in
-// its own thread. Ranks past cap are dropped (their probe slot NOT_SENT).
-__global__ void k_shard_scatter(ShardBatch bt, int D, int cap,
-                                const uint32_t* __restrict__ counts,
-                                const uint32_t* __restrict__ incl, size_t nt,
-                                uint64_t* __restrict__ send,
-                                uint32_t* __restrict__ probe_slot) {
-    __shared__ uint32_t s_w[TP_WARPS][SHARD_DC];
-    __shared__ uint32_t s_base[SHARD_DC];
-    const long long n = bt.n_pos();
-    const long long t = (long long)blockIdx.x * TP_THREADS + threadIdx.x;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    for (int d0 = 0; d0 < D; d0 += SHARD_DC) {
-        const int c0 = threadIdx.x;
-        if (c0 < SHARD_DC && d0 + c0 < D) {
-            const size_t first = (size_t)(d0 + c0) * nt;
-            const size_t slot = first + blockIdx.x;
-            // offset of this tile's first index among owner d0 + c0's
-            s_base[c0] = (incl[slot] - counts[slot]) - (incl[first] - counts[first]);
-        }
-        uint32_t cur[SHARD_DC];
-        bt.owner_counts(t, D, d0, cur);
+template <bool W64>
+__device__ __forceinline__ uint32_t owner_of(
+    typename std::conditional<W64, uint64_t, uint32_t>::type x, int D, Div31 by_d) {
+    uint64_t local;
+    return split_index<W64>(x, D, by_d, local);
+}
+
+// Strand hashes of the k-char window at char s under the first nt tables
+// (common.cuh tp_strand_hashes, the tables T[4u + c] in shared memory)
+__device__ __forceinline__ void window_hashes(const TpRow& row, int s, int k,
+                                              int nt, const uint32_t* T,
+                                              uint32_t* hf, uint32_t* hr) {
 #pragma unroll
-        for (int c = 0; c < SHARD_DC; ++c) {
-            uint32_t x = cur[c];
+    for (int u = 0; u < 4; ++u) hf[u] = hr[u] = 0;
+#pragma unroll 4
+    for (int j = 0; j < k; ++j) {
+        const uint32_t c = row.code(s + j);
 #pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
-                if (lane >= o) x += y;
+        for (int u = 0; u < 4; ++u)
+            if (u < nt) {
+                hf[u] ^= tp_rotl32(T[4 * u + c], (uint32_t)(k - 1 - j));
+                hr[u] ^= tp_rotl32(T[4 * u + 3 - c], (uint32_t)j);
             }
-            if (lane == 31) s_w[warp][c] = x;
-            cur[c] = x - cur[c];  // exclusive within the warp
-        }
-        __syncthreads();
-#pragma unroll
-        for (int c = 0; c < SHARD_DC; ++c) {
-            uint32_t b = s_base[c];
-            for (int v = 0; v < warp; ++v) b += s_w[v][c];
-            cur[c] += b;
-        }
-        if (t < n)
-            bt.indices(t, [&](int j, uint64_t x) {
-                const uint32_t o = owner_of(x, D);
-                uint32_t* ps = probe_slot != nullptr
-                                   ? probe_slot + (size_t)j * n + t
-                                   : nullptr;
-                if (o >= (uint32_t)D) {
-                    if (ps != nullptr && d0 == 0) *ps = NOT_SENT;
-                    return;
-                }
-                const uint32_t c = o - (uint32_t)d0;
-                if (c >= (uint32_t)SHARD_DC) return;  // another chunk's
-                uint32_t r = 0;
-#pragma unroll
-                for (int cc = 0; cc < SHARD_DC; ++cc)
-                    if (c == (uint32_t)cc) r = cur[cc]++;
-                const bool sent = r < (uint32_t)cap;
-                if (sent) send[(size_t)o * cap + r] = local_of(x, D);
-                if (ps != nullptr) *ps = sent ? o * (uint32_t)cap + r : NOT_SENT;
-            });
-        __syncthreads();
     }
 }
 
-__global__ void k_shard_finish(const uint32_t* __restrict__ counts,
-                               const uint32_t* __restrict__ incl, size_t nt,
-                               int D, int cap, uint64_t* __restrict__ send,
-                               unsigned long long* __restrict__ overflow) {
-    tp_route_finish(counts, incl, nt, D, cap, overflow,
-                    [&](size_t t) { send[t] = SENT; });
+// ... rolled from the window at char s to the one at s + 1 (Tk: T rotated
+// by k, Tk1: by k - 1)
+__device__ __forceinline__ void roll_hashes(const TpRow& row, int s, int k,
+                                            int nt, const uint32_t* T,
+                                            const uint32_t* Tk,
+                                            const uint32_t* Tk1,
+                                            uint32_t* hf, uint32_t* hr) {
+    const uint32_t co = row.code(s);
+    const uint32_t ci = row.code(s + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        if (u < nt) {
+            hf[u] = tp_rotl32(hf[u], 1u) ^ Tk[4 * u + co] ^ T[4 * u + ci];
+            hr[u] = tp_rotl32(hr[u] ^ T[4 * u + 3 - co], 31u) ^ Tk1[4 * u + 3 - ci];
+        }
+}
+
+template <bool MARK, bool W64>
+__global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
+    using Idx = typename std::conditional<W64, uint64_t, uint32_t>::type;
+    constexpr Idx NONE = (Idx)~(Idx)0;
+    extern __shared__ __align__(16) unsigned char s_mem[];
+    const int D = a.D;
+    const int tpos = a.g.tpos;
+    const int per = a.g.per;
+    const int items = a.g.items;
+    Idx* s_flat = (Idx*)s_mem;                     // [items] flat order
+    Idx* s_om = s_flat + items;                    // [items] owner-major
+    uint32_t* s_h = (uint32_t*)(s_om + items);     // [8][tpos] hf_u, hr_u
+    uint32_t* s_gate = s_h + 8 * tpos;             // [tpos]
+    uint32_t* s_tot = s_gate + tpos;               // [D]
+    uint32_t* s_tex = s_tot + D;                   // [D + 1]
+    uint32_t* s_dst = s_tex + D + 1;               // [D]
+    uint16_t* s_rank = (uint16_t*)(s_dst + D);     // [items]
+    uint16_t* s_wc = s_rank + items;               // [TP_WARPS][D]
+    __shared__ uint32_t s_T[16], s_Tk[16], s_Tk1[16];
+    __shared__ uint32_t s_scan[TP_WARPS];
+    __shared__ uint32_t s_tile;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    if (tid == 0) {
+        s_tile = atomicAdd(a.tile_ctr, 1u);
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+            const uint32_t t = a.tab[u];
+            s_T[u] = t;
+            s_Tk[u] = tp_rotl32(t, (uint32_t)a.k);
+            s_Tk1[u] = tp_rotl32(t, (uint32_t)(a.k - 1));
+        }
+    }
+    for (int i = tid; i < TP_WARPS * D; i += TP_THREADS) s_wc[i] = 0;
+    __syncthreads();
+    const size_t tile = s_tile;
+    const long long n = (long long)a.B * a.P;
+    const long long t0 = (long long)tile * tpos;
+    const int tpn = (int)max(0ll, min((long long)tpos, n - t0));  // positions
+    const int nt = a.f > 32 ? 4 : 2;
+    const int k = a.k;
+
+    // hash: runs of RUN positions, rolled; each position's hashes and gate
+    // (bit e: edge e inserted or probed; fill: bits 8-9 the out-edge's char)
+    if (tid * RUN < tpos) {
+        uint32_t hf[4], hr[4];
+        for (int s = 0; s < RUN && tid * RUN + s < tpos; ++s) {
+            const int p = tid * RUN + s;
+            uint32_t gate = 0;
+            if (p < tpn) {
+                const long long t = t0 + p;
+                const int b = (int)(t / a.P);
+                const int i = (int)(t - (long long)b * a.P);
+                const TpRow row{a.packed + (size_t)b * a.RW, a.nmask + (size_t)b * a.NW};
+                if (s == 0 || i == 0) window_hashes(row, i + 1, k, nt, s_T, hf, hr);
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    if (u < nt) {
+                        s_h[(2 * u) * tpos + p] = hf[u];
+                        s_h[(2 * u + 1) * tpos + p] = hr[u];
+                    }
+                const uint32_t hv = hf[0] + hr[0];
+                // on to position i + 1: the next of the run, and V_next
+                roll_hashes(row, i + 1, k, nt, s_T, s_Tk, s_Tk1, hf, hr);
+                if (tp_position_ok(row, i, k, a.valid[b])) {
+                    const bool in_v = hv >= a.low && hv <= a.high;
+                    if (MARK) {
+                        gate = in_v ? 0xffu : 0u;
+                    } else {
+                        const uint32_t hvn = hf[0] + hr[0];
+                        const bool in_n = row.definite(i + 2, i + k + 1) &&
+                                          hvn >= a.low && hvn <= a.high;
+                        if (in_v || in_n) {
+                            const uint32_t prev = row.ext(i);
+                            const uint32_t next = row.ext(i + k + 1);
+                            // common.cuh tp_fill_slots, tp_fill_edge's char
+                            gate = 1u | (next >= 4 ? 2u : 0u) | (prev >= 4 ? 12u : 0u) |
+                                   ((next < 4 ? next : 0u) << 8);
+                        }
+                    }
+                }
+            }
+            s_gate[p] = gate;
+        }
+    }
+    __syncthreads();
+
+    // indices: a thread a (position, edge) computes the edge's hashes once
+    // and its q indices, into s_flat in the flat order
+    constexpr int EDGES = MARK ? 8 : 4;
+    for (int pe = tid; pe < tpos * EDGES; pe += TP_THREADS) {
+        const int p = pe / EDGES;
+        const int e = pe % EDGES;
+        Idx* dst = s_flat + p * per + e * a.q;
+        const uint32_t gate = s_gate[p];  // 0 past the batch's positions
+        if (!((gate >> e) & 1u)) {
+            for (int j = 0; j < a.q; ++j) dst[j] = NONE;
+            continue;
+        }
+        // common.cuh tp_edge_hashes: mark edges 0-3 in c·V, 4-7 out V·c;
+        // fill edge 0 out V·next, 1 out V·T, 2 in A·V, 3 in T·V
+        const bool out = MARK ? e >= 4 : e < 2;
+        const uint32_t c = MARK ? (uint32_t)(e & 3) : (e == 0 ? gate >> 8 : (e == 2 ? 0u : 3u));
+        uint32_t eh[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (u < nt) {
+                const uint32_t hf = s_h[(2 * u) * tpos + p];
+                const uint32_t hr = s_h[(2 * u + 1) * tpos + p];
+                eh[u] = out ? (tp_rotl32(hf, 1u) ^ s_T[4 * u + c]) + (s_Tk[4 * u + 3 - c] ^ hr)
+                            : (s_Tk[4 * u + c] ^ hf) + (tp_rotl32(hr, 1u) ^ s_T[4 * u + 3 - c]);
+            }
+        for (int j = 0; j < a.q; ++j) dst[j] = (Idx)tp_km_index(eh, (uint32_t)j, a.f);
+    }
+    for (int it = tpos * per + tid; it < items; it += TP_THREADS) s_flat[it] = NONE;
+    __syncthreads();
+
+    // rank: warp w takes items [w * wi, (w + 1) * wi), 32 at a time; an
+    // item's rank among its warp's of its owner, stably. Up to 32 owners:
+    // a ballot an owner, lane d counting owner d's; more: match masks
+    // and counters in shared memory (slower: see the head of the file).
+    // s_wc[w][d] ends as warp w's count of owner d.
+    const int w0 = warp * a.g.wi;
+    const unsigned lower = (1u << lane) - 1u;
+    if (D <= 32) {
+        uint32_t cnt = 0;
+        for (int sl = 0; sl < a.g.wi; sl += 32) {
+            const int it = w0 + sl + lane;
+            const Idx x = s_flat[it];
+            const uint32_t o = x == NONE ? (uint32_t)D : owner_of<W64>(x, D, a.by_d);
+            unsigned peers = 0, mine = 0;
+            for (int d = 0; d < D; ++d) {
+                const unsigned b = __ballot_sync(0xffffffffu, o == (uint32_t)d);
+                if (o == (uint32_t)d) peers = b;
+                if (lane == d) mine = __popc(b);
+            }
+            const uint32_t before = __shfl_sync(0xffffffffu, cnt, o < (uint32_t)D ? o : 0);
+            cnt += mine;
+            s_rank[it] = (uint16_t)(before + __popc(peers & lower));
+        }
+        if (lane < D) s_wc[warp * D + lane] = (uint16_t)cnt;
+    } else {
+        uint16_t* wc = s_wc + warp * D;
+        for (int sl = 0; sl < a.g.wi; sl += 32) {
+            const int it = w0 + sl + lane;
+            const Idx x = s_flat[it];
+            const uint32_t o = x == NONE ? (uint32_t)D : owner_of<W64>(x, D, a.by_d);
+            const bool live = o < (uint32_t)D;
+            // dead lanes get distinct non-owner keys and are never counted
+            const unsigned peers = __match_any_sync(0xffffffffu, live ? o : (uint32_t)D + lane);
+            uint32_t before = 0;
+            if (live) before = wc[o];
+            __syncwarp();
+            if (live && (peers & lower) == 0) wc[o] = (uint16_t)(before + __popc(peers));
+            __syncwarp();
+            s_rank[it] = (uint16_t)(before + __popc(peers & lower));
+        }
+    }
+    __syncthreads();
+
+    // per owner: the lower warps' counts (in place) and the tile's total;
+    // the owners' offsets in the tile; publish the totals
+    for (int o = tid; o < D; o += TP_THREADS) {
+        uint32_t c = 0;
+        for (int v = 0; v < TP_WARPS; ++v) {
+            const uint32_t w = s_wc[v * D + o];
+            s_wc[v * D + o] = (uint16_t)c;
+            c += w;
+        }
+        s_tot[o] = c;
+    }
+    __syncthreads();
+    uint32_t carry = 0;
+    for (int o0 = 0; o0 < D; o0 += TP_THREADS) {
+        const int o = o0 + tid;
+        uint32_t total;
+        const uint32_t ex = tp_block_excl_scan(o < D ? s_tot[o] : 0u, s_scan, total);
+        if (o < D) s_tex[o] = carry + ex;
+        carry += total;
+    }
+    if (tid == 0) s_tex[D] = carry;
+    const bool first = tile == 0;
+    for (int o = tid; o < D; o += TP_THREADS)
+        tp_store_relaxed(a.status + tile * D + o, (first ? ST_INCL : ST_AGG) | s_tot[o]);
+    __syncthreads();
+
+    // stage the local slots owner-major; s_rank becomes the in-tile rank
+#pragma unroll 4
+    for (int sl = 0; sl < a.g.wi; sl += 32) {
+        const int it = w0 + sl + lane;
+        const Idx x = s_flat[it];
+        if (x == NONE) continue;
+        uint64_t local;
+        const uint32_t o = split_index<W64>(x, D, a.by_d, local);
+        const uint32_t r = s_wc[warp * D + o] + s_rank[it];
+        s_rank[it] = (uint16_t)r;
+        s_om[s_tex[o] + r] = (Idx)local;
+    }
+
+    // look-back, a warp an owner: lane l reads the status of tile
+    // (tile - 1 - l) of a window of 32 earlier tiles, the window sums up to
+    // the nearest inclusive prefix, or moves 32 tiles back (tile 0 is
+    // always inclusive, so no window passes it)
+    for (int o = warp; o < D; o += TP_WARPS) {
+        uint32_t excl = 0;
+        if (!first) {
+            for (long long top = (long long)tile - 1;; top -= 32) {
+                const long long t = top - lane;
+                uint64_t v = 0;
+                if (t >= 0) {
+                    do {
+                        v = tp_load_relaxed(a.status + (size_t)t * D + o);
+                    } while ((v >> 32) == 0);
+                }
+                const unsigned incl = __ballot_sync(0xffffffffu, (v & ST_INCL) != 0);
+                const int stop = incl ? __ffs(incl) - 1 : 31;
+                excl += __reduce_add_sync(0xffffffffu, lane <= stop ? (uint32_t)v : 0u);
+                if (incl) break;
+            }
+            if (lane == 0)
+                tp_store_relaxed(a.status + tile * D + o, ST_INCL | (excl + s_tot[o]));
+        }
+        if (lane == 0) s_dst[o] = excl;
+    }
+    __syncthreads();
+
+    // each owner's run of the tile: consecutive threads, consecutive slots
+    const uint32_t cap = (uint32_t)a.cap;
+    const uint32_t staged = s_tex[D];
+#pragma unroll 4
+    for (uint32_t t = tid; t < staged; t += TP_THREADS) {
+        int lo = 0, hi = D - 1;  // the last owner whose run starts at or before t
+        while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (s_tex[mid] <= t) lo = mid;
+            else hi = mid - 1;
+        }
+        const uint32_t g = s_dst[lo] + (t - s_tex[lo]);
+        if (g < cap) a.send[(size_t)lo * cap + g] = (uint64_t)s_om[t];
+    }
+    if (MARK) {
+        // probe j of position p: consecutive threads, consecutive positions
+#pragma unroll 4
+        for (int x = tid; x < per * tpos; x += TP_THREADS) {
+            const int j = x >> a.tpos_log2;
+            const int p = x & (tpos - 1);
+            if (p >= tpn) continue;
+            const int it = p * per + j;
+            const Idx v = s_flat[it];
+            uint32_t slot = NOT_SENT;
+            if (v != NONE) {
+                const uint32_t o = owner_of<W64>(v, D, a.by_d);
+                const uint32_t r = s_dst[o] + s_rank[it];
+                if (r < cap) slot = o * cap + r;
+            }
+            a.probe_slot[(size_t)j * n + t0 + p] = slot;
+        }
+    }
+}
+
+// Block (chunk, row d): the send slots of owner d's row from its count
+// (the last tile's inclusive prefix) to the row's end are SENT; a chunk
+// below the count exits at once. Block (0, d) adds the owner's indices
+// past cap to *overflow.
+__global__ void k_shard_tail(const uint64_t* __restrict__ last, size_t cap,
+                             uint64_t* __restrict__ send,
+                             unsigned long long* __restrict__ overflow) {
+    const int d = blockIdx.y;
+    const size_t tot = (uint32_t)last[d];
+    if (blockIdx.x == 0 && threadIdx.x == 0 && tot > cap)
+        atomicAdd(overflow, (unsigned long long)(tot - cap));
+    const size_t c0 = (size_t)blockIdx.x * TAIL_CHUNK;
+    const size_t end = cap - c0 < TAIL_CHUNK ? cap : c0 + TAIL_CHUNK;
+    uint64_t* row = send + (size_t)d * cap;
+    for (size_t j = (tot > c0 ? tot : c0) + threadIdx.x; j < end; j += TP_THREADS)
+        row[j] = SENT;
 }
 
 // Set slot s, storing only when it is not set yet: in a run over related
@@ -297,18 +572,45 @@ __global__ void k_shard_fill_apply(const uint64_t* __restrict__ recv,
     }
 }
 
-__global__ void k_shard_probe(const uint64_t* __restrict__ recv, size_t n,
+__device__ __forceinline__ uint32_t probe_slot_hit(const void* filt,
+                                                   int layout, uint64_t s) {
+    if (s == SENT) return 0;
+    if (layout == TP_LAYOUT_BYTE) return ((const uint8_t*)filt)[s] != 0;
+    return (((const uint32_t*)filt)[s >> 5] >> (s & 31)) & 1u;
+}
+
+// Block (chunk, row): the hits of PROBE_CHUNK slots of row blockIdx.y of
+// the received (D, cap) block. A chunk that starts unsent writes zeros.
+// Consecutive threads take consecutive slots, PROBE_ITEMS a thread: all its
+// 8-byte loads in flight before its filter reads, and those before its
+// byte stores. A warp's filter read then covers 32 consecutive slots, so a
+// slot probed again a few slots later (an edge probed from both of its
+// vertices) joins the same request.
+__global__ void k_shard_probe(const uint64_t* __restrict__ recv, size_t cap,
                               int layout, const void* __restrict__ filt,
                               uint8_t* __restrict__ hits) {
-    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n) return;
-    const uint64_t s = recv[t];
-    uint8_t h = 0;
-    if (s != SENT)
-        h = layout == TP_LAYOUT_BYTE
-                ? (((const uint8_t*)filt)[s] != 0)
-                : (uint8_t)((((const uint32_t*)filt)[s >> 5] >> (s & 31)) & 1u);
-    hits[t] = h;
+    const uint64_t* row = recv + (size_t)blockIdx.y * cap;
+    uint8_t* out = hits + (size_t)blockIdx.y * cap;
+    const size_t c0 = (size_t)blockIdx.x * PROBE_CHUNK;
+    const size_t len = cap - c0 < PROBE_CHUNK ? cap - c0 : PROBE_CHUNK;
+    if (row[c0] == SENT) {
+        for (size_t t = threadIdx.x; t < len; t += TP_THREADS) out[c0 + t] = 0;
+        return;
+    }
+    uint64_t v[PROBE_ITEMS];
+#pragma unroll
+    for (int q = 0; q < PROBE_ITEMS; ++q) {
+        const size_t t = (size_t)q * TP_THREADS + threadIdx.x;
+        v[q] = t < len ? row[c0 + t] : SENT;
+    }
+    uint32_t h[PROBE_ITEMS];
+#pragma unroll
+    for (int q = 0; q < PROBE_ITEMS; ++q) h[q] = probe_slot_hit(filt, layout, v[q]);
+#pragma unroll
+    for (int q = 0; q < PROBE_ITEMS; ++q) {
+        const size_t t = (size_t)q * TP_THREADS + threadIdx.x;
+        if (t < len) out[c0 + t] = (uint8_t)h[q];
+    }
 }
 
 __global__ void k_shard_mark_finish(const uint8_t* __restrict__ back,
@@ -343,11 +645,6 @@ __global__ void k_shard_mark_finish(const uint8_t* __restrict__ back,
     tp_pack_candidates(cand, t, n, mask, count);
 }
 
-// tiles of TP_THREADS positions (at least one)
-size_t shard_tiles(size_t n_pos) {
-    return std::max<size_t>((n_pos + TP_THREADS - 1) / TP_THREADS, 1);
-}
-
 TpTabs load_tabs(const uint32_t* tabs) {
     TpTabs tt;
     for (int u = 0; u < 4; ++u)
@@ -355,50 +652,91 @@ TpTabs load_tabs(const uint32_t* tabs) {
     return tt;
 }
 
+template <bool MARK, bool W64>
+cudaError_t launch_bucket(const BucketArgs& a, size_t tiles, cudaStream_t st) {
+    // once a device: all of the SM's unified memory as shared memory, so
+    // that blocks of a tile's size fit side by side (the default carveout
+    // may not), and up to SMEM_MAX dynamic shared bytes a block
+    static std::atomic<uint64_t> ready{0};  // bit d: set on device d
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+    if (!(ready.load(std::memory_order_acquire) & bit)) {
+        e = cudaFuncSetAttribute(k_shard_bucket<MARK, W64>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+        if (e != cudaSuccess) return e;
+        e = cudaFuncSetAttribute(k_shard_bucket<MARK, W64>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+        if (e != cudaSuccess) return e;
+        ready.fetch_or(bit, std::memory_order_release);
+    }
+    k_shard_bucket<MARK, W64><<<(unsigned)tiles, TP_THREADS, a.g.smem, st>>>(a);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// u32 words of each of tp_shard_bucket's count tables (counts, incl)
-extern "C" size_t tp_shard_count_words(size_t n_pos, int D) {
-    return (size_t)D * shard_tiles(n_pos);
+// Bytes of tp_shard_bucket's scratch for n_pos positions (0: D, q and f
+// need more shared memory than a block has)
+extern "C" size_t tp_shard_scratch_bytes(size_t n_pos, int D, int q, int f,
+                                         int mark) {
+    Geo g;
+    if (D < 1 || q < 1 || !plan_geo(D, q, f, mark, g)) return 0;
+    return bucket_scratch(n_pos, D, g);
 }
 
 // Bucket one batch's fill (mark = 0) or mark (mark = 1) indices by owner.
 // The batch: B rows of the upload form (packed, nmask, valid; RW, NW words a
 // row), P positions a row, the round [low, high]; tabs, q, f as
-// tp_bloom_fill (f > 32: 64-bit indices). Scratch (sized by the caller):
-// counts and incl (tp_shard_count_words(B*P, D) u32), the scan scratch
-// (tp_scan_scratch_words of that). Outputs: send (D, cap) u64; probe_slot
-// ((8q, B*P) u32 in mark mode, null in fill mode); overflow (one int64,
-// added to).
+// tp_bloom_fill (f > 32: 64-bit indices). Scratch: scratch_bytes >=
+// tp_shard_scratch_bytes(B*P, D, q, f, mark), zeroed here. Outputs: send
+// (D, cap) u64; probe_slot ((8q, B*P) u32 in mark mode, null in fill
+// mode); overflow (one int64, added to).
 extern "C" int tp_shard_bucket(const void* packed, const void* nmask,
                                const void* valid, int B, int P, int k, int RW,
                                int NW, uint32_t low, uint32_t high,
                                const uint32_t* tabs, int q, int f, int mark,
-                               int D, int cap, void* counts, void* incl,
-                               void* scratch, void* send, void* probe_slot,
-                               void* overflow, void* stream) {
-    if (D < 1 || D > TP_ROUTE_MAX || cap < 1 || q < 1 ||
-        (mark && probe_slot == nullptr))
+                               int D, int cap, void* scratch,
+                               size_t scratch_bytes, void* send,
+                               void* probe_slot, void* overflow,
+                               void* stream) {
+    Geo g;
+    if (D < 1 || D > TP_ROUTE_MAX || cap < 1 || q < 1 || k < 1 ||
+        (mark && probe_slot == nullptr) || !plan_geo(D, q, f, mark, g))
         return (int)cudaErrorInvalidValue;
+    const size_t n_pos = (size_t)B * P;
+    const size_t need = bucket_scratch(n_pos, D, g);
+    if (scratch == nullptr || scratch_bytes < need) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    const ShardBatch bt{(const uint32_t*)packed, (const uint32_t*)nmask,
-                        (const int32_t*)valid, B, P, k, RW, NW, low, high,
-                        load_tabs(tabs), q, f, mark};
-    const size_t nt = shard_tiles((size_t)B * P);
-    uint32_t* cnt = (uint32_t*)counts;
-    uint32_t* inc = (uint32_t*)incl;
-    k_shard_count<<<(unsigned)nt, TP_THREADS, 0, st>>>(bt, D, cnt, nt);
-    TP_LAUNCH_CHECK();
-    cudaError_t e = tp_scan_inclusive_u32(cnt, inc, (size_t)D * nt,
-                                          (uint32_t*)scratch, st);
+    cudaError_t e = cudaMemsetAsync(scratch, 0, need, st);
     if (e != cudaSuccess) return (int)e;
-    k_shard_scatter<<<(unsigned)nt, TP_THREADS, 0, st>>>(
-        bt, D, cap, cnt, inc, nt, (uint64_t*)send,
-        mark ? (uint32_t*)probe_slot : nullptr);
-    TP_LAUNCH_CHECK();
-    const size_t slots = std::max((size_t)D * cap, (size_t)D);
-    k_shard_finish<<<tp_blocks(slots, TP_THREADS), TP_THREADS, 0, st>>>(
-        cnt, inc, nt, D, cap, (uint64_t*)send, (unsigned long long*)overflow);
+    const size_t tiles = bucket_tiles(n_pos, g.tpos);
+    BucketArgs a{};
+    a.packed = (const uint32_t*)packed;
+    a.nmask = (const uint32_t*)nmask;
+    a.valid = (const int32_t*)valid;
+    a.B = B, a.P = P, a.k = k, a.RW = RW, a.NW = NW;
+    a.low = low, a.high = high;
+    for (int u = 0; u < 16; ++u) a.tab[u] = tabs[u];
+    a.q = q, a.f = f, a.D = D, a.cap = cap;
+    a.g = g;
+    while ((1 << a.tpos_log2) < g.tpos) ++a.tpos_log2;
+    a.by_d = make_div31((uint32_t)D);
+    a.send = (uint64_t*)send;
+    a.probe_slot = (uint32_t*)probe_slot;
+    a.status = (uint64_t*)scratch;
+    a.tile_ctr = (uint32_t*)((char*)scratch + tiles * (size_t)D * 8);
+    const bool w64 = f >= 32;
+    e = mark ? (w64 ? launch_bucket<true, true>(a, tiles, st)
+                    : launch_bucket<true, false>(a, tiles, st))
+             : (w64 ? launch_bucket<false, true>(a, tiles, st)
+                    : launch_bucket<false, false>(a, tiles, st));
+    if (e != cudaSuccess) return (int)e;
+    k_shard_tail<<<dim3(tp_blocks((size_t)cap, TAIL_CHUNK), (unsigned)D), TP_THREADS, 0,
+                   st>>>(a.status + (tiles - 1) * D, (size_t)cap, (uint64_t*)send,
+                         (unsigned long long*)overflow);
     return (int)cudaGetLastError();
 }
 
@@ -419,14 +757,17 @@ extern "C" int tp_shard_fill_apply(const void* recv, size_t rows, size_t cap,
     return (int)cudaGetLastError();
 }
 
-// hits[t] = 1 where received local slot recv[t] is set in filt (all-ones:
-// 0); n u8.
-extern "C" int tp_shard_probe(const void* recv, size_t n, int layout,
-                              const void* filt, void* hits, void* stream) {
-    if (n == 0) return 0;
-    k_shard_probe<<<tp_blocks(n, TP_THREADS), TP_THREADS, 0,
-                    (cudaStream_t)stream>>>((const uint64_t*)recv, n, layout,
-                                            filt, (uint8_t*)hits);
+// hits (rows * cap u8): 1 where the received local slot of recv ((rows,
+// cap) u64, each row a prefix of sent slots, then all-ones) is set in the
+// shard filt (layout as tp_shard_fill_apply's), 0 where it is all-ones.
+extern "C" int tp_shard_probe(const void* recv, size_t rows, size_t cap,
+                              int layout, const void* filt, void* hits,
+                              void* stream) {
+    if (rows == 0 || cap == 0) return 0;
+    if (rows > 65535) return (int)cudaErrorInvalidValue;
+    k_shard_probe<<<dim3(tp_blocks(cap, PROBE_CHUNK), (unsigned)rows), TP_THREADS, 0,
+                    (cudaStream_t)stream>>>((const uint64_t*)recv, cap, layout, filt,
+                                            (uint8_t*)hits);
     return (int)cudaGetLastError();
 }
 

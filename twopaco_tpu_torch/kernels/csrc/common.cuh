@@ -25,7 +25,7 @@ inline unsigned tp_blocks(size_t n, size_t per_block) {
 // Inclusive prefix sum of n u32 values (in may equal out). scratch holds
 // tp_scan_scratch_words(n) u32 words. Used by the judge (group ids, ranks,
 // compaction offsets), the round partition (block offsets), the stream
-// compaction and the owner bucketing.
+// compaction and route.cu's owner bucketing.
 cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
                                   size_t n, uint32_t* scratch,
                                   cudaStream_t stream);
@@ -63,6 +63,52 @@ struct TpTab {
 
 __device__ __forceinline__ uint32_t tp_rotl32(uint32_t x, uint32_t s) {
     return __funnelshift_l(x, x, s);  // shift amount taken mod 32
+}
+
+// The status words of a decoupled look-back (sort.cu's digit passes,
+// bloom_shard.cu's bucketing): relaxed loads and stores at device scope,
+// each word read and written whole.
+__device__ __forceinline__ uint64_t tp_load_relaxed(const uint64_t* p) {
+    uint64_t v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void tp_store_relaxed(uint64_t* p, uint64_t v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+}
+
+// Exclusive prefix of v over the block's threads, and the block's total
+// (s_warp: a shared word a warp; every thread of the block calls)
+__device__ __forceinline__ uint32_t tp_block_excl_scan(uint32_t v, uint32_t* s_warp,
+                                                       uint32_t& total) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    uint32_t x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+    }
+    if (lane == 31) s_warp[warp] = x;
+    __syncthreads();
+    uint32_t off = 0;
+    total = 0;
+    for (int u = 0; u < (int)(blockDim.x >> 5); ++u) {
+        if (u < warp) off += s_warp[u];
+        total += s_warp[u];
+    }
+    __syncthreads();
+    return off + x - v;
+}
+
+__device__ __forceinline__ uint32_t tp_block_excl_scan(uint32_t v, uint32_t* s_warp) {
+    uint32_t total;
+    return tp_block_excl_scan(v, s_warp, total);
 }
 
 struct TpRow {
@@ -358,9 +404,9 @@ __device__ __forceinline__ void tp_pack_candidates(
 // order. Per-tile owner counts (tp_tile_owner_counts) are scanned
 // owner-major (tp_scan_inclusive_u32) and a stable scatter
 // (tp_stable_scatter) ranks each element; slots past an owner's count are
-// cleared and the elements past cap counted (tp_route_finish, which
-// bloom_shard.cu's bucketing shares). A tile is TP_ROUTE_TILE elements (a
-// block); tp_route_count_words (route.cu) sizes the count table.
+// cleared and the elements past cap counted (tp_route_finish). A tile is
+// TP_ROUTE_TILE elements (a block); tp_route_count_words (route.cu) sizes
+// the count table. TP_ROUTE_MAX also bounds bloom_shard.cu's owners.
 
 constexpr int TP_ROUTE_ROUNDS = 16;
 constexpr int TP_ROUTE_TILE = TP_THREADS * TP_ROUTE_ROUNDS;

@@ -19,8 +19,7 @@
 // atomics) scanned owner-major by the shared scan (scan.cu), and a scatter
 // that ranks equal owners inside a warp with match masks and across warps
 // with per-warp counts in shared memory, so each owner's slots keep the
-// record order exactly (the bucketing helpers of common.cuh, shared with
-// bloom_shard.cu).
+// record order exactly (the bucketing helpers of common.cuh).
 #include <algorithm>
 
 #include "common.cuh"

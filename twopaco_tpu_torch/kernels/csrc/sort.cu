@@ -88,20 +88,6 @@ __device__ __forceinline__ uint64_t st_word(uint32_t tag, uint32_t flag,
     return ((uint64_t)tag << 34) | ((uint64_t)flag << 32) | v;
 }
 
-__device__ __forceinline__ uint64_t st_load(const uint64_t* p) {
-    uint64_t v;
-    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-                 : "=l"(v)
-                 : "l"(p)
-                 : "memory");
-    return v;
-}
-
-__device__ __forceinline__ void st_store(uint64_t* p, uint64_t v) {
-    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-                 : "memory");
-}
-
 // Where keys come from: bare u64 keys (SRC_KEYS), the two words of a w = 2
 // record as w0 << 32 | w1 (SRC_PAIR: one 8-byte load, rows 8-byte
 // aligned), or word j of a record of w words (SRC_WORD: w = 1, or a word
@@ -212,25 +198,6 @@ __global__ void k_digit_hist(KeySrc src, size_t n, Plan pl,
     }
 }
 
-// Exclusive prefix of v over the block's threads (s_warp: TP_WARPS u32)
-__device__ __forceinline__ uint32_t block_excl_scan(uint32_t v,
-                                                    uint32_t* s_warp) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    uint32_t x = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-    }
-    if (lane == 31) s_warp[warp] = x;
-    __syncthreads();
-    uint32_t off = 0;
-    for (int u = 0; u < warp; ++u) off += s_warp[u];
-    __syncthreads();
-    return off + x - v;
-}
-
 // What a digit pass carries beside its keys
 constexpr int CARRY_NONE = 0;    // bare keys (tp_radix_sort_u64)
 constexpr int CARRY_INDEX = 1;   // a: the record's index (w > 2)
@@ -326,9 +293,9 @@ __global__ void __launch_bounds__(TP_THREADS, 3) k_onesweep(PassArgs a) {
     const uint32_t total = a.hist[tid];
     const bool alone = tile == 0 || total == 0;  // no look-back needed
     uint64_t* mine = a.status + tile * RADIX + tid;
-    st_store(mine, st_word(a.tag, alone ? ST_INCL : ST_AGG, cnt));
-    const uint32_t tex = block_excl_scan(cnt, s_scan);
-    const uint32_t gbase = block_excl_scan(total, s_scan);
+    tp_store_relaxed(mine, st_word(a.tag, alone ? ST_INCL : ST_AGG, cnt));
+    const uint32_t tex = tp_block_excl_scan(cnt, s_scan);
+    const uint32_t gbase = tp_block_excl_scan(total, s_scan);
     s_tex[tid] = tex;
     __syncthreads();
 
@@ -373,13 +340,13 @@ __global__ void __launch_bounds__(TP_THREADS, 3) k_onesweep(PassArgs a) {
             uint64_t s;
             uint32_t flag;
             do {
-                s = st_load(p);
+                s = tp_load_relaxed(p);
                 flag = (uint32_t)(s >> 32) & 3u;
             } while ((uint32_t)(s >> 34) != a.tag || flag == 0);
             excl += (uint32_t)s;
             if (flag == ST_INCL) break;
         }
-        st_store(mine, st_word(a.tag, ST_INCL, excl + cnt));
+        tp_store_relaxed(mine, st_word(a.tag, ST_INCL, excl + cnt));
     }
     s_dst[tid] = gbase + excl;
     __syncthreads();

@@ -26,6 +26,7 @@ import torch
 from twopaco_tpu_torch.ops import bloom
 from twopaco_tpu_torch.parallel.mesh import on_device
 from twopaco_tpu_torch.parallel.sortshard import KERNELS, Ops
+from twopaco_tpu_torch.passes import shardbloom
 from twopaco_tpu_torch.passes.pipeline import PassConfig
 
 
@@ -85,11 +86,15 @@ class ShardedConfig:
     def shard_bytes(self) -> int:
         """Device bytes a shard holds through a round's mark: its filter,
         and a batch's mark buffers (its probes' u32 send slots, the u64
-        send and received slots, the u8 hits both ways)."""
-        filt = self.local_slots if self.base.layout == "byte" else self.local_slots // 8
+        send and received slots, the u8 hits both ways, the bucketing's
+        look-back scratch)."""
+        cfg = self.base
+        filt = self.local_slots if cfg.layout == "byte" else self.local_slots // 8
         probes = self._indices(8)
         slots = self.n_shards * self.mark_cap
-        return filt + 4 * probes + 18 * slots
+        scratch = shardbloom.scratch_bytes((cfg.B // self.n_shards) * cfg.P, self.n_shards,
+                                           cfg.q, cfg.f, marking=True)
+        return filt + 4 * probes + 18 * slots + scratch
 
 
 def make_sharded_filter(mesh, scfg: ShardedConfig) -> dict:
@@ -167,7 +172,8 @@ def sharded_mark_step(mesh, scfg: ShardedConfig, ops: Ops = KERNELS):
         hits = {}
         for s in mesh.shards:
             with on_device(mesh.device(s)):
-                hits[s] = (ops.probe_local(filt[s], recv[s][0], cfg.layout).view(D, cap),)
+                hits[s] = (ops.probe_local(filt[s], recv[s][0].view(D, cap),
+                                           cfg.layout).view(D, cap),)
         del recv
         back = mesh.all_to_all(hits)
         del hits

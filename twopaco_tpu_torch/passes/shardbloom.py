@@ -31,6 +31,50 @@ from twopaco_tpu_torch.passes import fill, mark
 
 SENT = -1
 LAYOUTS = {"byte": fill.LAYOUTS["byte"], "bit": fill.LAYOUTS["bit"]}
+# bloom_shard.cu's bucketing tile: 256 threads; TILE_MAX positions a tile,
+# halved while its shared memory passes SMEM_TARGET (two blocks an SM),
+# down to one; a tile over SMEM_MAX, or of 2^16 indices, is refused
+THREADS = 256
+TILE_MAX = 256
+SMEM_TARGET, SMEM_MAX = 112 * 1024, 226 * 1024
+
+
+def _tile_smem(tpos: int, per: int, n_shards: int, wide: bool) -> int:
+    """Shared bytes of a tile (bloom_shard.cu geo_smem)."""
+    items = -(-tpos * per // THREADS) * THREADS
+    return (items * (2 * (8 if wide else 4) + 2) + tpos * 9 * 4 + (3 * n_shards + 1) * 4
+            + (THREADS // 32) * n_shards * 2)
+
+
+def tile_positions(n_shards: int, q: int, f: int, marking: bool) -> int:
+    """Positions a tile of tp_shard_bucket (bloom_shard.cu plan_geo) for
+    D shards, q hashes, f bits (f >= 32: u64 indices)."""
+    per = (8 if marking else 4) * q
+    tpos = TILE_MAX
+    while tpos > 1 and _tile_smem(tpos, per, n_shards, f >= 32) > SMEM_TARGET:
+        tpos //= 2
+    return tpos
+
+
+def tile_fits(n_shards: int, q: int, f: int, marking: bool) -> bool:
+    """Whether that tile fits a block (plan_geo's answer): the kernel
+    refuses the rest. Even a tile of one position does not fit past q =
+    1,600 in mark mode at f >= 32 over 4 shards (800 over 4,096); fill
+    mode and f < 32 allow up to 2 and 1.8 times more. The plain version
+    takes any q."""
+    per = (8 if marking else 4) * q
+    tpos = tile_positions(n_shards, q, f, marking)
+    return (_tile_smem(tpos, per, n_shards, f >= 32) <= SMEM_MAX
+            and -(-tpos * per // THREADS) * THREADS < 1 << 16)
+
+
+def scratch_bytes(n_pos: int, n_shards: int, q: int, f: int, marking: bool) -> int:
+    """Device bytes of tp_shard_bucket's scratch for n_pos positions
+    (tp_shard_scratch_bytes, which gives 0 where the tile does not fit):
+    the look-back status words (D u64 a tile) and the tile counter (8
+    bytes)."""
+    tiles = max(1, -(-n_pos // tile_positions(n_shards, q, f, marking)))
+    return tiles * n_shards * 8 + 8
 
 
 def _counter(counter, dev) -> torch.Tensor:
@@ -107,21 +151,19 @@ def _bucket(packed, nmask, valid, low, high, cfg, n_shards, cap, overflow, marki
     build.require(overflow, torch.int64, "overflow")
     if overflow.device != dev:
         raise ValueError(f"overflow on {overflow.device}, batch on {dev}")
-    lib = build.lib()
-    n_counts = lib.tp_shard_count_words(B * cfg.P, n_shards)
-
-    def i32(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    counts, incl = i32(n_counts), i32(n_counts)
-    scratch = i32(lib.tp_scan_scratch_words(n_counts))
+    if not tile_fits(n_shards, cfg.q, cfg.f, marking):
+        raise ValueError(f"q = {cfg.q} over {n_shards} shards: one position's indices exceed "
+                         "a bucketing block's shared memory")
+    n_scratch = scratch_bytes(B * cfg.P, n_shards, cfg.q, cfg.f, marking)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     send = torch.empty((n_shards, cap), dtype=torch.int64, device=dev)
-    probe_slot = i32(8 * cfg.q, B * cfg.P) if marking else None
-    rc = lib.tp_shard_bucket(
+    probe_slot = (torch.empty((8 * cfg.q, B * cfg.P), dtype=torch.int32, device=dev)
+                  if marking else None)
+    rc = build.lib().tp_shard_bucket(
         packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, cfg.P, cfg.k,
         packed.shape[1], nmask.shape[1], int(low), int(high),
         build.hash_tables(fill.ALL_TABLES), cfg.q, cfg.f, int(marking), n_shards, cap,
-        counts.data_ptr(), incl.data_ptr(), scratch.data_ptr(), send.data_ptr(),
+        scratch.data_ptr(), n_scratch, send.data_ptr(),
         probe_slot.data_ptr() if marking else None, overflow.data_ptr(), build.stream_ptr(),
     )
     build.check(rc, "shard_bucket")
@@ -139,7 +181,10 @@ def bucket_fill(packed, nmask, valid, low: int, high: int, *, cfg, n_shards: int
     -> (send (n_shards, cap) int64: owner d's local slots (index div D) of
     the indices it owns (index mod D), in the flat (row, position, edge,
     hash) order of fill.fill_indices, SENT past its count; overflow, the
-    (1,) int64 count of indices past cap, added to (a new one when None))."""
+    (1,) int64 count of indices past cap, added to (a new one when None)).
+    On the card a q whose one position's indices overflow the kernel's
+    block (tile_fits: past 1,600 in mark mode at f >= 32 over 4 shards)
+    raises ValueError; the plain version takes any q."""
     if build.on_cpu(packed, nmask, valid, *(() if overflow is None else (overflow,))):
         return bucket_fill_plain(packed, nmask, valid, low, high, cfg=cfg, n_shards=n_shards,
                                  cap=cap, overflow=overflow)
@@ -183,6 +228,11 @@ def _check_local(filt, recv, layout: str) -> None:
     build.require(recv, torch.int64, "received slots")
 
 
+def _check_block(recv) -> None:
+    if recv.dim() != 2:
+        raise ValueError(f"received slots: expected a (D, cap) block, got {tuple(recv.shape)}")
+
+
 def fill_local(filt, recv, layout: str):
     """Set the received local slots of this shard's filter filt (the byte
     or bit layout of a shard of parallel/sharded.py make_sharded_filter),
@@ -190,10 +240,9 @@ def fill_local(filt, recv, layout: str):
 
     recv: the (D, cap) int64 block the exchange delivered, row d from
     shard d. Each row is a prefix of sent local slots followed by SENT, as
-    bucket_fill (sort.cu's tp_shard_bucket, JAX's _bucket) writes every
+    bucket_fill (bloom_shard.cu's tp_shard_bucket, JAX's _bucket) writes every
     owner's row; the kernel reads each row only up to its first SENT."""
-    if recv.dim() != 2:
-        raise ValueError(f"received slots: expected a (D, cap) block, got {tuple(recv.shape)}")
+    _check_block(recv)
     if build.on_cpu(filt, recv):
         return fill_local_plain(filt, recv, layout)
     _check_local(filt, recv, layout)
@@ -206,13 +255,19 @@ def fill_local(filt, recv, layout: str):
 
 def probe_local(filt, recv, layout: str):
     """The received local slots read in this shard's filter: -> hits
-    (recv.numel(),) uint8, 1 where the slot is set (SENT: 0)."""
+    (recv.numel(),) uint8, 1 where the slot is set (SENT: 0).
+
+    recv: the (D, cap) int64 block the exchange delivered, each row a
+    prefix of sent slots followed by SENT (as fill_local's); the kernel
+    reads each row only up to its first SENT and writes the rest as 0."""
+    _check_block(recv)
     if build.on_cpu(filt, recv):
         return probe_local_plain(filt, recv, layout)
     _check_local(filt, recv, layout)
     hits = torch.empty(recv.numel(), dtype=torch.uint8, device=recv.device)
-    rc = build.lib().tp_shard_probe(recv.data_ptr(), recv.numel(), LAYOUTS[layout],
-                                    filt.data_ptr(), hits.data_ptr(), build.stream_ptr())
+    rc = build.lib().tp_shard_probe(recv.data_ptr(), recv.shape[0], recv.shape[1],
+                                    LAYOUTS[layout], filt.data_ptr(), hits.data_ptr(),
+                                    build.stream_ptr())
     build.check(rc, "shard_probe")
     build.count_launch("shard_probe")
     return hits
