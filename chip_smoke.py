@@ -37,9 +37,11 @@
    its verify pass and write SLICE_SHA256; then a Bloom run through the
    plain versions on the card, the same bytes again;
 9. holds the distributed engine's four kernels against their plain
-   versions at the slice's shapes: route (D=4, one batch's shard, by the
-   slice's measured word0 bounds and by the uniform split), the word0
-   histogram on one batch, judge_records on one batch of the slice's
+   versions at the slice's shapes: the word0 histogram of shard 0's 123
+   batches in one launch (as the path measures it) and of one batch;
+   route (D=4, one batch's shard, into send buffers allocated once, by
+   the slice's measured word0 bounds and by the uniform split),
+   judge_records on one batch of the slice's
    shape cut from the starts of all 8 genomes (a slice batch holds one
    genome, so no junction), and the occurrence sort on the -r 1 round's
    occurrences; then sharded_sort_step on that batch over 4 shards of
@@ -65,9 +67,10 @@
    the probe is also held against its plain version on hand-made received
    blocks (rows of 0, cap, chunk-boundary and random sent counts; the mark
    cap, and an odd cap starting 8 bytes off 16-byte alignment), and the
-   device kernels of one bucket call of each mode are listed with their
-   device times by torch.profiler (one bucketing kernel, no count or scan
-   kernel);
+   device kernels of one call each of the route (above) and of the
+   bucket's two modes are listed with their device times by one
+   torch.profiler session (k_route and k_route_tail; one bucketing kernel
+   a mode; no count or scan kernel, no memset);
 12. runs the slice through the dist-bloom engine, each with the counters
    reset just before and read just after, each launching the four
    entries and the dist engine's kernels and writing SLICE_SHA256:
@@ -299,6 +302,15 @@ def bound(n_bytes: int, ops: int = 0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hist_ops(n_pos: int, n_rows: int, k: int, word0: bool) -> int:
+    """Integer operations of a position histogram computed by rolling its
+    state along each row: a row's first window from scratch (two strands,
+    two operations a char of min(k, 16) chars for word0, of k for the
+    vertex hash), then per position the rolled update of both strands, the
+    bin and its increment, about a dozen, counted as 12."""
+    return n_rows * 4 * (min(k, 16) if word0 else k) + n_pos * 12
 
 
 def compare(name, kernel, plain, reps, results, in_bytes=0, ops=0, out_bytes=None,
@@ -618,17 +630,30 @@ def main() -> int:
     bases = [b.row0 * P for b in batches]
     bp = B * P
     hist_stride = max(1, 1 << max(0, n_slots.bit_length() - 24))  # as the path
-    # histogram: the path's stride first (its time is the one reported)
+    # histogram: the path's call first (its time is the one reported): one
+    # launch over the run's batches at the path's stride; then one batch
+    rows_h = max(B // hist_stride, 1)
+    compare(
+        "histogram",
+        lambda: histogram.histogram_vertex_hashes_batches(uploads, k=k, P=P, stride=hist_stride),
+        lambda: histogram.histogram_vertex_hashes_batches_plain(uploads, k=k, P=P,
+                                                                stride=hist_stride),
+        5, results, in_bytes=nbytes([[a[:rows_h] for a in u] for u in uploads]),
+        ops=hist_ops(len(uploads) * rows_h * P, len(uploads) * rows_h, k, word0=False),
+    )
     for stride in (hist_stride, 1):
+        rows_s = max(B // stride, 1)
         compare(
             "histogram",
             lambda: histogram.histogram_vertex_hashes(*args, k=k, P=P, stride=stride),
             lambda: histogram.histogram_vertex_hashes_plain(*args, k=k, P=P, stride=stride),
-            10, results, in_bytes=nbytes(args), ops=B * P // stride * 4 * k,
+            10, results, in_bytes=nbytes([a[:rows_s] for a in args]),
+            ops=hist_ops(rows_s * P, rows_s, k, word0=False),
         )
     hist_k = histogram.histogram_scan(uploads, k=k, P=P, stride=hist_stride)
     hist_p = histogram.histogram_scan(
-        uploads, k=k, P=P, stride=hist_stride, fn=histogram.histogram_vertex_hashes_plain)
+        uploads, k=k, P=P, stride=hist_stride,
+        fn=histogram.histogram_vertex_hashes_batches_plain)
     require(np.array_equal(hist_k, hist_p), "histogram scan differs from the plain one")
     print(f"histogram scan of {len(uploads)} batches at stride {hist_stride}: exact")
     # resident partition into the path's blocks: 4 rounds, cap 1.25 B*P / 4
@@ -697,30 +722,45 @@ def main() -> int:
     phase(f"distributed kernels vs plain versions (D={D4} shapes)")
     mesh4 = LocalMesh([torch.device("cuda", 0)] * D4)
     _n_rounds4, route_cap = distpipe.plan_dist(cfg, mesh4, n_slots, None)
-    # the slice's word0 histogram, as the path measures it, for the bounds
-    whist = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
-    for u in uploads:
-        histogram.word0_histogram(*u, k=k, P=P, out=whist)
+    # the slice's word0 histogram, as the path measures it (one launch a
+    # shard over its resident batches), for the bounds; shard 0's first
+    # (its time is the one reported)
+    shard0 = [tuple(a[: B // D4] for a in u) for u in uploads]
+    compare("word0_histogram",
+            lambda: histogram.word0_histogram_batches(shard0, k=k, P=P),
+            lambda: histogram.word0_histogram_batches_plain(shard0, k=k, P=P), 5, results,
+            in_bytes=nbytes(shard0),
+            ops=hist_ops(len(shard0) * (B // D4) * P, len(shard0) * (B // D4), k, word0=True))
+    print(f"word0_histogram: shard 0's {len(shard0)} batches in one launch")
+    whist = histogram.word0_histogram_batches(uploads, k=k, P=P)
     bounds = distpipe.route_bounds_from_hist(whist.cpu().numpy().astype(np.int64), D4)
     bounds_d = pack.as_u32(torch.from_numpy(bounds.astype(np.int64)).to(dev))
     print(f"word0 bounds of the slice: {bounds.tolist()}, route cap {route_cap}")
-    del uploads, whist
+    del uploads, whist, shard0
     # batch 0, shard 0's rows: B/D rows at base 0
     recs4 = records.build_sort_records(*(a[: B // D4] for a in args), 0, k=k, P=P)
+    # into send buffers allocated once, as the append loop routes
+    send_k, send_p = (route.new_send(D4, route_cap, w, dev) for _ in "kp")
     for bnd in (bounds_d, None):
         compare("route",
-                lambda: route.route_records(*recs4, D4, route_cap, bounds=bnd),
-                lambda: route.route_records_plain(*recs4, D4, route_cap, bounds=bnd),
+                lambda: route.route_records(*recs4, D4, route_cap, bounds=bnd, out=send_k),
+                lambda: route.route_records_plain(*recs4, D4, route_cap, bounds=bnd,
+                                                  out=send_p),
                 10, results, in_bytes=nbytes(recs4, bnd))
+    # one call, for the device kernels listed with the dist-bloom bucket's
+    route_once = lambda: route.route_records(*recs4, D4, route_cap,  # noqa: E731
+                                             bounds=bounds_d, out=send_k)
+    del send_p
     sent = route.route_records(*recs4, D4, route_cap, bounds=bounds_d)
     require(int(sent[3]) == 0, "route: the slice's shard overflowed its cap")
     print("route: per-shard records of batch 0, shard 0: "
           f"{[int(x) for x in (pack.as_i64(sent[1]) >> 17 & 1).sum(dim=1)]}")
-    del recs4, sent
+    del sent
+    # one batch in one call
     compare("word0_histogram",
             lambda: histogram.word0_histogram(*args, k=k, P=P),
             lambda: histogram.word0_histogram_plain(*args, k=k, P=P), 10, results,
-            in_bytes=nbytes(args), ops=B * P * 2 * k)
+            in_bytes=nbytes(args), ops=hist_ops(B * P, B, k, word0=True))
     # a batch of the slice's shapes whose rows are the first B/8 rows of
     # each genome (a slice batch holds one genome: no junction in it)
     mix = next(windows.iter_window_batches(
@@ -853,6 +893,7 @@ def main() -> int:
                                       "-o", out_r], env)
         for name in (*kernels, "sort_records", "judge_compact"):
             require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
+        require(launches[tag].get("histogram", 1) == 1, f"{tag}: not one histogram launch")
         require(any(line.startswith("Splitting") and split_line in line
                     for line in text.splitlines()), f"{tag}: the mode did not run")
         require(sum(line.startswith("Round ") and "seconds" in line
@@ -1008,9 +1049,13 @@ def main() -> int:
     for name in DIST_PATH:
         require(launches["dist_r1"].get(name, 0) > 0, f"dist_r1: no launch of {name}")
     require(len(fetched4) == D4, f"dist_r1: {len(fetched4)} merge entries, not {D4}")
+    # the measurement pass: one histogram launch a shard over its batches
+    require(launches["dist_r1"]["word0_histogram"] == D4, "dist_r1: not one word0 launch a shard")
     _fetched, lines = dist_run("dist_r4", ROUNDS)
     for name in (*DIST_PATH, "histogram"):
         require(launches["dist_r4"].get(name, 0) > 0, f"dist_r4: no launch of {name}")
+    require(launches["dist_r4"]["word0_histogram"] == launches["dist_r4"]["histogram"] == D4,
+            "dist_r4: not one launch of each histogram a shard")
     require(sum(line.startswith("Round ") and "seconds" in line for line in lines) == ROUNDS,
             f"dist_r4: not {ROUNDS} rounds")
     del _fetched
@@ -1079,6 +1124,7 @@ def main() -> int:
         b0 = shard_batch(uploads[0])
         a0 = b0[0]
         cap_f, cap_m = (1024, 1024) if tiny else (scfg.fill_cap, scfg.mark_cap)
+        bucket_once = [None, None]
         for marking, cap in ((False, cap_f), (True, cap_m)):
             fn, fn_p = ((shardbloom.bucket_mark, shardbloom.bucket_mark_plain) if marking
                         else (shardbloom.bucket_fill, shardbloom.bucket_fill_plain))
@@ -1091,16 +1137,24 @@ def main() -> int:
             require((over_t > 0) == tiny, f"shard_bucket cap {cap}: overflow {over_t}")
             print(f"shard_bucket {'mark' if marking else 'fill'} {lay} f={f_bits} "
                   f"D={n_sh} cap {cap}: overflow {over_t}, equal to the plain version's")
-            if (lay, f_bits, n_sh, tiny) == ("byte", 30, D4, False):
-                kern = device_kernels(
-                    lambda: fn(*a0, *full, cfg=scfg.base, n_shards=n_sh, cap=cap))
-                names = " ".join(kern)
-                require(sum(c for kk, (c, _t) in kern.items() if "k_shard_bucket" in kk) == 1
-                        and "k_scan" not in names and "k_shard_count" not in names,
-                        f"shard_bucket: device launches of one call {kern}")
-                print(f"shard_bucket {'mark' if marking else 'fill'}: device launches of one "
-                      f"call ({sum(t for _c, t in kern.values()):.4f} ms on the device): "
-                      + ", ".join(f"{kk} x{c} {t:.4f} ms" for kk, (c, t) in kern.items()))
+            bucket_once[marking] = (lambda fn=fn, cap=cap: fn(*a0, *full, cfg=scfg.base,
+                                                                n_shards=n_sh, cap=cap))
+        if (lay, f_bits, n_sh, tiny) == ("byte", 30, D4, False):
+            # one profiler session (a later one in the process recorded no
+            # device event): one call each of route, bucket fill, bucket mark
+            kern = device_kernels(lambda: [c() for c in (route_once, *bucket_once)])
+            names = " ".join(kern)
+            require(all(kern.get(kk, (0,))[0] == 1 for kk in (
+                        "k_route", "k_route_tail", "k_shard_bucket<false, false>",
+                        "k_shard_bucket<true, false>"))
+                    and kern.get("k_shard_tail", (0,))[0] == 2
+                    and "k_scan" not in names and "k_shard_count" not in names
+                    and "Memset" not in names,
+                    f"route, shard_bucket: device launches of one call each {kern}")
+            print(f"route, shard_bucket fill, shard_bucket mark: device launches of one call "
+                  f"each ({sum(t for _c, t in kern.values()):.4f} ms on the device): "
+                  + ", ".join(f"{kk} x{c} {t:.4f} ms" for kk, (c, t) in kern.items()))
+            del route_once, recs4, send_k
         if tiny:
             continue
         # the whole slice into the sharded filter, as the main path fills it

@@ -341,6 +341,46 @@ def test_histogram_kernel(dev, k, stride):
     assert build.launch_counts() == {"histogram": 2}
     want = histogram.histogram_vertex_hashes_plain(*args, k=k, P=P, stride=stride)
     assert torch.equal(got.cpu(), 2 * want.cpu()) and int(want.sum()) > 0
+    # the batched entry: one launch over 5 batches, one with no valid position
+    uploads = _five_batches(dev, rng, B, P, k)
+    build.reset_launch_counts()
+    got = histogram.histogram_vertex_hashes_batches(uploads, k=k, P=P, stride=stride)
+    assert build.launch_counts() == {"histogram": 1}
+    want = histogram.histogram_vertex_hashes_batches_plain(uploads, k=k, P=P, stride=stride)
+    assert torch.equal(got.cpu(), want.cpu()) and int(want.sum()) > 0
+    scan = histogram.histogram_scan(uploads, k=k, P=P, stride=stride)
+    assert np.array_equal(scan, want.cpu().numpy())
+
+
+def _five_batches(dev, rng, B, P, k):
+    """Five uploaded batches (their own valid counts), batch 2 with no
+    valid position."""
+    uploads = _upload_batches(dev, rng, 5, B, P, k)
+    uploads[2][2].zero_()
+    return uploads
+
+
+@pytest.mark.parametrize("word0", [False, True])
+def test_histogram_kernel_one_bin(dev, word0):
+    """An all-A genome puts every position in one bin: 32 batches of 256
+    rows x 2048 in one call (past 65,535 positions a block between its
+    flushes, 2^24 in the bin), equal to the plain version."""
+    B, P, k = 256, 2048, 25
+    codes = np.zeros((B, P + k + 1), np.uint8)
+    p, m = pack.pack_codes_host(codes)
+    batch = _to(dev, p, m, np.full(B, P, np.int32))
+    uploads = [batch] * 32
+    fn, plain, name = (
+        (histogram.word0_histogram_batches, histogram.word0_histogram_batches_plain,
+         "word0_histogram") if word0 else
+        (histogram.histogram_vertex_hashes_batches,
+         histogram.histogram_vertex_hashes_batches_plain, "histogram"))
+    build.reset_launch_counts()
+    got = fn(uploads, k=k, P=P)
+    assert build.launch_counts() == {name: 1}
+    want = plain(uploads, k=k, P=P)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int(want.max()) == 32 * B * P == int(want.sum())
 
 
 MODES = {
@@ -519,23 +559,32 @@ def test_bloom_pipeline_cuda_equals_cpu(dev, tmp_path, layout, rounds, k):
 # histogram, occurrence sort) and the engine on a 4-shard LocalMesh
 
 
-@pytest.mark.parametrize("m,w,D,bounds,cap", [
-    (70_001, 2, 4, False, 30_000), (70_001, 2, 4, True, 30_000), (70_001, 2, 4, True, 9_000),
-    (100_003, 1, 8, False, 20_000), (30_011, 7, 3, True, 12_000), (0, 2, 4, False, 128),
-    (5_000, 2, 1, True, 6_000),
+@pytest.mark.parametrize("m,w,D,bounds,cap,skew", [
+    (70_001, 2, 4, False, 30_000, ""), (70_001, 2, 4, True, 30_000, ""),
+    (70_001, 2, 4, True, 9_000, ""), (100_003, 1, 8, False, 20_000, ""),
+    (30_011, 7, 3, True, 12_000, ""), (0, 2, 4, False, 128, ""), (5_000, 2, 1, True, 6_000, ""),
+    # the match-mask ranks (past 32 owners), TP_ROUTE_MAX owners, one record
+    (50_000, 2, 33, True, 2_000, ""), (50_000, 2, 33, False, 1_000, ""),
+    (60_000, 2, 4096, True, 40, ""), (60_000, 1, 4096, False, 8, ""), (1, 2, 4, True, 128, ""),
+    # every real record owned by shard 2, far past its cap
+    (131_072, 2, 4, True, 5_000, "one_owner"),
 ])
-def test_route_kernel(dev, m, w, D, bounds, cap):
+def test_route_kernel(dev, m, w, D, bounds, cap, skew):
     """Send buffers and the overflow count equal the plain version's
     exactly; the count is each owner's records past cap (some cases
     overflow)."""
     rng = np.random.default_rng(m + D)
     words_np, pay_np, pos_np = _random_records(rng, m, w)
+    if skew == "one_owner":
+        words_np[:, 0] = np.uint32(0x90000000)  # between cuts 1 and 2 below
     words, pay, pos = _to(dev, words_np, pay_np, pos_np)
     bnd = None
     w0 = words_np[:, 0].astype(np.int64)
     owner = (w0 * D) >> 32
     if bounds:
         cuts = np.sort(rng.choice(1 << 32, size=D - 1, replace=False)).astype(np.int64)
+        if skew == "one_owner":
+            cuts = np.array([1 << 30, 1 << 31, 3 << 30], np.int64)
         bnd = pack.as_u32(torch.tensor(cuts, device=dev))
         owner = np.searchsorted(cuts, w0, side="left")
     per_owner = np.bincount(owner[(pay_np >> 17) & 1 == 1], minlength=D)
@@ -548,6 +597,34 @@ def test_route_kernel(dev, m, w, D, bounds, cap):
     for a, b in zip(got, want):
         assert _equal(a, b)
     assert int(want[3]) == 5 + dropped
+    if skew == "one_owner":
+        assert dropped == int(per_owner[2]) - cap > 0
+
+
+@pytest.mark.parametrize("D,bounds", [(4, True), (4, False), (33, True)])
+def test_route_kernel_reuses_out(dev, D, bounds):
+    """Two calls into the same send buffers, the first overflowing: the
+    second's buffers and count equal the plain version's (the look-back's
+    epoch-tagged status words need no clearing between calls)."""
+    rng = np.random.default_rng(D + 77)
+    cap = 2_000
+    bnd = None
+    if bounds:
+        cuts = np.sort(rng.choice(1 << 32, size=D - 1, replace=False)).astype(np.int64)
+        bnd = pack.as_u32(torch.tensor(cuts, device=dev))
+    first = _to(dev, *_random_records(rng, 100_000, 2))
+    second = _to(dev, *_random_records(rng, 2_000, 2))  # never past cap
+    out = route.new_send(D, cap, 2, dev)
+    build.reset_launch_counts()
+    got1 = route.route_records(*first, D, cap, bounds=bnd, out=out)
+    got2 = route.route_records(*second, D, cap, bounds=bnd, out=out)
+    assert build.launch_counts() == {"route": 2}
+    assert all(g is o for g, o in zip(got2[:3], out))
+    want1 = route.route_records_plain(*first, D, cap, bounds=bnd)
+    want2 = route.route_records_plain(*second, D, cap, bounds=bnd)
+    assert int(got1[3]) == int(want1[3]) > 0 and int(got2[3]) == int(want2[3]) == 0
+    for a, b in zip(got2, want2):
+        assert _equal(a, b)
 
 
 @pytest.mark.parametrize("m,w", [(1, 2), (5000, 2), (200_001, 2), (40_000, 7)])
@@ -576,6 +653,13 @@ def test_word0_histogram_kernel(dev, k):
     assert build.launch_counts() == {"word0_histogram": 2}
     want = histogram.word0_histogram_plain(*args, k=k, P=P)
     assert torch.equal(got.cpu(), 2 * want.cpu()) and int(want.sum()) > 0
+    # the batched entry: one launch over 5 batches, one with no valid position
+    uploads = _five_batches(dev, rng, B, P, k)
+    build.reset_launch_counts()
+    got = histogram.word0_histogram_batches(uploads, k=k, P=P, out=got.zero_())
+    assert build.launch_counts() == {"word0_histogram": 1}
+    want = histogram.word0_histogram_batches_plain(uploads, k=k, P=P)
+    assert torch.equal(got.cpu(), want.cpu()) and int(want.sum()) > 0
 
 
 @pytest.mark.parametrize("n,id_bits,pos_limit", [
@@ -800,6 +884,29 @@ def test_shard_scratch_bytes_match_the_kernel(dev, D, f):
         args = _to(dev, *_genome_batch(np.random.default_rng(0), 4, 64, 25))
         with pytest.raises(ValueError, match="shared memory"):
             shardbloom.bucket_mark(*args, 0, 0xFFFFFFFF, cfg=scfg.base, n_shards=D, cap=64)
+
+
+@pytest.mark.parametrize("D", [4, 33])
+def test_lookback_scratch_shared(dev, D):
+    """The route and both bucket modes take turns on one kept look-back
+    scratch of the stream, the first bucketing overflowing: each call
+    equals its plain version (epoch-tagged status words, the tail kernels
+    resetting the tile counter), and no call that fits the scratch
+    reallocates it."""
+    rng = np.random.default_rng(D + 5)
+    k, P, B = 25, 512, 8
+    args = _to(dev, *_genome_batch(rng, B, P, k))
+    scfg = _shard_cfg(k, 30, "byte", 3, P, B * D, D)
+    scratch, _epoch = build.lookback_scratch(args[0].device, 1 << 20)
+    for i, (mode, cap) in enumerate((("fill", 64), ("mark", scfg.mark_cap),
+                                     ("fill", scfg.fill_cap))):
+        assert (int(_bucket_equal(args, scfg, cap, mode)[-1]) > 7) == (i == 0)
+        recs = _to(dev, *_random_records(rng, 20_000 // (i + 1), 2))
+        got = route.route_records(*recs, D, 4_000)
+        want = route.route_records_plain(*recs, D, 4_000)
+        for a, b in zip(got, want):
+            assert _equal(a, b)
+    assert build.lookback_scratch(args[0].device, 8)[0] is scratch
 
 
 # D, layout, f, q, rows a shard, P, round gate, valid counts, cap

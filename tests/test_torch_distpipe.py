@@ -271,6 +271,39 @@ def test_word0_histogram_matches_jax():
     np.testing.assert_array_equal(acc.numpy(), 2 * want)
 
 
+def test_word0_histogram_batches_matches_jax():
+    """The batched entry (one launch a shard on the card; here its plain
+    version, the per-batch function over the batches) equals the sum of
+    JAX's per-batch word0_histogram: five batches, different valid counts,
+    one with no valid position."""
+    k, P, B = 25, 256, 8
+    rng = np.random.default_rng(9)
+    base = oracle.generate_sequence(rng, 6000)
+    seqs = [(0, jdna.encode(base)), (1, jdna.encode(oracle.mutate_sequence(rng, base, 0.05, 0.1)))]
+    wcfg = jwindows.WindowConfig(k=k, positions_per_row=P, rows_per_batch=B)
+    jcfg = jkernels.PassConfig(k=k, positions_per_row=P, rows_per_batch=B)
+    batches = list(jwindows.iter_window_batches(iter(seqs), wcfg))[:5]
+    assert len(batches) == 5
+    want = np.zeros(1 << 16, np.int64)
+    uploads = []
+    for i, b in enumerate(batches):
+        valid = np.minimum(b.valid, rng.integers(0, P + 1, size=B)).astype(np.int32)
+        if i == 2:
+            valid[:] = 0
+        want += np.asarray(jdist.word0_histogram(jnp.asarray(b.codes), jnp.asarray(valid),
+                                                 cfg=jcfg))
+        p, m = pack.pack_codes_host(b.codes)
+        uploads.append([torch.from_numpy(a) for a in (p, m, valid)])
+    for fn in (histogram.word0_histogram_batches, histogram.word0_histogram_batches_plain):
+        got = fn(uploads, k=k, P=P)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    acc = torch.ones(1 << 16, dtype=torch.int32)
+    histogram.word0_histogram_batches(uploads, k=k, P=P, out=acc)
+    np.testing.assert_array_equal(acc.numpy(), want + 1)
+    assert want.sum() > 0
+
+
 @pytest.mark.parametrize("case", ["random", "concentrated", "one_bin", "empty", "top_bin"])
 @pytest.mark.parametrize("n_dev", [1, 2, 8, 13])
 def test_route_bounds_match_jax(case, n_dev):

@@ -179,6 +179,26 @@ def test_histogram_matches_jax(k, stride):
     assert want.sum() > 0
 
 
+@pytest.mark.parametrize("stride", [1, 4])
+def test_histogram_batches_matches_jax(stride):
+    """The batched entry (histogram_scan's; on the CPU the per-batch plain
+    function over the batches) equals the sum of JAX's per-batch
+    histogram_vertex_hashes: five batches, different valid counts, one
+    with no valid position."""
+    k = 25
+    batches = _batches(k, seed=95, nb=5)
+    batches[3][2][:] = 0
+    want = sum(np.asarray(jkernels.histogram_vertex_hashes(
+        (jnp.asarray(p), jnp.asarray(m)), jnp.asarray(v), cfg=_cfg(k), stride=stride,
+    )).astype(np.int64) for p, m, v in batches)
+    uploads = [_t(b) for b in batches]
+    for fn in (histogram.histogram_vertex_hashes_batches,
+               histogram.histogram_vertex_hashes_batches_plain):
+        got = fn(uploads, k=k, P=P, stride=stride)
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert want.sum() > 0
+
+
 def test_histogram_scan_matches_jax():
     k = 25
     batches = _batches(k, seed=90, nb=3)

@@ -55,9 +55,11 @@ def _np(t):
 
 @pytest.mark.parametrize("bounds", ["uniform", "measured"])
 @pytest.mark.parametrize("cap", [None, 40])
-def test_route_records_matches_jax(bounds, cap):
+@pytest.mark.parametrize("out", [False, True])
+def test_route_records_matches_jax(bounds, cap, out):
     """Send buffers (words, payload, position columns) and the overflow
-    count equal _route_records', with a cap that overflows too."""
+    count equal _route_records', with a cap that overflows too; out=True
+    routes into given send buffers that hold another batch's route."""
     k, P, B = 9, 128, 8
     b = _batch(k, P, B, seed=2024)
     cfg, words, payload, pos = _jax_records(b, k, P, B)
@@ -73,10 +75,18 @@ def test_route_records_matches_jax(bounds, cap):
         bounds=None if bnd is None else jnp.asarray(bnd),
     )
     send = np.asarray(send)
+    bufs = None
+    if out:
+        bufs = route.new_send(D, cap, words.shape[1], "cpu")
+        _cfg, w2, p2, pos2 = _jax_records(_batch(k, P, B, seed=7), k, P, B)
+        route.route_records_plain(_u32(w2), _u32(p2), torch.from_numpy(pos2.astype(np.int64)),
+                                  D, cap, out=bufs)
     got = route.route_records_plain(
         _u32(words), _u32(payload), torch.from_numpy(pos.astype(np.int64)), D, cap,
-        bounds=None if bnd is None else _u32(bnd),
+        bounds=None if bnd is None else _u32(bnd), out=bufs,
     )
+    if out:
+        assert all(g is b_ for g, b_ in zip(got, bufs))
     w = words.shape[1]
     np.testing.assert_array_equal(_np(got[0]), send[:, :, :w])
     np.testing.assert_array_equal(_np(got[1]), send[:, :, w])

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -72,11 +73,12 @@ _SIGNATURES = {
     "tp_compact_append": (
         [_P] * 3 + [_SZ, _I] + [_P] * 3 + [ctypes.c_longlong] + [_P] * 5, _I
     ),
-    "tp_histogram": ([_P] * 3 + [_I] * 5 + [_U32] * 4 + [_P] * 2, _I),
-    "tp_word0_histogram": ([_P] * 3 + [_I] * 5 + [_P] * 2, _I),
-    "tp_route_count_words": ([_SZ, _I], _SZ),
+    "tp_histogram_batches": ([_P, _I, _LL, _I, _I, _I] + [_U32] * 4 + [_P] * 2, _I),
     "tp_route_max_shards": ([], _I),
-    "tp_route_records": ([_P] * 3 + [_SZ, _I, _I, _P, _I] + [_P] * 9, _I),
+    "tp_route_tile": ([], _I),
+    "tp_route_records": (
+        [_P] * 3 + [_SZ, _I, _I, _P, _I, _P, _SZ, _U32] + [_P] * 5, _I
+    ),
     "tp_sort_occurrences": ([_P, _P, _SZ, _I, _LL] + [_P] * 3 + [_SZ, _P, _P], _I),
     "tp_bloom_fill": (
         [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I
@@ -92,7 +94,8 @@ _SIGNATURES = {
     ),
     "tp_shard_scratch_bytes": ([_SZ, _I, _I, _I, _I], _SZ),
     "tp_shard_bucket": (
-        [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 5 + [_P, _SZ] + [_P] * 4, _I
+        [_P] * 3 + [_I] * 5 + [_U32] * 2 + [_TABS] + [_I] * 5 + [_P, _SZ, _U32] + [_P] * 4,
+        _I,
     ),
     "tp_shard_fill_apply": ([_P, _SZ, _SZ, _I, _P, _P], _I),
     "tp_shard_probe": ([_P, _SZ, _SZ, _I, _P, _P, _P], _I),
@@ -189,6 +192,10 @@ class KernelLibrary:
 
 LIBRARY = KernelLibrary()
 _LAUNCHES: Counter = Counter()
+# the look-back scratch of each (device, stream), shared by route.cu and
+# bloom_shard.cu's bucketing: [uint8 tensor, epoch counter]
+_LOOKBACK: dict = {}
+_EPOCHS = (1 << 30) - 1
 
 
 def lib() -> ctypes.CDLL:
@@ -209,6 +216,27 @@ def hash_tables(tables) -> ctypes.Array:
 
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def lookback_scratch(device: torch.device, need: int) -> tuple[torch.Tensor, int]:
+    """(scratch, epoch) for one call of a one-sweep bucketing kernel on
+    the current stream: a zeroed uint8 tensor of at least need bytes kept
+    across calls (a tile counter, then the look-back's status words), and
+    the call's epoch in [1, 2^30 - 1], another than the call before's. Each
+    call tags its status words with its epoch and its tail kernel resets
+    the counter, so no call clears the scratch."""
+    key = (device.index, stream_ptr())
+    ent = _LOOKBACK.get(key)
+    if ent is None or ent[0].numel() < need:
+        ent = _LOOKBACK[key] = [torch.zeros(need, dtype=torch.uint8, device=device),
+                                itertools.count()]
+    return ent[0], next(ent[1]) % _EPOCHS + 1
+
+
+def drop_lookback_scratch(device: torch.device) -> None:
+    """Forget the current stream's scratch after a failed call: its tile
+    counter may not have been reset."""
+    _LOOKBACK.pop((device.index, stream_ptr()), None)
 
 
 def count_launch(name: str) -> None:

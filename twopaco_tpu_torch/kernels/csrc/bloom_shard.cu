@@ -49,23 +49,18 @@
 //   hashes and its gate (the edges it inserts or probes) in shared memory;
 // - indices: a thread a (position, edge) computes the edge's hashes once
 //   and its q indices into shared memory, in the flat order;
-// - rank: each warp ranks its contiguous part of them by owner, stably: up
-//   to 32 owners a ballot an owner with lane d counting owner d's, more
-//   (up to TP_ROUTE_MAX) match masks and u16 counters in shared memory
-//   (the match path alone at D=4 took the slice's fill bucketing from
-//   17.9 to 25.3 ms, H100);
-// - publish and stage: the tile's per-owner totals go to u64 status words
-//   (value | flag), the local slots are staged in shared memory owner-major;
-// - look-back: a warp an owner reads the status words of 32 earlier tiles
-//   at a time, back to the nearest inclusive prefix, and publishes its own;
+// - rank, offsets and publish, stage, look-back: common.cuh's one-sweep
+//   owner bucketing (shared with route.cu), the local slots staged in
+//   shared memory owner-major;
 // - write: consecutive threads store consecutive send slots of each owner's
 //   run of the tile (ranks past cap dropped), and in mark mode each probe's
 //   send slot, coalesced along the positions.
 // Hashing runs on a quarter of the block and, like the ranking, is bound by
 // issue and latency, not bytes; the mark mode's write stage by its stores.
-// A finish kernel writes the unsent tail of every owner's row and adds the
-// indices past cap to the overflow, from the last tile's prefixes (a block
-// a chunk of a row; chunks below the row's count exit at once). Indices
+// A tail kernel (common.cuh tp_owner_tail) writes the unsent slots of every
+// owner's row, adds the indices past cap to the overflow and resets the
+// tile counter: the status words carry a per-call epoch, so the scratch,
+// shared with route.cu's, lives across calls with no memset. Indices
 // travel as u32 while f < 32 and as u64 from f = 32; owners and local
 // slots come from a multiply-shift divisor while an index is below 2^31.
 //
@@ -78,7 +73,6 @@
 // its vertices) is one request; 4 slots a lane (16-byte loads) spread it
 // over 128 slots and measured slower.
 #include <algorithm>
-#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -97,8 +91,6 @@ constexpr int TILE_MAX = 256;      // positions a bucketing tile, at most
 // fit, one at most
 constexpr size_t SMEM_TARGET = 112 * 1024;
 constexpr size_t SMEM_MAX = 226 * 1024;
-constexpr uint64_t ST_AGG = 1ull << 32;   // status: the tile's own count
-constexpr uint64_t ST_INCL = 2ull << 32;  // ... the prefix over tiles 0 .. t
 
 // The bucketing's tile: tpos positions (a power of two), per indices a
 // position, items = per * tpos rounded up to the block's warps, wi a warp
@@ -136,9 +128,9 @@ size_t bucket_tiles(size_t n_pos, int tpos) {
     return std::max<size_t>((n_pos + tpos - 1) / tpos, 1);
 }
 
-// Scratch: the status words (tiles x D u64), then the tile counter
+// Scratch: the tile counter (8 bytes), then the status words (tiles x D u64)
 size_t bucket_scratch(size_t n_pos, int D, const Geo& g) {
-    return bucket_tiles(n_pos, g.tpos) * (size_t)D * 8 + 8;
+    return 8 + bucket_tiles(n_pos, g.tpos) * (size_t)D * 8;
 }
 
 // floor(x / d) for x < 2^31 as (x * m) >> s, m = ceil(2^(31+l) / d), l =
@@ -174,6 +166,7 @@ struct BucketArgs {
     uint32_t* probe_slot;  // mark mode
     uint64_t* status;
     uint32_t* tile_ctr;
+    uint32_t epoch;
 };
 
 // Owner (x mod D) and local slot (x div D) of a global index
@@ -195,42 +188,6 @@ __device__ __forceinline__ uint32_t owner_of(
     typename std::conditional<W64, uint64_t, uint32_t>::type x, int D, Div31 by_d) {
     uint64_t local;
     return split_index<W64>(x, D, by_d, local);
-}
-
-// Strand hashes of the k-char window at char s under the first nt tables
-// (common.cuh tp_strand_hashes, the tables T[4u + c] in shared memory)
-__device__ __forceinline__ void window_hashes(const TpRow& row, int s, int k,
-                                              int nt, const uint32_t* T,
-                                              uint32_t* hf, uint32_t* hr) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) hf[u] = hr[u] = 0;
-#pragma unroll 4
-    for (int j = 0; j < k; ++j) {
-        const uint32_t c = row.code(s + j);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-            if (u < nt) {
-                hf[u] ^= tp_rotl32(T[4 * u + c], (uint32_t)(k - 1 - j));
-                hr[u] ^= tp_rotl32(T[4 * u + 3 - c], (uint32_t)j);
-            }
-    }
-}
-
-// ... rolled from the window at char s to the one at s + 1 (Tk: T rotated
-// by k, Tk1: by k - 1)
-__device__ __forceinline__ void roll_hashes(const TpRow& row, int s, int k,
-                                            int nt, const uint32_t* T,
-                                            const uint32_t* Tk,
-                                            const uint32_t* Tk1,
-                                            uint32_t* hf, uint32_t* hr) {
-    const uint32_t co = row.code(s);
-    const uint32_t ci = row.code(s + k);
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-        if (u < nt) {
-            hf[u] = tp_rotl32(hf[u], 1u) ^ Tk[4 * u + co] ^ T[4 * u + ci];
-            hr[u] = tp_rotl32(hr[u] ^ T[4 * u + 3 - co], 31u) ^ Tk1[4 * u + 3 - ci];
-        }
 }
 
 template <bool MARK, bool W64>
@@ -288,7 +245,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
                 const int b = (int)(t / a.P);
                 const int i = (int)(t - (long long)b * a.P);
                 const TpRow row{a.packed + (size_t)b * a.RW, a.nmask + (size_t)b * a.NW};
-                if (s == 0 || i == 0) window_hashes(row, i + 1, k, nt, s_T, hf, hr);
+                if (s == 0 || i == 0) tp_window_hashes(row, i + 1, k, nt, s_T, hf, hr);
 #pragma unroll
                 for (int u = 0; u < 4; ++u)
                     if (u < nt) {
@@ -297,7 +254,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
                     }
                 const uint32_t hv = hf[0] + hr[0];
                 // on to position i + 1: the next of the run, and V_next
-                roll_hashes(row, i + 1, k, nt, s_T, s_Tk, s_Tk1, hf, hr);
+                tp_roll_hashes(row, i + 1, k, nt, s_T, s_Tk, s_Tk1, hf, hr);
                 if (tp_position_ok(row, i, k, a.valid[b])) {
                     const bool in_v = hv >= a.low && hv <= a.high;
                     if (MARK) {
@@ -351,76 +308,16 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
     for (int it = tpos * per + tid; it < items; it += TP_THREADS) s_flat[it] = NONE;
     __syncthreads();
 
-    // rank: warp w takes items [w * wi, (w + 1) * wi), 32 at a time; an
-    // item's rank among its warp's of its owner, stably. Up to 32 owners:
-    // a ballot an owner, lane d counting owner d's; more: match masks
-    // and counters in shared memory (slower: see the head of the file).
-    // s_wc[w][d] ends as warp w's count of owner d.
-    const int w0 = warp * a.g.wi;
-    const unsigned lower = (1u << lane) - 1u;
-    if (D <= 32) {
-        uint32_t cnt = 0;
-        for (int sl = 0; sl < a.g.wi; sl += 32) {
-            const int it = w0 + sl + lane;
-            const Idx x = s_flat[it];
-            const uint32_t o = x == NONE ? (uint32_t)D : owner_of<W64>(x, D, a.by_d);
-            unsigned peers = 0, mine = 0;
-            for (int d = 0; d < D; ++d) {
-                const unsigned b = __ballot_sync(0xffffffffu, o == (uint32_t)d);
-                if (o == (uint32_t)d) peers = b;
-                if (lane == d) mine = __popc(b);
-            }
-            const uint32_t before = __shfl_sync(0xffffffffu, cnt, o < (uint32_t)D ? o : 0);
-            cnt += mine;
-            s_rank[it] = (uint16_t)(before + __popc(peers & lower));
-        }
-        if (lane < D) s_wc[warp * D + lane] = (uint16_t)cnt;
-    } else {
-        uint16_t* wc = s_wc + warp * D;
-        for (int sl = 0; sl < a.g.wi; sl += 32) {
-            const int it = w0 + sl + lane;
-            const Idx x = s_flat[it];
-            const uint32_t o = x == NONE ? (uint32_t)D : owner_of<W64>(x, D, a.by_d);
-            const bool live = o < (uint32_t)D;
-            // dead lanes get distinct non-owner keys and are never counted
-            const unsigned peers = __match_any_sync(0xffffffffu, live ? o : (uint32_t)D + lane);
-            uint32_t before = 0;
-            if (live) before = wc[o];
-            __syncwarp();
-            if (live && (peers & lower) == 0) wc[o] = (uint16_t)(before + __popc(peers));
-            __syncwarp();
-            s_rank[it] = (uint16_t)(before + __popc(peers & lower));
-        }
-    }
+    // rank, per-owner offsets in the tile, publish (common.cuh)
+    tp_warp_rank(D, a.g.wi, [&](int it) {
+        const Idx x = s_flat[it];
+        return x == NONE ? (uint32_t)D : owner_of<W64>(x, D, a.by_d);
+    }, s_rank, s_wc);
     __syncthreads();
-
-    // per owner: the lower warps' counts (in place) and the tile's total;
-    // the owners' offsets in the tile; publish the totals
-    for (int o = tid; o < D; o += TP_THREADS) {
-        uint32_t c = 0;
-        for (int v = 0; v < TP_WARPS; ++v) {
-            const uint32_t w = s_wc[v * D + o];
-            s_wc[v * D + o] = (uint16_t)c;
-            c += w;
-        }
-        s_tot[o] = c;
-    }
-    __syncthreads();
-    uint32_t carry = 0;
-    for (int o0 = 0; o0 < D; o0 += TP_THREADS) {
-        const int o = o0 + tid;
-        uint32_t total;
-        const uint32_t ex = tp_block_excl_scan(o < D ? s_tot[o] : 0u, s_scan, total);
-        if (o < D) s_tex[o] = carry + ex;
-        carry += total;
-    }
-    if (tid == 0) s_tex[D] = carry;
-    const bool first = tile == 0;
-    for (int o = tid; o < D; o += TP_THREADS)
-        tp_store_relaxed(a.status + tile * D + o, (first ? ST_INCL : ST_AGG) | s_tot[o]);
-    __syncthreads();
+    tp_tile_offsets(D, tile, a.epoch, s_wc, s_tot, s_tex, s_scan, a.status);
 
     // stage the local slots owner-major; s_rank becomes the in-tile rank
+    const int w0 = warp * a.g.wi;
 #pragma unroll 4
     for (int sl = 0; sl < a.g.wi; sl += 32) {
         const int it = w0 + sl + lane;
@@ -433,31 +330,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
         s_om[s_tex[o] + r] = (Idx)local;
     }
 
-    // look-back, a warp an owner: lane l reads the status of tile
-    // (tile - 1 - l) of a window of 32 earlier tiles, the window sums up to
-    // the nearest inclusive prefix, or moves 32 tiles back (tile 0 is
-    // always inclusive, so no window passes it)
-    for (int o = warp; o < D; o += TP_WARPS) {
-        uint32_t excl = 0;
-        if (!first) {
-            for (long long top = (long long)tile - 1;; top -= 32) {
-                const long long t = top - lane;
-                uint64_t v = 0;
-                if (t >= 0) {
-                    do {
-                        v = tp_load_relaxed(a.status + (size_t)t * D + o);
-                    } while ((v >> 32) == 0);
-                }
-                const unsigned incl = __ballot_sync(0xffffffffu, (v & ST_INCL) != 0);
-                const int stop = incl ? __ffs(incl) - 1 : 31;
-                excl += __reduce_add_sync(0xffffffffu, lane <= stop ? (uint32_t)v : 0u);
-                if (incl) break;
-            }
-            if (lane == 0)
-                tp_store_relaxed(a.status + tile * D + o, ST_INCL | (excl + s_tot[o]));
-        }
-        if (lane == 0) s_dst[o] = excl;
-    }
+    tp_owner_lookback(D, tile, a.epoch, s_tot, s_dst, a.status);
     __syncthreads();
 
     // each owner's run of the tile: consecutive threads, consecutive slots
@@ -465,12 +338,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
     const uint32_t staged = s_tex[D];
 #pragma unroll 4
     for (uint32_t t = tid; t < staged; t += TP_THREADS) {
-        int lo = 0, hi = D - 1;  // the last owner whose run starts at or before t
-        while (lo < hi) {
-            const int mid = (lo + hi + 1) >> 1;
-            if (s_tex[mid] <= t) lo = mid;
-            else hi = mid - 1;
-        }
+        const int lo = tp_run_owner(s_tex, D, t);
         const uint32_t g = s_dst[lo] + (t - s_tex[lo]);
         if (g < cap) a.send[(size_t)lo * cap + g] = (uint64_t)s_om[t];
     }
@@ -494,22 +362,14 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
     }
 }
 
-// Block (chunk, row d): the send slots of owner d's row from its count
-// (the last tile's inclusive prefix) to the row's end are SENT; a chunk
-// below the count exits at once. Block (0, d) adds the owner's indices
-// past cap to *overflow.
+// The unsent slots of every owner's row, and the indices past cap; the
+// tile counter back to 0 for the next call
 __global__ void k_shard_tail(const uint64_t* __restrict__ last, size_t cap,
                              uint64_t* __restrict__ send,
-                             unsigned long long* __restrict__ overflow) {
-    const int d = blockIdx.y;
-    const size_t tot = (uint32_t)last[d];
-    if (blockIdx.x == 0 && threadIdx.x == 0 && tot > cap)
-        atomicAdd(overflow, (unsigned long long)(tot - cap));
-    const size_t c0 = (size_t)blockIdx.x * TAIL_CHUNK;
-    const size_t end = cap - c0 < TAIL_CHUNK ? cap : c0 + TAIL_CHUNK;
-    uint64_t* row = send + (size_t)d * cap;
-    for (size_t j = (tot > c0 ? tot : c0) + threadIdx.x; j < end; j += TP_THREADS)
-        row[j] = SENT;
+                             unsigned long long* __restrict__ overflow,
+                             uint32_t* __restrict__ tile_ctr) {
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *tile_ctr = 0;
+    tp_owner_tail(last, cap, TAIL_CHUNK, overflow, [&](size_t j) { send[j] = SENT; });
 }
 
 // Set slot s, storing only when it is not set yet: in a run over related
@@ -657,21 +517,16 @@ cudaError_t launch_bucket(const BucketArgs& a, size_t tiles, cudaStream_t st) {
     // once a device: all of the SM's unified memory as shared memory, so
     // that blocks of a tile's size fit side by side (the default carveout
     // may not), and up to SMEM_MAX dynamic shared bytes a block
-    static std::atomic<uint64_t> ready{0};  // bit d: set on device d
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    static std::atomic<uint64_t> ready{0};
+    const cudaError_t e = tp_once_per_device(ready, [] {
+        const cudaError_t e1 = cudaFuncSetAttribute(
+            k_shard_bucket<MARK, W64>, cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+        if (e1 != cudaSuccess) return e1;
+        return cudaFuncSetAttribute(k_shard_bucket<MARK, W64>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+    });
     if (e != cudaSuccess) return e;
-    const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-    if (!(ready.load(std::memory_order_acquire) & bit)) {
-        e = cudaFuncSetAttribute(k_shard_bucket<MARK, W64>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-        if (e != cudaSuccess) return e;
-        e = cudaFuncSetAttribute(k_shard_bucket<MARK, W64>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-        if (e != cudaSuccess) return e;
-        ready.fetch_or(bit, std::memory_order_release);
-    }
     k_shard_bucket<MARK, W64><<<(unsigned)tiles, TP_THREADS, a.g.smem, st>>>(a);
     return cudaGetLastError();
 }
@@ -691,7 +546,9 @@ extern "C" size_t tp_shard_scratch_bytes(size_t n_pos, int D, int q, int f,
 // The batch: B rows of the upload form (packed, nmask, valid; RW, NW words a
 // row), P positions a row, the round [low, high]; tabs, q, f as
 // tp_bloom_fill (f > 32: 64-bit indices). Scratch: scratch_bytes >=
-// tp_shard_scratch_bytes(B*P, D, q, f, mark), zeroed here. Outputs: send
+// tp_shard_scratch_bytes(B*P, D, q, f, mark), zeroed before its first call
+// and kept across calls, each call with another epoch (< 2^30) than the one
+// before, as tp_route_records' (the two may share one). Outputs: send
 // (D, cap) u64; probe_slot ((8q, B*P) u32 in mark mode, null in fill
 // mode); overflow (one int64, added to).
 extern "C" int tp_shard_bucket(const void* packed, const void* nmask,
@@ -699,19 +556,17 @@ extern "C" int tp_shard_bucket(const void* packed, const void* nmask,
                                int NW, uint32_t low, uint32_t high,
                                const uint32_t* tabs, int q, int f, int mark,
                                int D, int cap, void* scratch,
-                               size_t scratch_bytes, void* send,
+                               size_t scratch_bytes, uint32_t epoch, void* send,
                                void* probe_slot, void* overflow,
                                void* stream) {
     Geo g;
-    if (D < 1 || D > TP_ROUTE_MAX || cap < 1 || q < 1 || k < 1 ||
+    if (D < 1 || D > TP_ROUTE_MAX || cap < 1 || q < 1 || k < 1 || epoch > TP_EPOCH_MASK ||
         (mark && probe_slot == nullptr) || !plan_geo(D, q, f, mark, g))
         return (int)cudaErrorInvalidValue;
     const size_t n_pos = (size_t)B * P;
     const size_t need = bucket_scratch(n_pos, D, g);
     if (scratch == nullptr || scratch_bytes < need) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t e = cudaMemsetAsync(scratch, 0, need, st);
-    if (e != cudaSuccess) return (int)e;
     const size_t tiles = bucket_tiles(n_pos, g.tpos);
     BucketArgs a{};
     a.packed = (const uint32_t*)packed;
@@ -726,17 +581,18 @@ extern "C" int tp_shard_bucket(const void* packed, const void* nmask,
     a.by_d = make_div31((uint32_t)D);
     a.send = (uint64_t*)send;
     a.probe_slot = (uint32_t*)probe_slot;
-    a.status = (uint64_t*)scratch;
-    a.tile_ctr = (uint32_t*)((char*)scratch + tiles * (size_t)D * 8);
+    a.tile_ctr = (uint32_t*)scratch;
+    a.status = (uint64_t*)((char*)scratch + 8);
+    a.epoch = epoch;
     const bool w64 = f >= 32;
-    e = mark ? (w64 ? launch_bucket<true, true>(a, tiles, st)
-                    : launch_bucket<true, false>(a, tiles, st))
-             : (w64 ? launch_bucket<false, true>(a, tiles, st)
-                    : launch_bucket<false, false>(a, tiles, st));
+    const cudaError_t e = mark ? (w64 ? launch_bucket<true, true>(a, tiles, st)
+                                      : launch_bucket<true, false>(a, tiles, st))
+                               : (w64 ? launch_bucket<false, true>(a, tiles, st)
+                                      : launch_bucket<false, false>(a, tiles, st));
     if (e != cudaSuccess) return (int)e;
     k_shard_tail<<<dim3(tp_blocks((size_t)cap, TAIL_CHUNK), (unsigned)D), TP_THREADS, 0,
                    st>>>(a.status + (tiles - 1) * D, (size_t)cap, (uint64_t*)send,
-                         (unsigned long long*)overflow);
+                         (unsigned long long*)overflow, a.tile_ctr);
     return (int)cudaGetLastError();
 }
 

@@ -5,6 +5,7 @@
 // cudaError_t of its launches (0 = success).
 #pragma once
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -24,8 +25,8 @@ inline unsigned tp_blocks(size_t n, size_t per_block) {
 
 // Inclusive prefix sum of n u32 values (in may equal out). scratch holds
 // tp_scan_scratch_words(n) u32 words. Used by the judge (group ids, ranks,
-// compaction offsets), the round partition (block offsets), the stream
-// compaction and route.cu's owner bucketing.
+// compaction offsets), the round partition (block offsets) and the
+// stream compaction.
 cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
                                   size_t n, uint32_t* scratch,
                                   cudaStream_t stream);
@@ -66,7 +67,7 @@ __device__ __forceinline__ uint32_t tp_rotl32(uint32_t x, uint32_t s) {
 }
 
 // The status words of a decoupled look-back (sort.cu's digit passes,
-// bloom_shard.cu's bucketing): relaxed loads and stores at device scope,
+// the owner bucketing below): relaxed loads and stores at device scope,
 // each word read and written whole.
 __device__ __forceinline__ uint64_t tp_load_relaxed(const uint64_t* p) {
     uint64_t v;
@@ -399,119 +400,247 @@ __device__ __forceinline__ void tp_pack_candidates(
         atomicAdd(count, (unsigned long long)__popc(ballot));
 }
 
-// ---- stable owner bucketing (route.cu): n elements, each owned by one of
-// D shards or by none, go to (D, cap) send slots, each owner's in element
-// order. Per-tile owner counts (tp_tile_owner_counts) are scanned
-// owner-major (tp_scan_inclusive_u32) and a stable scatter
-// (tp_stable_scatter) ranks each element; slots past an owner's count are
-// cleared and the elements past cap counted (tp_route_finish). A tile is
-// TP_ROUTE_TILE elements (a block); tp_route_count_words (route.cu) sizes
-// the count table. TP_ROUTE_MAX also bounds bloom_shard.cu's owners.
+// ---- one-sweep stable owner bucketing (bloom_shard.cu tp_shard_bucket,
+// route.cu tp_route_records): the items of a call, each owned by one of D
+// shards or by none, go to (D, cap) send slots, each owner's in item order.
+// A block takes the next tile of items from an atomic counter (so it only
+// waits on tiles that started); then, barrier to barrier:
+// - rank (tp_warp_rank): each warp ranks its contiguous part of the tile by
+//   owner, stably: up to 32 owners a ballot an owner with lane d counting
+//   owner d's, more (up to TP_ROUTE_MAX) match masks and u16 counters in
+//   shared memory (the match path alone at D=4 took the slice's fill
+//   bucketing from 17.9 to 25.3 ms, H100);
+// - offsets (tp_tile_offsets): per owner the lower warps' counts and the
+//   tile's total, the owners' runs in the tile, the totals published to u64
+//   status words (value | flag);
+// - the caller stages its items owner-major in shared memory;
+// - look-back (tp_owner_lookback): a warp an owner reads the status words
+//   of 32 earlier tiles at a time, back to the nearest inclusive prefix,
+//   and publishes its own;
+// - the caller stores each owner's run of the tile coalesced
+//   (tp_run_owner: the owner of a staged slot), ranks past cap dropped;
+// and a tail kernel (tp_owner_tail) clears each owner's slots past its
+// count and counts the items past cap, from the last tile's prefixes.
+// A status word is value (32 bits) | flag (2 bits) | epoch (30 bits); a
+// word of another epoch reads as unpublished, so a scratch whose words
+// carry each call's epoch needs no clearing between calls: the callers'
+// tail kernels reset the tile counter, and both callers' wrappers share
+// one scratch a (device, stream) (kernels/build.py lookback_scratch).
 
-constexpr int TP_ROUTE_ROUNDS = 16;
-constexpr int TP_ROUTE_TILE = TP_THREADS * TP_ROUTE_ROUNDS;
-constexpr int TP_ROUTE_MAX = 4096;  // shards a call may route to
+constexpr int TP_ROUTE_MAX = 4096;          // owners a call may bucket to
+constexpr uint64_t TP_ST_AGG = 1ull << 32;   // the tile's own count
+constexpr uint64_t TP_ST_INCL = 2ull << 32;  // ... the prefix over tiles 0 .. t
+constexpr uint32_t TP_EPOCH_MASK = (1u << 30) - 1;
 
-// counts[d * nt + tile] = elements of tile blockIdx.x owned by shard d;
-// owner_of(i) >= D: no owner. Dynamic shared memory: D u32.
-template <class OwnerOf>
-__device__ __forceinline__ void tp_tile_owner_counts(
-    size_t n, int D, uint32_t* __restrict__ counts, size_t nt,
-    OwnerOf owner_of) {
-    extern __shared__ uint32_t tp_hist[];
-    for (int d = threadIdx.x; d < D; d += TP_THREADS) tp_hist[d] = 0;
-    __syncthreads();
-    const size_t base = (size_t)blockIdx.x * TP_ROUTE_TILE;
-    for (int j = threadIdx.x; j < TP_ROUTE_TILE; j += TP_THREADS) {
-        const size_t i = base + j;
-        if (i < n) {
-            const uint32_t d = owner_of(i);
-            if (d < (uint32_t)D) atomicAdd(&tp_hist[d], 1u);
-        }
-    }
-    __syncthreads();
-    for (int d = threadIdx.x; d < D; d += TP_THREADS)
-        counts[(size_t)d * nt + blockIdx.x] = tp_hist[d];
+__device__ __forceinline__ uint64_t tp_status(uint64_t flag, uint32_t value,
+                                              uint32_t epoch) {
+    return flag | value | ((uint64_t)epoch << 34);
 }
 
-// Stable scatter of tile blockIdx.x: the tile is walked in rounds of
-// TP_THREADS consecutive elements; an element's rank among its owner's is
-// the owner's running base for the tile, plus the owner's counts in lower
-// warps of the round, plus its rank among equal owners in its own warp
-// (match masks). put(i, d, rank) gets every owned element (a rank may
-// reach past cap: put drops it). Dynamic shared memory: (1 + TP_WARPS) * D
-// u32.
-template <class OwnerOf, class Put>
-__device__ __forceinline__ void tp_stable_scatter(
-    size_t n, int D, const uint32_t* __restrict__ counts,
-    const uint32_t* __restrict__ incl, size_t nt, OwnerOf owner_of, Put put) {
-    extern __shared__ uint32_t tp_rank[];
-    uint32_t* s_base = tp_rank;      // [D]
-    uint32_t* s_wc = tp_rank + D;    // [TP_WARPS][D]
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    for (int d = tid; d < D; d += TP_THREADS) {
-        const size_t first = (size_t)d * nt;
-        const size_t slot = first + blockIdx.x;
-        // offset of this tile's first element among owner d's elements
-        s_base[d] = (incl[slot] - counts[slot]) - (incl[first] - counts[first]);
-        for (int v = 0; v < TP_WARPS; ++v) s_wc[v * D + d] = 0;
-    }
-    __syncthreads();
-    const size_t base = (size_t)blockIdx.x * TP_ROUTE_TILE;
-    for (int r = 0; r < TP_ROUTE_ROUNDS; ++r) {
-        const size_t i = base + (size_t)r * TP_THREADS + tid;
-        const uint32_t oi = i < n ? owner_of(i) : (uint32_t)D;
-        const bool live = oi < (uint32_t)D;
-        // dead lanes get distinct non-owner values and never write
-        const uint32_t d = live ? oi : (uint32_t)D + lane;
-        const unsigned peers = __match_any_sync(0xffffffffu, d);
-        const unsigned lower = peers & ((1u << lane) - 1u);
-        if (live && lower == 0) s_wc[warp * D + d] = __popc(peers);
-        __syncthreads();
-        if (live) {
-            uint32_t dst = s_base[d] + __popc(lower);
-            for (int v = 0; v < warp; ++v) dst += s_wc[v * D + d];
-            put(i, d, dst);
-        }
-        __syncthreads();
-        for (int dd = tid; dd < D; dd += TP_THREADS) {
-            uint32_t tot = 0;
-            for (int v = 0; v < TP_WARPS; ++v) {
-                tot += s_wc[v * D + dd];
-                s_wc[v * D + dd] = 0;
+__device__ __forceinline__ bool tp_status_ready(uint64_t v, uint32_t epoch) {
+    return ((v >> 32) & 3u) != 0 && (uint32_t)(v >> 34) == epoch;
+}
+
+// Stable in-warp ranks of a tile's items by owner: warp w takes items
+// [w * wi, (w + 1) * wi) (wi a multiple of 32), 32 at a time, and lane l
+// calls owner(it) once for its item it (>= D: none). s_rank[it] gets the
+// item's rank among its warp's items of that owner, s_wc[w * D + d] the
+// warp's count of owner d (u16, zeroed by the caller).
+template <class Owner>
+__device__ __forceinline__ void tp_warp_rank(int D, int wi, Owner owner,
+                                             uint16_t* s_rank, uint16_t* s_wc) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int w0 = warp * wi;
+    const unsigned lower = (1u << lane) - 1u;
+    if (D <= 32) {
+        uint32_t cnt = 0;  // lane d: the warp's owner-d items so far
+        for (int sl = 0; sl < wi; sl += 32) {
+            const int it = w0 + sl + lane;
+            const uint32_t o = owner(it);
+            unsigned peers = 0, mine = 0;
+            for (int d = 0; d < D; ++d) {
+                const unsigned b = __ballot_sync(0xffffffffu, o == (uint32_t)d);
+                if (o == (uint32_t)d) peers = b;
+                if (lane == d) mine = __popc(b);
             }
-            s_base[dd] += tot;
+            const uint32_t before = __shfl_sync(0xffffffffu, cnt, o < (uint32_t)D ? o : 0);
+            cnt += mine;
+            s_rank[it] = (uint16_t)(before + __popc(peers & lower));
         }
-        __syncthreads();
+        if (lane < D) s_wc[warp * D + lane] = (uint16_t)cnt;
+    } else {
+        uint16_t* wc = s_wc + warp * D;
+        for (int sl = 0; sl < wi; sl += 32) {
+            const int it = w0 + sl + lane;
+            const uint32_t o = owner(it);
+            const bool live = o < (uint32_t)D;
+            // dead lanes get distinct non-owner keys and are never counted
+            const unsigned peers = __match_any_sync(0xffffffffu, live ? o : (uint32_t)D + lane);
+            uint32_t before = 0;
+            if (live) before = wc[o];
+            __syncwarp();
+            if (live && (peers & lower) == 0) wc[o] = (uint16_t)(before + __popc(peers));
+            __syncwarp();
+            s_rank[it] = (uint16_t)(before + __popc(peers & lower));
+        }
     }
 }
 
-__device__ __forceinline__ uint32_t tp_owner_total(const uint32_t* counts,
-                                                   const uint32_t* incl,
-                                                   size_t nt, int d) {
-    const size_t first = (size_t)d * nt;
-    return incl[first + nt - 1] - (incl[first] - counts[first]);
+// After tp_warp_rank and a barrier: s_wc[v * D + o] becomes owner o's count
+// in the warps below v (in place), s_tot[o] the tile's count, s_tex[o] the
+// offset of owner o's run in the tile (s_tex[D]: the tile's owned items);
+// the totals are published as tile `tile`'s status (tile 0: its inclusive
+// prefix). Every thread calls; ends with a barrier.
+__device__ __forceinline__ void tp_tile_offsets(int D, size_t tile, uint32_t epoch,
+                                                uint16_t* s_wc, uint32_t* s_tot,
+                                                uint32_t* s_tex, uint32_t* s_scan,
+                                                uint64_t* status) {
+    const int nw = blockDim.x >> 5;
+    for (int o = threadIdx.x; o < D; o += blockDim.x) {
+        uint32_t c = 0;
+        for (int v = 0; v < nw; ++v) {
+            const uint32_t w = s_wc[v * D + o];
+            s_wc[v * D + o] = (uint16_t)c;
+            c += w;
+        }
+        s_tot[o] = c;
+    }
+    __syncthreads();
+    uint32_t carry = 0;
+    for (int o0 = 0; o0 < D; o0 += blockDim.x) {
+        const int o = o0 + threadIdx.x;
+        uint32_t total;
+        const uint32_t ex = tp_block_excl_scan(o < D ? s_tot[o] : 0u, s_scan, total);
+        if (o < D) s_tex[o] = carry + ex;
+        carry += total;
+    }
+    if (threadIdx.x == 0) s_tex[D] = carry;
+    for (int o = threadIdx.x; o < D; o += blockDim.x)
+        tp_store_relaxed(status + tile * D + o,
+                         tp_status(tile == 0 ? TP_ST_INCL : TP_ST_AGG, s_tot[o], epoch));
+    __syncthreads();
 }
 
-// Thread t: clear(t) for every send slot t = d * cap + j past owner d's
-// count, and the elements of owner t past cap added to *overflow. Launch
-// over max(D * cap, D) threads.
+// A warp an owner: s_dst[o] = owner o's items in the tiles before `tile`,
+// and the tile's inclusive prefix published. Lane l reads the status of
+// tile (tile - 1 - l) of a window of 32 earlier tiles; the window sums up
+// to the nearest inclusive prefix, or moves 32 tiles back (tile 0 is
+// always inclusive, so no window passes it). Every thread calls; the
+// caller synchronises before reading s_dst.
+__device__ __forceinline__ void tp_owner_lookback(int D, size_t tile, uint32_t epoch,
+                                                  const uint32_t* s_tot, uint32_t* s_dst,
+                                                  uint64_t* status) {
+    const int lane = threadIdx.x & 31;
+    for (int o = threadIdx.x >> 5; o < D; o += blockDim.x >> 5) {
+        uint32_t excl = 0;
+        if (tile != 0) {
+            for (long long top = (long long)tile - 1;; top -= 32) {
+                const long long t = top - lane;
+                uint64_t v = 0;
+                if (t >= 0) {
+                    do {
+                        v = tp_load_relaxed(status + (size_t)t * D + o);
+                    } while (!tp_status_ready(v, epoch));
+                }
+                const unsigned incl = __ballot_sync(0xffffffffu, (v & TP_ST_INCL) != 0);
+                const int stop = incl ? __ffs(incl) - 1 : 31;
+                excl += __reduce_add_sync(0xffffffffu, lane <= stop ? (uint32_t)v : 0u);
+                if (incl) break;
+            }
+            if (lane == 0)
+                tp_store_relaxed(status + tile * D + o,
+                                 tp_status(TP_ST_INCL, excl + s_tot[o], epoch));
+        }
+        if (lane == 0) s_dst[o] = excl;
+    }
+}
+
+// The owner whose run of the tile holds staged slot t (t < s_tex[D]): the
+// last owner whose run starts at or before t
+__device__ __forceinline__ int tp_run_owner(const uint32_t* s_tex, int D, uint32_t t) {
+    int lo = 0, hi = D - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_tex[mid] <= t) lo = mid;
+        else hi = mid - 1;
+    }
+    return lo;
+}
+
+// Block (chunk, owner d) of a tail kernel over (D, cap) send slots:
+// clear(j) for every slot j = d * cap + c of owner d's row from its count
+// (the value of the last tile's status word last[d]) to cap, `chunk` slots
+// a block (a chunk below the count exits at once); block (0, d) adds owner
+// d's items past cap to *overflow.
 template <class Clear>
-__device__ __forceinline__ void tp_route_finish(
-    const uint32_t* __restrict__ counts, const uint32_t* __restrict__ incl,
-    size_t nt, int D, int cap, unsigned long long* __restrict__ overflow,
-    Clear clear) {
-    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < (size_t)D) {
-        const uint32_t tot = tp_owner_total(counts, incl, nt, (int)t);
-        if (tot > (uint32_t)cap)
-            atomicAdd(overflow, (unsigned long long)(tot - (uint32_t)cap));
+__device__ __forceinline__ void tp_owner_tail(const uint64_t* __restrict__ last,
+                                              size_t cap, size_t chunk,
+                                              unsigned long long* __restrict__ overflow,
+                                              Clear clear) {
+    const size_t d = blockIdx.y;
+    const size_t tot = (uint32_t)last[d];
+    if (blockIdx.x == 0 && threadIdx.x == 0 && tot > cap)
+        atomicAdd(overflow, (unsigned long long)(tot - cap));
+    const size_t c0 = (size_t)blockIdx.x * chunk;
+    const size_t end = cap - c0 < chunk ? cap : c0 + chunk;
+    for (size_t j = (tot > c0 ? tot : c0) + threadIdx.x; j < end; j += blockDim.x)
+        clear(d * cap + j);
+}
+
+// ---- rolled strand hashes (bloom_shard.cu's bucketing, histogram.cu): the
+// char tables T[4u + c] of tables u < nt in shared memory, never indexed out
+// of the parameter space at run time
+
+// Strand hashes of the k-char window at char s under the first nt tables
+// (tp_strand_hashes; N reads as code 0)
+__device__ __forceinline__ void tp_window_hashes(const TpRow& row, int s, int k,
+                                                 int nt, const uint32_t* T,
+                                                 uint32_t* hf, uint32_t* hr) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) hf[u] = hr[u] = 0;
+#pragma unroll 4
+    for (int j = 0; j < k; ++j) {
+        const uint32_t c = row.code(s + j);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (u < nt) {
+                hf[u] ^= tp_rotl32(T[4 * u + c], (uint32_t)(k - 1 - j));
+                hr[u] ^= tp_rotl32(T[4 * u + 3 - c], (uint32_t)j);
+            }
     }
-    if (t >= (size_t)D * cap) return;
-    const int d = (int)(t / cap);
-    if (t - (size_t)d * cap >= tp_owner_total(counts, incl, nt, d)) clear(t);
+}
+
+// ... rolled from the window at char s to the one at s + 1 (Tk: T rotated
+// by k, Tk1: by k - 1): hf' = rotl(hf, 1) ^ rotl(T[out], k) ^ T[in] and
+// its mirror for hr
+__device__ __forceinline__ void tp_roll_hashes(const TpRow& row, int s, int k,
+                                               int nt, const uint32_t* T,
+                                               const uint32_t* Tk,
+                                               const uint32_t* Tk1,
+                                               uint32_t* hf, uint32_t* hr) {
+    const uint32_t co = row.code(s);
+    const uint32_t ci = row.code(s + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        if (u < nt) {
+            hf[u] = tp_rotl32(hf[u], 1u) ^ Tk[4 * u + co] ^ T[4 * u + ci];
+            hr[u] = tp_rotl32(hr[u] ^ T[4 * u + 3 - co], 31u) ^ Tk1[4 * u + 3 - ci];
+        }
+}
+
+// set() once a device and process (bit d of `ready` for devices 0 .. 63;
+// past them every call): kernel attributes
+template <class Set>
+inline cudaError_t tp_once_per_device(std::atomic<uint64_t>& ready, Set set) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+    if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    e = set();
+    if (e == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
+    return e;
 }
 
 }  // namespace

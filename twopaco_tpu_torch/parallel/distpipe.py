@@ -8,15 +8,17 @@ output. Hash intervals split the run across time (rounds, as the sort
 engine's -r); k-mer ranges split each round across space (shards), so a
 round's records are spread over D sorts of 1/D the size each.
 
-  1. measurement: the canonical word0 histogram of every batch
-     (passes/histogram.py word0_histogram) gives the routing bounds, D
-     ranges of equal record mass (GC bias makes a uniform word0 split
-     badly skewed); with more than one round, the vertex-hash histogram
+  1. measurement: the canonical word0 histogram of every batch, one
+     launch a shard over its resident batches (passes/histogram.py
+     word0_histogram_batches), gives the routing bounds, D ranges of equal
+     record mass (GC bias makes a uniform word0 split badly skewed); with
+     more than one round, the vertex-hash histogram (one launch a shard)
      gives the round intervals;
   2. per round, per batch, per shard: the records of the shard's B/D rows
-     gated to the round (records.cu), routed by the bounds (route.cu),
-     exchanged (mesh.all_to_all), and the received real records appended
-     to the shard's round buffer (compact.cu) at a device-side offset;
+     gated to the round (records.cu), routed by the bounds (route.cu, into
+     send buffers allocated once a round), exchanged (mesh.all_to_all),
+     and the received real records appended to the shard's round buffer
+     (compact.cu) at a device-side offset;
      with the Bloom gate, the round first fills a Bloom filter sharded by
      slot over the mesh with every batch (parallel/sharded.py, a fill
      overflow raises), and each batch's records are built only at the
@@ -52,7 +54,7 @@ from twopaco_tpu_torch.parallel.sharded import (
     ShardedConfig, make_sharded_filter, sharded_fill_step, sharded_mark_step,
 )
 from twopaco_tpu_torch.parallel.sortshard import KERNELS, PLAIN
-from twopaco_tpu_torch.passes import sortpipe, stream
+from twopaco_tpu_torch.passes import route, sortpipe, stream
 from twopaco_tpu_torch.passes.histogram import BIN_POW
 from twopaco_tpu_torch.passes.pipeline import (
     Enumerator,
@@ -219,12 +221,9 @@ def build_junctions_dist(
     whist, hhist = {}, {}
     for s in mesh.shards:
         with on_device(mesh.device(s)):
-            whist[s] = torch.zeros(1 << BIN_POW, dtype=torch.int32, device=mesh.device(s))
-            hhist[s] = torch.zeros_like(whist[s])
-            for packed, nmask, valid in uploads[s]:
-                ops.word0(packed, nmask, valid, k=k, P=P, out=whist[s])
-                if n_rounds > 1:
-                    ops.histogram(packed, nmask, valid, k=k, P=P, out=hhist[s])
+            whist[s] = ops.word0(uploads[s], k=k, P=P)
+            hhist[s] = (ops.histogram(uploads[s], k=k, P=P) if n_rounds > 1
+                        else torch.zeros_like(whist[s]))
     both = mesh.all_gather({s: torch.cat([whist[s], hhist[s]]).to(torch.int64)
                             for s in mesh.shards}).sum(axis=0)
     bounds = route_bounds_from_hist(both[: 1 << BIN_POW], D)
@@ -332,11 +331,12 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
         t_fill = time.time() - t0
     masks = dict.fromkeys(mesh.shards)
     bufs, over = {}, {}
-    recs = {}
+    recs, send = {}, {}
     for s in mesh.shards:
         d = mesh.device(s)
         bufs[s] = stream.new_round_buffer(dcfg.dev_slots, w, d)
         over[s] = torch.zeros(1, dtype=torch.int64, device=d)
+        send[s] = route.new_send(D, dcfg.route_cap, w, d)
         recs[s] = (
             torch.empty((rows * P, w), dtype=torch.uint32, device=d),
             torch.empty(rows * P, dtype=torch.uint32, device=d),
@@ -363,7 +363,7 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
         for s in mesh.shards:
             with on_device(mesh.device(s)):
                 *sends[s], _ = ops.route(*recs[s], D, dcfg.route_cap, bounds=bounds_d[s],
-                                         overflow=over[s])
+                                         overflow=over[s], out=send[s])
         recv = mesh.all_to_all(sends)
         for s in mesh.shards:
             with on_device(mesh.device(s)):

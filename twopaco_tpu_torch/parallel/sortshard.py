@@ -55,7 +55,8 @@ class Ops:
 KERNELS = Ops(
     records.build_sort_records, route.route_records, stream.compact_append,
     sort.sort_records, judge.judge_compact, judge.judge_records,
-    occ.sort_occurrences, histogram.histogram_vertex_hashes, histogram.word0_histogram,
+    occ.sort_occurrences, histogram.histogram_vertex_hashes_batches,
+    histogram.word0_histogram_batches,
     shardbloom.bucket_fill, shardbloom.bucket_mark, shardbloom.fill_local,
     shardbloom.probe_local, shardbloom.mark_finish,
 )
@@ -63,7 +64,7 @@ PLAIN = Ops(
     records.build_sort_records_plain, route.route_records_plain,
     stream.compact_append_plain, sort.sort_records_plain, judge.judge_compact_plain,
     judge.judge_records_plain, occ.sort_occurrences_plain,
-    histogram.histogram_vertex_hashes_plain, histogram.word0_histogram_plain,
+    histogram.histogram_vertex_hashes_batches_plain, histogram.word0_histogram_batches_plain,
     shardbloom.bucket_fill_plain, shardbloom.bucket_mark_plain, shardbloom.fill_local_plain,
     shardbloom.probe_local_plain, shardbloom.mark_finish_plain,
 )
@@ -114,6 +115,8 @@ def sharded_sort_step(mesh, scfg: SortShardConfig, check_abundance: bool = False
     D, P = mesh.n_shards, cfg.P
     rows = cfg.B // D
     cap = scfg.cap()
+    # every step routes into the same send buffers
+    send = {s: route.new_send(D, cap, cfg.w, mesh.device(s)) for s in mesh.shards}
 
     def step(batch, low: int, high: int, abundance: int):
         ab = abundance if check_abundance else judge.NO_ABUNDANCE
@@ -121,7 +124,7 @@ def sharded_sort_step(mesh, scfg: SortShardConfig, check_abundance: bool = False
         for s in mesh.shards:
             with on_device(mesh.device(s)):
                 recs = ops.build(*batch[s], s * rows * P, k=cfg.k, P=P, low=low, high=high)
-                *sends[s], over[s] = ops.route(*recs, D, cap)
+                *sends[s], over[s] = ops.route(*recs, D, cap, out=send[s])
         recv = mesh.all_to_all(sends)
         local = {}
         counts = {}

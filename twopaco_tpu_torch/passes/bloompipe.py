@@ -77,12 +77,12 @@ class Ops:
 
 KERNELS = Ops(
     fill.bloom_fill, mark.bloom_mark, extract.extract_records, sort.sort_records,
-    judge.judge_compact, lookup.pass4_lookup, histogram.histogram_vertex_hashes,
+    judge.judge_compact, lookup.pass4_lookup, histogram.histogram_vertex_hashes_batches,
 )
 PLAIN = Ops(
     fill.bloom_fill_plain, mark.bloom_mark_plain, extract.extract_records_plain,
     sort.sort_records_plain, judge.judge_compact_plain, lookup.pass4_lookup_plain,
-    histogram.histogram_vertex_hashes_plain,
+    histogram.histogram_vertex_hashes_batches_plain,
 )
 
 

@@ -12,23 +12,49 @@ sorted blocks concatenate, in shard order, into the global k-mer order.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import pack
 
 
-def _empty_send(n_shards: int, cap: int, w: int, device):
-    """All-ones words, payload 0, position 0 in every slot."""
+@functools.cache
+def _limits() -> tuple[int, int]:
+    """(shards a call may route to, records a look-back tile) of route.cu"""
+    lib = build.lib()
+    return lib.tp_route_max_shards(), lib.tp_route_tile()
+
+
+def new_send(n_shards: int, cap: int, w: int, device):
+    """Send buffers for route_records(out=...): words (D, cap, w) uint32,
+    payload (D, cap) uint32, positions (D, cap) int64, uninitialised (a
+    route writes every slot)."""
     return (
-        torch.full((n_shards, cap, w), -1, dtype=torch.int32, device=device).view(torch.uint32),
-        torch.zeros((n_shards, cap), dtype=torch.uint32, device=device),
-        torch.zeros((n_shards, cap), dtype=torch.int64, device=device),
+        torch.empty((n_shards, cap, w), dtype=torch.uint32, device=device),
+        torch.empty((n_shards, cap), dtype=torch.uint32, device=device),
+        torch.empty((n_shards, cap), dtype=torch.int64, device=device),
     )
 
 
+def _check_out(out, n_shards: int, cap: int, w: int, device):
+    """out, or new send buffers when None; raises on a wrong shape, type or
+    device."""
+    if out is None:
+        return new_send(n_shards, cap, w, device)
+    want = ((n_shards, cap, w), (n_shards, cap), (n_shards, cap))
+    for t, shape, dtype, name in zip(out, want, (torch.uint32, torch.uint32, torch.int64),
+                                     ("words", "payload", "pos")):
+        build.require(t, dtype, f"out {name}")
+        if tuple(t.shape) != shape or t.device != device:
+            raise ValueError(f"out {name}: expected {shape} on {device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    return out
+
+
 def route_records_plain(words, payload, pos, n_shards: int, cap: int, bounds=None,
-                        overflow=None):
+                        overflow=None, out=None):
     """Plain PyTorch version of route_records (any device)."""
     D = n_shards
     m, w = words.shape
@@ -47,7 +73,11 @@ def route_records_plain(words, payload, pos, n_shards: int, cap: int, bounds=Non
     slot = torch.arange(m, device=dev) - starts[o_s]
     live = o_s < D
     ok = live & (slot < cap)
-    send_w, send_pay, send_pos = _empty_send(D, cap, w, dev)
+    # all-ones words, payload 0, position 0 in every slot
+    send_w, send_pay, send_pos = _check_out(out, D, cap, w, dev)
+    send_w.view(torch.int32).fill_(-1)
+    send_pay.view(torch.int32).zero_()
+    send_pos.zero_()
     dst = (o_s * cap + slot)[ok]
     src = order[ok]
     send_w.view(torch.int32).view(D * cap, w)[dst] = words.view(torch.int32)[src]
@@ -60,7 +90,7 @@ def route_records_plain(words, payload, pos, n_shards: int, cap: int, bounds=Non
 
 
 def route_records(words, payload, pos, n_shards: int, cap: int, bounds=None,
-                  overflow=None):
+                  overflow=None, out=None):
     """Bucket records by owner shard into (n_shards, cap) send slots.
 
     words (m, w) uint32, payload (m,) uint32, pos (m,) int64: records
@@ -70,14 +100,16 @@ def route_records(words, payload, pos, n_shards: int, cap: int, bounds=None,
     are not real go nowhere. Each owner's slots hold its records in record
     order; the rest hold all-ones words, payload 0, position 0. Records
     past cap are dropped and added to overflow ((1,) int64 on the
-    records' device, summed over calls; a new one when None).
+    records' device, summed over calls; a new one when None). out: send
+    buffers to write (new_send's), reused by a caller that routes many
+    batches; new ones when None.
 
     -> (send words (D, cap, w) uint32, payload (D, cap) uint32, pos (D,
     cap) int64, overflow)
     """
     tensors = [words, payload, pos] + [t for t in (bounds, overflow) if t is not None]
-    if build.on_cpu(*tensors):
-        return route_records_plain(words, payload, pos, n_shards, cap, bounds, overflow)
+    if build.on_cpu(*tensors, *(out or ())):
+        return route_records_plain(words, payload, pos, n_shards, cap, bounds, overflow, out)
     build.require(words, torch.uint32, "words")
     build.require(payload, torch.uint32, "payload")
     build.require(pos, torch.int64, "pos")
@@ -85,10 +117,10 @@ def route_records(words, payload, pos, n_shards: int, cap: int, bounds=None,
     D = n_shards
     if payload.shape != (m,) or pos.shape != (m,):
         raise ValueError("payload and pos must have one entry per record")
-    lib = build.lib()
-    if not 1 <= D <= lib.tp_route_max_shards() or cap < 1:
+    max_shards, tile = _limits()
+    if not 1 <= D <= max_shards or cap < 1:
         raise ValueError(f"{D} shards or cap {cap} outside the kernel's range")
-    if m >= 1 << 32 or D * cap >= 1 << 32:
+    if m >= 1 << 32 or D * cap >= (1 << 32) - 1:
         raise ValueError("records or send slots exceed the route's u32 ranks")
     if bounds is not None:
         build.require(bounds, torch.uint32, "bounds")
@@ -98,23 +130,16 @@ def route_records(words, payload, pos, n_shards: int, cap: int, bounds=None,
     if overflow is None:
         overflow = torch.zeros(1, dtype=torch.int64, device=dev)
     build.require(overflow, torch.int64, "overflow")
-    n_counts = lib.tp_route_count_words(m, D)
-
-    def u32(n):
-        return torch.empty(n, dtype=torch.int32, device=dev)
-
-    owner, counts, incl = u32(max(m, 1)), u32(n_counts), u32(n_counts)
-    scratch = u32(lib.tp_scan_scratch_words(n_counts))
-    send_w = torch.empty((D, cap, w), dtype=torch.uint32, device=dev)
-    send_pay = torch.empty((D, cap), dtype=torch.uint32, device=dev)
-    send_pos = torch.empty((D, cap), dtype=torch.int64, device=dev)
-    rc = lib.tp_route_records(
+    send_w, send_pay, send_pos = _check_out(out, D, cap, w, dev)
+    scratch, epoch = build.lookback_scratch(dev, 8 + max(-(-m // tile), 1) * D * 8)
+    rc = build.lib().tp_route_records(
         words.data_ptr(), payload.data_ptr(), pos.data_ptr(), m, w, D,
-        bounds.data_ptr() if bounds is not None else None, cap,
-        *(t.data_ptr() for t in (owner, counts, incl, scratch, send_w, send_pay,
-                                 send_pos, overflow)),
-        build.stream_ptr(),
+        bounds.data_ptr() if bounds is not None else None, cap, scratch.data_ptr(),
+        scratch.numel(), epoch, send_w.data_ptr(), send_pay.data_ptr(), send_pos.data_ptr(),
+        overflow.data_ptr(), build.stream_ptr(),
     )
+    if rc != 0:
+        build.drop_lookback_scratch(dev)
     build.check(rc, "route_records")
     build.count_launch("route")
     return send_w, send_pay, send_pos, overflow

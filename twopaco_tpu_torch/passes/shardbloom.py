@@ -71,10 +71,10 @@ def tile_fits(n_shards: int, q: int, f: int, marking: bool) -> bool:
 def scratch_bytes(n_pos: int, n_shards: int, q: int, f: int, marking: bool) -> int:
     """Device bytes of tp_shard_bucket's scratch for n_pos positions
     (tp_shard_scratch_bytes, which gives 0 where the tile does not fit):
-    the look-back status words (D u64 a tile) and the tile counter (8
-    bytes)."""
+    the tile counter (8 bytes) and the look-back status words (D u64 a
+    tile)."""
     tiles = max(1, -(-n_pos // tile_positions(n_shards, q, f, marking)))
-    return tiles * n_shards * 8 + 8
+    return 8 + tiles * n_shards * 8
 
 
 def _counter(counter, dev) -> torch.Tensor:
@@ -154,8 +154,8 @@ def _bucket(packed, nmask, valid, low, high, cfg, n_shards, cap, overflow, marki
     if not tile_fits(n_shards, cfg.q, cfg.f, marking):
         raise ValueError(f"q = {cfg.q} over {n_shards} shards: one position's indices exceed "
                          "a bucketing block's shared memory")
-    n_scratch = scratch_bytes(B * cfg.P, n_shards, cfg.q, cfg.f, marking)
-    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    scratch, epoch = build.lookback_scratch(
+        dev, scratch_bytes(B * cfg.P, n_shards, cfg.q, cfg.f, marking))
     send = torch.empty((n_shards, cap), dtype=torch.int64, device=dev)
     probe_slot = (torch.empty((8 * cfg.q, B * cfg.P), dtype=torch.int32, device=dev)
                   if marking else None)
@@ -163,9 +163,11 @@ def _bucket(packed, nmask, valid, low, high, cfg, n_shards, cap, overflow, marki
         packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, cfg.P, cfg.k,
         packed.shape[1], nmask.shape[1], int(low), int(high),
         build.hash_tables(fill.ALL_TABLES), cfg.q, cfg.f, int(marking), n_shards, cap,
-        scratch.data_ptr(), n_scratch, send.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), epoch, send.data_ptr(),
         probe_slot.data_ptr() if marking else None, overflow.data_ptr(), build.stream_ptr(),
     )
+    if rc != 0:
+        build.drop_lookback_scratch(dev)
     build.check(rc, "shard_bucket")
     build.count_launch("shard_bucket_mark" if marking else "shard_bucket_fill")
     return send, probe_slot, overflow

@@ -92,14 +92,14 @@ class Ops:
 KERNELS = Ops(
     records.build_sort_records, sort.sort_records, judge.judge_compact,
     partition.partition_batch, partition.assemble_round,
-    stream.compact_append, histogram.histogram_vertex_hashes,
+    stream.compact_append, histogram.histogram_vertex_hashes_batches,
     occ.sort_occurrences,
 )
 PLAIN = Ops(
     records.build_sort_records_plain, sort.sort_records_plain,
     judge.judge_compact_plain, partition.partition_batch_plain,
     partition.assemble_round_plain, stream.compact_append_plain,
-    histogram.histogram_vertex_hashes_plain, occ.sort_occurrences_plain,
+    histogram.histogram_vertex_hashes_batches_plain, occ.sort_occurrences_plain,
 )
 
 
