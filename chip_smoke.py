@@ -7,14 +7,22 @@
 2. builds the CUDA kernels from twopaco_tpu_torch/kernels/csrc;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the benchmark slice (exact: integer data), and times
-   both with CUDA events; the round sort also on the slice's k = 101
-   round (sort_records_k101, 7 key words);
+   both with CUDA events: the record build first on the -r 1 round's
+   table of every batch (one launch, as the main path builds it), then on
+   one batch, on one shard's batch of the dist append and at k = 101; the
+   round sort also on the slice's k = 101 round (sort_records_k101, 7 key
+   words); both judges also on the slice's round and, untimed, on the
+   edge inputs of twopaco_tpu_torch/testing/judge_cases.py (a group over
+   many tiles with saturated N-in counts, tile-edge groups, one record,
+   counts off the tile, over 2^24 records, all and mostly sentinels),
+   abundance none and 3;
 4. runs the port's CLI on two inputs whose .dbg sha256 the JAX package
    gave (tests/golden/torch_port_sha256.json) and checks the bytes;
 5. runs the slice: 8 genomes x 8,000,000 bases (seed 2016) through
    `twopaco_tpu_torch.cli.twopaco.main(["-k", "25", "-f", "30", ...])`,
    with every kernel's launch counter reset just before and read just
-   after; its .dbg sha256 must be SLICE_SHA256; then the same input
+   after; it must launch the record build once; its .dbg sha256 must be
+   SLICE_SHA256; then the same input
    through the plain versions on the card, whose .dbg must be
    byte-identical;
 6. runs the slice in four rounds (-r 4) in each multi-round mode:
@@ -64,13 +72,15 @@
    Bloom engine's), bit layout at f=36 (64-bit global and local slots), 3
    shards (255 rows a batch), and a tiny cap whose overflow counts must
    match; the byte fill is also timed into a zeroed shard, every slot new;
+   the device kernels of one call each of the route, the bucket's two
+   modes, the record build's table (one kernel) and both judges (two
+   kernels each) are listed by one torch.profiler session;
    the probe is also held against its plain version on hand-made received
    blocks (rows of 0, cap, chunk-boundary and random sent counts; the mark
-   cap, and an odd cap starting 8 bytes off 16-byte alignment), and the
-   device kernels of one call each of the route (above) and of the
-   bucket's two modes are listed with their device times by one
-   torch.profiler session (k_route and k_route_tail; one bucketing kernel
-   a mode; no count or scan kernel, no memset);
+   cap, and an odd cap starting 8 bytes off 16-byte alignment) (in the
+   profiler session: k_route and k_route_tail; one bucketing kernel a
+   mode; one k_records; k_judge_scan and k_judge_write a judge; no count
+   or scan kernel, no memset);
 12. runs the slice through the dist-bloom engine, each with the counters
    reset just before and read just after, each launching the four
    entries and the dist engine's kernels and writing SLICE_SHA256:
@@ -313,6 +323,26 @@ def hist_ops(n_pos: int, n_rows: int, k: int, word0: bool) -> int:
     return n_rows * 4 * (min(k, 16) if word0 else k) + n_pos * 12
 
 
+def records_ops(n_pos: int, n_rows: int, k: int) -> int:
+    """Integer operations of the record build rolled along each row: a
+    row's first window from scratch (the two strands' words and hashes, 6
+    a char of k), then per position the rolled words and hashes, the gate,
+    the canonical choice and the payload, about twenty."""
+    return n_rows * 6 * k + n_pos * 20
+
+
+def exact(name, kernel, plain, results, what=""):
+    """kernel and plain on the same inputs, untimed: exact agreement,
+    recorded beside the name's timed compares."""
+    import torch
+
+    err = max_abs_err(kernel(), plain())
+    torch.cuda.synchronize()
+    require(err == 0, f"{name} {what}: kernel disagrees with its plain version ({err})")
+    results.setdefault(name, []).append(dict(max_abs_err=err))
+    print(f"exact {name} {what}")
+
+
 def compare(name, kernel, plain, reps, results, in_bytes=0, ops=0, out_bytes=None,
             library=None):
     """Run kernel and plain on the same inputs: exact agreement, and
@@ -502,7 +532,7 @@ def main() -> int:
         )
         from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
-        from twopaco_tpu_torch.testing import bench_data
+        from twopaco_tpu_torch.testing import bench_data, judge_cases
     except ImportError as e:
         print(f"chip_smoke: the twopaco_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -548,16 +578,36 @@ def main() -> int:
         p, m = pack.pack_codes_host(batch.codes)
         return [torch.from_numpy(a).to(dev) for a in (p, m, batch.valid)]
 
-    # record build: one batch at k=25 (full gate and a narrow hash gate)
-    # and one at k=101
+    # record build: the main path's call first (its time is the one
+    # reported): the -r 1 round's table of every batch in one launch; then
+    # one batch at k=25 (full gate and a narrow hash gate), one at the dist
+    # append's shape (a shard's B/4 rows) and one at k=101
+    uploads = [upload(b) for b in batches]
+    bases = [b.row0 * P for b in batches]
+    compare(
+        "build_records",
+        lambda: records.build_sort_records_batches(uploads, bases, k=k, P=P),
+        lambda: records.build_sort_records_batches_plain(uploads, bases, k=k, P=P),
+        2, results, in_bytes=nbytes(uploads), ops=records_ops(n_slots, len(batches) * B, k),
+    )
+    print(f"build_records: the -r 1 round's {len(batches)} batches in one launch")
     args = upload(batches[0])
     for low, high in ((0, 0xFFFFFFFF), (1 << 30, 3 << 30)):
         compare(
             "build_records",
             lambda: records.build_sort_records(*args, 0, k=k, P=P, low=low, high=high),
             lambda: records.build_sort_records_plain(*args, 0, k=k, P=P, low=low, high=high),
-            10, results, in_bytes=nbytes(args), ops=B * P * 6 * k,
+            10, results, in_bytes=nbytes(args), ops=records_ops(B * P, B, k),
         )
+    args4 = [a[: B // D4] for a in args]
+    compare(
+        "build_records",
+        lambda: records.build_sort_records(*args4, 0, k=k, P=P),
+        lambda: records.build_sort_records_plain(*args4, 0, k=k, P=P),
+        50, results, in_bytes=nbytes(args4), ops=records_ops(B // D4 * P, B // D4, k),
+    )
+    print(f"build_records: one batch of the dist append's shape ({B // D4} rows), "
+          f"{results['build_records'][-1]['ms']:.4f} ms event time {label}")
     cfg101 = PipelineConfig(k=101, positions_per_row=P, rows_per_batch=B)
     b101 = next(windows.iter_window_batches(iter(seqs), cfg101.window_config()))
     args101 = upload(b101)
@@ -565,21 +615,11 @@ def main() -> int:
         "build_records_k101",
         lambda: records.build_sort_records(*args101, 0, k=101, P=P),
         lambda: records.build_sort_records_plain(*args101, 0, k=101, P=P),
-        5, results, in_bytes=nbytes(args101), ops=B * P * 6 * 101,
+        5, results, in_bytes=nbytes(args101), ops=records_ops(B * P, B, 101),
     )
     # the slice's whole round buffer, built as the main path builds it
     w = cfg.w
-    buf = (
-        torch.empty((n_slots, w), dtype=torch.uint32, device=dev),
-        torch.empty(n_slots, dtype=torch.uint32, device=dev),
-        torch.empty(n_slots, dtype=torch.int64, device=dev),
-    )
-    for b in batches:
-        off = b.row0 * P
-        records.build_sort_records(
-            *upload(b), off, k=k, P=P,
-            out=tuple(t[off : off + B * P] for t in buf),
-        )
+    buf = records.build_sort_records_batches(uploads, bases, k=k, P=P)
     torch.cuda.synchronize()
     # the library call: a stable torch.sort of the records' packed u64 keys
     # (w = 2 words, made signed-order), then the three gathers
@@ -597,15 +637,38 @@ def main() -> int:
     srt = sort.sort_records(*buf, key_bits=2 * k)
     del buf
     for ab in (judge.NO_ABUNDANCE, 4):
+        # the bound reads every record's words and payload, and the
+        # position of the kept rows only (8 bytes an occurrence)
+        n_occ = judge.judge_compact(*srt, ab)[5]
         compare(
             "judge_compact",
             lambda: judge.judge_compact(*srt, ab),
             lambda: judge.judge_compact_plain(*srt, ab),
-            3, results, in_bytes=nbytes(srt),
+            3, results, in_bytes=nbytes(srt[:2]) + 8 * n_occ,
         )
+    for ab in (judge.NO_ABUNDANCE, 3):
+        exact("judge_records", lambda: judge.judge_records(*srt[:2], ab),
+              lambda: judge.judge_records_plain(*srt[:2], ab), results,
+              f"the slice's round, abundance {'none' if ab == judge.NO_ABUNDANCE else ab}")
     slice_table, slice_occ_pos, slice_occ_id = (
         t.clone() for t in judge.judge_compact(*srt)[:3])  # Bloom lookup, occurrence sort
     del srt
+    # the judge's edge inputs (testing/judge_cases.py), both entries
+    for case in judge_cases.CASES:
+        jw, jp, jpos = (torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32 else a)
+                        .to(dev) for a in judge_cases.make(case, seed=len(case)))
+        jw, jp = pack.as_u32(jw), pack.as_u32(jp)
+        for ab in (judge.NO_ABUNDANCE, 3):
+            tag = f"{case} ({jw.shape[0]} x {jw.shape[1]}), abundance " + (
+                "none" if ab == judge.NO_ABUNDANCE else str(ab))
+            exact("judge_compact", lambda: judge.judge_compact(jw, jp, jpos, ab),
+                  lambda: judge.judge_compact_plain(jw, jp, jpos, ab), results, tag)
+            exact("judge_records", lambda: judge.judge_records(jw, jp, ab),
+                  lambda: judge.judge_records_plain(jw, jp, ab), results, tag)
+        if case == "long_group":
+            judge_once = (jw, jp, jpos)  # for the device kernels of one call
+        del jw, jp, jpos
+    torch.cuda.synchronize()
     # the slice's round buffer at k = 101 (w = 7: a digit-pass group a
     # word, the last cut to its 10 k-mer bits, and the final gather)
     batches101 = list(windows.iter_window_batches(iter(seqs), cfg101.window_config()))
@@ -626,8 +689,6 @@ def main() -> int:
     torch.cuda.synchronize()
 
     phase(f"multi-round kernels vs plain versions (-r {ROUNDS} shapes)")
-    uploads = [upload(b) for b in batches]
-    bases = [b.row0 * P for b in batches]
     bp = B * P
     hist_stride = max(1, 1 << max(0, n_slots.bit_length() - 24))  # as the path
     # histogram: the path's call first (its time is the one reported): one
@@ -862,6 +923,8 @@ def main() -> int:
         slice_run("r1", ["-k", str(k), "-f", "30", fa, "-o", out])
     for name in ("build_records", "sort_records", "judge_compact", "sort_occurrences"):
         require(launches["r1"].get(name, 0) > 0, f"{name}: no launch in the slice run")
+    require(launches["r1"]["build_records"] == 1,
+            f"r1: {launches['r1']['build_records']} build_records launches, not one a round")
     slice_sha = sha256(out)
     size_dbg = os.path.getsize(out)
     require(size_dbg > 0 and size_dbg % 12 == 0, f"slice .dbg has {size_dbg} bytes")
@@ -1142,19 +1205,31 @@ def main() -> int:
         if (lay, f_bits, n_sh, tiny) == ("byte", 30, D4, False):
             # one profiler session (a later one in the process recorded no
             # device event): one call each of route, bucket fill, bucket mark
-            kern = device_kernels(lambda: [c() for c in (route_once, *bucket_once)])
+            kern = device_kernels(lambda: [c() for c in (
+                route_once, *bucket_once,
+                lambda: records.build_sort_records_batches(uploads, bases, k=k, P=P),
+                lambda: judge.judge_compact(*judge_once),
+                lambda: judge.judge_records(*judge_once[:2]))])
             names = " ".join(kern)
+            def count(prefix):
+                return sum(c for kk, (c, _t) in kern.items() if kk.startswith(prefix))
+
             require(all(kern.get(kk, (0,))[0] == 1 for kk in (
                         "k_route", "k_route_tail", "k_shard_bucket<false, false>",
                         "k_shard_bucket<true, false>"))
                     and kern.get("k_shard_tail", (0,))[0] == 2
+                    and count("k_records") == 1 and count("k_judge_scan") == 2
+                    and count("k_judge_write<true") == count("k_judge_write<false") == 1
                     and "k_scan" not in names and "k_shard_count" not in names
                     and "Memset" not in names,
-                    f"route, shard_bucket: device launches of one call each {kern}")
-            print(f"route, shard_bucket fill, shard_bucket mark: device launches of one call "
-                  f"each ({sum(t for _c, t in kern.values()):.4f} ms on the device): "
+                    f"route, shard_bucket, build_records, judge: device launches of one "
+                    f"call each {kern}")
+            print(f"route, shard_bucket fill, shard_bucket mark, build_records (the -r 1 "
+                  f"round's {len(uploads)} batches), judge_compact and judge_records (the "
+                  f"long_group case, {judge_once[0].shape[0]} records): device launches of "
+                  f"one call each ({sum(t for _c, t in kern.values()):.4f} ms on the device): "
                   + ", ".join(f"{kk} x{c} {t:.4f} ms" for kk, (c, t) in kern.items()))
-            del route_once, recs4, send_k
+            del route_once, recs4, send_k, judge_once
         if tiny:
             continue
         # the whole slice into the sharded filter, as the main path fills it
@@ -1283,11 +1358,12 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         rs = results[name]
+        first = next(r for r in rs if "ms" in r)  # the first timed compare
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[PATH_OF[name]][name],
             max_abs_err=max(r["max_abs_err"] for r in rs),
-            **{key: rs[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms")},
         ))
     print(card)

@@ -83,3 +83,31 @@ def test_build_writes_into_round_buffer():
     assert np.array_equal(buf[2][n : 2 * n].numpy(), want[2])
     assert (buf[0][:n].numpy() == 7).all()  # nothing outside the slice
     assert got is out
+
+
+@pytest.mark.parametrize("k", [11, 25, 101])
+@pytest.mark.parametrize("gate", sorted(GATES))
+def test_build_sort_records_batches_matches_jax(k, gate):
+    """The table entry (CPU tensors: its plain version) over three batches
+    with their own valid counts and N runs: the JAX records of each batch,
+    concatenated at the batches' bases."""
+    low, high = GATES[gate]
+    batches = [_batch(k, seed=10 * k + b) for b in range(3)]
+    uploads = [(torch.from_numpy(p), torch.from_numpy(m), torch.from_numpy(v))
+               for (p, m), v in batches]
+    bases = [b * B * P for b in range(3)]
+    build.reset_launch_counts()
+    got = records.build_sort_records_batches(uploads, bases, k=k, P=P, low=low, high=high)
+    assert build.launch_counts() == {}  # CPU tensors: the plain version
+    want = [_jax_records(p, m, v, b * B, k, low, high) for b, ((p, m), v) in enumerate(batches)]
+    for g, col in zip(got, zip(*want)):
+        assert np.array_equal(g.numpy(), np.concatenate(col))
+
+
+def test_build_batches_checks_spans():
+    (packed, nmask), valid = _batch(11, seed=1)
+    up = (torch.from_numpy(packed), torch.from_numpy(nmask), torch.from_numpy(valid))
+    with pytest.raises(ValueError, match="overlap"):
+        records.build_sort_records_batches([up, up], [0, B * P - 1], k=11, P=P)
+    with pytest.raises(ValueError, match="bases"):
+        records.build_sort_records_batches([up, up], [0], k=11, P=P)

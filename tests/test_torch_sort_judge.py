@@ -19,7 +19,8 @@ from hypothesis import strategies as st
 from twopaco_tpu.passes import kernels as jkernels
 from twopaco_tpu.passes import sortpipe as jsort
 from twopaco_tpu_torch.ops import pack
-from twopaco_tpu_torch.passes import judge, records, sort
+from twopaco_tpu_torch.passes import judge, records, sort, sortpipe
+from twopaco_tpu_torch.testing import judge_cases
 
 B, P = 8, 128
 NO_AB = judge.NO_ABUNDANCE
@@ -203,3 +204,53 @@ def test_judge_all_sentinels_and_empty():
         torch.empty(0, dtype=torch.uint32), torch.empty(0, dtype=torch.int64),
     )
     assert empty[3:] == (0, 0, 0)
+
+
+# the judge kernel's edge inputs at CPU sizes: a group of 40,000 records
+# (more than 0x7FFF N-in extensions) over many 2048-record tiles, groups
+# on tile edges, a round that is mostly sentinels
+EDGE = {
+    "long_group": lambda rng: judge_cases.long_group(rng, rows=40_000),
+    "tile_edges": judge_cases.tile_edges,
+    "mostly_sentinels": judge_cases.CASES["mostly_sentinels"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE))
+@pytest.mark.parametrize("abundance", [NO_AB, 3])
+def test_judge_edge_cases_match_jax(case, abundance):
+    """judge_compact_plain and judge_records_plain against the JAX judges
+    on the kernel's edge inputs, with and without the abundance limit."""
+    words, pay, pos = EDGE[case](np.random.default_rng(len(case)))
+    m = len(words)
+    sw, sp = (pack.as_u32(torch.from_numpy(a.astype(np.int64))) for a in (words, pay))
+    check = abundance < NO_AB
+    got = judge.judge_compact_plain(sw, sp, torch.from_numpy(pos), abundance)
+    tab, op, oi, ng, nj, no = jsort.judge_compact_fused(
+        jnp.asarray(words), jnp.asarray(pay), (jnp.asarray(pos.astype(np.uint32)),),
+        jnp.uint64(abundance), check_abundance=check, chunk=m,
+    )
+    nj, no = int(nj), int(no)
+    assert got[3:] == (int(ng), nj, no)
+    assert np.array_equal(got[0].numpy(), np.asarray(tab)[:nj])
+    assert np.array_equal(got[1].numpy(), np.asarray(op[0])[:no].astype(np.int64))
+    assert np.array_equal(got[2].numpy(), np.asarray(oi)[:no])
+    kf, keep, ids, ng2, nj2, no2 = jsort.judge_records(
+        jnp.asarray(words), jnp.asarray(pay), jnp.uint64(abundance), check_abundance=check)
+    rec = judge.judge_records_plain(sw, sp, abundance)
+    assert rec[3:] == (int(ng2), int(nj2), int(no2)) == got[3:]
+    for a, b in zip(rec[:3], (kf, keep, ids)):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    if case == "long_group":
+        assert nj > 0 and (abundance == 3) == (no < 40_000)
+
+
+@pytest.mark.parametrize("w", [1, 2, 7, 38])
+def test_slot_bytes_is_the_sorts_term(w):
+    """A round slot's bytes are the sort's term (the record twice and the
+    sort's work), which covers the judge's need: the sorted record, its
+    table and occurrence outputs and the kernel's scratch."""
+    rec = 4 * w + 12
+    sort_slot = (40 if w <= 2 else 24) + -(-256 * 8 // sort.SORT_TILE)
+    assert sortpipe.slot_bytes(w) == 2 * rec + sort_slot
+    assert sortpipe.slot_bytes(w) >= 2 * rec + 140 / 2048  # the judge's need

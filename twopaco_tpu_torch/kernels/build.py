@@ -53,16 +53,15 @@ _SIGNATURES = {
     "tp_scan_scratch_words": ([_SZ], _SZ),
     "tp_sort_scratch_bytes": ([_SZ, _I], _SZ),
     "tp_build_records": (
-        [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _U32, _U32,
-         _U32, _U32, _U32, _U32, _P, _P, _P, _P, _P],
-        _I,
+        [_P, _I, _LL] + [_P] * 4 + [_LL] * 4 + [_I, _I] + [_U32] * 6 + [_P] * 4, _I
     ),
     "tp_sort_records": ([_P] * 3 + [_SZ, _I, _I] + [_P] * 7 + [_SZ] + [_P] * 4, _I),
+    "tp_judge_scratch_bytes": ([_SZ], _SZ),
     "tp_judge_compact": (
-        [_P, _P, _P, _SZ, _I, _I, ctypes.c_ulonglong] + [_P] * 7, _I
+        [_P, _P, _P, _SZ, _I, _I, ctypes.c_ulonglong, _P, _SZ, _U32] + [_P] * 5, _I
     ),
     "tp_judge_records": (
-        [_P, _P, _SZ, _I, _I, ctypes.c_ulonglong] + [_P] * 7, _I
+        [_P, _P, _SZ, _I, _I, ctypes.c_ulonglong, _P, _SZ, _U32] + [_P] * 5, _I
     ),
     "tp_partition_count_words": ([_SZ, _I], _SZ),
     "tp_partition_max_parts": ([], _I),
@@ -192,8 +191,9 @@ class KernelLibrary:
 
 LIBRARY = KernelLibrary()
 _LAUNCHES: Counter = Counter()
-# the look-back scratch of each (device, stream), shared by route.cu and
-# bloom_shard.cu's bucketing: [uint8 tensor, epoch counter]
+# the look-back scratch of each (device, stream, name): "bucket", shared by
+# route.cu and bloom_shard.cu's bucketing, and "judge" (judge.cu):
+# [uint8 tensor, epoch counter]
 _LOOKBACK: dict = {}
 _EPOCHS = (1 << 30) - 1
 
@@ -218,14 +218,17 @@ def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def lookback_scratch(device: torch.device, need: int) -> tuple[torch.Tensor, int]:
-    """(scratch, epoch) for one call of a one-sweep bucketing kernel on
-    the current stream: a zeroed uint8 tensor of at least need bytes kept
-    across calls (a tile counter, then the look-back's status words), and
-    the call's epoch in [1, 2^30 - 1], another than the call before's. Each
-    call tags its status words with its epoch and its tail kernel resets
-    the counter, so no call clears the scratch."""
-    key = (device.index, stream_ptr())
+def lookback_scratch(device: torch.device, need: int,
+                     name: str = "bucket") -> tuple[torch.Tensor, int]:
+    """(scratch, epoch) for one call of a look-back kernel on the current
+    stream: a zeroed uint8 tensor of at least need bytes kept across calls
+    (a tile counter, then the look-back's status words), and the call's
+    epoch in [1, 2^30 - 1], another than the call before's. Each call tags
+    its status words with its epoch and its last kernel resets the
+    counter, so no call clears the scratch. Kernels whose scratch holds
+    more than status words (the judge's segments) take a name of their
+    own, so that no status word is read where another kernel kept data."""
+    key = (device.index, stream_ptr(), name)
     ent = _LOOKBACK.get(key)
     if ent is None or ent[0].numel() < need:
         ent = _LOOKBACK[key] = [torch.zeros(need, dtype=torch.uint8, device=device),
@@ -233,10 +236,10 @@ def lookback_scratch(device: torch.device, need: int) -> tuple[torch.Tensor, int
     return ent[0], next(ent[1]) % _EPOCHS + 1
 
 
-def drop_lookback_scratch(device: torch.device) -> None:
+def drop_lookback_scratch(device: torch.device, name: str = "bucket") -> None:
     """Forget the current stream's scratch after a failed call: its tile
     counter may not have been reset."""
-    _LOOKBACK.pop((device.index, stream_ptr()), None)
+    _LOOKBACK.pop((device.index, stream_ptr(), name), None)
 
 
 def count_launch(name: str) -> None:

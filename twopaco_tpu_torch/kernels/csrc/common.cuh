@@ -24,9 +24,9 @@ inline unsigned tp_blocks(size_t n, size_t per_block) {
 }
 
 // Inclusive prefix sum of n u32 values (in may equal out). scratch holds
-// tp_scan_scratch_words(n) u32 words. Used by the judge (group ids, ranks,
-// compaction offsets), the round partition (block offsets) and the
-// stream compaction.
+// tp_scan_scratch_words(n) u32 words. Used by the round partition (block
+// offsets), the stream compaction and the Bloom engine's extract and
+// lookup.
 cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
                                   size_t n, uint32_t* scratch,
                                   cudaStream_t stream);
@@ -67,8 +67,8 @@ __device__ __forceinline__ uint32_t tp_rotl32(uint32_t x, uint32_t s) {
 }
 
 // The status words of a decoupled look-back (sort.cu's digit passes,
-// the owner bucketing below): relaxed loads and stores at device scope,
-// each word read and written whole.
+// the owner bucketing below, judge.cu's tile prefixes): relaxed loads and
+// stores at device scope, each word read and written whole.
 __device__ __forceinline__ uint64_t tp_load_relaxed(const uint64_t* p) {
     uint64_t v;
     asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"

@@ -2,8 +2,10 @@
 
 The port of twopaco_tpu/passes/sortpipe.py:453 judge_compact_fused and of
 its semantic twin :375 judge_records (per record, no compaction: the
-distributed step's judge). CUDA tensors go through kernels/csrc/judge.cu;
-CPU tensors through `judge_compact_plain` and `judge_records_plain`.
+distributed step's judge). CUDA tensors go through kernels/csrc/judge.cu
+(two launches a call, a kept look-back scratch of 140 bytes a tile of
+2048 records); CPU tensors through `judge_compact_plain` and
+`judge_records_plain`.
 
 Over records sorted by k-mer words, a group is the run of equal words.
 A group is a junction iff it is real (not the sentinel group) and has
@@ -33,6 +35,21 @@ def _empty(w: int, device):
         torch.empty(0, dtype=torch.int32, device=device),
         0, 0, 0,
     )
+
+
+def _scratch(lib, m: int, dev):
+    """(scratch, epoch) of a kernel call over m records: the judge's own
+    look-back scratch, kept across calls, 140 bytes a tile of 2048 records
+    (a flag, the tile's group segment and prefix, a rank)."""
+    if m >= 1 << 31:
+        raise ValueError(f"{m} records exceed the judge's u32 counts")
+    return build.lookback_scratch(dev, lib.tp_judge_scratch_bytes(m), "judge")
+
+
+def _check(rc: int, name: str, dev) -> None:
+    if rc != 0:
+        build.drop_lookback_scratch(dev, "judge")
+    build.check(rc, name)
 
 
 def _groups_plain(words, payload, abundance: int):
@@ -107,12 +124,9 @@ def judge_compact(words, payload, pos, abundance: int = NO_ABUNDANCE):
     m, w = words.shape
     if payload.shape != (m,) or pos.shape != (m,):
         raise ValueError("payload and pos must have one entry per record")
-    if m >= 1 << 31:
-        raise ValueError(f"{m} records exceed the judge's u32 scans")
     lib = build.lib()
     dev = words.device
-    work = torch.empty(9 * m, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.tp_scan_scratch_words(m), dtype=torch.int32, device=dev)
+    scratch, epoch = _scratch(lib, m, dev)
     table = torch.empty((m, w), dtype=torch.uint32, device=dev)
     occ_pos = torch.empty(m, dtype=torch.int64, device=dev)
     occ_id = torch.empty(m, dtype=torch.int32, device=dev)
@@ -120,11 +134,11 @@ def judge_compact(words, payload, pos, abundance: int = NO_ABUNDANCE):
     check_ab = abundance < NO_ABUNDANCE
     rc = lib.tp_judge_compact(
         words.data_ptr(), payload.data_ptr(), pos.data_ptr(), m, w,
-        int(check_ab), abundance if check_ab else 0,
-        *(t.data_ptr() for t in (work, scratch, table, occ_pos, occ_id, counts)),
+        int(check_ab), abundance if check_ab else 0, scratch.data_ptr(), scratch.numel(),
+        epoch, *(t.data_ptr() for t in (table, occ_pos, occ_id, counts)),
         build.stream_ptr(),
     )
-    build.check(rc, "judge_compact")
+    _check(rc, "judge_compact", dev)
     build.count_launch("judge_compact")
     n_groups, n_junc, n_occ = counts.tolist()
     return table[:n_junc], occ_pos[:n_occ], occ_id[:n_occ], n_groups, n_junc, n_occ
@@ -165,12 +179,9 @@ def judge_records(words, payload, abundance: int = NO_ABUNDANCE):
     m, w = words.shape
     if payload.shape != (m,):
         raise ValueError("payload must have one entry per record")
-    if m >= 1 << 31:
-        raise ValueError(f"{m} records exceed the judge's u32 scans")
     lib = build.lib()
     dev = words.device
-    work = torch.empty(9 * m, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.tp_scan_scratch_words(m), dtype=torch.int32, device=dev)
+    scratch, epoch = _scratch(lib, m, dev)
     keep_first = torch.empty(m, dtype=torch.bool, device=dev)
     keep = torch.empty(m, dtype=torch.bool, device=dev)
     ids = torch.empty(m, dtype=torch.int32, device=dev)
@@ -178,11 +189,11 @@ def judge_records(words, payload, abundance: int = NO_ABUNDANCE):
     check_ab = abundance < NO_ABUNDANCE
     rc = lib.tp_judge_records(
         words.data_ptr(), payload.data_ptr(), m, w, int(check_ab),
-        abundance if check_ab else 0,
-        *(t.data_ptr() for t in (work, scratch, keep_first, keep, ids, counts)),
+        abundance if check_ab else 0, scratch.data_ptr(), scratch.numel(), epoch,
+        *(t.data_ptr() for t in (keep_first, keep, ids, counts)),
         build.stream_ptr(),
     )
-    build.check(rc, "judge_records")
+    _check(rc, "judge_records", dev)
     build.count_launch("judge_records")
     n_groups, n_junc, n_occ = counts.tolist()
     return keep_first, keep, ids, n_groups, n_junc, n_occ

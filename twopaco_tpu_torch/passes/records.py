@@ -2,10 +2,13 @@
 
 The port of twopaco_tpu/passes/sortpipe.py:143 build_sort_records (and
 the append into the round buffer, :326 append_records). CUDA tensors go
-through the kernel in kernels/csrc/records.cu; CPU tensors through
-`build_sort_records_plain`, which computes the same function in plain
-PyTorch the way the JAX package does (packed k-mer words, prefix-XOR
-hash scans).
+through the kernel in kernels/csrc/records.cu, one launch a call:
+`build_sort_records` for one batch, `build_sort_records_batches` for a
+list of them (the sort engine's one-round buffer). CPU tensors go
+through `build_sort_records_plain`, which computes the same function in
+plain PyTorch the way the JAX package does (packed k-mer words,
+prefix-XOR hash scans), and its per-batch loop
+`build_sort_records_batches_plain`.
 """
 
 from __future__ import annotations
@@ -95,6 +98,46 @@ def build_sort_records_plain(
     return out
 
 
+def _check_batch(packed, nmask, valid, mask, k: int, P: int):
+    """The kernel's checks of one batch's upload form and gate."""
+    B = packed.shape[0]
+    build.require(packed, torch.uint32, "packed")
+    build.require(nmask, torch.uint32, "nmask")
+    build.require(valid, torch.int32, "valid")
+    R = P + k + 1
+    if packed.shape[1] * 16 < R or nmask.shape[1] * 32 < R or valid.shape != (B,):
+        raise ValueError(
+            f"batch shapes {tuple(packed.shape)}, {tuple(nmask.shape)}, "
+            f"{tuple(valid.shape)} do not hold rows of {R} chars"
+        )
+    if mask is not None:
+        build.require(mask, torch.uint8, "mask")
+        if P % 8 or mask.shape != (B, P // 8):
+            raise ValueError(f"mask: expected ({B}, {P // 8}) with P % 8 == 0, got "
+                             f"{tuple(mask.shape)} at P = {P}")
+
+
+def _check_out(out, n: int, w: int, dev):
+    """out, or new (words (n, w) uint32, payload (n,) uint32, pos (n,)
+    int64) on dev."""
+    if out is None:
+        return (
+            torch.empty((n, w), dtype=torch.uint32, device=dev),
+            torch.empty(n, dtype=torch.uint32, device=dev),
+            torch.empty(n, dtype=torch.int64, device=dev),
+        )
+    words, payload, pos = out
+    if words.shape != (n, w) or payload.shape != (n,) or pos.shape != (n,):
+        raise ValueError(f"out buffers do not match the call's {n} records of {w} words")
+    for t, dt, name in ((words, torch.uint32, "words"),
+                        (payload, torch.uint32, "payload"),
+                        (pos, torch.int64, "pos")):
+        build.require(t, dt, name)
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, batch on {dev}")
+    return out
+
+
 def build_sort_records(
     packed, nmask, valid, pos_base: int, *, k: int, P: int,
     low: int = 0, high: int = MASK32, out=None, mask=None,
@@ -114,7 +157,9 @@ def build_sort_records(
     gate, twopaco_tpu distpipe.py:168): a position whose bit is 0 becomes
     a sentinel row with payload 0 too.
     -> (words, payload = in | out<<8 | is_rc<<16 | real<<17, pos)
-    """
+
+    On the card: the one-batch form of the kernel's entry (the batch's
+    fields go as launch arguments; no table is copied)."""
     B = packed.shape[0]
     n, w = B * P, pack.n_words(k)
     gates = () if mask is None else (mask,)
@@ -123,43 +168,85 @@ def build_sort_records(
             packed, nmask, valid, pos_base, k=k, P=P, low=low, high=high,
             out=out, mask=mask,
         )
-    R = P + k + 1
-    build.require(packed, torch.uint32, "packed")
-    build.require(nmask, torch.uint32, "nmask")
-    build.require(valid, torch.int32, "valid")
-    if packed.shape[1] * 16 < R or nmask.shape[1] * 32 < R or valid.shape != (B,):
-        raise ValueError(
-            f"batch shapes {tuple(packed.shape)}, {tuple(nmask.shape)}, "
-            f"{tuple(valid.shape)} do not hold rows of {R} chars"
-        )
-    if mask is not None:
-        build.require(mask, torch.uint8, "mask")
-        if P % 8 or mask.shape != (B, P // 8):
-            raise ValueError(f"mask: expected ({B}, {P // 8}) with P % 8 == 0, got "
-                             f"{tuple(mask.shape)} at P = {P}")
-    dev = packed.device
-    if out is None:
-        out = (
-            torch.empty((n, w), dtype=torch.uint32, device=dev),
-            torch.empty(n, dtype=torch.uint32, device=dev),
-            torch.empty(n, dtype=torch.int64, device=dev),
-        )
-    words, payload, pos = out
-    if words.shape != (n, w) or payload.shape != (n,) or pos.shape != (n,):
-        raise ValueError("out buffers do not match the batch's B*P records")
-    for t, dt, name in ((words, torch.uint32, "words"),
-                        (payload, torch.uint32, "payload"),
-                        (pos, torch.int64, "pos")):
-        build.require(t, dt, name)
-        if t.device != dev:
-            raise ValueError(f"{name}: on {t.device}, batch on {dev}")
+    _check_batch(packed, nmask, valid, mask, k, P)
+    words, payload, pos = out = _check_out(out, n, w, packed.device)
     rc = build.lib().tp_build_records(
-        packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, P, k,
-        packed.shape[1], nmask.shape[1], int(pos_base), int(low), int(high),
-        *bz.TABLE_1, mask.data_ptr() if mask is not None else None,
-        words.data_ptr(), payload.data_ptr(), pos.data_ptr(),
-        build.stream_ptr(),
+        None, 1, n, packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(),
+        mask.data_ptr() if mask is not None else None, B, packed.shape[1],
+        nmask.shape[1], int(pos_base), P, k, int(low), int(high), *bz.TABLE_1,
+        words.data_ptr(), payload.data_ptr(), pos.data_ptr(), build.stream_ptr(),
     )
     build.check(rc, "build_sort_records")
+    build.count_launch("build_records")
+    return out
+
+
+def _batch_spans(uploads, bases, P: int):
+    """-> (n: the records of the call, max_pos: the most of one batch);
+    raises unless each batch's span [base, base + B*P) lies in [0, n)
+    and no two overlap, with n the end of the last span."""
+    if not uploads or len(uploads) != len(bases):
+        raise ValueError(f"{len(uploads)} batches with {len(bases)} bases")
+    spans = sorted((int(b), int(b) + u[0].shape[0] * P) for u, b in zip(uploads, bases))
+    if spans[0][0] < 0 or any(e > s for (_b, e), (s, _e) in zip(spans, spans[1:])):
+        raise ValueError("the batches' record spans overlap or start below 0")
+    return spans[-1][1], max(e - s for s, e in spans)
+
+
+def build_sort_records_batches_plain(
+    uploads, bases, *, k: int, P: int, low: int = 0, high: int = MASK32, out=None,
+    masks=None,
+):
+    """Plain PyTorch version of build_sort_records_batches: the per-batch
+    plain function into each batch's span (any device)."""
+    n, _mx = _batch_spans(uploads, bases, P)
+    out = _check_out(out, n, pack.n_words(k), uploads[0][0].device)
+    for b, ((packed, nmask, valid), base) in enumerate(zip(uploads, bases)):
+        nb = packed.shape[0] * P
+        build_sort_records_plain(
+            packed, nmask, valid, base, k=k, P=P, low=low, high=high,
+            out=tuple(t[base : base + nb] for t in out),
+            mask=None if masks is None else masks[b],
+        )
+    return out
+
+
+def build_sort_records_batches(
+    uploads, bases, *, k: int, P: int, low: int = 0, high: int = MASK32, out=None,
+    masks=None,
+):
+    """build_sort_records over a list of (packed, nmask, valid) batches on
+    one device, in one launch (the one-round buffer of the sort engine).
+
+    bases: each batch's flat position base; batch b's records go to rows
+    [bases[b], bases[b] + B_b*P) of out, whose positions are those row
+    indices (the round buffer's layout at row0 * P). The spans must not
+    overlap; rows of out outside every span are left as they are. out:
+    optional (words (n, w), payload (n,), pos (n,)) with n the end of the
+    last span (allocated when None). masks: optional per-batch candidate
+    masks, as build_sort_records' mask.
+    -> out"""
+    n, max_pos = _batch_spans(uploads, bases, P)
+    gates = () if masks is None else tuple(masks)
+    if build.on_cpu(*(t for u in uploads for t in u), *gates):
+        return build_sort_records_batches_plain(
+            uploads, bases, k=k, P=P, low=low, high=high, out=out, masks=masks)
+    dev = uploads[0][0].device
+    words, payload, pos = out = _check_out(out, n, pack.n_words(k), dev)
+    rows = []
+    for b, ((packed, nmask, valid), base) in enumerate(zip(uploads, bases)):
+        mask = None if masks is None else masks[b]
+        _check_batch(packed, nmask, valid, mask, k, P)
+        rows.append((packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(),
+                     0 if mask is None else mask.data_ptr(), packed.shape[0],
+                     packed.shape[1], nmask.shape[1], int(base), int(base)))
+    # pinned, so that the copy needs no wait for the stream's earlier work
+    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    rc = build.lib().tp_build_records(
+        table.data_ptr(), len(rows), max_pos, None, None, None, None, 0, 0, 0, 0, P, k,
+        int(low), int(high), *bz.TABLE_1, words.data_ptr(), payload.data_ptr(),
+        pos.data_ptr(), build.stream_ptr(),
+    )
+    build.check(rc, "build_sort_records_batches")
     build.count_launch("build_records")
     return out

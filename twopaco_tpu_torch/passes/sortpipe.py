@@ -18,7 +18,7 @@ Rounds split the hash space (the reference's -r semantics), so a round
 holds about 1/R of the records. How a round's buffer is filled is the
 mode:
   - one round: every batch's records straight into the buffer at
-    row0 * P (passes/records.py);
+    row0 * P, in one call (passes/records.py);
   - resident: every record built once and split into per-round blocks
     held on the device (passes/partition.py); each round gathers its
     blocks;
@@ -80,6 +80,7 @@ class Ops:
     plain PyTorch versions."""
 
     build: Callable
+    build_batches: Callable
     sort: Callable
     judge: Callable
     partition: Callable
@@ -90,13 +91,15 @@ class Ops:
 
 
 KERNELS = Ops(
-    records.build_sort_records, sort.sort_records, judge.judge_compact,
+    records.build_sort_records, records.build_sort_records_batches, sort.sort_records,
+    judge.judge_compact,
     partition.partition_batch, partition.assemble_round,
     stream.compact_append, histogram.histogram_vertex_hashes_batches,
     occ.sort_occurrences,
 )
 PLAIN = Ops(
-    records.build_sort_records_plain, sort.sort_records_plain,
+    records.build_sort_records_plain, records.build_sort_records_batches_plain,
+    sort.sort_records_plain,
     judge.judge_compact_plain, partition.partition_batch_plain,
     partition.assemble_round_plain, stream.compact_append_plain,
     histogram.histogram_vertex_hashes_batches_plain, occ.sort_occurrences_plain,
@@ -123,12 +126,11 @@ def slot_bytes(w: int) -> int:
     with the sort's work (sort.work_bytes: two buffers of keys and of what
     travels with them, 40 bytes for w <= 2, 24 past it, and 2/3 of a byte
     of look-back status rounded up to 1, whose remainder covers the 4 KiB a
-    word of histograms in any round of a batch or more); or the judge's 36
-    bytes of work with the record and its table and occurrence outputs,
-    whichever is larger."""
+    word of histograms in any round of a batch or more). The judge needs
+    less at every w: the sorted record, its table and occurrence outputs
+    (4w + 12 again) and 140 bytes of scratch a tile of 2048 records."""
     rec = 4 * w + 12
-    sort_slot = (40 if w <= 2 else 24) + -(-256 * 8 // sort.SORT_TILE)
-    return max(2 * rec + sort_slot, rec + 36 + 4 * w + 12)
+    return 2 * rec + (40 if w <= 2 else 24) + -(-256 * 8 // sort.SORT_TILE)
 
 
 def block_bytes(w: int) -> int:
@@ -550,14 +552,7 @@ def build_junctions_sorted(
             pidx = r if resident else part_of_round[r]
             buf = ops.assemble(pidx, *blocks, bases_d, buf_slots)
         elif len(intervals) == 1:
-            buf = (
-                torch.empty((n_slots, w), dtype=torch.uint32, device=dev),
-                torch.empty(n_slots, dtype=torch.uint32, device=dev),
-                torch.empty(n_slots, dtype=torch.int64, device=dev),
-            )
-            for (codes_p, nmask, valid), off in zip(uploads, bases):
-                out = tuple(t[off : off + bp] for t in buf)
-                ops.build(codes_p, nmask, valid, off, k=k, P=P, low=low, high=high, out=out)
+            buf = ops.build_batches(uploads, bases, k=k, P=P, low=low, high=high)
         else:
             *buf, over = stream.stream_round(
                 uploads, bases, low, high, k=k, P=P, buf_slots=buf_slots,

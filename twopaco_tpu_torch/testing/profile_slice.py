@@ -4,14 +4,14 @@ the port, by torch.profiler.
     python -m twopaco_tpu_torch.testing.profile_slice --engine dist-bloom --shards 4 -f 30
 
 The slice is chip_smoke.py's: 8 genomes x 8,000,000 bases (seed 2016,
-testing/bench_data.py), k=25, the CLI's tier (P=2048, B=256). The engine
-runs twice on one CUDA device (the first run builds the kernels and warms
-the context) and the second is profiled: printed are its host wall
-seconds, the device seconds (the sum of the device-side events' time:
-kernels, copies, memsets; the host-side operators that launched them are
-not counted again), the busy share (device over wall), and the
-kernels that took the most device time, with the card's name and power
-limit. The dist engines run over a LocalMesh of --shards shards of the
+testing/bench_data.py), k=25 (or -k), the CLI's tier (P=2048, B=256).
+The engine runs twice on one CUDA device (the first run builds the
+kernels and warms the context) and the second is profiled: printed are
+its host wall seconds, the device seconds (the sum of the device-side
+events' time: kernels, copies, memsets; the host-side operators that
+launched them are not counted again), the busy share (device over wall),
+and the kernels that took the most device time, with the card's name and
+power limit. The dist engines run over a LocalMesh of --shards shards of the
 card. Needs a CUDA device.
 """
 
@@ -38,6 +38,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--engine", choices=ENGINES, default="dist-bloom")
     p.add_argument("--shards", type=int, default=4, help="dist engines: shards of the card")
+    p.add_argument("-k", type=int, default=25, help="k-mer length")
     p.add_argument("-f", "--filter-bits", type=int, default=30)
     p.add_argument("-r", "--rounds", type=int, default=1)
     p.add_argument("--work", default=os.path.join("chip_smoke_work", "profile"),
@@ -63,7 +64,7 @@ def main(argv=None) -> int:
     if not os.path.exists(fa):
         bench_data.write_bench_fasta(fa, 8, 8_000_000, 2016)
     out = os.path.join(args.work, "profile.dbg")
-    cfg = PipelineConfig(k=25, rounds=args.rounds, filter_bits=args.filter_bits,
+    cfg = PipelineConfig(k=args.k, rounds=args.rounds, filter_bits=args.filter_bits,
                          positions_per_row=2048, rows_per_batch=256, engine=args.engine)
 
     def run():
@@ -87,7 +88,8 @@ def main(argv=None) -> int:
     device_us = sum(e.self_device_time_total for e in events)
     card = card_line()
     shards = f", {args.shards} shards" if args.engine.startswith("dist") else ""
-    print(f"profile {args.engine} -f {args.filter_bits} -r {args.rounds}{shards} [{card}]: "
+    print(f"profile {args.engine} -k {args.k} -f {args.filter_bits} -r {args.rounds}{shards} "
+          f"[{card}]: "
           f"wall {wall:.3f} s, device {device_us / 1e3:.1f} ms, "
           f"busy {100 * device_us / 1e6 / wall:.1f}%")
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[: args.top]
