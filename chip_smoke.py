@@ -33,17 +33,20 @@
    launch its mode's kernels and write the -r 1 run's bytes; then -r 4
    resident through the plain versions on the card, the same bytes again;
 7. holds the Bloom engine's four kernels (fill, mark, extract, lookup)
-   against their plain versions at one slice batch: fill (the whole
-   slice's filter, each version filling its own) and mark in the byte
+   against their plain versions: fill and mark first on the slice's
+   round, its 123 batches in one launch each (as the main path calls
+   them; the fill timed into a zeroed filter, each version filling its
+   own), then on one batch against the whole slice's filter, in the byte
    layout at f=30, the bit layout at f=34 (64-bit probe indices) and the
-   block layout at f=30, extract on the byte mask, lookup against the
+   block layout at f=30; extract on the byte mask, lookup against the
    slice's junction table;
 8. runs the slice through the Bloom engine (`--tpu-engine bloom`): -f 30
    (auto: byte), --tpu-layout bit -f 34, --tpu-layout block -f 30, and
    -f 30 -r 4, each with the counters reset just before and read just
    after; each must launch the Bloom kernels and the sort and judge of
-   its verify pass and write SLICE_SHA256; then a Bloom run through the
-   plain versions on the card, the same bytes again;
+   its verify pass, the fill and the mark exactly once a round, and write
+   SLICE_SHA256; then a Bloom run through the plain versions on the card,
+   the same bytes again;
 9. holds the distributed engine's four kernels against their plain
    versions at the slice's shapes: the word0 histogram of shard 0's 123
    batches in one launch (as the path measures it) and of one batch;
@@ -92,7 +95,8 @@
    plain versions.
 
 Every kernel comparison also prints the kernel's bound (the larger of the
-bytes it must move over 3.35 TB/s and its integer operations over 67 T/s)
+bytes it must move over 3.35 TB/s, a random filter access counted as the
+32-byte sector it moves, and its integer operations over 67 T/s)
 and, where one PyTorch call computes the same function, that call's time.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -331,6 +335,62 @@ def records_ops(n_pos: int, n_rows: int, k: int) -> int:
     return n_rows * 6 * k + n_pos * 20
 
 
+SECTOR = 32  # bytes that a random filter access moves
+
+
+def bloom_ops(n_pos: int, k: int, nt: int, q: int, edges: int) -> int:
+    """Integer operations of a Bloom pass rolled along runs of 8 positions:
+    a run's first window from scratch (4 a char a table), then per position
+    the rolled strand hashes (8 a table), the edges' hashes (5 a table an
+    edge) and their q indices (3 an index)."""
+    return n_pos // 8 * nt * 4 * k + n_pos * (nt * (8 + 5 * edges) + 3 * q * edges)
+
+
+def fill_sectors(upload, gate, cfg) -> int:
+    """The random filter sectors a batch's fill needs: one a slot it sets
+    (byte, bit: each (position, edge, hash) slot), or one a block a position
+    writes (block: block(V) and block(V_next))."""
+    from twopaco_tpu_torch.passes import fill
+
+    codes = fill.batch_codes(upload[0], upload[1], cfg)
+    if cfg.layout == "block":
+        val = fill.fill_indices_block(codes, upload[2], *gate, cfg)[2]
+        return int((val[..., 0] | val[..., 2:].any(-1)).sum() + val[..., 1].sum())
+    return int(fill.fill_indices(codes, upload[2], *gate, cfg)[1].sum())
+
+
+def mark_sectors(filt, upload, gate, cfg) -> int:
+    """The random filter sectors a batch's mark reads against filt, in the
+    kernel's order: a position in the round with prev and next ACGT reads
+    slot 0 of its six other edges, then slot j of each edge whose slots 0 ..
+    j-1 are set (byte, bit), or V's block once (block)."""
+    import torch
+
+    from twopaco_tpu_torch.ops import bloom
+    from twopaco_tpu_torch.passes import fill, mark
+
+    codes = fill.batch_codes(upload[0], upload[1], cfg)
+    if cfg.layout == "block":
+        _b, _bits, base, prev, nxt = mark.mark_indices_block(codes, upload[2], *gate, cfg)
+        return int((base & (prev < 4) & (nxt < 4)).sum())
+    idx, base, prev, nxt = mark.mark_indices(codes, upload[2], *gate, cfg)
+    slot_set = bloom.probe(filt, idx, cfg.layout)
+    c = torch.arange(4, device=idx.device)
+    alive = torch.cat([c != prev[..., None], c != nxt[..., None]], dim=-1)
+    alive &= (base & (prev < 4) & (nxt < 4))[..., None]
+    reads = 0
+    for j in range(cfg.q):
+        reads += int(alive.sum())
+        alive &= slot_set[..., j]
+    return reads
+
+
+def flat(marked):
+    """A round mark's (masks, counts) as one tuple of tensors."""
+    masks, counts = marked
+    return (*masks, counts)
+
+
 def exact(name, kernel, plain, results, what=""):
     """kernel and plain on the same inputs, untimed: exact agreement,
     recorded beside the name's timed compares."""
@@ -343,13 +403,34 @@ def exact(name, kernel, plain, results, what=""):
     print(f"exact {name} {what}")
 
 
+def timed_each(prepare, fn, reps: int):
+    """Mean ms of fn() over reps runs, prepare() before each outside the
+    timing (CUDA events around each run)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        prepare()
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def compare(name, kernel, plain, reps, results, in_bytes=0, ops=0, out_bytes=None,
-            library=None):
+            library=None, prepare=None):
     """Run kernel and plain on the same inputs: exact agreement, and
     times taken in turns (plain, kernel, kernel, plain). The bound counts
     in_bytes read, out_bytes written (default: the kernel's outputs) and
     ops integer operations; library: one PyTorch call computing the same
-    function, timed beside them (never used by the port)."""
+    function, timed beside them (never used by the port); prepare: (for
+    kernel, for plain), each run before each of its function's timed calls,
+    outside the time (a fill into a zeroed filter)."""
     import torch
 
     got = kernel()
@@ -358,10 +439,18 @@ def compare(name, kernel, plain, reps, results, in_bytes=0, ops=0, out_bytes=Non
     require(err == 0, f"{name}: kernel disagrees with its plain version (max abs err {err})")
     bound_ms, bound_by = bound(in_bytes + (nbytes(got) if out_bytes is None else out_bytes), ops)
     del got
-    p1 = timed(plain, reps)
-    k1 = timed(kernel, reps)
-    k2 = timed(kernel, reps)
-    p2 = timed(plain, reps)
+    if prepare is None:
+        t_kernel = t_plain = timed
+    else:
+        def t_kernel(fn, n):
+            return timed_each(prepare[0], fn, n)
+
+        def t_plain(fn, n):
+            return timed_each(prepare[1], fn, n)
+    p1 = t_plain(plain, reps)
+    k1 = t_kernel(kernel, reps)
+    k2 = t_kernel(kernel, reps)
+    p2 = t_plain(plain, reps)
     lib_ms = timed(library, reps) if library is not None else None
     results.setdefault(name, []).append(dict(
         max_abs_err=err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
@@ -975,47 +1064,57 @@ def main() -> int:
     print(f"plain-version -r {ROUNDS} run: {time.time() - t0:.3f} s wall {label}")
     require(sha256(out_ref) == slice_sha, f"-r {ROUNDS} plain run .dbg differs")
 
-    phase("Bloom kernels vs plain versions (one slice batch)")
+    phase("Bloom kernels vs plain versions (the slice's round, then one batch)")
     bcfgs = {
         "byte": PassConfig(k=k, f=30, layout="byte", positions_per_row=P, rows_per_batch=B),
         "bit": PassConfig(k=k, f=34, layout="bit", positions_per_row=P, rows_per_batch=B),
         "block": PassConfig(k=k, f=30, layout="block", positions_per_row=P, rows_per_batch=B),
     }
     full = (0, 0xFFFFFFFF)
-    uploads = [upload(b) for b in batches[1:]]
+    uploads = [upload(b) for b in batches]
     for lay, bcfg in bcfgs.items():
         filt_k = bloom.make_filter(bcfg.f, lay, dev)
         filt_p = bloom.make_filter(bcfg.f, lay, dev)
-        # the rest of the slice first, each filter by its own version, so
-        # that batch 0 is marked against the whole input's filter
-        for u in uploads:
-            fill.bloom_fill(filt_k, *u, *full, cfg=bcfg)
-            fill.bloom_fill_plain(filt_p, *u, *full, cfg=bcfg)
-        # the bound's filter traffic: one slot a distinct insert (fill), one
-        # probe a position in the round (mark); hashing: 4 operations a char
-        # a table
-        codes0 = fill.batch_codes(args[0], args[1], bcfg)
-        slot_b = 1 if lay == "byte" else 4
-        if lay == "block":
-            n_ins = int(fill.fill_indices_block(codes0, args[2], *full, bcfg)[2].sum()) * bcfg.q
-        else:
-            n_ins = int(fill.fill_indices(codes0, args[2], *full, bcfg)[1].sum())
-        n_base = int(mark.mark_common(codes0, args[2], *full, bcfg, fill.ALL_TABLES[:1])[2].sum())
-        hash_ops = B * P * len(fill.tables(bcfg)) * 4 * k
-        del codes0
-        # OR is idempotent: every repeat of a fill leaves the same filter
+        nt = len(fill.tables(bcfg))
+        # the main path's calls first (their times are the ones reported):
+        # the round's fill of every batch in one launch, each repeat into a
+        # zeroed filter (the zeroing untimed), then its mark
+        n_ins = sum(fill_sectors(u, full, bcfg) for u in uploads)
+        compare("bloom_fill",
+                lambda: (fill.bloom_fill_batches(filt_k, uploads, *full, cfg=bcfg),),
+                lambda: (fill.bloom_fill_batches_plain(filt_p, uploads, *full, cfg=bcfg),),
+                2, results, in_bytes=nbytes(uploads), out_bytes=n_ins * SECTOR,
+                ops=bloom_ops(n_slots, k, nt, bcfg.q, 1),
+                prepare=(filt_k.zero_, filt_p.zero_))
+        n_reads = sum(mark_sectors(filt_k, u, full, bcfg) for u in uploads)
+        compare("bloom_mark",
+                lambda: flat(mark.bloom_mark_batches(filt_k, uploads, *full, cfg=bcfg)),
+                lambda: flat(mark.bloom_mark_batches_plain(filt_k, uploads, *full, cfg=bcfg)),
+                2, results, in_bytes=nbytes(uploads) + n_reads * SECTOR,
+                ops=bloom_ops(n_slots, k, nt, bcfg.q, 6))
+        _m, rcounts = mark.bloom_mark_batches(filt_k, uploads, *full, cfg=bcfg)
+        print(f"Bloom {lay} f={bcfg.f} round: {len(uploads)} batches in one launch each; "
+              f"{n_ins} slot (block) inserts, {n_reads} filter sectors read by the mark, "
+              f"{int(rcounts.sum())} candidates of {n_slots} positions {label}")
+        del _m, rcounts
+        # one batch (batch 0), against the whole slice's filter (OR is
+        # idempotent: every repeat leaves the same filter)
         compare("bloom_fill",
                 lambda: (fill.bloom_fill(filt_k, *args, *full, cfg=bcfg),),
                 lambda: (fill.bloom_fill_plain(filt_p, *args, *full, cfg=bcfg),),
-                5, results, in_bytes=nbytes(args), out_bytes=n_ins * slot_b, ops=hash_ops)
+                5, results, in_bytes=nbytes(args),
+                out_bytes=fill_sectors(args, full, bcfg) * SECTOR,
+                ops=bloom_ops(B * P, k, nt, bcfg.q, 1))
         del filt_p
         compare("bloom_mark",
                 lambda: mark.bloom_mark(filt_k, *args, *full, cfg=bcfg),
                 lambda: mark.bloom_mark_plain(filt_k, *args, *full, cfg=bcfg),
-                5, results, in_bytes=nbytes(args) + n_base * slot_b, ops=hash_ops)
+                5, results,
+                in_bytes=nbytes(args) + mark_sectors(filt_k, args, full, bcfg) * SECTOR,
+                ops=bloom_ops(B * P, k, nt, bcfg.q, 6))
         bmask, bcount = mark.bloom_mark(filt_k, *args, *full, cfg=bcfg)
         print(f"Bloom {lay} f={bcfg.f}: filter {filt_k.numel() * filt_k.element_size()} "
-              f"bytes, {int(bcount)} candidates of {B * P} positions")
+              f"bytes, batch 0: {int(bcount)} candidates of {B * P} positions")
         if lay == "byte":
             mask0, count0 = bmask, int(bcount)
         del filt_k, bmask
@@ -1055,6 +1154,9 @@ def main() -> int:
             require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
         require(f"({layout} layout)" in text, f"{tag}: not the {layout} layout")
         n_rounds = ROUNDS if "-r" in flags else 1
+        for name in ("bloom_fill", "bloom_mark"):
+            require(launches[tag][name] == n_rounds,
+                    f"{tag}: {launches[tag][name]} {name} launches, not one a round")
         require(sum(line.startswith("Round ") and "seconds" in line
                     for line in text.splitlines()) == n_rounds, f"{tag}: not {n_rounds} rounds")
         for line in text.splitlines():
@@ -1179,7 +1281,6 @@ def main() -> int:
         per = rows_b // n_sh
         n_pos = per * P
         nt = 4 if f_bits > 32 else 2
-        slot_b = 1 if lay == "byte" else 4
 
         def shard_batch(u):
             return {s: tuple(a[s * per : (s + 1) * per] for a in u) for s in meshc.shards}
@@ -1256,12 +1357,13 @@ def main() -> int:
         del sends
         valid_f = recv_f[recv_f != shardbloom.SENT]
         fk, fp = torch.zeros_like(filt[0]), torch.zeros_like(filt[0])
-        # the bound under the prefix rows: the sent slots read and set, and
-        # one 32-byte sector a block of FILL_CHUNK slots (its first slot)
+        # the bound under the prefix rows: the sent slots read (8 bytes) and
+        # set (a random 32-byte filter sector each), and one 32-byte sector
+        # a block of FILL_CHUNK slots (its first slot)
         chunks = n_sh * -(-cap_f // FILL_CHUNK)
         compare("shard_fill", lambda: (shardbloom.fill_local(fk, recv_f, lay),),
                 lambda: (shardbloom.fill_local_plain(fp, recv_f, lay),), 5, results,
-                in_bytes=valid_f.numel() * 8 + chunks * 32, out_bytes=valid_f.numel() * slot_b,
+                in_bytes=valid_f.numel() * 8 + chunks * 32, out_bytes=valid_f.numel() * SECTOR,
                 library=(lambda: fp.index_fill_(0, valid_f, 1)) if lay == "byte" else None)
         if lay == "byte":
             fresh_fill_times(tag=f"shard_fill {lay} f={f_bits} D={n_sh}", filt=fk,
@@ -1280,25 +1382,23 @@ def main() -> int:
         valid_m = r0[r0 != shardbloom.SENT]
         n_sent = valid_m.numel()
         # the bound under the prefix rows: the sent slots read (8 bytes and
-        # their filter slot), every hit written, and one 32-byte sector a
-        # block of PROBE_CHUNK slots (its first slot)
+        # their random 32-byte filter sector), every hit written, and one
+        # 32-byte sector a block of PROBE_CHUNK slots (its first slot)
         # (50 calls a timing, so that the host time before the first
         # launch, more for the wrapper than for index_select, is spread thin)
         p_chunks = n_sh * -(-cap_m // PROBE_CHUNK)
         compare("shard_probe", lambda: (shardbloom.probe_local(filt[0], r0, lay),),
                 lambda: (shardbloom.probe_local_plain(filt[0], r0, lay),), 50, results,
-                in_bytes=n_sent * (8 + slot_b) + p_chunks * 32,
+                in_bytes=n_sent * (8 + SECTOR) + p_chunks * 32,
                 library=(lambda: filt[0].index_select(0, valid_m)) if lay == "byte" else None)
-        print(f"shard_probe {lay} f={f_bits} D={n_sh}: {n_sent} sent of {r0.numel()} slots; "
-              f"their random filter sectors, {n_sent} x 32 B over 3.35 TB/s: "
-              f"{n_sent * 32 / HBM_BYTES_PER_S * 1e3:.4f} ms (beside the bound)")
+        print(f"shard_probe {lay} f={f_bits} D={n_sh}: {n_sent} sent of {r0.numel()} slots")
         if n_sh == D4:
             for off, cap_h in ((0, cap_m), (1, cap_m + 5)):
                 blk = prefix_block(f_bits + off, n_sh, cap_h, scfg.local_slots, dev, off)
                 sent_h = int((blk != shardbloom.SENT).sum())
                 compare("shard_probe", lambda: (shardbloom.probe_local(filt[0], blk, lay),),
                         lambda: (shardbloom.probe_local_plain(filt[0], blk, lay),), 2, results,
-                        in_bytes=sent_h * (8 + slot_b) + n_sh * -(-cap_h // PROBE_CHUNK) * 32)
+                        in_bytes=sent_h * (8 + SECTOR) + n_sh * -(-cap_h // PROBE_CHUNK) * 32)
                 print(f"shard_probe {lay} f={f_bits}: hand-made prefix rows, cap {cap_h}, "
                       f"offset {8 * off} bytes, {sent_h} sent: exact")
                 del blk

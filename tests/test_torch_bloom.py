@@ -220,6 +220,120 @@ def test_fill_and_mark(layout, k):
         assert int(jcount) == int(tcount) > 0
 
 
+def _uneven_batches(k, seed, rows=(4, 2, 4, 1)):
+    """A round's table of uneven batches: rows of related genome windows
+    with N runs (1 to k + 3 chars), each batch with its own row count and
+    valid counts (a full row, a row with valid 0, short ones). -> [(codes
+    (B_b, R) uint8, valid (B_b,) int32)]."""
+    rng = np.random.default_rng(seed * 1000 + k)
+    R = P + k + 1
+    base = rng.integers(0, 4, size=2 * R).astype(np.uint8)
+    out = []
+    for b, nr in enumerate(rows):
+        codes = np.stack([base[s : s + R] for s in rng.integers(0, R, size=nr)])
+        flip = rng.random(codes.shape) < 0.02
+        codes[flip] = rng.integers(0, 4, size=int(flip.sum()))
+        for r in range(nr):
+            for _ in range(3):
+                s = int(rng.integers(0, R))
+                codes[r, s : s + int(rng.integers(1, k + 4))] = 4
+        valid = rng.integers(0, P + 1, size=nr).astype(np.int32)
+        valid[0] = P
+        if b == 0:
+            valid[1] = 0
+        out.append((codes, valid))
+    return out
+
+
+@pytest.mark.parametrize("layout,f", [("byte", F), ("bit", 34), ("block", F)])
+@pytest.mark.parametrize("k", [7, 25, 101])
+def test_fill_mark_batches_match_jax(layout, f, k):
+    """bloom_fill_batches and bloom_mark_batches (their plain versions on
+    the CPU) equal pass1_fill and pass2_mark applied batch by batch, over a
+    table of uneven batches (row counts 4, 2, 4, 1; a row with valid 0,
+    short valid counts, N runs), at the full and at a sub-interval gate:
+    the filter (f = 34: 64-bit indices) and every mask and count exact."""
+    batches = _uneven_batches(k, seed=len(layout))
+    uploads = [_forms(c, v)[2] for c, v in batches]
+    # JAX takes each batch padded to B rows of valid 0 (one compile): a row
+    # of valid 0 inserts and marks nothing
+    jforms = [_forms(np.pad(c, ((0, B - len(c)), (0, 0))), np.pad(v, (0, B - len(v))))[:2]
+              for c, v in batches]
+    jcfg, tcfg = _cfgs(k, layout, f)
+    for low, high in (FULL, SUB):
+        jfilt = jbloom.make_filter(f, layout)
+        for jcodes, jvalid in jforms:
+            jfilt = jk.pass1_fill(jfilt, jcodes, jvalid, jnp.uint32(low), jnp.uint32(high),
+                                  cfg=jcfg)
+        tfilt = fill.bloom_fill_batches(bloom.make_filter(f, layout, "cpu"), uploads, low,
+                                        high, cfg=tcfg)
+        jview = torch.from_numpy(np.asarray(jfilt).view(np.int8))
+        assert torch.equal(tfilt.view(torch.int8), jview) and bool(jview.any())
+        del jview
+        masks, counts = mark.bloom_mark_batches(tfilt, uploads, low, high, cfg=tcfg)
+        del tfilt
+        assert counts.dtype == torch.int64 and counts.shape == (len(batches),)
+        for (jcodes, jvalid), m, c in zip(jforms, masks, counts):
+            jmask, jcount = jk.pass2_mark(jfilt, jcodes, jvalid, jnp.uint32(low),
+                                          jnp.uint32(high), cfg=jcfg)
+            assert m.shape == (len(m), P // 8)
+            assert np.array_equal(np.asarray(jmask)[: len(m)], m.numpy())
+            assert not np.asarray(jmask)[len(m) :].any() and int(jcount) == int(c)
+        assert int(counts.sum()) > 0
+        del jfilt
+
+
+def _probe_order(slot_hits, prev, nxt, base):
+    """A model of bloom_mark.cu's probe order: a position in the round whose
+    prev or next is N is a candidate with no read; else slot 0 of the six
+    edges c·V (c != prev) and V·c (c != next) is read, together, then slot
+    1 of the edges whose slot 0 is set, together, and so on; the position is
+    a candidate when an edge has all q slots set. slot_hits (n, 8, q) bool:
+    what each slot would read. -> (candidates (n,) bool, reads (n, q): the
+    slots read at each step)."""
+    n, _e, q = slot_hits.shape
+    cand, reads = np.zeros(n, bool), np.zeros((n, q), np.int64)
+    for t in range(n):
+        if not base[t]:
+            continue
+        if prev[t] >= 4 or nxt[t] >= 4:
+            cand[t] = True
+            continue
+        alive = [c for c in range(4) if c != prev[t]] + [4 + c for c in range(4) if c != nxt[t]]
+        for j in range(q):
+            reads[t, j] = len(alive)
+            alive = [e for e in alive if slot_hits[t, e, j]]
+        cand[t] = bool(alive)
+    return cand, reads
+
+
+@pytest.mark.parametrize("density", [0.2, 0.7, 0.95])
+@pytest.mark.parametrize("q", [1, 5])
+def test_probe_order_matches_mark_decide(density, q):
+    """The kernel's probe order decides as mark_decide does on the hits of
+    every edge; it reads slot 0 of six edges a definite position, and slot
+    j of an edge only when its slots 0 .. j-1 are set."""
+    rng = np.random.default_rng(int(density * 100) + q)
+    n = 4000
+    slot_hits = rng.random((n, 8, q)) < density
+    prev, nxt = rng.integers(0, 5, size=n), rng.integers(0, 5, size=n)
+    base = rng.random(n) < 0.9
+    cand, reads = _probe_order(slot_hits, prev, nxt, base)
+    want = mark.mark_decide(torch.from_numpy(slot_hits.all(-1))[None],
+                            torch.from_numpy(base)[None], torch.from_numpy(prev)[None],
+                            torch.from_numpy(nxt)[None])[0].numpy()
+    assert np.array_equal(cand, want) and cand.any()
+    definite = base & (prev < 4) & (nxt < 4)
+    assert (reads[definite, 0] == 6).all() and (reads[~definite] == 0).all()
+    # slot j is read for the definite positions' edges with slots 0 .. j-1 set
+    own = np.zeros((n, 8), bool)
+    own[np.arange(n), prev.clip(max=3)] = True
+    own[np.arange(n), 4 + nxt.clip(max=3)] = True
+    for j in range(1, q):
+        set_before = (slot_hits[:, :, :j].all(-1) & ~own).sum(1)
+        assert np.array_equal(reads[definite, j], set_before[definite])
+
+
 def test_pack_mask_round_trip():
     rng = np.random.default_rng(4)
     m = rng.random((3, 64)) < 0.3

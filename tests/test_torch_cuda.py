@@ -449,6 +449,61 @@ def test_bloom_fill_mark_kernels(dev, layout, f, k, gate):
     assert torch.equal(mk, mp) and int(ck) == int(cp) > 0
 
 
+# (layout, f): the slice's byte and block filters (f = 30), bit at f = 34
+# and 35 (64-bit indices; 35 is the layout's largest), and small filters
+# whose many set slots send most first-slot hits on to the later slots
+BLOOM_ROUND_CASES = [("byte", 30), ("bit", 34), ("bit", 35), ("block", 30), ("byte", 14),
+                     ("block", 12)]
+
+
+@pytest.mark.parametrize("layout,f", BLOOM_ROUND_CASES)
+@pytest.mark.parametrize("k", [25, 101, 129])
+@pytest.mark.parametrize("gate", ["full", "narrow"])
+def test_bloom_round_kernels(dev, layout, f, k, gate):
+    """bloom_fill_batches and bloom_mark_batches: one launch each over a
+    table of uneven batches (row counts 16, 8, 16, 3 and a short last batch
+    of 1; N runs, short valid counts, a row of valid 0): the filter equal
+    to the per-batch plain fill's bit for bit, every mask and count equal
+    to the per-batch plain mark's."""
+    rng = np.random.default_rng(f * 1000 + k * 3 + len(gate))
+    P = 512
+    rows = [16, 8, 16, 3, 1]
+    uploads = [_to(dev, *_n_run_batch(rng, r, P, k, n_runs=6 if k <= 101 else 2))
+               for r in rows]
+    cfg = PassConfig(k=k, f=f, layout=layout, positions_per_row=P, rows_per_batch=16)
+    low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
+    build.reset_launch_counts()
+    got = fill.bloom_fill_batches(bloom.make_filter(f, layout, dev), uploads, low, high, cfg=cfg)
+    assert build.launch_counts() == {"bloom_fill": 1}
+    want = fill.bloom_fill_batches_plain(bloom.make_filter(f, layout, dev), uploads, low, high,
+                                         cfg=cfg)
+    assert _filters_equal(got, want) and bool(want.view(torch.uint8).any())
+    del want
+    build.reset_launch_counts()
+    mk, ck = mark.bloom_mark_batches(got, uploads, low, high, cfg=cfg)
+    assert build.launch_counts() == {"bloom_mark": 1}
+    mp, cp = mark.bloom_mark_batches_plain(got, uploads, low, high, cfg=cfg)
+    assert [m.shape for m in mk] == [(r, P // 8) for r in rows]
+    for a, b in zip(mk, mp):
+        assert torch.equal(a, b)
+    assert torch.equal(ck, cp) and int(cp.sum()) > 0
+
+
+def test_bloom_round_kernels_refuse_f36_bit(dev):
+    """f = 36 in the bit layout is past the one-device filter's cap (2^35
+    slots): the round entries raise before launching (dist-bloom shards
+    such a filter)."""
+    rng = np.random.default_rng(36)
+    uploads = [_to(dev, *_genome_batch(rng, 4, 256, 25))]
+    cfg = PassConfig(k=25, f=36, layout="bit", positions_per_row=256, rows_per_batch=4)
+    filt = torch.zeros(8, dtype=torch.uint32, device=dev)
+    build.reset_launch_counts()
+    for fn in (fill.bloom_fill_batches, mark.bloom_mark_batches):
+        with pytest.raises(ValueError, match="per device"):
+            fn(filt, uploads, 0, 0xFFFFFFFF, cfg=cfg)
+    assert build.launch_counts() == {}
+
+
 def _marked_batches(dev, k, nb, B=8, P=256, f=18):
     rng = np.random.default_rng(k + nb)
     cfg = PassConfig(k=k, f=f, layout="byte", positions_per_row=P, rows_per_batch=B)
@@ -509,6 +564,7 @@ def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
         raise AssertionError("a plain version ran on CUDA tensors")
 
     for mod, name in ((fill, "bloom_fill_plain"), (mark, "bloom_mark_plain"),
+                      (fill, "bloom_fill_batches_plain"), (mark, "bloom_mark_batches_plain"),
                       (extract, "extract_records_plain"), (lookup, "pass4_lookup_plain")):
         monkeypatch.setattr(mod, name, boom)
     rng = np.random.default_rng(5)
@@ -518,13 +574,15 @@ def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
     for layout, f in (("byte", 18), ("bit", 18), ("block", 18)):
         cfg = PassConfig(k=k, f=f, layout=layout, positions_per_row=P, rows_per_batch=B)
         filt = fill.bloom_fill(bloom.make_filter(f, layout, dev), *u, 0, 0xFFFFFFFF, cfg=cfg)
+        fill.bloom_fill_batches(filt, [u, u], 0, 0xFFFFFFFF, cfg=cfg)
+        mark.bloom_mark_batches(filt, [u, u], 0, 0xFFFFFFFF, cfg=cfg)
         m, c = mark.bloom_mark(filt, *u, 0, 0xFFFFFFFF, cfg=cfg)
     buf, state = extract.extract_records(
         u[0], u[1], m, *extract.new_buffer(int(c), pack.n_words(k), dev), 0, k=k, P=P)
     tab = judge.judge_compact(*sort.sort_records(*buf, key_bits=2 * k))[0]
     lookup.pass4_lookup(*u, m, tab, int(c), k=k, P=P)
     assert build.launch_counts() == {
-        "bloom_fill": 3, "bloom_mark": 3, "bloom_extract": 1, "sort_records": 1,
+        "bloom_fill": 6, "bloom_mark": 6, "bloom_extract": 1, "sort_records": 1,
         "judge_compact": 1, "bloom_lookup": 1,
     }
 
@@ -546,10 +604,12 @@ def test_bloom_pipeline_cuda_equals_cpu(dev, tmp_path, layout, rounds, k):
         build_junctions(None, cfg, out, sequences=sequences, device=device)
         outs.append(open(out, "rb").read())
         if device == "cuda":
-            assert set(build.launch_counts()) == {
+            counts = build.launch_counts()
+            assert set(counts) == {
                 "bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
                 "judge_compact", "bloom_lookup",
             }
+            assert counts["bloom_fill"] == counts["bloom_mark"] == rounds  # one a round
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
     assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0

@@ -266,7 +266,8 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
                         if (in_v || in_n) {
                             const uint32_t prev = row.ext(i);
                             const uint32_t next = row.ext(i + k + 1);
-                            // common.cuh tp_fill_slots, tp_fill_edge's char
+                            // bloom_fill.cu's edges: out V·next (V·A when next is N),
+                            // dummies V·T when next is N, A·V and T·V when prev is N
                             gate = 1u | (next >= 4 ? 2u : 0u) | (prev >= 4 ? 12u : 0u) |
                                    ((next < 4 ? next : 0u) << 8);
                         }
@@ -290,7 +291,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
             for (int j = 0; j < a.q; ++j) dst[j] = NONE;
             continue;
         }
-        // common.cuh tp_edge_hashes: mark edges 0-3 in c·V, 4-7 out V·c;
+        // common.cuh tp_edge_hash: mark edges 0-3 in c·V, 4-7 out V·c;
         // fill edge 0 out V·next, 1 out V·T, 2 in A·V, 3 in T·V
         const bool out = MARK ? e >= 4 : e < 2;
         const uint32_t c = MARK ? (uint32_t)(e & 3) : (e == 0 ? gate >> 8 : (e == 2 ? 0u : 3u));
@@ -300,8 +301,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_shard_bucket(BucketArgs a) {
             if (u < nt) {
                 const uint32_t hf = s_h[(2 * u) * tpos + p];
                 const uint32_t hr = s_h[(2 * u + 1) * tpos + p];
-                eh[u] = out ? (tp_rotl32(hf, 1u) ^ s_T[4 * u + c]) + (s_Tk[4 * u + 3 - c] ^ hr)
-                            : (s_Tk[4 * u + c] ^ hf) + (tp_rotl32(hr, 1u) ^ s_T[4 * u + 3 - c]);
+                eh[u] = tp_edge_hash(hf, hr, s_T, s_Tk, u, out, c);
             }
         for (int j = 0; j < a.q; ++j) dst[j] = (Idx)tp_km_index(eh, (uint32_t)j, a.f);
     }
@@ -502,7 +502,7 @@ __global__ void k_shard_mark_finish(const uint8_t* __restrict__ back,
             });
         }
     }
-    tp_pack_candidates(cand, t, n, mask, count);
+    tp_pack_runs(cand ? 1u : 0u, 1, t, t < n, mask, count);
 }
 
 TpTabs load_tabs(const uint32_t* tabs) {

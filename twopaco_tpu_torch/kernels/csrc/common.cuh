@@ -238,45 +238,14 @@ __device__ __forceinline__ uint32_t tp_build_record(
     return tp_canonical_record(row, i, k, w, wout);
 }
 
-// ---- the Bloom engine's hashes (ops/buzhash.py out_edge_sym, in_edge_sym,
-// probe_indices_from_sym), shared by bloom_fill.cu and bloom_mark.cu
+// ---- the Bloom engine's hashes (ops/buzhash.py probe_indices_from_sym),
+// shared by bloom_fill.cu, bloom_mark.cu and bloom_shard.cu
 
 // The four char tables (TABLE_1 .. TABLE_4): tables 1-2 give 32-bit probe
 // indices, all four 64-bit ones (f > 32)
 struct TpTabs {
     TpTab t[4];
 };
-
-// Strand-symmetric hash of the out-edge W·c from W's strand hashes:
-//     (rotl(hf, 1) ^ T[c]) + (rotl(T[3-c], k) ^ hr)
-__device__ __forceinline__ uint32_t tp_out_edge(uint32_t hf, uint32_t hr,
-                                                const TpTab& t, uint32_t c,
-                                                int k) {
-    return (tp_rotl32(hf, 1u) ^ t.t[c]) +
-           (tp_rotl32(t.t[3u - c], (uint32_t)k) ^ hr);
-}
-
-// ... and of the in-edge c·W: (rotl(T[c], k) ^ hf) + (rotl(hr, 1) ^ T[3-c])
-__device__ __forceinline__ uint32_t tp_in_edge(uint32_t hf, uint32_t hr,
-                                               const TpTab& t, uint32_t c,
-                                               int k) {
-    return (tp_rotl32(t.t[c], (uint32_t)k) ^ hf) +
-           (tp_rotl32(hr, 1u) ^ t.t[3u - c]);
-}
-
-// Edge hashes e[t] of the out-edge (out) or in-edge with char c under
-// the first nt (2 or 4) tables, from the vertex's strand hashes
-__device__ __forceinline__ void tp_edge_hashes(const uint32_t* hf,
-                                               const uint32_t* hr,
-                                               const TpTabs& tabs, int nt,
-                                               bool out, uint32_t c, int k,
-                                               uint32_t* e) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-        if (t < nt)
-            e[t] = out ? tp_out_edge(hf[t], hr[t], tabs.t[t], c, k)
-                       : tp_in_edge(hf[t], hr[t], tabs.t[t], c, k);
-}
 
 // Kirsch-Mitzenmacher index j of an edge, mod 2^f: f <= 32 from the u32
 // pair (e0, e1), f > 32 (f <= 63) from H1 = e2 << 32 | e0 and H2 = e3 << 32
@@ -299,55 +268,7 @@ constexpr int TP_LAYOUT_BIT = 1;
 constexpr int TP_LAYOUT_BLOCK = 2;
 constexpr int TP_BLOCK_WORDS = 8;  // a block: 256 bits
 
-// ---- the Bloom passes' view of a position, shared by bloom_fill.cu,
-// bloom_mark.cu and bloom_shard.cu
-
-// Fill (twopaco_tpu kernels.py:130 fill_indices, :179 fill_indices_block):
-// a position with a record (tp_position_ok) gets the strand hashes of its
-// vertex V under the first nt tables, the vertex hashes of V and of V_next
-// (the next position's vertex), whether each counts for the round [low,
-// high] (V_next only when its window holds no N), and its prev and next
-// chars (4 = N).
-struct TpFillPos {
-    uint32_t hf[4], hr[4];
-    uint32_t hv, hvn, prev, next;
-    bool in_v, in_n;
-};
-
-__device__ __forceinline__ bool tp_fill_position(const TpRow& row, int i,
-                                                 int k, int valid,
-                                                 uint32_t low, uint32_t high,
-                                                 const TpTabs& tabs, int nt,
-                                                 TpFillPos& p) {
-    if (!tp_position_ok(row, i, k, valid)) return false;
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-        if (u < nt)
-            tp_strand_hashes(row, i + 1, k, tabs.t[u], p.hf[u], p.hr[u]);
-    p.hv = p.hf[0] + p.hr[0];
-    p.hvn = tp_vertex_hash(row, i + 1, k, tabs.t[0]);
-    p.in_v = p.hv >= low && p.hv <= high;
-    p.in_n = row.definite(i + 2, i + k + 1) && p.hvn >= low && p.hvn <= high;
-    p.prev = row.ext(i);
-    p.next = row.ext(i + k + 1);
-    return true;
-}
-
-// The byte and bit layouts' edges of a position in the round: slot 0 the
-// out-edge V·next (V·A when next is N), 1 the dummy V·T when next is N, 2
-// and 3 the dummy in-edges A·V and T·V when prev is N. -> bit e set when
-// slot e is inserted.
-__device__ __forceinline__ unsigned tp_fill_slots(const TpFillPos& p) {
-    return 1u | (p.next >= 4 ? 2u : 0u) | (p.prev >= 4 ? 12u : 0u);
-}
-
-// Edge hashes of fill slot e under the first nt tables
-__device__ __forceinline__ void tp_fill_edge(const TpFillPos& p,
-                                             const TpTabs& tabs, int nt,
-                                             int e, int k, uint32_t* eh) {
-    const uint32_t c = e == 0 ? (p.next < 4 ? p.next : 0u) : (e == 2 ? 0u : 3u);
-    tp_edge_hashes(p.hf, p.hr, tabs, nt, e < 2, c, k, eh);
-}
+// ---- the dist-bloom mark finish's view of a position (bloom_shard.cu)
 
 // Mark (twopaco_tpu kernels.py:273 mark_indices): true for a position with
 // a record whose vertex hash lies in [low, high] (mark_decide's `base`);
@@ -385,19 +306,22 @@ __device__ __forceinline__ bool tp_mark_decide(uint32_t prev, uint32_t next,
     return false;
 }
 
-// A warp's 32 decisions into the packed mask (kernels.py:336 pack_mask: 8
-// positions a byte, MSB first) and their count added to *count. Every lane
-// of the warp calls it; lane l holds position t (t >= n: none), and the
-// block's threads are consecutive positions from a multiple of 32.
-__device__ __forceinline__ void tp_pack_candidates(
-    bool cand, long long t, long long n, uint8_t* __restrict__ mask,
-    unsigned long long* __restrict__ count) {
-    const unsigned ballot = __ballot_sync(0xffffffffu, cand);
-    const int lane = threadIdx.x & 31;
-    if (t < n && (lane & 7) == 0)
-        mask[t >> 3] = (uint8_t)(__brev((ballot >> lane) & 0xffu) >> 24);
-    if (lane == 0 && ballot)
-        atomicAdd(count, (unsigned long long)__popc(ballot));
+// A warp's candidate decisions into the packed mask (kernels.py:336
+// pack_mask: 8 positions a byte, MSB first) and their count added to
+// *count, one atomic a warp. Every lane of the warp calls it; lane l holds
+// the decisions of a run of `run` (1, 2, 4 or 8) positions from x0 (bit s:
+// position x0 + s), the warp's runs consecutive from a multiple of 8;
+// live: the run lies in the batch (else bits is 0 and nothing is written).
+// The 8 / run lanes of a byte OR their parts together by shuffles, and the
+// first of them writes it.
+__device__ __forceinline__ void tp_pack_runs(unsigned bits, int run, long long x0, bool live,
+                                             uint8_t* __restrict__ mask,
+                                             unsigned long long* __restrict__ count) {
+    unsigned byte = (__brev(bits) >> 24) >> (x0 & 7);  // position x at bit 7 - (x & 7)
+    for (int o = 1; o < 8 / run; o <<= 1) byte |= __shfl_xor_sync(0xffffffffu, byte, o);
+    if (live && (x0 & 7) == 0) mask[x0 >> 3] = (uint8_t)byte;
+    const unsigned c = __reduce_add_sync(0xffffffffu, (unsigned)__popc(bits));
+    if ((threadIdx.x & 31) == 0 && c) atomicAdd(count, (unsigned long long)c);
 }
 
 // ---- one-sweep stable owner bucketing (bloom_shard.cu tp_shard_bucket,
@@ -627,6 +551,67 @@ __device__ __forceinline__ void tp_roll_hashes(const TpRow& row, int s, int k,
             hf[u] = tp_rotl32(hf[u], 1u) ^ Tk[4 * u + co] ^ T[4 * u + ci];
             hr[u] = tp_rotl32(hr[u] ^ T[4 * u + 3 - co], 31u) ^ Tk1[4 * u + 3 - ci];
         }
+}
+
+// The highest N char among chars [lo, hi] of a row, or lo - 1 when none
+__device__ __forceinline__ int tp_last_n(const TpRow& row, int lo, int hi) {
+    for (int wi = hi >> 5; wi >= (lo >> 5); --wi) {
+        const int a = max(lo - 32 * wi, 0);
+        const int z = min(hi - 32 * wi, 31);
+        const int len = z - a + 1;
+        const uint32_t m = row.nmask[wi] & ((len == 32 ? 0xffffffffu : ((1u << len) - 1u)) << a);
+        if (m) return 32 * wi + 31 - __clz(m);
+    }
+    return lo - 1;
+}
+
+// Strand-symmetric hash under table u of the out-edge V·c (out) or the
+// in-edge c·V from V's strand hashes (ops/buzhash.py out_edge_sym,
+// in_edge_sym; Tk: T rotated by k):
+//     out (rotl(hf, 1) ^ T[c]) + (rotl(T[3-c], k) ^ hr),
+//     in  (rotl(T[c], k) ^ hf) + (rotl(hr, 1) ^ T[3-c])
+__device__ __forceinline__ uint32_t tp_edge_hash(uint32_t hf, uint32_t hr, const uint32_t* T,
+                                                 const uint32_t* Tk, int u, bool out,
+                                                 uint32_t c) {
+    return out ? (tp_rotl32(hf, 1u) ^ T[4 * u + c]) + (Tk[4 * u + 3 - c] ^ hr)
+               : (Tk[4 * u + c] ^ hf) + (tp_rotl32(hr, 1u) ^ T[4 * u + 3 - c]);
+}
+
+// ---- the Bloom engine's round kernels (bloom_fill.cu, bloom_mark.cu): one
+// launch over a table of batches, or over one batch passed by value
+
+// One batch of a call (7 int64, the wrapper's table row): its upload form,
+// rows of P positions (RW, NW words a row), and where its packed mask goes
+// in the mark's output (bytes; the fill ignores it)
+struct TpBloomBatch {
+    const uint32_t* packed;
+    const uint32_t* nmask;
+    const int32_t* valid;
+    long long rows, RW, NW, out_off;
+};
+
+// Positions a thread of a Bloom round kernel rolls along, at most
+constexpr int TP_BLOOM_RUN = 8;
+
+// The grid of a Bloom round kernel: (tiles, nb) blocks of TP_THREADS
+// threads, tile x of batch y its TP_THREADS * run positions from x * tile,
+// a thread `run` consecutive positions of one row (P % 8 == 0, so no run
+// crosses a row). run: 8, halved (down to 1) while the call's threads
+// would not give every SM 1024, so that a one-batch call still fills the
+// card with loads in flight.
+inline cudaError_t tp_bloom_grid(long long max_pos, int nb, int& run, dim3& grid) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    long long tiles = 0;
+    for (run = TP_BLOOM_RUN;; run >>= 1) {
+        tiles = (max_pos + TP_THREADS * run - 1) / (TP_THREADS * run);
+        if (run == 1 || tiles * nb * TP_THREADS >= 1024ll * sms) break;
+    }
+    if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
+    grid = dim3((unsigned)tiles, (unsigned)nb);
+    return cudaSuccess;
 }
 
 // set() once a device and process (bit d of `ready` for devices 0 .. 63;

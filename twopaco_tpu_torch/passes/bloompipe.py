@@ -76,11 +76,11 @@ class Ops:
 
 
 KERNELS = Ops(
-    fill.bloom_fill, mark.bloom_mark, extract.extract_records, sort.sort_records,
+    fill.bloom_fill_batches, mark.bloom_mark_batches, extract.extract_records, sort.sort_records,
     judge.judge_compact, lookup.pass4_lookup, histogram.histogram_vertex_hashes_batches,
 )
 PLAIN = Ops(
-    fill.bloom_fill_plain, mark.bloom_mark_plain, extract.extract_records_plain,
+    fill.bloom_fill_batches_plain, mark.bloom_mark_batches_plain, extract.extract_records_plain,
     sort.sort_records_plain, judge.judge_compact_plain, lookup.pass4_lookup_plain,
     histogram.histogram_vertex_hashes_batches_plain,
 )
@@ -228,22 +228,20 @@ def build_junctions_bloom(
 
         t0 = time.time()
         filt = bloom.make_filter(cfg.f, cfg.layout, dev)
-        for up in uploads:
-            ops.fill(filt, *up, low, high, cfg=cfg)
+        ops.fill(filt, uploads, low, high, cfg=cfg)  # one launch a round
         _sync(dev)
         t_fill = time.time() - t0
 
         t0 = time.time()
-        marked = [ops.mark(filt, *up, low, high, cfg=cfg) for up in uploads]
+        round_masks, counts_d = ops.mark(filt, uploads, low, high, cfg=cfg)  # one launch
         del filt
-        # one fetch for every batch's count
-        counts = [int(c) for c in torch.stack([c for _m, c in marked]).cpu()]
+        counts = [int(c) for c in counts_d.cpu()]  # one fetch for every batch's count
         t_mark = time.time() - t0
 
         t0 = time.time()
         n_cand = sum(counts)
         buf, state = extract.new_buffer(n_cand, w, dev)
-        for (packed, nmask, _valid), (m, _c), base in zip(uploads, marked, bases):
+        for (packed, nmask, _valid), m, base in zip(uploads, round_masks, bases):
             ops.extract(packed, nmask, m, buf, state, base, k=k, P=P)
         if state.tolist() != [n_cand, 0]:
             raise RuntimeError(f"candidate extraction {state.tolist()} != marks {n_cand}")
@@ -279,7 +277,6 @@ def build_junctions_bloom(
             f"True junctions = {n_junc}\nFalse junctions = {n_groups - n_junc}\n"
             f"Hash table size = {n_groups}\nCandidate marks count = {n_cand}"
         )
-        round_masks = [m for m, _c in marked]
         if ckpt.dir is not None:
             ckpt.save_round(
                 r, stats.rounds[-1], junc_words=junc_words,
@@ -287,7 +284,7 @@ def build_junctions_bloom(
                 counts=np.asarray(counts, np.int64),
             )
         masks.add_round(round_masks)
-        del marked, round_masks
+        del round_masks, counts_d
 
     # ---- junction dictionary -----------------------------------------
     t0 = time.time()

@@ -3,9 +3,11 @@
 
 The port of twopaco_tpu/passes/kernels.py:257 pass1_fill (indices of
 :130 fill_indices and :179 fill_indices_block). CUDA tensors go through
-kernels/csrc/bloom_fill.cu; CPU tensors through `bloom_fill_plain`, which
-computes the JAX package's index arrays in plain PyTorch (prefix-XOR hash
-scans, int64 holding u32 values) and sets them with ops/bloom.py.
+kernels/csrc/bloom_fill.cu, one launch a call: `bloom_fill` for one batch,
+`bloom_fill_batches` for a round's list of them. CPU tensors go through
+`bloom_fill_plain`, which computes the JAX package's index arrays in plain
+PyTorch (prefix-XOR hash scans, int64 holding u32 values) and sets them
+with ops/bloom.py, and its per-batch loop `bloom_fill_batches_plain`.
 
 Also the plain helpers the other Bloom passes share: the codes of the
 upload form and the per-table strand hashes.
@@ -189,6 +191,61 @@ def check_upload(packed, nmask, valid, cfg) -> None:
         raise ValueError(f"q = {cfg.q}: at least one hash function")
 
 
+def check_call(filt, uploads, cfg) -> None:
+    """The checks of a Bloom kernel call: each batch's upload form, the
+    filter's shape, one device."""
+    if not uploads:
+        raise ValueError("no batches")
+    for up in uploads:
+        check_batch(*up, cfg)
+    check_filter(filt, cfg)
+    if filt.device != uploads[0][0].device:
+        raise ValueError(f"filter on {filt.device}, batch on {uploads[0][0].device}")
+
+
+def kernel_args(uploads, cfg, offsets=None) -> tuple:
+    """The leading arguments of tp_bloom_fill and tp_bloom_mark: one batch
+    by value (no table copy), or a device table of batches (a row of 7
+    int64: packed, nmask, valid pointers, rows, RW, NW, the byte offset of
+    its mask in the mark's output), copied from pinned memory with no wait
+    for the stream's earlier work; then the batch geometry and the round's
+    hash constants. -> (table tensor or None, the argument tuple)."""
+    max_pos = max(up[0].shape[0] for up in uploads) * cfg.P
+    if len(uploads) == 1:
+        packed, nmask, valid = uploads[0]
+        table = None
+        lead = (None, 1, max_pos, packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(),
+                packed.shape[0], packed.shape[1], nmask.shape[1])
+    else:
+        offsets = offsets or [0] * len(uploads)
+        rows = [(p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1], m.shape[1],
+                 off) for (p, m, v), off in zip(uploads, offsets)]
+        table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+            uploads[0][0].device, non_blocking=True)
+        lead = (table.data_ptr(), len(rows), max_pos, None, None, None, 0, 0, 0)
+    return table, (*lead, cfg.P, cfg.k)
+
+
+def bloom_fill_batches_plain(filt, uploads, low: int, high: int, *, cfg):
+    """Plain PyTorch version of bloom_fill_batches: the per-batch plain
+    function (any device)."""
+    for up in uploads:
+        bloom_fill_plain(filt, *up, low, high, cfg=cfg)
+    return filt
+
+
+def _fill(filt, uploads, low: int, high: int, cfg):
+    check_call(filt, uploads, cfg)
+    _table, lead = kernel_args(uploads, cfg)
+    rc = build.lib().tp_bloom_fill(
+        *lead, int(low), int(high), build.hash_tables(ALL_TABLES), cfg.q, cfg.f,
+        LAYOUTS[cfg.layout], filt.data_ptr(), build.stream_ptr(),
+    )
+    build.check(rc, "bloom_fill")
+    build.count_launch("bloom_fill")
+    return filt
+
+
 def bloom_fill(filt, packed, nmask, valid, low: int, high: int, *, cfg):
     """Insert the canonical edges of one batch into the filter, in place.
 
@@ -196,19 +253,17 @@ def bloom_fill(filt, packed, nmask, valid, low: int, high: int, *, cfg):
     packed (B, ceil(R/16)) uint32, nmask (B, ceil(R/32)) uint32, valid (B,)
     int32: the upload form of pack.pack_codes_host (R = P+k+1); [low, high]:
     the round's inclusive vertex-hash interval. -> filt.
-    """
+
+    On the card: the one-batch form of the kernel's entry (the batch's
+    fields go as launch arguments; no table is copied)."""
     if build.on_cpu(filt, packed, nmask, valid):
         return bloom_fill_plain(filt, packed, nmask, valid, low, high, cfg=cfg)
-    check_batch(packed, nmask, valid, cfg)
-    check_filter(filt, cfg)
-    if filt.device != packed.device:
-        raise ValueError(f"filter on {filt.device}, batch on {packed.device}")
-    rc = build.lib().tp_bloom_fill(
-        packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), packed.shape[0],
-        cfg.P, cfg.k, packed.shape[1], nmask.shape[1], int(low), int(high),
-        build.hash_tables(ALL_TABLES), cfg.q, cfg.f, LAYOUTS[cfg.layout],
-        filt.data_ptr(), build.stream_ptr(),
-    )
-    build.check(rc, "bloom_fill")
-    build.count_launch("bloom_fill")
-    return filt
+    return _fill(filt, [(packed, nmask, valid)], low, high, cfg)
+
+
+def bloom_fill_batches(filt, uploads, low: int, high: int, *, cfg):
+    """bloom_fill over a list of (packed, nmask, valid) batches on one
+    device (a round's), in one launch. -> filt."""
+    if build.on_cpu(filt, *(t for up in uploads for t in up)):
+        return bloom_fill_batches_plain(filt, uploads, low, high, cfg=cfg)
+    return _fill(filt, uploads, low, high, cfg)

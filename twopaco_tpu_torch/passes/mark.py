@@ -3,8 +3,10 @@ engine).
 
 The port of twopaco_tpu/passes/kernels.py:400 pass2_mark (probes of :273
 mark_indices and :357 mark_indices_block, decision :315 mark_decide,
-packing :336 pack_mask). CUDA tensors go through kernels/csrc/bloom_mark.cu;
-CPU tensors through `bloom_mark_plain`.
+packing :336 pack_mask). CUDA tensors go through kernels/csrc/bloom_mark.cu,
+one launch a call: `bloom_mark` for one batch, `bloom_mark_batches` for a
+round's list of them. CPU tensors go through `bloom_mark_plain` and its
+per-batch loop `bloom_mark_batches_plain`.
 """
 
 from __future__ import annotations
@@ -99,26 +101,63 @@ def bloom_mark_plain(filt, packed, nmask, valid, low: int, high: int, *, cfg):
     return pack_mask(mask), mask.sum(dtype=torch.int64)
 
 
+def new_outputs(uploads, cfg):
+    """The outputs of a mark call on the batches' device: one uint8 buffer
+    of every batch's packed mask, its (B_b, P/8) views, and the (n_batches,)
+    int64 counts, zeroed. -> (buffer, views, counts)."""
+    dev = uploads[0][0].device
+    sizes = [up[0].shape[0] * cfg.P // 8 for up in uploads]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    views = [v.view(up[0].shape[0], cfg.P // 8) for v, up in zip(buf.split(sizes), uploads)]
+    return buf, views, torch.zeros(len(uploads), dtype=torch.int64, device=dev)
+
+
+def bloom_mark_batches_plain(filt, uploads, low: int, high: int, *, cfg):
+    """Plain PyTorch version of bloom_mark_batches: the per-batch plain
+    function into the same outputs (any device)."""
+    _buf, views, counts = new_outputs(uploads, cfg)
+    for b, up in enumerate(uploads):
+        m, c = bloom_mark_plain(filt, *up, low, high, cfg=cfg)
+        views[b].copy_(m)
+        counts[b] = c
+    return views, counts
+
+
+def _mark(filt, uploads, low: int, high: int, cfg):
+    fill.check_call(filt, uploads, cfg)
+    buf, views, counts = new_outputs(uploads, cfg)
+    offsets = [v.data_ptr() - buf.data_ptr() for v in views]
+    _table, lead = fill.kernel_args(uploads, cfg, offsets)
+    rc = build.lib().tp_bloom_mark(
+        *lead, int(low), int(high), build.hash_tables(fill.ALL_TABLES), cfg.q, cfg.f,
+        fill.LAYOUTS[cfg.layout], filt.data_ptr(), buf.data_ptr(), counts.data_ptr(),
+        build.stream_ptr(),
+    )
+    build.check(rc, "bloom_mark")
+    build.count_launch("bloom_mark")
+    return views, counts
+
+
 def bloom_mark(filt, packed, nmask, valid, low: int, high: int, *, cfg):
     """Candidate positions of one batch against the round's filter.
 
     Arguments as fill.bloom_fill's. -> (mask (B, P/8) uint8, the candidates
-    packed 8 a byte MSB first; count, a 0-d int64 tensor on the device)."""
+    packed 8 a byte MSB first; count, a 0-d int64 tensor on the device).
+
+    On the card: the one-batch form of the kernel's entry (no table)."""
     if build.on_cpu(filt, packed, nmask, valid):
         return bloom_mark_plain(filt, packed, nmask, valid, low, high, cfg=cfg)
-    fill.check_batch(packed, nmask, valid, cfg)
-    fill.check_filter(filt, cfg)
-    if filt.device != packed.device:
-        raise ValueError(f"filter on {filt.device}, batch on {packed.device}")
-    B = packed.shape[0]
-    mask = torch.empty((B, cfg.P // 8), dtype=torch.uint8, device=packed.device)
-    count = torch.zeros((), dtype=torch.int64, device=packed.device)
-    rc = build.lib().tp_bloom_mark(
-        packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, cfg.P, cfg.k,
-        packed.shape[1], nmask.shape[1], int(low), int(high),
-        build.hash_tables(fill.ALL_TABLES), cfg.q, cfg.f, fill.LAYOUTS[cfg.layout],
-        filt.data_ptr(), mask.data_ptr(), count.data_ptr(), build.stream_ptr(),
-    )
-    build.check(rc, "bloom_mark")
-    build.count_launch("bloom_mark")
-    return mask, count
+    (mask,), counts = _mark(filt, [(packed, nmask, valid)], low, high, cfg)
+    return mask, counts[0]
+
+
+def bloom_mark_batches(filt, uploads, low: int, high: int, *, cfg):
+    """bloom_mark over a list of (packed, nmask, valid) batches on one
+    device (a round's), in one launch.
+
+    -> (masks: per batch a (B_b, P/8) uint8 view of one buffer, as
+    bloom_mark's mask; counts: (n_batches,) int64, each batch's
+    candidates)."""
+    if build.on_cpu(filt, *(t for up in uploads for t in up)):
+        return bloom_mark_batches_plain(filt, uploads, low, high, cfg=cfg)
+    return _mark(filt, uploads, low, high, cfg)

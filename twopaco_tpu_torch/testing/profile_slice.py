@@ -2,6 +2,7 @@
 the port, by torch.profiler.
 
     python -m twopaco_tpu_torch.testing.profile_slice --engine dist-bloom --shards 4 -f 30
+    python -m twopaco_tpu_torch.testing.profile_slice --engine bloom --layout bit -f 34
 
 The slice is chip_smoke.py's: 8 genomes x 8,000,000 bases (seed 2016,
 testing/bench_data.py), k=25 (or -k), the CLI's tier (P=2048, B=256).
@@ -12,7 +13,8 @@ events' time: kernels, copies, memsets; the host-side operators that
 launched them are not counted again), the busy share (device over wall),
 and the kernels that took the most device time, with the card's name and
 power limit. The dist engines run over a LocalMesh of --shards shards of the
-card. Needs a CUDA device.
+card; the Bloom engines take the filter's --layout (auto: byte while it
+fits). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ def main(argv=None) -> int:
     p.add_argument("-k", type=int, default=25, help="k-mer length")
     p.add_argument("-f", "--filter-bits", type=int, default=30)
     p.add_argument("-r", "--rounds", type=int, default=1)
+    p.add_argument("--layout", choices=("auto", "byte", "bit", "block"), default="auto",
+                   help="Bloom engines: the filter's layout")
     p.add_argument("--work", default=os.path.join("chip_smoke_work", "profile"),
                    help="directory for the slice's FASTA and .dbg")
     p.add_argument("--top", type=int, default=10)
@@ -65,7 +69,8 @@ def main(argv=None) -> int:
         bench_data.write_bench_fasta(fa, 8, 8_000_000, 2016)
     out = os.path.join(args.work, "profile.dbg")
     cfg = PipelineConfig(k=args.k, rounds=args.rounds, filter_bits=args.filter_bits,
-                         positions_per_row=2048, rows_per_batch=256, engine=args.engine)
+                         layout=args.layout, positions_per_row=2048, rows_per_batch=256,
+                         engine=args.engine)
 
     def run():
         if args.engine.startswith("dist"):
@@ -88,7 +93,8 @@ def main(argv=None) -> int:
     device_us = sum(e.self_device_time_total for e in events)
     card = card_line()
     shards = f", {args.shards} shards" if args.engine.startswith("dist") else ""
-    print(f"profile {args.engine} -k {args.k} -f {args.filter_bits} -r {args.rounds}{shards} "
+    layout = f" --layout {args.layout}" if "bloom" in args.engine else ""
+    print(f"profile {args.engine} -k {args.k} -f {args.filter_bits} -r {args.rounds}{layout}{shards} "
           f"[{card}]: "
           f"wall {wall:.3f} s, device {device_us / 1e3:.1f} ms, "
           f"busy {100 * device_us / 1e6 / wall:.1f}%")
