@@ -95,8 +95,9 @@
    plain versions.
 
 Every kernel comparison also prints the kernel's bound (the larger of the
-bytes it must move over 3.35 TB/s, a random filter access counted as the
-32-byte sector it moves, and its integer operations over 67 T/s)
+bytes it must move over 3.35 TB/s, the filter's traffic counted as each
+distinct 32-byte sector that the inputs touch, once, and its integer
+operations over 67 T/s)
 and, where one PyTorch call computes the same function, that call's time.
 
 Exits non-zero, printing no result, if there is no CUDA device, if the
@@ -335,7 +336,22 @@ def records_ops(n_pos: int, n_rows: int, k: int) -> int:
     return n_rows * 6 * k + n_pos * 20
 
 
-SECTOR = 32  # bytes that a random filter access moves
+SECTOR = 32  # bytes of a filter sector, the least that a random access moves
+
+
+def sector_flags(filt):
+    """One flag a 32-byte sector of filt, all clear: the sectors that a
+    call touches are flagged, so that each counts once in its bound."""
+    import torch
+
+    return torch.zeros(nbytes(filt) // SECTOR, dtype=torch.bool, device=filt.device)
+
+
+def flag_sectors(flags, slots, layout: str) -> None:
+    """Flag the sector of each slot index (byte: 32 slots a sector; bit:
+    256) or block index (block: a sector a block)."""
+    shift = {"byte": 5, "bit": 8, "block": 0}[layout]
+    flags[slots >> shift] = True
 
 
 def bloom_ops(n_pos: int, k: int, nt: int, q: int, edges: int) -> int:
@@ -346,24 +362,26 @@ def bloom_ops(n_pos: int, k: int, nt: int, q: int, edges: int) -> int:
     return n_pos // 8 * nt * 4 * k + n_pos * (nt * (8 + 5 * edges) + 3 * q * edges)
 
 
-def fill_sectors(upload, gate, cfg) -> int:
-    """The random filter sectors a batch's fill needs: one a slot it sets
-    (byte, bit: each (position, edge, hash) slot), or one a block a position
-    writes (block: block(V) and block(V_next))."""
+def fill_sectors(flags, upload, gate, cfg) -> None:
+    """Flag the filter sectors that a batch's fill sets a slot in (byte,
+    bit: each (position, edge, hash) slot) or writes (block: block(V) and
+    block(V_next))."""
     from twopaco_tpu_torch.passes import fill
 
     codes = fill.batch_codes(upload[0], upload[1], cfg)
     if cfg.layout == "block":
-        val = fill.fill_indices_block(codes, upload[2], *gate, cfg)[2]
-        return int((val[..., 0] | val[..., 2:].any(-1)).sum() + val[..., 1].sum())
-    return int(fill.fill_indices(codes, upload[2], *gate, cfg)[1].sum())
+        block, _bits, val = fill.fill_indices_block(codes, upload[2], *gate, cfg)
+        flag_sectors(flags, block[val], "block")
+    else:
+        idx, val = fill.fill_indices(codes, upload[2], *gate, cfg)
+        flag_sectors(flags, idx[val], cfg.layout)
 
 
-def mark_sectors(filt, upload, gate, cfg) -> int:
-    """The random filter sectors a batch's mark reads against filt, in the
-    kernel's order: a position in the round with prev and next ACGT reads
-    slot 0 of its six other edges, then slot j of each edge whose slots 0 ..
-    j-1 are set (byte, bit), or V's block once (block)."""
+def mark_sectors(flags, filt, upload, gate, cfg) -> None:
+    """Flag the filter sectors that a batch's decisions read against filt:
+    for a position in the round with prev and next ACGT, slot 0 of its six
+    other edges, then slot j of each edge whose slots 0 .. j-1 are set
+    (byte, bit), or V's block (block)."""
     import torch
 
     from twopaco_tpu_torch.ops import bloom
@@ -371,18 +389,33 @@ def mark_sectors(filt, upload, gate, cfg) -> int:
 
     codes = fill.batch_codes(upload[0], upload[1], cfg)
     if cfg.layout == "block":
-        _b, _bits, base, prev, nxt = mark.mark_indices_block(codes, upload[2], *gate, cfg)
-        return int((base & (prev < 4) & (nxt < 4)).sum())
+        block, _bits, base, prev, nxt = mark.mark_indices_block(codes, upload[2], *gate, cfg)
+        flag_sectors(flags, block[base & (prev < 4) & (nxt < 4)], "block")
+        return
     idx, base, prev, nxt = mark.mark_indices(codes, upload[2], *gate, cfg)
     slot_set = bloom.probe(filt, idx, cfg.layout)
     c = torch.arange(4, device=idx.device)
     alive = torch.cat([c != prev[..., None], c != nxt[..., None]], dim=-1)
     alive &= (base & (prev < 4) & (nxt < 4))[..., None]
-    reads = 0
     for j in range(cfg.q):
-        reads += int(alive.sum())
+        flag_sectors(flags, idx[..., j][alive], cfg.layout)
         alive &= slot_set[..., j]
-    return reads
+
+
+def probe_sectors(filt, slots, layout: str) -> int:
+    """The distinct filter sectors of the slot indices, each once."""
+    flags = sector_flags(filt)
+    flag_sectors(flags, slots, layout)
+    return int(flags.sum())
+
+
+def count_sectors(fn, filt, uploads) -> int:
+    """The distinct filter sectors that fn(flags, upload) flags over the
+    uploads, each once."""
+    flags = sector_flags(filt)
+    for u in uploads:
+        fn(flags, u)
+    return int(flags.sum())
 
 
 def flat(marked):
@@ -1079,14 +1112,17 @@ def main() -> int:
         # the main path's calls first (their times are the ones reported):
         # the round's fill of every batch in one launch, each repeat into a
         # zeroed filter (the zeroing untimed), then its mark
-        n_ins = sum(fill_sectors(u, full, bcfg) for u in uploads)
+        # bounds: each distinct filter sector touched counts once; the
+        # fill, into a zeroed filter, reads and writes each sector it sets
+        n_fill = count_sectors(lambda fl, u: fill_sectors(fl, u, full, bcfg), filt_k, uploads)
         compare("bloom_fill",
                 lambda: (fill.bloom_fill_batches(filt_k, uploads, *full, cfg=bcfg),),
                 lambda: (fill.bloom_fill_batches_plain(filt_p, uploads, *full, cfg=bcfg),),
-                2, results, in_bytes=nbytes(uploads), out_bytes=n_ins * SECTOR,
-                ops=bloom_ops(n_slots, k, nt, bcfg.q, 1),
+                2, results, in_bytes=nbytes(uploads) + n_fill * SECTOR,
+                out_bytes=n_fill * SECTOR, ops=bloom_ops(n_slots, k, nt, bcfg.q, 1),
                 prepare=(filt_k.zero_, filt_p.zero_))
-        n_reads = sum(mark_sectors(filt_k, u, full, bcfg) for u in uploads)
+        n_reads = count_sectors(lambda fl, u: mark_sectors(fl, filt_k, u, full, bcfg), filt_k,
+                                uploads)
         compare("bloom_mark",
                 lambda: flat(mark.bloom_mark_batches(filt_k, uploads, *full, cfg=bcfg)),
                 lambda: flat(mark.bloom_mark_batches_plain(filt_k, uploads, *full, cfg=bcfg)),
@@ -1094,23 +1130,25 @@ def main() -> int:
                 ops=bloom_ops(n_slots, k, nt, bcfg.q, 6))
         _m, rcounts = mark.bloom_mark_batches(filt_k, uploads, *full, cfg=bcfg)
         print(f"Bloom {lay} f={bcfg.f} round: {len(uploads)} batches in one launch each; "
-              f"{n_ins} slot (block) inserts, {n_reads} filter sectors read by the mark, "
-              f"{int(rcounts.sum())} candidates of {n_slots} positions {label}")
+              f"{n_fill} filter sectors set by the fill, {n_reads} read by the mark, of "
+              f"{nbytes(filt_k) // SECTOR}; {int(rcounts.sum())} candidates of {n_slots} "
+              f"positions {label}")
         del _m, rcounts
-        # one batch (batch 0), against the whole slice's filter (OR is
-        # idempotent: every repeat leaves the same filter)
+        # one batch (batch 0), against the whole slice's filter, which
+        # holds its every slot: the fill reads its sectors and changes none
+        # (OR is idempotent: every repeat leaves the same filter)
         compare("bloom_fill",
                 lambda: (fill.bloom_fill(filt_k, *args, *full, cfg=bcfg),),
                 lambda: (fill.bloom_fill_plain(filt_p, *args, *full, cfg=bcfg),),
-                5, results, in_bytes=nbytes(args),
-                out_bytes=fill_sectors(args, full, bcfg) * SECTOR,
+                5, results, out_bytes=0, in_bytes=nbytes(args) + SECTOR * count_sectors(
+                    lambda fl, u: fill_sectors(fl, u, full, bcfg), filt_k, [args]),
                 ops=bloom_ops(B * P, k, nt, bcfg.q, 1))
         del filt_p
         compare("bloom_mark",
                 lambda: mark.bloom_mark(filt_k, *args, *full, cfg=bcfg),
                 lambda: mark.bloom_mark_plain(filt_k, *args, *full, cfg=bcfg),
-                5, results,
-                in_bytes=nbytes(args) + mark_sectors(filt_k, args, full, bcfg) * SECTOR,
+                5, results, in_bytes=nbytes(args) + SECTOR * count_sectors(
+                    lambda fl, u: mark_sectors(fl, filt_k, u, full, bcfg), filt_k, [args]),
                 ops=bloom_ops(B * P, k, nt, bcfg.q, 6))
         bmask, bcount = mark.bloom_mark(filt_k, *args, *full, cfg=bcfg)
         print(f"Bloom {lay} f={bcfg.f}: filter {filt_k.numel() * filt_k.element_size()} "
@@ -1357,13 +1395,19 @@ def main() -> int:
         del sends
         valid_f = recv_f[recv_f != shardbloom.SENT]
         fk, fp = torch.zeros_like(filt[0]), torch.zeros_like(filt[0])
-        # the bound under the prefix rows: the sent slots read (8 bytes) and
-        # set (a random 32-byte filter sector each), and one 32-byte sector
-        # a block of FILL_CHUNK slots (its first slot)
+        # the bound under the prefix rows: the sent slots read (8 bytes),
+        # each distinct 32-byte filter sector that they set read and written
+        # once, and one 32-byte sector a block of FILL_CHUNK slots (its
+        # first slot)
         chunks = n_sh * -(-cap_f // FILL_CHUNK)
+        fl = sector_flags(fk)
+        flag_sectors(fl, valid_f, lay)
+        n_fs = int(fl.sum())
+        del fl
         compare("shard_fill", lambda: (shardbloom.fill_local(fk, recv_f, lay),),
                 lambda: (shardbloom.fill_local_plain(fp, recv_f, lay),), 5, results,
-                in_bytes=valid_f.numel() * 8 + chunks * 32, out_bytes=valid_f.numel() * SECTOR,
+                in_bytes=valid_f.numel() * 8 + n_fs * SECTOR + chunks * 32,
+                out_bytes=n_fs * SECTOR,
                 library=(lambda: fp.index_fill_(0, valid_f, 1)) if lay == "byte" else None)
         if lay == "byte":
             fresh_fill_times(tag=f"shard_fill {lay} f={f_bits} D={n_sh}", filt=fk,
@@ -1381,15 +1425,17 @@ def main() -> int:
         r0 = recv_m[0][0].view(n_sh, cap_m)
         valid_m = r0[r0 != shardbloom.SENT]
         n_sent = valid_m.numel()
-        # the bound under the prefix rows: the sent slots read (8 bytes and
-        # their random 32-byte filter sector), every hit written, and one
-        # 32-byte sector a block of PROBE_CHUNK slots (its first slot)
-        # (50 calls a timing, so that the host time before the first
-        # launch, more for the wrapper than for index_select, is spread thin)
+        # the bound under the prefix rows: the sent slots read (8 bytes),
+        # each distinct 32-byte filter sector that they probe read once,
+        # every hit written, and one 32-byte sector a block of PROBE_CHUNK
+        # slots (its first slot) (50 calls a timing, so that the host time
+        # before the first launch, more for the wrapper than for
+        # index_select, is spread thin)
         p_chunks = n_sh * -(-cap_m // PROBE_CHUNK)
         compare("shard_probe", lambda: (shardbloom.probe_local(filt[0], r0, lay),),
                 lambda: (shardbloom.probe_local_plain(filt[0], r0, lay),), 50, results,
-                in_bytes=n_sent * (8 + SECTOR) + p_chunks * 32,
+                in_bytes=n_sent * 8 + probe_sectors(filt[0], valid_m, lay) * SECTOR
+                + p_chunks * 32,
                 library=(lambda: filt[0].index_select(0, valid_m)) if lay == "byte" else None)
         print(f"shard_probe {lay} f={f_bits} D={n_sh}: {n_sent} sent of {r0.numel()} slots")
         if n_sh == D4:
@@ -1398,7 +1444,8 @@ def main() -> int:
                 sent_h = int((blk != shardbloom.SENT).sum())
                 compare("shard_probe", lambda: (shardbloom.probe_local(filt[0], blk, lay),),
                         lambda: (shardbloom.probe_local_plain(filt[0], blk, lay),), 2, results,
-                        in_bytes=sent_h * (8 + SECTOR) + n_sh * -(-cap_h // PROBE_CHUNK) * 32)
+                        in_bytes=sent_h * 8 + n_sh * -(-cap_h // PROBE_CHUNK) * 32
+                        + probe_sectors(filt[0], blk[blk != shardbloom.SENT], lay) * SECTOR)
                 print(f"shard_probe {lay} f={f_bits}: hand-made prefix rows, cap {cap_h}, "
                       f"offset {8 * off} bytes, {sent_h} sent: exact")
                 del blk

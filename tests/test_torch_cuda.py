@@ -489,6 +489,45 @@ def test_bloom_round_kernels(dev, layout, f, k, gate):
     assert torch.equal(ck, cp) and int(cp.sum()) > 0
 
 
+@pytest.mark.parametrize("run", [8, 4, 2])
+@pytest.mark.parametrize("layout,f", [("byte", 30), ("bit", 34), ("bit", 35), ("block", 30)])
+@pytest.mark.parametrize("k", [25, 101, 129])
+@pytest.mark.parametrize("gate", ["full", "narrow"])
+def test_bloom_round_kernels_runs(dev, run, layout, f, k, gate):
+    """The round entries where a thread rolls along runs of 8, 4 and 2
+    positions: batches sized so that the card's grid takes that run (1.5
+    times the rows whose threads would give every SM 1024 at it). The
+    rolled hashes, the window's last N across steps, the block fill's carry
+    of V_next's edge into the next position and the packing of a run's
+    decisions, over uneven batches with N runs, a valid-0 row in each and a
+    1-row last batch: the filter equal to the plain fill's bit for bit, every
+    mask and count equal to the plain mark's."""
+    P, nb = 512, 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    R = int(1.5 * 1024 * sms * run / (nb * P))
+    assert build.lib().tp_bloom_run(R * P, nb) == run
+    rng = np.random.default_rng(run * 100_000 + f * 1000 + k * 3 + len(gate))
+    rows = [R, R // 2 + 1, R, 1]
+    uploads = [_to(dev, *_n_run_batch(rng, r, P, k, n_runs=6 if k <= 101 else 2))
+               for r in rows]
+    cfg = PassConfig(k=k, f=f, layout=layout, positions_per_row=P, rows_per_batch=R)
+    low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
+    build.reset_launch_counts()
+    got = fill.bloom_fill_batches(bloom.make_filter(f, layout, dev), uploads, low, high, cfg=cfg)
+    assert build.launch_counts() == {"bloom_fill": 1}
+    want = fill.bloom_fill_batches_plain(bloom.make_filter(f, layout, dev), uploads, low, high,
+                                         cfg=cfg)
+    assert _filters_equal(got, want) and bool(want.view(torch.uint8).any())
+    del want
+    build.reset_launch_counts()
+    mk, ck = mark.bloom_mark_batches(got, uploads, low, high, cfg=cfg)
+    assert build.launch_counts() == {"bloom_mark": 1}
+    mp, cp = mark.bloom_mark_batches_plain(got, uploads, low, high, cfg=cfg)
+    for a, b in zip(mk, mp):
+        assert torch.equal(a, b)
+    assert torch.equal(ck, cp) and int(cp.sum()) > 0
+
+
 def test_bloom_round_kernels_refuse_f36_bit(dev):
     """f = 36 in the bit layout is past the one-device filter's cap (2^35
     slots): the round entries raise before launching (dist-bloom shards

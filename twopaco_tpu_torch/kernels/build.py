@@ -79,14 +79,9 @@ _SIGNATURES = {
         [_P] * 3 + [_SZ, _I, _I, _P, _I, _P, _SZ, _U32] + [_P] * 5, _I
     ),
     "tp_sort_occurrences": ([_P, _P, _SZ, _I, _LL] + [_P] * 3 + [_SZ, _P, _P], _I),
-    "tp_bloom_fill": (
-        [_P, _I, _LL] + [_P] * 3 + [_LL] * 3 + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3
-        + [_P] * 2, _I
-    ),
-    "tp_bloom_mark": (
-        [_P, _I, _LL] + [_P] * 3 + [_LL] * 3 + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3
-        + [_P] * 4, _I
-    ),
+    "tp_bloom_fill": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I),
+    "tp_bloom_mark": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 4, _I),
+    "tp_bloom_run": ([_LL, _I], _I),
     "tp_bloom_extract": (
         [_P] * 2 + [_I] * 5 + [_P, _LL] + [_P] * 3 + [_LL] + [_P] * 5, _I
     ),

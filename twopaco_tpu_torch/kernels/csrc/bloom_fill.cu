@@ -19,11 +19,11 @@
 //     block(V_next) when next is ACGT and V_next is in [low, high]; the
 //     dummy edges as above into block(V) when V is in [low, high].
 //
-// Bound: random filter traffic, a 32-byte sector for each slot (byte,
-// bit) or block an insert touches, over a filter of up to 4 GiB; the
-// hashes are a few dozen integer operations a position. Design: block (x,
-// y) takes tile x of batch y (a row of the batch table, or the one batch
-// given by value); a thread rolls along a run of up to 8 consecutive
+// Bound: the filter's traffic, each distinct 32-byte sector that the
+// inserts touch read once and written once (at most the whole filter, up to
+// 4 GiB), and the upload form; the hashes are a few dozen integer
+// operations a position. Design: block (x, y) takes tile x of batch y (row
+// y of the batch table); a thread rolls along a run of up to 8 consecutive
 // positions of one row: the strand hashes of the run's first window from
 // scratch, then one char a step with the char tables in shared memory, so
 // V_next's vertex hash is the next step's; the window's last N is kept, so
@@ -45,8 +45,7 @@ namespace {
 constexpr int QCHUNK = 8;  // slots of an edge loaded together
 
 struct FillArgs {
-    const TpBloomBatch* table;  // null: the one batch `one`
-    TpBloomBatch one;
+    const TpBloomBatch* table;  // the call's batches
     int P, k, run, q, f;
     uint32_t low, high;
     uint32_t tab[16];  // TABLE_1 .. TABLE_4, 4 words each
@@ -123,15 +122,20 @@ __device__ __forceinline__ void fill_edge(const uint32_t* hf, const uint32_t* hr
 template <int LAYOUT, int NT>
 __global__ void __launch_bounds__(TP_THREADS) k_bloom_fill(FillArgs a) {
     __shared__ uint32_t s_T[16], s_Tk[16], s_Tk1[16];
-    const TpBloomBatch bt = a.table != nullptr ? a.table[blockIdx.y] : a.one;
+    const TpBloomBatch bt = a.table[blockIdx.y];
     const long long n_b = bt.rows * a.P;
     const long long t0 = (long long)blockIdx.x * TP_THREADS * a.run;
     if (t0 >= n_b) return;  // the whole block: this batch has fewer tiles
-    if (threadIdx.x < 16) {
-        const uint32_t t = a.tab[threadIdx.x];
-        s_T[threadIdx.x] = t;
-        s_Tk[threadIdx.x] = tp_rotl32(t, (uint32_t)a.k);
-        s_Tk1[threadIdx.x] = tp_rotl32(t, (uint32_t)(a.k - 1));
+    // thread 0 at fixed indices: an index into the parameters that
+    // depends on the thread would copy them to a stack frame
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+            const uint32_t t = a.tab[u];
+            s_T[u] = t;
+            s_Tk[u] = tp_rotl32(t, (uint32_t)a.k);
+            s_Tk1[u] = tp_rotl32(t, (uint32_t)(a.k - 1));
+        }
     }
     __syncthreads();
     const long long x0 = t0 + (long long)threadIdx.x * a.run;
@@ -207,26 +211,21 @@ cudaError_t launch(const FillArgs& a, dim3 grid, cudaStream_t st) {
 }  // namespace
 
 // The fill of nb batches in one launch. table: nb rows of 7 int64 on the
-// device (packed, nmask, valid pointers, rows, RW, NW, out_off (unused));
-// or null with nb = 1 for the one batch given by the scalar arguments.
+// device (packed, nmask, valid pointers, rows, RW, NW, out_off (unused)).
 // max_pos: the most positions (rows * P) of a batch (P % 8 == 0). tabs:
 // the 16 u32 of TABLE_1 .. TABLE_4 (host memory). layout: 0 byte (filt 2^f
 // u8), 1 bit (2^(f-5) u32), 2 block (2^(f-5) u32, f >= 8).
-extern "C" int tp_bloom_fill(const void* table, int nb, long long max_pos, const void* packed,
-                             const void* nmask, const void* valid, long long rows,
-                             long long RW, long long NW, int P, int k, uint32_t low,
-                             uint32_t high, const uint32_t* tabs, int q, int f, int layout,
-                             void* filt, void* stream) {
+extern "C" int tp_bloom_fill(const void* table, int nb, long long max_pos, int P, int k,
+                             uint32_t low, uint32_t high, const uint32_t* tabs, int q, int f,
+                             int layout, void* filt, void* stream) {
     if (max_pos == 0) return 0;
-    if (nb < 1 || nb > 65535 || max_pos < 0 || P < 8 || P % 8 != 0 || k < 1 || q < 1 ||
-        (table == nullptr && nb != 1) || layout < TP_LAYOUT_BYTE || layout > TP_LAYOUT_BLOCK ||
+    if (table == nullptr || nb < 1 || nb > 65535 || max_pos < 0 || P < 8 || P % 8 != 0 ||
+        k < 1 || q < 1 || layout < TP_LAYOUT_BYTE || layout > TP_LAYOUT_BLOCK ||
         (layout == TP_LAYOUT_BYTE && f > 32) || (layout == TP_LAYOUT_BLOCK && (f < 8 || f > 39)) ||
         f < 1 || f > 63)
         return (int)cudaErrorInvalidValue;
     FillArgs a{};
     a.table = (const TpBloomBatch*)table;
-    a.one = TpBloomBatch{(const uint32_t*)packed, (const uint32_t*)nmask, (const int32_t*)valid,
-                         rows, RW, NW, 0};
     a.P = P, a.k = k, a.q = q, a.f = f, a.low = low, a.high = high, a.filt = filt;
     for (int u = 0; u < 16; ++u) a.tab[u] = tabs[u];
     dim3 grid;
@@ -238,4 +237,13 @@ extern "C" int tp_bloom_fill(const void* table, int nb, long long max_pos, const
     // f > 32: 64-bit indices from tables 1-4
     return (int)(f > 32 ? launch<TP_LAYOUT_BIT, 4>(a, grid, st)
                         : launch<TP_LAYOUT_BIT, 2>(a, grid, st));
+}
+
+// The run (positions a thread) that tp_bloom_fill and tp_bloom_mark take
+// for nb batches of at most max_pos positions on the current device, or -1
+// on an error (the card tests size their inputs by it)
+extern "C" int tp_bloom_run(long long max_pos, int nb) {
+    int run = 0;
+    dim3 grid;
+    return tp_bloom_grid(max_pos, nb, run, grid) == cudaSuccess ? run : -1;
 }

@@ -21,10 +21,11 @@
 // (np.unpackbits order), (rows, P/8) u8 at its offset of the output, and
 // its number of candidates added to its int64 of the count vector.
 //
-// Bound: random filter traffic, a 32-byte sector for the first slot of
-// each of the six edges of a position in the round (byte, bit; more only
-// for an edge whose first slot is set, ~8% of them at the slice's fill),
-// or one block a position (block). Design: as bloom_fill.cu's, block (x,
+// Bound: the filter's traffic, each distinct 32-byte sector that the
+// decisions read once: the first slot of each of the six edges of a
+// position in the round and the later slots of an edge whose earlier ones
+// are set (byte, bit), or V's block (block), at most the whole filter; the
+// upload form read and the masks written. Design: as bloom_fill.cu's, block (x,
 // y) takes tile x of batch y, and a thread rolls the strand hashes along a
 // run of up to 8 positions of one row with the char tables in shared
 // memory and keeps the window's last N. A position starts the loads of the
@@ -43,8 +44,7 @@
 namespace {
 
 struct MarkArgs {
-    const TpBloomBatch* table;  // null: the one batch `one`
-    TpBloomBatch one;
+    const TpBloomBatch* table;  // the call's batches
     int P, k, run, q, f;
     uint32_t low, high;
     uint32_t tab[16];  // TABLE_1 .. TABLE_4, 4 words each
@@ -120,15 +120,22 @@ __global__ void __launch_bounds__(TP_THREADS) k_bloom_mark(MarkArgs a) {
     __shared__ uint32_t s_T[16], s_Tk[16], s_Tk1[16];
     // block layout: each thread's copy of its position's block
     __shared__ uint32_t s_blk[LAYOUT == TP_LAYOUT_BLOCK ? TP_BLOCK_WORDS * TP_THREADS : 1];
-    const TpBloomBatch bt = a.table != nullptr ? a.table[blockIdx.y] : a.one;
-    const long long n_b = bt.rows * a.P;
+    // the batch row's fields are read where used (a copy of the row kept
+    // across the loop spilled to the stack)
+    const TpBloomBatch* bt = a.table + blockIdx.y;
+    const long long n_b = bt->rows * a.P;
     const long long t0 = (long long)blockIdx.x * TP_THREADS * a.run;
     if (t0 >= n_b) return;  // the whole block: this batch has fewer tiles
-    if (threadIdx.x < 16) {
-        const uint32_t t = a.tab[threadIdx.x];
-        s_T[threadIdx.x] = t;
-        s_Tk[threadIdx.x] = tp_rotl32(t, (uint32_t)a.k);
-        s_Tk1[threadIdx.x] = tp_rotl32(t, (uint32_t)(a.k - 1));
+    // thread 0 at fixed indices: an index into the parameters that
+    // depends on the thread would copy them to a stack frame
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+            const uint32_t t = a.tab[u];
+            s_T[u] = t;
+            s_Tk[u] = tp_rotl32(t, (uint32_t)a.k);
+            s_Tk1[u] = tp_rotl32(t, (uint32_t)(a.k - 1));
+        }
     }
     __syncthreads();
     const long long x0 = t0 + (long long)threadIdx.x * a.run;
@@ -138,8 +145,8 @@ __global__ void __launch_bounds__(TP_THREADS) k_bloom_mark(MarkArgs a) {
         const int k = a.k;
         const int r = (int)(x0 / a.P);
         const int i0 = (int)(x0 - (long long)r * a.P);
-        const int end = min(i0 + a.run, (int)bt.valid[r]);
-        const TpRow row{bt.packed + (size_t)r * bt.RW, bt.nmask + (size_t)r * bt.NW};
+        const int end = min(i0 + a.run, (int)bt->valid[r]);
+        const TpRow row{bt->packed + (size_t)r * bt->RW, bt->nmask + (size_t)r * bt->NW};
         uint32_t hf[4], hr[4];
         int last_n = 0;
         if (i0 < end) {
@@ -176,7 +183,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_bloom_mark(MarkArgs a) {
             if (i + 1 < end) tp_roll_hashes(row, i + 1, k, NT, s_T, s_Tk, s_Tk1, hf, hr);
         }
     }
-    tp_pack_runs(bits, a.run, x0, live, a.mask + bt.out_off, a.count + blockIdx.y);
+    tp_pack_runs(bits, a.run, x0, live, a.mask + bt->out_off, a.count + blockIdx.y);
 }
 
 template <int LAYOUT, int NT>
@@ -187,26 +194,22 @@ cudaError_t launch(const MarkArgs& a, dim3 grid, cudaStream_t st) {
 
 }  // namespace
 
-// The masks of nb batches in one launch. table, nb, max_pos and the one
-// batch's scalar arguments, tabs, layout, filt as tp_bloom_fill's; a
-// table row's out_off is the byte offset of the batch's packed (rows,
-// P/8) mask in `mask` (the one batch's: 0). count: nb int64, batch b's
-// candidates added to count[b] (the caller zeroes them).
-extern "C" int tp_bloom_mark(const void* table, int nb, long long max_pos, const void* packed,
-                             const void* nmask, const void* valid, long long rows,
-                             long long RW, long long NW, int P, int k, uint32_t low,
-                             uint32_t high, const uint32_t* tabs, int q, int f, int layout,
-                             const void* filt, void* mask, void* count, void* stream) {
+// The masks of nb batches in one launch. table, nb, max_pos, tabs,
+// layout, filt as tp_bloom_fill's; a table row's out_off is the byte
+// offset of the batch's packed (rows, P/8) mask in `mask`. count: nb
+// int64, batch b's candidates added to count[b] (the caller zeroes them).
+extern "C" int tp_bloom_mark(const void* table, int nb, long long max_pos, int P, int k,
+                             uint32_t low, uint32_t high, const uint32_t* tabs, int q, int f,
+                             int layout, const void* filt, void* mask, void* count,
+                             void* stream) {
     if (max_pos == 0) return 0;
-    if (nb < 1 || nb > 65535 || max_pos < 0 || P < 8 || P % 8 != 0 || k < 1 || q < 1 ||
-        (table == nullptr && nb != 1) || layout < TP_LAYOUT_BYTE || layout > TP_LAYOUT_BLOCK ||
+    if (table == nullptr || nb < 1 || nb > 65535 || max_pos < 0 || P < 8 || P % 8 != 0 ||
+        k < 1 || q < 1 || layout < TP_LAYOUT_BYTE || layout > TP_LAYOUT_BLOCK ||
         (layout == TP_LAYOUT_BYTE && f > 32) || (layout == TP_LAYOUT_BLOCK && (f < 8 || f > 39)) ||
         f < 1 || f > 63)
         return (int)cudaErrorInvalidValue;
     MarkArgs a{};
     a.table = (const TpBloomBatch*)table;
-    a.one = TpBloomBatch{(const uint32_t*)packed, (const uint32_t*)nmask, (const int32_t*)valid,
-                         rows, RW, NW, 0};
     a.P = P, a.k = k, a.q = q, a.f = f, a.low = low, a.high = high, a.filt = filt;
     a.mask = (uint8_t*)mask;
     a.count = (unsigned long long*)count;

@@ -578,7 +578,7 @@ __device__ __forceinline__ uint32_t tp_edge_hash(uint32_t hf, uint32_t hr, const
 }
 
 // ---- the Bloom engine's round kernels (bloom_fill.cu, bloom_mark.cu): one
-// launch over a table of batches, or over one batch passed by value
+// launch over a device table of batches
 
 // One batch of a call (7 int64, the wrapper's table row): its upload form,
 // rows of P positions (RW, NW words a row), and where its packed mask goes

@@ -204,26 +204,18 @@ def check_call(filt, uploads, cfg) -> None:
 
 
 def kernel_args(uploads, cfg, offsets=None) -> tuple:
-    """The leading arguments of tp_bloom_fill and tp_bloom_mark: one batch
-    by value (no table copy), or a device table of batches (a row of 7
-    int64: packed, nmask, valid pointers, rows, RW, NW, the byte offset of
-    its mask in the mark's output), copied from pinned memory with no wait
-    for the stream's earlier work; then the batch geometry and the round's
-    hash constants. -> (table tensor or None, the argument tuple)."""
+    """The leading arguments of tp_bloom_fill and tp_bloom_mark: a device
+    table of the batches (a row of 7 int64: packed, nmask, valid pointers,
+    rows, RW, NW, the byte offset of its mask in the mark's output), copied
+    from pinned memory with no wait for the stream's earlier work; then the
+    batch geometry. -> (table tensor, the argument tuple)."""
+    offsets = offsets or [0] * len(uploads)
+    rows = [(p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1], m.shape[1], off)
+            for (p, m, v), off in zip(uploads, offsets)]
+    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+        uploads[0][0].device, non_blocking=True)
     max_pos = max(up[0].shape[0] for up in uploads) * cfg.P
-    if len(uploads) == 1:
-        packed, nmask, valid = uploads[0]
-        table = None
-        lead = (None, 1, max_pos, packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(),
-                packed.shape[0], packed.shape[1], nmask.shape[1])
-    else:
-        offsets = offsets or [0] * len(uploads)
-        rows = [(p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1], m.shape[1],
-                 off) for (p, m, v), off in zip(uploads, offsets)]
-        table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-            uploads[0][0].device, non_blocking=True)
-        lead = (table.data_ptr(), len(rows), max_pos, None, None, None, 0, 0, 0)
-    return table, (*lead, cfg.P, cfg.k)
+    return table, (table.data_ptr(), len(rows), max_pos, cfg.P, cfg.k)
 
 
 def bloom_fill_batches_plain(filt, uploads, low: int, high: int, *, cfg):
@@ -254,8 +246,7 @@ def bloom_fill(filt, packed, nmask, valid, low: int, high: int, *, cfg):
     int32: the upload form of pack.pack_codes_host (R = P+k+1); [low, high]:
     the round's inclusive vertex-hash interval. -> filt.
 
-    On the card: the one-batch form of the kernel's entry (the batch's
-    fields go as launch arguments; no table is copied)."""
+    On the card: the kernel's launch over a one-row table."""
     if build.on_cpu(filt, packed, nmask, valid):
         return bloom_fill_plain(filt, packed, nmask, valid, low, high, cfg=cfg)
     return _fill(filt, [(packed, nmask, valid)], low, high, cfg)

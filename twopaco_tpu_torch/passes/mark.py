@@ -144,7 +144,7 @@ def bloom_mark(filt, packed, nmask, valid, low: int, high: int, *, cfg):
     Arguments as fill.bloom_fill's. -> (mask (B, P/8) uint8, the candidates
     packed 8 a byte MSB first; count, a 0-d int64 tensor on the device).
 
-    On the card: the one-batch form of the kernel's entry (no table)."""
+    On the card: the kernel's launch over a one-row table."""
     if build.on_cpu(filt, packed, nmask, valid):
         return bloom_mark_plain(filt, packed, nmask, valid, low, high, cfg=cfg)
     (mask,), counts = _mark(filt, [(packed, nmask, valid)], low, high, cfg)
