@@ -15,7 +15,11 @@
    edge inputs of twopaco_tpu_torch/testing/judge_cases.py (a group over
    many tiles with saturated N-in counts, tile-edge groups, one record,
    counts off the tile, over 2^24 records, all and mostly sentinels),
-   abundance none and 3;
+   abundance none and 3; the round partition first on the -r 4 pass's
+   table of every batch (one call, as the resident path makes it), then
+   on one batch; the compaction on one batch, on four batches' records in
+   one append (2048 look-back tiles), and the same appended past lim (the
+   overflow flag) and at an offset past lim (the write clamped);
 4. runs the port's CLI on two inputs whose .dbg sha256 the JAX package
    gave (tests/golden/torch_port_sha256.json) and checks the bytes;
 5. runs the slice: 8 genomes x 8,000,000 bases (seed 2016) through
@@ -30,23 +34,25 @@
    blocks' bytes: 2 groups of 2 rounds), stream (TWOPACO_RESIDENT=0 and
    TWOPACO_GROUPED=0) and histogram split (TWOPACO_UNIFORM_SPLIT=0), each
    with the counters reset just before and read just after; each must
-   launch its mode's kernels and write the -r 1 run's bytes; then -r 4
-   resident through the plain versions on the card, the same bytes again;
+   launch its mode's kernels (the partition once a pass: once, or once a
+   group) and write the -r 1 run's bytes; then -r 4 resident through the
+   plain versions on the card, the same bytes again;
 7. holds the Bloom engine's four kernels (fill, mark, extract, lookup)
    against their plain versions: fill and mark first on the slice's
    round, its 123 batches in one launch each (as the main path calls
    them; the fill timed into a zeroed filter, each version filling its
-   own), then on one batch against the whole slice's filter, in the byte
-   layout at f=30, the bit layout at f=34 (64-bit probe indices) and the
-   block layout at f=30; extract on the byte mask, lookup against the
-   slice's junction table;
+   own; the two filters must then be equal), then on one batch against the
+   whole slice's filter, in the byte layout at f=30, the bit layout at
+   f=34 (64-bit probe indices) and the block layout at f=30; extract on
+   the byte mask, lookup against the slice's junction table;
 8. runs the slice through the Bloom engine (`--tpu-engine bloom`): -f 30
    (auto: byte), --tpu-layout bit -f 34, --tpu-layout block -f 30, and
    -f 30 -r 4, each with the counters reset just before and read just
    after; each must launch the Bloom kernels and the sort and judge of
    its verify pass, the fill and the mark exactly once a round, and write
-   SLICE_SHA256; then a Bloom run through the plain versions on the card,
-   the same bytes again;
+   SLICE_SHA256; a one-round run must count the candidates that the round
+   mark of its layout counted in step 7; then a Bloom run through the
+   plain versions on the card, the same bytes again;
 9. holds the distributed engine's four kernels against their plain
    versions at the slice's shapes: the word0 histogram of shard 0's 123
    batches in one launch (as the path measures it) and of one batch;
@@ -76,14 +82,16 @@
    shards (255 rows a batch), and a tiny cap whose overflow counts must
    match; the byte fill is also timed into a zeroed shard, every slot new;
    the device kernels of one call each of the route, the bucket's two
-   modes, the record build's table (one kernel) and both judges (two
-   kernels each) are listed by one torch.profiler session;
+   modes, the record build's table (one kernel), both judges (two kernels
+   each), the -r 4 partition pass (two) and the compaction (two) are
+   listed by one torch.profiler session;
    the probe is also held against its plain version on hand-made received
    blocks (rows of 0, cap, chunk-boundary and random sent counts; the mark
    cap, and an odd cap starting 8 bytes off 16-byte alignment) (in the
    profiler session: k_route and k_route_tail; one bucketing kernel a
-   mode; one k_records; k_judge_scan and k_judge_write a judge; no count
-   or scan kernel, no memset);
+   mode; one k_records; k_judge_scan and k_judge_write a judge;
+   k_partition and k_part_tail; k_compact_real and k_compact_rest; no
+   count or scan kernel, no memset);
 12. runs the slice through the dist-bloom engine, each with the counters
    reset just before and read just after, each launching the four
    entries and the dist engine's kernels and writing SLICE_SHA256:
@@ -839,31 +847,43 @@ def main() -> int:
         fn=histogram.histogram_vertex_hashes_batches_plain)
     require(np.array_equal(hist_k, hist_p), "histogram scan differs from the plain one")
     print(f"histogram scan of {len(uploads)} batches at stride {hist_stride}: exact")
-    # resident partition into the path's blocks: 4 rounds, cap 1.25 B*P / 4
+    # resident partition into the path's blocks: 4 rounds, cap 1.25 B*P / 4;
+    # the main path's call first (its time is the one reported): the pass's
+    # batches in one call over their table, then one batch
     intervals = sortpipe._live_intervals(np.ones(1 << 16, np.int64), ROUNDS)
     highs = [h for _l, h in intervals]
     part_cap = -(-int(cfg.round_slack * bp) // len(intervals))
     highs_d = pack.as_u32(torch.tensor(highs, dtype=torch.int64, device=dev))
+
+    def scan_out(res):
+        return (*res[:3], torch.from_numpy(res[3]))
+
+    build.reset_launch_counts()
+    *blocks, counts = partition.partition_scan(
+        uploads, highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=part_cap)
+    require(build.launch_counts() == {"partition": 1},
+            f"partition scan: {build.launch_counts()}, not one call")
+    require((counts <= part_cap).all(), "partition scan: a block overflowed")
+    # the bound: the uploads read once, every block slot written once
+    compare(
+        "partition",
+        lambda: scan_out(partition.partition_scan(uploads, highs, 0, 0xFFFFFFFF, k=k, P=P,
+                                                  part_cap=part_cap)),
+        lambda: scan_out(partition.partition_scan_plain(uploads, highs, 0, 0xFFFFFFFF, k=k,
+                                                        P=P, part_cap=part_cap)),
+        2, results, in_bytes=nbytes(uploads, highs_d), out_bytes=nbytes(blocks),
+        ops=records_ops(n_slots, len(batches) * B, k),
+    )
+    print(f"partition scan: the pass's {len(uploads)} batches in one call, blocks "
+          f"{tuple(blocks[0].shape)} exact ({nbytes(blocks) / 1e9:.2f} GB)")
     compare(
         "partition",
         lambda: partition.partition_batch(*args, highs_d, 0, 0xFFFFFFFF, k=k, P=P,
                                           part_cap=part_cap),
         lambda: partition.partition_batch_plain(*args, highs_d, 0, 0xFFFFFFFF, k=k,
                                                 P=P, part_cap=part_cap),
-        5, results, in_bytes=nbytes(args, highs_d), ops=B * P * 6 * k,
+        5, results, in_bytes=nbytes(args, highs_d), ops=records_ops(B * P, B, k),
     )
-    *blocks, counts = partition.partition_scan(
-        uploads, highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=part_cap)
-    *blocks_p, counts_p = partition.partition_scan(
-        uploads, highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=part_cap,
-        fn=partition.partition_batch_plain)
-    require(np.array_equal(counts, counts_p) and (counts <= part_cap).all(),
-            "partition scan counts differ from the plain ones, or overflow")
-    err = max_abs_err(blocks, blocks_p)
-    require(err == 0, f"partition scan blocks differ from the plain ones ({err})")
-    del blocks_p
-    print(f"partition scan: blocks {tuple(blocks[0].shape)} exact "
-          f"({sum(t.numel() * t.element_size() for t in blocks) / 1e9:.2f} GB)")
     bases_d = torch.tensor(bases, dtype=torch.int64, device=dev)
     asm_slots = len(batches) * part_cap
     for r in range(len(intervals)):
@@ -891,6 +911,29 @@ def main() -> int:
         out_bytes=int((pack.as_i64(recs[1]) >> 17 & 1).sum()) * (4 * w + 12) + nbytes(st_k),
     )
     del buf_k, buf_p
+    # four batches' records in one append (2048 look-back tiles, a quarter
+    # of the rows real); then the same at an offset whose append passes lim
+    # (the overflow flag set) and at one past lim (the write clamped)
+    recs4b = records.build_sort_records_batches(uploads[:4], [0, bp, 2 * bp, 3 * bp], k=k, P=P,
+                                                low=low, high=high)
+    n4, cnt4 = 4 * bp, int((pack.as_i64(recs4b[1]) >> 17 & 1).sum())
+    lim4 = 2 * n4 - n4
+    for what, off0 in (("many tiles", 5), ("overflow", lim4 - cnt4 // 2), ("clamp", lim4 + 3)):
+        (buf_k, st_k), (buf_p, st_p) = (stream.new_round_buffer(2 * n4, w, dev) for _ in "kp")
+        compare(
+            "compact",
+            lambda: (st_k.copy_(torch.tensor([off0, 0])),
+                     stream.compact_append(*recs4b, buf_k, st_k, lim4), *buf_k, st_k)[2:],
+            lambda: (st_p.copy_(torch.tensor([off0, 0])),
+                     stream.compact_append_plain(*recs4b, buf_p, st_p, lim4), *buf_p, st_p)[2:],
+            3, results, in_bytes=nbytes(recs4b), out_bytes=nbytes(recs4b) + nbytes(st_k),
+        )
+        require(st_k.tolist() == [min(off0, lim4) + cnt4, int(what != "many tiles")],
+                f"compact {what}: state {st_k.tolist()}")
+        print(f"compact {what}: {n4} records ({cnt4} real) at offset {off0}, lim {lim4}: "
+              f"exact, state {st_k.tolist()}")
+        del buf_k, buf_p
+    del recs4b
     rounds = [
         stream.stream_round(uploads, bases, low, high, k=k, P=P, buf_slots=st_slots,
                             compact_fn=fn)
@@ -1079,6 +1122,9 @@ def main() -> int:
         for name in (*kernels, "sort_records", "judge_compact"):
             require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
         require(launches[tag].get("histogram", 1) == 1, f"{tag}: not one histogram launch")
+        # one partition call a pass: the run's, or one a group of rounds
+        require(launches[tag].get("partition", 0) == {"grouped": 2, "stream": 0}.get(tag, 1),
+                f"{tag}: {launches[tag].get('partition', 0)} partition calls")
         require(any(line.startswith("Splitting") and split_line in line
                     for line in text.splitlines()), f"{tag}: the mode did not run")
         require(sum(line.startswith("Round ") and "seconds" in line
@@ -1105,6 +1151,7 @@ def main() -> int:
     }
     full = (0, 0xFFFFFFFF)
     uploads = [upload(b) for b in batches]
+    round_cands = {}  # a layout's candidates in the round mark, for its engine run
     for lay, bcfg in bcfgs.items():
         filt_k = bloom.make_filter(bcfg.f, lay, dev)
         filt_p = bloom.make_filter(bcfg.f, lay, dev)
@@ -1121,6 +1168,9 @@ def main() -> int:
                 2, results, in_bytes=nbytes(uploads) + n_fill * SECTOR,
                 out_bytes=n_fill * SECTOR, ops=bloom_ops(n_slots, k, nt, bcfg.q, 1),
                 prepare=(filt_k.zero_, filt_p.zero_))
+        # each filled from zero by its last timed repeat
+        require(torch.equal(filt_k.view(torch.uint8), filt_p.view(torch.uint8)),
+                f"Bloom {lay}: the round fill's filter differs from the plain fill's")
         n_reads = count_sectors(lambda fl, u: mark_sectors(fl, filt_k, u, full, bcfg), filt_k,
                                 uploads)
         compare("bloom_mark",
@@ -1129,6 +1179,7 @@ def main() -> int:
                 2, results, in_bytes=nbytes(uploads) + n_reads * SECTOR,
                 ops=bloom_ops(n_slots, k, nt, bcfg.q, 6))
         _m, rcounts = mark.bloom_mark_batches(filt_k, uploads, *full, cfg=bcfg)
+        round_cands[lay] = int(rcounts.sum())
         print(f"Bloom {lay} f={bcfg.f} round: {len(uploads)} batches in one launch each; "
               f"{n_fill} filter sectors set by the fill, {n_reads} read by the mark, of "
               f"{nbytes(filt_k) // SECTOR}; {int(rcounts.sum())} candidates of {n_slots} "
@@ -1200,6 +1251,12 @@ def main() -> int:
         for line in text.splitlines():
             if line.startswith(("Candidate marks", "False junctions")):
                 print(f"{tag}   {line}")
+        if n_rounds == 1:  # the same layout and f as the round mark above
+            cands = [int(line.rsplit("=", 1)[1]) for line in text.splitlines()
+                     if line.startswith("Candidate marks count")]
+            require(cands == [round_cands[layout]],
+                    f"{tag}: the engine's candidates {cands} != the round mark's "
+                    f"{round_cands[layout]}")
         got = sha256(out_b)
         require(got == slice_sha, f"{tag}: .dbg sha256 {got} != {slice_sha}")
         print(f"{tag}: .dbg identical to the sort engine's")
@@ -1344,11 +1401,15 @@ def main() -> int:
         if (lay, f_bits, n_sh, tiny) == ("byte", 30, D4, False):
             # one profiler session (a later one in the process recorded no
             # device event): one call each of route, bucket fill, bucket mark
+            cbuf, cstate = stream.new_round_buffer(2 * recs4[1].numel(), w, dev)
             kern = device_kernels(lambda: [c() for c in (
                 route_once, *bucket_once,
                 lambda: records.build_sort_records_batches(uploads, bases, k=k, P=P),
                 lambda: judge.judge_compact(*judge_once),
-                lambda: judge.judge_records(*judge_once[:2]))])
+                lambda: judge.judge_records(*judge_once[:2]),
+                lambda: partition.partition_scan(uploads, highs, 0, 0xFFFFFFFF, k=k, P=P,
+                                                 part_cap=part_cap),
+                lambda: stream.compact_append(*recs4, cbuf, cstate, recs4[1].numel()))])
             names = " ".join(kern)
             def count(prefix):
                 return sum(c for kk, (c, _t) in kern.items() if kk.startswith(prefix))
@@ -1359,16 +1420,20 @@ def main() -> int:
                     and kern.get("k_shard_tail", (0,))[0] == 2
                     and count("k_records") == 1 and count("k_judge_scan") == 2
                     and count("k_judge_write<true") == count("k_judge_write<false") == 1
+                    and count("k_partition<") == count("k_part_tail") == 1
+                    and count("k_compact_real") == count("k_compact_rest") == 1
                     and "k_scan" not in names and "k_shard_count" not in names
                     and "Memset" not in names,
-                    f"route, shard_bucket, build_records, judge: device launches of one "
-                    f"call each {kern}")
+                    f"route, shard_bucket, build_records, judge, partition, compact: device "
+                    f"launches of one call each {kern}")
             print(f"route, shard_bucket fill, shard_bucket mark, build_records (the -r 1 "
                   f"round's {len(uploads)} batches), judge_compact and judge_records (the "
-                  f"long_group case, {judge_once[0].shape[0]} records): device launches of "
-                  f"one call each ({sum(t for _c, t in kern.values()):.4f} ms on the device): "
+                  f"long_group case, {judge_once[0].shape[0]} records), partition_scan (the "
+                  f"-r {ROUNDS} pass's {len(uploads)} batches) and compact_append (shard 0's "
+                  f"{recs4[1].numel()} records): device launches of one call each "
+                  f"({sum(t for _c, t in kern.values()):.4f} ms on the device): "
                   + ", ".join(f"{kk} x{c} {t:.4f} ms" for kk, (c, t) in kern.items()))
-            del route_once, recs4, send_k, judge_once
+            del route_once, recs4, send_k, judge_once, cbuf, cstate
         if tiny:
             continue
         # the whole slice into the sharded filter, as the main path fills it

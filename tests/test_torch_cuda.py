@@ -8,6 +8,7 @@ not have; this file imports no JAX.) Integer data: every comparison is
 exact.
 """
 
+import json
 import os
 
 import numpy as np
@@ -259,27 +260,70 @@ def _upload_batches(dev, rng, nb, B, P, k):
     return [_to(dev, *_genome_batch(rng, B, P, k)) for _ in range(nb)]
 
 
-@pytest.mark.parametrize(
-    "k,n_parts,cap,gate",
-    [(25, 4, 1200, "full"), (25, 1, 5000, "full"), (11, 7, 150, "full"),
-     (33, 5, 900, "narrow"), (101, 3, 64, "full"), (25, 300, 8, "full")],
-)
-def test_partition_kernel(dev, k, n_parts, cap, gate):
-    """Blocks, counts and sentinel slots equal the plain version exactly,
-    overflowing caps (150, 64, 8) included."""
-    rng = np.random.default_rng(k * 31 + n_parts)
-    B, P = 8, 512
-    args = _to(dev, *_genome_batch(rng, B, P, k))
+# k, rounds, cap, gate, rows a batch, batches, whether a round overflows
+# the cap: one batch of 8 x 512 positions; then tables of batches of 64 x
+# 2048 positions (64 look-back tiles a batch rolled, 512 at w > 4): the
+# ballot (32 rounds) and match-mask (33, 4096) ranks, w > 4, and caps far
+# below a round's count; None: rows * P, no round overflows
+PART_CASES = [
+    (25, 4, 1200, "full", 8, 1, False), (25, 1, 5000, "full", 8, 1, False),
+    (11, 7, 150, "full", 8, 1, True), (33, 5, 900, "narrow", 8, 1, False),
+    (101, 3, 64, "full", 8, 1, True), (25, 300, 8, "full", 8, 1, True),
+    (25, 4, None, "full", 64, 4, False), (25, 4, 5_000, "full", 64, 3, True),
+    (25, 32, None, "full", 64, 3, False), (11, 33, None, "narrow", 64, 3, False),
+    (25, 4096, 8, "full", 64, 2, True), (101, 33, None, "full", 64, 2, False),
+    (101, 4, 1_000, "narrow", 64, 2, True),
+]
+
+
+def _partition_both(dev, k, n_parts, cap, gate, rows, nb, seed):
+    """-> (kernel blocks and counts, plain ones, launch counts of the
+    kernel's call): partition_batch for one batch, partition_scan's table
+    for more; counts as numpy int64"""
+    rng = np.random.default_rng(seed)
+    P = 512 if rows == 8 else 2048
+    cap = rows * P if cap is None else cap
+    uploads = _upload_batches(dev, rng, nb, rows, P, k)
     low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
-    cuts = np.sort(rng.integers(low, high, size=n_parts - 1))
-    highs = pack.as_u32(torch.tensor(np.append(cuts, high), device=dev))
+    bounds = np.append(np.sort(rng.integers(low, high, size=n_parts - 1)), high)
     build.reset_launch_counts()
-    got = partition.partition_batch(*args, highs, low, high, k=k, P=P, part_cap=cap)
-    assert build.launch_counts() == {"partition": 1}
-    want = partition.partition_batch_plain(*args, highs, low, high, k=k, P=P, part_cap=cap)
-    for a, b in zip(got, want):
+    if nb == 1:
+        highs = pack.as_u32(torch.tensor(bounds, device=dev))
+        got = partition.partition_batch(*uploads[0], highs, low, high, k=k, P=P, part_cap=cap)
+        launches = build.launch_counts()
+        want = partition.partition_batch_plain(*uploads[0], highs, low, high, k=k, P=P,
+                                               part_cap=cap)
+        return (*got[:3], got[3].cpu().numpy()), (*want[:3], want[3].cpu().numpy()), launches
+    got = partition.partition_scan(uploads, bounds.tolist(), low, high, k=k, P=P, part_cap=cap)
+    launches = build.launch_counts()
+    want = partition.partition_scan_plain(uploads, bounds.tolist(), low, high, k=k, P=P,
+                                          part_cap=cap)
+    return got, want, launches
+
+
+@pytest.mark.parametrize("k,n_parts,cap,gate,rows,nb,over", PART_CASES)
+def test_partition_kernel(dev, k, n_parts, cap, gate, rows, nb, over):
+    """Blocks, counts and sentinel slots equal the plain version exactly,
+    one call (one launch and a tail) for a batch or a table of them,
+    overflowing caps included."""
+    got, want, launches = _partition_both(dev, k, n_parts, cap, gate, rows, nb,
+                                          k * 31 + n_parts + nb)
+    assert launches == {"partition": 1}
+    for a, b in zip(got[:3], want[:3]):
         assert _equal(a, b)
-    assert int(want[3].sum()) > 0
+    assert np.array_equal(got[3], want[3]) and want[3].sum() > 0
+    assert (want[3] > got[0].shape[-2]).any() == over
+
+
+def test_partition_scan_splits_by_status_budget(dev, monkeypatch):
+    """A table whose look-back status passes STATUS_BUDGET goes in several
+    calls (here one batch a call), each exact."""
+    monkeypatch.setattr(partition, "STATUS_BUDGET", 64 * 33 * 8 + 8)
+    got, want, launches = _partition_both(dev, 25, 33, 5_000, "full", 64, 3, 5)
+    assert launches == {"partition": 3}
+    for a, b in zip(got[:3], want[:3]):
+        assert _equal(a, b)
+    assert np.array_equal(got[3], want[3])
 
 
 @pytest.mark.parametrize("w_k", [11, 25, 101])
@@ -304,12 +348,13 @@ def test_assemble_kernel(dev, w_k):
 
 
 @pytest.mark.parametrize("k", [25, 101])
-@pytest.mark.parametrize("slots_per_batch", [100, 2048])  # 100 overflows
-def test_compact_kernel(dev, k, slots_per_batch):
-    """compact_append over several batches: the buffer and the (offset,
-    overflow) state equal the plain version's exactly."""
-    rng = np.random.default_rng(k + slots_per_batch)
-    B, P, nb = 4, 256, 5
+# 100 and 4000 overflow; 256 rows of 256 positions: 64 look-back tiles a call
+@pytest.mark.parametrize("rows,slots_per_batch", [(4, 100), (4, 2048), (256, 4000), (256, 70_000)])
+def test_compact_kernel(dev, k, rows, slots_per_batch):
+    """compact_append over several batches whose real and other rows mix
+    (the narrow gate): the buffer and the (offset, overflow) state equal
+    the plain version's exactly."""
+    B, P, nb = rows, 256, 5
     n = B * P
     buf_slots = nb * slots_per_batch + n
     low, high = 1 << 30, 3 << 30
@@ -326,7 +371,98 @@ def test_compact_kernel(dev, k, slots_per_batch):
         outs.append((*buf, state))
     for a, b in zip(*outs):
         assert _equal(a, b)
-    assert int(outs[0][3][1]) == (slots_per_batch == 100)
+    assert int(outs[0][3][1]) == (slots_per_batch in (100, 4000))
+
+
+@pytest.mark.parametrize("real", ["all", "none"])
+def test_compact_kernel_all_or_none_real(dev, real):
+    """Every row real, or none, over 20 tiles, appended twice; the empty
+    call launches nothing and changes nothing."""
+    words, pay, pos = _random_records(np.random.default_rng(len(real)), 20_000, 2,
+                                      sent_frac=0.0)
+    if real == "none":
+        pay[:] = 0
+    recs = _to(dev, words, pay, pos)
+    outs = []
+    for fn in (stream.compact_append, stream.compact_append_plain):
+        buf, state = stream.new_round_buffer(60_000, 2, dev)
+        build.reset_launch_counts()
+        for _ in range(2):
+            fn(*recs, buf, state, 40_000)
+        fn(*(t[:0] for t in recs), buf, state, 40_000)
+        if fn is stream.compact_append:
+            assert build.launch_counts() == {"compact": 2}
+        outs.append((*buf, state))
+    for a, b in zip(*outs):
+        assert _equal(a, b)
+    assert outs[0][3].tolist() == [40_000 if real == "all" else 0, 0]
+
+
+# One torch.profiler session a process records device events (a second
+# one in the process records none), so the device kernels of the partition
+# and the compaction are listed in a child process of their own
+LAUNCH_CHILD = r"""
+import json
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from twopaco_tpu_torch.ops import pack
+from twopaco_tpu_torch.passes import partition, records, stream
+
+dev = torch.device("cuda")
+rng = np.random.default_rng(3)
+k, B, P = 25, 64, 2048
+
+def batch():
+    codes = rng.integers(0, 4, size=(B, P + k + 1)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.001] = 4
+    return [torch.from_numpy(a).to(dev) for a in (*pack.pack_codes_host(codes),
+                                                 np.full(B, P, np.int32))]
+
+ups = [batch() for _ in range(5)]
+bounds = [1 << 30, 2 << 30, 3 << 30, 0xFFFFFFFF]
+highs = pack.as_u32(torch.tensor(bounds, device=dev))
+recs = records.build_sort_records(*ups[0], 0, k=k, P=P, low=1 << 30, high=3 << 30)
+buf, state = stream.new_round_buffer(4 * B * P, pack.n_words(k), dev)
+calls = (
+    lambda: partition.partition_scan(ups, bounds, 0, 0xFFFFFFFF, k=k, P=P, part_cap=40_000),
+    lambda: partition.partition_batch(*ups[0], highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=40_000),
+    lambda: stream.compact_append(*recs, buf, state, 3 * B * P),
+)
+for fn in calls:  # the kept scratch allocated, the library loaded
+    fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+names = {}
+for e in prof.key_averages():
+    if e.device_type == DeviceType.CUDA:
+        name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+        names[name.split("(")[0].strip()] = e.count
+print("LAUNCHES " + json.dumps(names))
+"""
+
+
+def test_partition_compact_device_launches(dev):
+    """One partition_scan over a table of 5 batches, one partition_batch
+    and one compact_append launch two kernels each (k_partition and
+    k_part_tail, k_compact_real and k_compact_rest), and no scan kernel,
+    no memset and nothing else: copies only."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    child = subprocess.run([sys.executable, "-c", LAUNCH_CHILD], cwd=root, capture_output=True,
+                           text=True, timeout=600)
+    lines = [line for line in child.stdout.splitlines() if line.startswith("LAUNCHES ")]
+    assert child.returncode == 0 and lines, child.stdout[-2000:] + child.stderr[-2000:]
+    names = json.loads(lines[-1][len("LAUNCHES "):])
+    kernels = {n: c for n, c in names.items() if not n.startswith("Memcpy")}
+    assert kernels == {"k_partition<2>": 2, "k_part_tail": 2, "k_compact_real<2>": 1,
+                       "k_compact_rest<2>": 1}, names
 
 
 @pytest.mark.parametrize("k", [11, 25, 101])

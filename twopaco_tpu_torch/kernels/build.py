@@ -63,15 +63,14 @@ _SIGNATURES = {
     "tp_judge_records": (
         [_P, _P, _SZ, _I, _I, ctypes.c_ulonglong, _P, _SZ, _U32] + [_P] * 5, _I
     ),
-    "tp_partition_count_words": ([_SZ, _I], _SZ),
     "tp_partition_max_parts": ([], _I),
+    "tp_partition_tile": ([_I], _I),
     "tp_partition_records": (
-        [_P] * 3 + [_I] * 5 + [_U32] * 6 + [_P, _I, _I] + [_P] * 11, _I
+        [_P, _I, _LL, _I, _I] + [_U32] * 6 + [_P, _I, _I, _P, _SZ, _U32] + [_P] * 5, _I
     ),
     "tp_assemble_round": ([_P] * 4 + [_I] * 5 + [_SZ] + [_P] * 4, _I),
-    "tp_compact_append": (
-        [_P] * 3 + [_SZ, _I] + [_P] * 3 + [ctypes.c_longlong] + [_P] * 5, _I
-    ),
+    "tp_compact_tile": ([], _I),
+    "tp_compact_append": ([_P] * 3 + [_SZ, _I] + [_P] * 3 + [_LL] + [_P] * 2 + [_SZ, _U32, _P], _I),
     "tp_histogram_batches": ([_P, _I, _LL, _I, _I, _I] + [_U32] * 4 + [_P] * 2, _I),
     "tp_route_max_shards": ([], _I),
     "tp_route_tile": ([], _I),
@@ -189,8 +188,8 @@ class KernelLibrary:
 LIBRARY = KernelLibrary()
 _LAUNCHES: Counter = Counter()
 # the look-back scratch of each (device, stream, name): "bucket", shared by
-# route.cu and bloom_shard.cu's bucketing, and "judge" (judge.cu):
-# [uint8 tensor, epoch counter]
+# route.cu and bloom_shard.cu's bucketing, "judge" (judge.cu), "partition"
+# (partition.cu) and "compact" (compact.cu): [uint8 tensor, epoch counter]
 _LOOKBACK: dict = {}
 _EPOCHS = (1 << 30) - 1
 
@@ -237,6 +236,19 @@ def drop_lookback_scratch(device: torch.device, name: str = "bucket") -> None:
     """Forget the current stream's scratch after a failed call: its tile
     counter may not have been reset."""
     _LOOKBACK.pop((device.index, stream_ptr(), name), None)
+
+
+def batch_table(uploads, offsets=None) -> torch.Tensor:
+    """The device table of a kernel call over batches (common.cuh TpBatch):
+    a row of 7 int64 a (packed, nmask, valid) batch (its three pointers,
+    rows, RW, NW, and its offset, e.g. of its mask in the Bloom mark's
+    output; 0 where none is given), copied from pinned memory so that the
+    copy needs no wait for the stream's earlier work."""
+    offsets = offsets or [0] * len(uploads)
+    rows = [(p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1], m.shape[1], off)
+            for (p, m, v), off in zip(uploads, offsets)]
+    return torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+        uploads[0][0].device, non_blocking=True)
 
 
 def count_launch(name: str) -> None:

@@ -45,7 +45,7 @@ namespace {
 constexpr int QCHUNK = 8;  // slots of an edge loaded together
 
 struct FillArgs {
-    const TpBloomBatch* table;  // the call's batches
+    const TpBatch* table;  // the call's batches
     int P, k, run, q, f;
     uint32_t low, high;
     uint32_t tab[16];  // TABLE_1 .. TABLE_4, 4 words each
@@ -122,7 +122,7 @@ __device__ __forceinline__ void fill_edge(const uint32_t* hf, const uint32_t* hr
 template <int LAYOUT, int NT>
 __global__ void __launch_bounds__(TP_THREADS) k_bloom_fill(FillArgs a) {
     __shared__ uint32_t s_T[16], s_Tk[16], s_Tk1[16];
-    const TpBloomBatch bt = a.table[blockIdx.y];
+    const TpBatch bt = a.table[blockIdx.y];
     const long long n_b = bt.rows * a.P;
     const long long t0 = (long long)blockIdx.x * TP_THREADS * a.run;
     if (t0 >= n_b) return;  // the whole block: this batch has fewer tiles
@@ -225,7 +225,7 @@ extern "C" int tp_bloom_fill(const void* table, int nb, long long max_pos, int P
         f < 1 || f > 63)
         return (int)cudaErrorInvalidValue;
     FillArgs a{};
-    a.table = (const TpBloomBatch*)table;
+    a.table = (const TpBatch*)table;
     a.P = P, a.k = k, a.q = q, a.f = f, a.low = low, a.high = high, a.filt = filt;
     for (int u = 0; u < 16; ++u) a.tab[u] = tabs[u];
     dim3 grid;

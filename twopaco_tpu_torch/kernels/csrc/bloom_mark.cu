@@ -44,7 +44,7 @@
 namespace {
 
 struct MarkArgs {
-    const TpBloomBatch* table;  // the call's batches
+    const TpBatch* table;  // the call's batches
     int P, k, run, q, f;
     uint32_t low, high;
     uint32_t tab[16];  // TABLE_1 .. TABLE_4, 4 words each
@@ -122,7 +122,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_bloom_mark(MarkArgs a) {
     __shared__ uint32_t s_blk[LAYOUT == TP_LAYOUT_BLOCK ? TP_BLOCK_WORDS * TP_THREADS : 1];
     // the batch row's fields are read where used (a copy of the row kept
     // across the loop spilled to the stack)
-    const TpBloomBatch* bt = a.table + blockIdx.y;
+    const TpBatch* bt = a.table + blockIdx.y;
     const long long n_b = bt->rows * a.P;
     const long long t0 = (long long)blockIdx.x * TP_THREADS * a.run;
     if (t0 >= n_b) return;  // the whole block: this batch has fewer tiles
@@ -209,7 +209,7 @@ extern "C" int tp_bloom_mark(const void* table, int nb, long long max_pos, int P
         f < 1 || f > 63)
         return (int)cudaErrorInvalidValue;
     MarkArgs a{};
-    a.table = (const TpBloomBatch*)table;
+    a.table = (const TpBatch*)table;
     a.P = P, a.k = k, a.q = q, a.f = f, a.low = low, a.high = high, a.filt = filt;
     a.mask = (uint8_t*)mask;
     a.count = (unsigned long long*)count;

@@ -24,9 +24,8 @@ inline unsigned tp_blocks(size_t n, size_t per_block) {
 }
 
 // Inclusive prefix sum of n u32 values (in may equal out). scratch holds
-// tp_scan_scratch_words(n) u32 words. Used by the round partition (block
-// offsets), the stream compaction and the Bloom engine's extract and
-// lookup.
+// tp_scan_scratch_words(n) u32 words. Used by the Bloom engine's extract
+// and lookup.
 cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
                                   size_t n, uint32_t* scratch,
                                   cudaStream_t stream);
@@ -57,6 +56,17 @@ extern "C" size_t tp_sort_scratch_bytes(size_t n, int passes);
 namespace {
 
 constexpr uint32_t TP_REAL = 1u << 17;  // payload bit of a real record
+
+// One batch of a call over a device table of batches (7 int64, the
+// wrapper's table row): its upload form, rows of P positions (RW, NW words
+// a row), and where its packed mask goes in the Bloom mark's output (bytes;
+// the Bloom fill and the round partition ignore it)
+struct TpBatch {
+    const uint32_t* packed;
+    const uint32_t* nmask;
+    const int32_t* valid;
+    long long rows, RW, NW, out_off;
+};
 
 struct TpTab {
     uint32_t t[4];
@@ -325,8 +335,10 @@ __device__ __forceinline__ void tp_pack_runs(unsigned bits, int run, long long x
 }
 
 // ---- one-sweep stable owner bucketing (bloom_shard.cu tp_shard_bucket,
-// route.cu tp_route_records): the items of a call, each owned by one of D
-// shards or by none, go to (D, cap) send slots, each owner's in item order.
+// route.cu tp_route_records, partition.cu tp_partition_records with the
+// round as the owner, and compact.cu tp_compact_append with one owner, the
+// real rows): the items of a call, each owned by one of D shards or by
+// none, go to (D, cap) send slots, each owner's in item order.
 // A block takes the next tile of items from an atomic counter (so it only
 // waits on tiles that started); then, barrier to barrier:
 // - rank (tp_warp_rank): each warp ranks its contiguous part of the tile by
@@ -348,8 +360,9 @@ __device__ __forceinline__ void tp_pack_runs(unsigned bits, int run, long long x
 // A status word is value (32 bits) | flag (2 bits) | epoch (30 bits); a
 // word of another epoch reads as unpublished, so a scratch whose words
 // carry each call's epoch needs no clearing between calls: the callers'
-// tail kernels reset the tile counter, and both callers' wrappers share
-// one scratch a (device, stream) (kernels/build.py lookback_scratch).
+// last kernels reset the tile counter, and the wrappers keep one scratch a
+// (device, stream, name) (kernels/build.py lookback_scratch; the route and
+// the shard bucketing share theirs).
 
 constexpr int TP_ROUTE_MAX = 4096;          // owners a call may bucket to
 constexpr uint64_t TP_ST_AGG = 1ull << 32;   // the tile's own count
@@ -496,7 +509,7 @@ __device__ __forceinline__ int tp_run_owner(const uint32_t* s_tex, int D, uint32
 // clear(j) for every slot j = d * cap + c of owner d's row from its count
 // (the value of the last tile's status word last[d]) to cap, `chunk` slots
 // a block (a chunk below the count exits at once); block (0, d) adds owner
-// d's items past cap to *overflow.
+// d's items past cap to *overflow (null: not counted).
 template <class Clear>
 __device__ __forceinline__ void tp_owner_tail(const uint64_t* __restrict__ last,
                                               size_t cap, size_t chunk,
@@ -504,7 +517,7 @@ __device__ __forceinline__ void tp_owner_tail(const uint64_t* __restrict__ last,
                                               Clear clear) {
     const size_t d = blockIdx.y;
     const size_t tot = (uint32_t)last[d];
-    if (blockIdx.x == 0 && threadIdx.x == 0 && tot > cap)
+    if (overflow != nullptr && blockIdx.x == 0 && threadIdx.x == 0 && tot > cap)
         atomicAdd(overflow, (unsigned long long)(tot - cap));
     const size_t c0 = (size_t)blockIdx.x * chunk;
     const size_t end = cap - c0 < chunk ? cap : c0 + chunk;
@@ -578,17 +591,7 @@ __device__ __forceinline__ uint32_t tp_edge_hash(uint32_t hf, uint32_t hr, const
 }
 
 // ---- the Bloom engine's round kernels (bloom_fill.cu, bloom_mark.cu): one
-// launch over a device table of batches
-
-// One batch of a call (7 int64, the wrapper's table row): its upload form,
-// rows of P positions (RW, NW words a row), and where its packed mask goes
-// in the mark's output (bytes; the fill ignores it)
-struct TpBloomBatch {
-    const uint32_t* packed;
-    const uint32_t* nmask;
-    const int32_t* valid;
-    long long rows, RW, NW, out_off;
-};
+// launch over a device table of batches (TpBatch rows)
 
 // Positions a thread of a Bloom round kernel rolls along, at most
 constexpr int TP_BLOOM_RUN = 8;
@@ -626,6 +629,116 @@ inline cudaError_t tp_once_per_device(std::atomic<uint64_t>& ready, Set set) {
     e = set();
     if (e == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
     return e;
+}
+
+// ---- the rolled record build (records.cu, partition.cu): for w = W <= 4
+// (k <= 64) a thread takes a run of consecutive positions and rolls along
+// them
+
+// Shared-memory index of word x of a tile's staged records: skewed, so that
+// stride-W * run stores hit distinct banks
+__device__ __forceinline__ int tp_skew(int x) { return x + (x >> 5); }
+
+// The k-mer words of a window as it rolls: fw MSB-first and left-aligned
+// (char j of the window at bits 30 - 2*(j % 16) of word j / 16), rc its
+// reverse complement in the same layout
+template <int W>
+struct TpWindow {
+    uint32_t fw[W], rc[W];
+
+    __device__ __forceinline__ void clear() {
+#pragma unroll
+        for (int m = 0; m < W; ++m) fw[m] = rc[m] = 0;
+    }
+    // c enters the window as its last char: fw shifts left (its first char
+    // leaves), c goes to char k - 1 (word wl, shift sl); rc shifts right,
+    // 3 - c goes to char 0, and the char pushed to char k is cleared (word
+    // wk, mask mk; wk == W: none)
+    __device__ __forceinline__ void push(uint32_t c, int wl, int sl, int wk, uint32_t mk) {
+#pragma unroll
+        for (int m = 0; m < W; ++m) {
+            fw[m] = (fw[m] << 2) | (m + 1 < W ? fw[m + 1] >> 30 : 0u);
+            if (m == wl) fw[m] |= c << sl;
+        }
+#pragma unroll
+        for (int m = W - 1; m >= 0; --m) {
+            rc[m] = (rc[m] >> 2) | (m > 0 ? rc[m - 1] << 30 : 0u);
+            if (m == wk) rc[m] &= mk;
+        }
+        rc[0] |= (3u - c) << 30;
+    }
+    __device__ __forceinline__ bool rc_smaller() const {
+        bool is_rc = false, done = false;
+#pragma unroll
+        for (int m = 0; m < W; ++m)
+            if (!done && fw[m] != rc[m]) {
+                is_rc = rc[m] < fw[m];
+                done = true;
+            }
+        return is_rc;
+    }
+};
+
+// The records of `steps` consecutive positions of a batch (rows of P
+// positions: row r's upload form at packed + r * RW, nmask + r * NW) from
+// flat position x0, rolled: the forward and reverse-complement words shift
+// 2 bits a step in registers, the vertex hash rolls with the char tables
+// in shared memory (s_T; s_Tk, s_Tk1: rotated by k, k - 1), the window's N
+// test keeps the index of its last N, and each step reads two chars, prev
+// (the char that leaves the window) and next (the char that enters it at
+// the following step); a window is built from scratch at the run's first
+// position and at each row start. Step s calls
+//     emit(s, ok, h, is_rc, win, pay)
+// ok: position x0 + s has a record (tp_position_ok); h: its vertex hash;
+// win: its window, is_rc: the reverse complement is its canonical strand;
+// pay: its record's payload with the real bit (meaningful when ok).
+template <int W, class Emit>
+__device__ __forceinline__ void tp_roll_records(const uint32_t* packed, const uint32_t* nmask,
+                                                const int32_t* valid, long long RW,
+                                                long long NW, int P, int k, long long x0,
+                                                int steps, const uint32_t* s_T,
+                                                const uint32_t* s_Tk, const uint32_t* s_Tk1,
+                                                Emit emit) {
+    const int wl = (k - 1) >> 4, sl = 30 - 2 * ((k - 1) & 15);
+    const int wk = k >> 4;  // == W when char k lies past the words
+    const uint32_t mk = ~(3u << (30 - 2 * (k & 15)));
+    int r = (int)(x0 / P), i = (int)(x0 - (long long)r * P);
+    TpWindow<W> win;
+    uint32_t hf = 0, hr = 0, nx = 0;
+    int last_n = -1;  // the window's last N char, or below it
+    for (int s = 0; s < steps; ++s) {
+        if (s > 0 && ++i == P) {
+            i = 0;
+            ++r;
+        }
+        const TpRow row{packed + (size_t)r * RW, nmask + (size_t)r * NW};
+        const uint32_t pv = row.ext(i);
+        if (s == 0 || i == 0) {  // chars i+1 .. i+k from scratch
+            win.clear();
+            hf = hr = 0;
+            last_n = -1;
+            for (int j = i + 1; j <= i + k; ++j) {
+                const uint32_t c = row.code(j);
+                if (row.is_n(j)) last_n = j;
+                win.push(c, wl, sl, wk, mk);
+                hf = tp_rotl32(hf, 1u) ^ s_T[c];
+                hr = tp_rotl32(hr, 31u) ^ s_Tk1[3u - c];
+            }
+        } else {  // char i leaves, char i+k (the last step's next) enters
+            const uint32_t co = pv < 4 ? pv : 0u;
+            const uint32_t ci = nx < 4 ? nx : 0u;
+            if (nx >= 4) last_n = i + k;
+            win.push(ci, wl, sl, wk, mk);
+            hf = tp_rotl32(hf, 1u) ^ s_Tk[co] ^ s_T[ci];
+            hr = tp_rotl32(hr ^ s_T[3u - co], 31u) ^ s_Tk1[3u - ci];
+        }
+        nx = row.ext(i + k + 1);
+        const bool is_rc = win.rc_smaller();
+        const uint32_t in = is_rc ? tp_comp4(nx) : pv;
+        const uint32_t out = is_rc ? tp_comp4(pv) : nx;
+        emit(s, i < valid[r] && last_n <= i, hf + hr, is_rc, win,
+             in | (out << 8) | ((uint32_t)is_rc << 16) | TP_REAL);
+    }
 }
 
 }  // namespace

@@ -26,10 +26,11 @@
 // its last N, and each step reads two chars, prev (the char that leaves
 // the window) and next (the char that enters it at the following step);
 // a window is built from scratch at the run's first position and at each
-// row start. The records of a tile are staged in shared memory (a skewed
-// layout, so the stride-RUN*w writes hit distinct banks) and stored
-// coalesced. For w > 4 a thread builds its one position from scratch with
-// the tables in shared memory, and writes its words directly.
+// row start (common.cuh tp_roll_records, shared with partition.cu). The
+// records of a tile are staged in shared memory (a skewed layout, so the
+// stride-RUN*w writes hit distinct banks) and stored coalesced. For w > 4
+// a thread builds its one position from scratch with the tables in shared
+// memory, and writes its words directly.
 #include "common.cuh"
 
 namespace {
@@ -60,51 +61,9 @@ struct RecArgs {
     long long* out_pos;
 };
 
-__device__ __forceinline__ int skew(int x) { return x + (x >> 5); }
-
 __device__ __forceinline__ bool gate_bit(const uint8_t* gate, long long x) {
     return gate == nullptr || ((gate[x >> 3] >> (7 - (x & 7))) & 1u);
 }
-
-// The k-mer words of a window as it rolls: fw MSB-first and left-aligned
-// (char j of the window at bits 30 - 2*(j % 16) of word j / 16), rc its
-// reverse complement in the same layout
-template <int W>
-struct Window {
-    uint32_t fw[W], rc[W];
-
-    __device__ __forceinline__ void clear() {
-#pragma unroll
-        for (int m = 0; m < W; ++m) fw[m] = rc[m] = 0;
-    }
-    // c enters the window as its last char: fw shifts left (its first char
-    // leaves), c goes to char k - 1 (word wl, shift sl); rc shifts right,
-    // 3 - c goes to char 0, and the char pushed to char k is cleared (word
-    // wk, mask mk; wk == W: none)
-    __device__ __forceinline__ void push(uint32_t c, int wl, int sl, int wk, uint32_t mk) {
-#pragma unroll
-        for (int m = 0; m < W; ++m) {
-            fw[m] = (fw[m] << 2) | (m + 1 < W ? fw[m + 1] >> 30 : 0u);
-            if (m == wl) fw[m] |= c << sl;
-        }
-#pragma unroll
-        for (int m = W - 1; m >= 0; --m) {
-            rc[m] = (rc[m] >> 2) | (m > 0 ? rc[m - 1] << 30 : 0u);
-            if (m == wk) rc[m] &= mk;
-        }
-        rc[0] |= (3u - c) << 30;
-    }
-    __device__ __forceinline__ bool rc_smaller() const {
-        bool is_rc = false, done = false;
-#pragma unroll
-        for (int m = 0; m < W; ++m)
-            if (!done && fw[m] != rc[m]) {
-                is_rc = rc[m] < fw[m];
-                done = true;
-            }
-        return is_rc;
-    }
-};
 
 // w > 4: each of a thread's positions (strided by the block) from scratch,
 // its words written directly
@@ -131,74 +90,33 @@ __device__ __forceinline__ void records_wide(const RecArgs& a, const RecBatch& b
     }
 }
 
-// w = W <= 4: a thread's run of positions rolled, the tile staged in
-// shared memory and stored coalesced
+// w = W <= 4: a thread's run of positions rolled (common.cuh
+// tp_roll_records), the tile staged in shared memory and stored coalesced
 template <int W>
 __device__ __forceinline__ void records_rolled(const RecArgs& a, const RecBatch& bt,
                                                long long t0, int tn, const uint32_t* s_T,
                                                const uint32_t* s_Tk, const uint32_t* s_Tk1,
                                                uint32_t* s_w, uint32_t* s_p) {
-    const int P = a.P, k = a.k, run = a.run, tid = threadIdx.x;
-    const int wl = (k - 1) >> 4, sl = 30 - 2 * ((k - 1) & 15);
-    const int wk = k >> 4;  // == W when char k lies past the words
-    const uint32_t mk = ~(3u << (30 - 2 * (k & 15)));
+    const int run = a.run, tid = threadIdx.x;
     const int l0 = tid * run;
-    if (l0 < tn) {
-        const long long x0 = t0 + l0;
-        int r = (int)(x0 / P), i = (int)(x0 - (long long)r * P);
-        Window<W> win;
-        uint32_t hf = 0, hr = 0, nx = 0;
-        int last_n = -1;  // the window's last N char, or below it
-        const int steps = tn - l0 < run ? tn - l0 : run;
-        for (int s = 0; s < steps; ++s) {
-            if (s > 0 && ++i == P) {
-                i = 0;
-                ++r;
-            }
-            const TpRow row{bt.packed + (size_t)r * bt.RW, bt.nmask + (size_t)r * bt.NW};
-            const uint32_t pv = row.ext(i);
-            if (s == 0 || i == 0) {  // chars i+1 .. i+k from scratch
-                win.clear();
-                hf = hr = 0;
-                last_n = -1;
-                for (int j = i + 1; j <= i + k; ++j) {
-                    const uint32_t c = row.code(j);
-                    if (row.is_n(j)) last_n = j;
-                    win.push(c, wl, sl, wk, mk);
-                    hf = tp_rotl32(hf, 1u) ^ s_T[c];
-                    hr = tp_rotl32(hr, 31u) ^ s_Tk1[3u - c];
-                }
-            } else {  // char i leaves, char i+k (the last step's next) enters
-                const uint32_t co = pv < 4 ? pv : 0u;
-                const uint32_t ci = nx < 4 ? nx : 0u;
-                if (nx >= 4) last_n = i + k;
-                win.push(ci, wl, sl, wk, mk);
-                hf = tp_rotl32(hf, 1u) ^ s_Tk[co] ^ s_T[ci];
-                hr = tp_rotl32(hr ^ s_T[3u - co], 31u) ^ s_Tk1[3u - ci];
-            }
-            nx = row.ext(i + k + 1);
-            const uint32_t h = hf + hr;
-            const int l = l0 + s;
-            const bool ok = i < bt.valid[r] && last_n <= i && h >= a.low && h <= a.high &&
-                            gate_bit(bt.gate, t0 + l);
-            const bool is_rc = win.rc_smaller();
-            uint32_t pay = 0;
-            if (ok) {
-                const uint32_t in = is_rc ? tp_comp4(nx) : pv;
-                const uint32_t out = is_rc ? tp_comp4(pv) : nx;
-                pay = in | (out << 8) | ((uint32_t)is_rc << 16) | TP_REAL;
-            }
+    if (l0 < tn)
+        tp_roll_records<W>(bt.packed, bt.nmask, bt.valid, bt.RW, bt.NW, a.P, a.k, t0 + l0,
+                           tn - l0 < run ? tn - l0 : run, s_T, s_Tk, s_Tk1,
+                           [&](int s, bool ok, uint32_t h, bool is_rc, const TpWindow<W>& win,
+                               uint32_t pay) {
+                               const int l = l0 + s;
+                               ok = ok && h >= a.low && h <= a.high && gate_bit(bt.gate, t0 + l);
 #pragma unroll
-            for (int m = 0; m < W; ++m)
-                s_w[skew(l * W + m)] = ok ? (is_rc ? win.rc[m] : win.fw[m]) : 0xffffffffu;
-            s_p[skew(l)] = pay;
-        }
-    }
+                               for (int m = 0; m < W; ++m)
+                                   s_w[tp_skew(l * W + m)] =
+                                       ok ? (is_rc ? win.rc[m] : win.fw[m]) : 0xffffffffu;
+                               s_p[tp_skew(l)] = ok ? pay : 0u;
+                           });
     __syncthreads();
     const long long o0 = bt.out_off + t0;
-    for (int x = tid; x < tn * W; x += TP_THREADS) a.out_words[(size_t)o0 * W + x] = s_w[skew(x)];
+    for (int x = tid; x < tn * W; x += TP_THREADS) a.out_words[(size_t)o0 * W + x] = s_w[tp_skew(x)];
     for (int x = tid; x < tn; x += TP_THREADS) {
-        a.out_pay[o0 + x] = s_p[skew(x)];
+        a.out_pay[o0 + x] = s_p[tp_skew(x)];
         a.out_pos[o0 + x] = bt.pos_base + t0 + x;
     }
 }

@@ -205,17 +205,12 @@ def check_call(filt, uploads, cfg) -> None:
 
 def kernel_args(uploads, cfg, offsets=None) -> tuple:
     """The leading arguments of tp_bloom_fill and tp_bloom_mark: a device
-    table of the batches (a row of 7 int64: packed, nmask, valid pointers,
-    rows, RW, NW, the byte offset of its mask in the mark's output), copied
-    from pinned memory with no wait for the stream's earlier work; then the
-    batch geometry. -> (table tensor, the argument tuple)."""
-    offsets = offsets or [0] * len(uploads)
-    rows = [(p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1], m.shape[1], off)
-            for (p, m, v), off in zip(uploads, offsets)]
-    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-        uploads[0][0].device, non_blocking=True)
+    table of the batches (build.batch_table; offsets: the byte offset of
+    each batch's mask in the mark's output), then the batch geometry.
+    -> (table tensor, the argument tuple)."""
+    table = build.batch_table(uploads, offsets)
     max_pos = max(up[0].shape[0] for up in uploads) * cfg.P
-    return table, (table.data_ptr(), len(rows), max_pos, cfg.P, cfg.k)
+    return table, (table.data_ptr(), len(uploads), max_pos, cfg.P, cfg.k)
 
 
 def bloom_fill_batches_plain(filt, uploads, low: int, high: int, *, cfg):

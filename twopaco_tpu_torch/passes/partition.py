@@ -3,8 +3,10 @@ round gathered into its sort buffer.
 
 The port of twopaco_tpu/passes/sortpipe.py:166 build_and_partition,
 :306 _partition_scan and :237 assemble_round. CUDA tensors go through
-kernels/csrc/partition.cu and assemble.cu; CPU tensors through the
-`*_plain` versions.
+kernels/csrc/partition.cu (one launch and a tail over a device table of
+batches: `partition_scan` over a pass's batches, `partition_batch` over a
+one-row table) and assemble.cu; CPU tensors through the `*_plain`
+versions.
 
 A batch's records are built once per run (or once per group of rounds)
 and split by round into fixed-cap blocks (nb, n_parts, part_cap): each
@@ -25,14 +27,28 @@ from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
 from twopaco_tpu_torch.passes import records
 
+# bytes of look-back status words (batches x tiles x rounds x 8) that one
+# kernel call may use: a pass whose batches need more is split into calls
+STATUS_BUDGET = 64 << 20
 
-def _empty_blocks(n_parts: int, cap: int, w: int, device):
+
+def _empty_blocks(shape, w: int, device):
+    """Uninitialised (words shape + (w,) uint32, payload shape uint32,
+    offset shape uint32, counts shape[:-1] int32): the kernel writes every
+    slot."""
     return (
-        torch.empty((n_parts, cap, w), dtype=torch.uint32, device=device),
-        torch.empty((n_parts, cap), dtype=torch.uint32, device=device),
-        torch.empty((n_parts, cap), dtype=torch.uint32, device=device),
-        torch.empty(n_parts, dtype=torch.int32, device=device),
+        torch.empty((*shape, w), dtype=torch.uint32, device=device),
+        torch.empty(shape, dtype=torch.uint32, device=device),
+        torch.empty(shape, dtype=torch.uint32, device=device),
+        torch.empty(shape[:-1], dtype=torch.int32, device=device),
     )
+
+
+def _highs_tensor(highs, dev) -> torch.Tensor:
+    """The rounds' bounds (host integers) as a uint32 tensor on dev,
+    converted on the host: the copy is the only device work."""
+    return pack.as_u32(torch.as_tensor(np.asarray(highs, np.int64))).view(torch.int32).to(
+        dev).view(torch.uint32)
 
 
 def partition_batch_plain(
@@ -70,6 +86,52 @@ def partition_batch_plain(
     return out
 
 
+def _partition(uploads, highs, low: int, high: int, k: int, P: int, part_cap: int, out):
+    """The kernel over the batches into out (words (nb, n_parts, part_cap,
+    w), payload, offset (nb, n_parts, part_cap), counts (nb, n_parts)), as
+    few calls as STATUS_BUDGET allows, each one launch and a tail."""
+    build.require(highs, torch.uint32, "highs")
+    lib = build.lib()
+    n_parts, nb, w = highs.shape[0], len(uploads), pack.n_words(k)
+    if not 1 <= n_parts <= lib.tp_partition_max_parts():
+        raise ValueError(
+            f"{n_parts} rounds: the partition kernel takes 1 to "
+            f"{lib.tp_partition_max_parts()}"
+        )
+    if n_parts * part_cap >= (1 << 32) - 1:
+        raise ValueError(f"{n_parts} blocks of {part_cap} slots exceed the kernel's u32 slots")
+    for packed, nmask, valid in uploads:
+        records._check_batch(packed, nmask, valid, None, k, P)
+    dev = uploads[0][0].device
+    if highs.device != dev:
+        raise ValueError(f"highs on {highs.device}, batches on {dev}")
+    want = ((nb, n_parts, part_cap, w), (nb, n_parts, part_cap), (nb, n_parts, part_cap),
+            (nb, n_parts))
+    for t, shape, dt in zip(out, want, (torch.uint32,) * 3 + (torch.int32,)):
+        build.require(t, dt, "out")
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"out: expected {shape} on {dev}, got {tuple(t.shape)} on {t.device}")
+    tile = lib.tp_partition_tile(k)
+    tiles = -(-max(u[0].shape[0] for u in uploads) * P // tile)
+    step = max(1, min(65535, (STATUS_BUDGET - 8) // (tiles * n_parts * 8)))
+    for c0 in range(0, nb, step):
+        chunk = uploads[c0 : c0 + step]
+        max_pos = max(u[0].shape[0] for u in chunk) * P
+        scratch, epoch = build.lookback_scratch(
+            dev, 8 + len(chunk) * -(-max_pos // tile) * n_parts * 8, "partition")
+        table = build.batch_table(chunk)
+        rc = lib.tp_partition_records(
+            table.data_ptr(), len(chunk), max_pos, P, k, int(low), int(high), *bz.TABLE_1,
+            highs.data_ptr(), n_parts, part_cap, scratch.data_ptr(), scratch.numel(), epoch,
+            *(t[c0].data_ptr() for t in out), build.stream_ptr(),
+        )
+        if rc != 0:
+            build.drop_lookback_scratch(dev, "partition")
+        build.check(rc, "partition")
+        build.count_launch("partition")
+    return out
+
+
 def partition_batch(
     packed, nmask, valid, highs, low: int, high: int, *, k: int, P: int,
     part_cap: int, out=None,
@@ -89,76 +151,55 @@ def partition_batch(
     payload 0, offset 0). counts are the true counts: a count above
     part_cap means the block overflowed and the caller must re-split.
     out: optional preallocated tuple of the four outputs.
-    """
+
+    On the card: the kernel's launch over a one-row table."""
     if build.on_cpu(packed, nmask, valid, highs):
         return partition_batch_plain(
             packed, nmask, valid, highs, low, high, k=k, P=P,
             part_cap=part_cap, out=out,
         )
-    for t, dt, name in ((packed, torch.uint32, "packed"), (nmask, torch.uint32, "nmask"),
-                        (valid, torch.int32, "valid"), (highs, torch.uint32, "highs")):
-        build.require(t, dt, name)
-    lib = build.lib()
-    B = packed.shape[0]
-    n, w, n_parts = B * P, pack.n_words(k), highs.shape[0]
-    if not 1 <= n_parts <= lib.tp_partition_max_parts():
-        raise ValueError(
-            f"{n_parts} rounds: the partition kernel takes 1 to "
-            f"{lib.tp_partition_max_parts()}"
-        )
-    if n == 0 or packed.shape[1] * 16 < P + k + 1 or valid.shape != (B,):
-        raise ValueError("batch shapes do not hold rows of P + k + 1 chars")
-    dev = packed.device
     if out is None:
-        out = _empty_blocks(n_parts, part_cap, w, dev)
-    blk_w, blk_pay, blk_off, counts = out
-    want = ((n_parts, part_cap, w), (n_parts, part_cap), (n_parts, part_cap), (n_parts,))
-    for t, shape, dt in zip(out, want, (torch.uint32,) * 3 + (torch.int32,)):
-        build.require(t, dt, "out")
-        if tuple(t.shape) != shape or t.device != dev:
-            raise ValueError(f"out: expected {shape} on {dev}, got {tuple(t.shape)} on {t.device}")
-    n_count = lib.tp_partition_count_words(n, n_parts)
-
-    def u32(size):
-        return torch.empty(size, dtype=torch.int32, device=dev)
-
-    tmp_words, tmp_pay, part = u32(n * w), u32(n), u32(n)
-    cnt, incl = u32(n_count), u32(n_count)
-    scratch = u32(lib.tp_scan_scratch_words(n_count))
-    rc = lib.tp_partition_records(
-        packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, P, k,
-        packed.shape[1], nmask.shape[1], int(low), int(high), *bz.TABLE_1,
-        highs.data_ptr(), n_parts, part_cap,
-        *(t.data_ptr() for t in (tmp_words, tmp_pay, part, cnt, incl, scratch,
-                                 blk_w, blk_pay, blk_off, counts)),
-        build.stream_ptr(),
-    )
-    build.check(rc, "partition_batch")
-    build.count_launch("partition")
+        out = _empty_blocks((highs.shape[0], part_cap), pack.n_words(k), packed.device)
+    for t in out:
+        build.require(t, t.dtype, "out")  # contiguous: a one-batch view of it
+    _partition([(packed, nmask, valid)], highs, low, high, k, P, part_cap,
+               tuple(t.unsqueeze(0) for t in out))
     return out
 
 
+def partition_scan_plain(
+    uploads, highs, low: int, high: int, *, k: int, P: int, part_cap: int,
+):
+    """Plain PyTorch version of partition_scan: partition_batch_plain into
+    each batch's blocks (any device)."""
+    dev = uploads[0][0].device
+    highs_d = _highs_tensor(highs, dev)
+    out = _empty_blocks((len(uploads), len(highs), part_cap), pack.n_words(k), dev)
+    for b, (packed, nmask, valid) in enumerate(uploads):
+        partition_batch_plain(packed, nmask, valid, highs_d, low, high, k=k, P=P,
+                              part_cap=part_cap, out=tuple(t[b] for t in out))
+    return (*out[:3], out[3].cpu().numpy().astype(np.int64))
+
+
 def partition_scan(
-    uploads, highs: np.ndarray, low: int, high: int, *, k: int, P: int,
-    part_cap: int, fn=partition_batch,
+    uploads, highs, low: int, high: int, *, k: int, P: int, part_cap: int,
 ):
     """partition_batch over every batch of the run (twopaco_tpu
     sortpipe.py:306 _partition_scan). uploads: [(packed, nmask, valid)]
     on one device; highs: the rounds' bounds as host integers.
     -> stacked (words (nb, n_parts, part_cap, w), payload, offset (nb,
-    n_parts, part_cap), counts (nb, n_parts) numpy int64)."""
+    n_parts, part_cap), counts (nb, n_parts) numpy int64).
+
+    On the card: one launch and a tail over a device table of the batches
+    (several such calls when their look-back status would pass
+    STATUS_BUDGET)."""
+    if build.on_cpu(*(t for u in uploads for t in u)):
+        return partition_scan_plain(uploads, highs, low, high, k=k, P=P, part_cap=part_cap)
     dev = uploads[0][0].device
-    n_parts, nb = len(highs), len(uploads)
-    w = pack.n_words(k)
-    highs_d = pack.as_u32(torch.as_tensor(np.asarray(highs, np.int64), device=dev))
-    blk_w = torch.empty((nb, n_parts, part_cap, w), dtype=torch.uint32, device=dev)
-    blk_pay = torch.empty((nb, n_parts, part_cap), dtype=torch.uint32, device=dev)
-    blk_off = torch.empty((nb, n_parts, part_cap), dtype=torch.uint32, device=dev)
-    counts = torch.empty((nb, n_parts), dtype=torch.int32, device=dev)
-    for b, (packed, nmask, valid) in enumerate(uploads):
-        fn(packed, nmask, valid, highs_d, low, high, k=k, P=P, part_cap=part_cap,
-           out=(blk_w[b], blk_pay[b], blk_off[b], counts[b]))
-    return blk_w, blk_pay, blk_off, counts.cpu().numpy().astype(np.int64)
+    highs_d = _highs_tensor(highs, dev)
+    out = _empty_blocks((len(uploads), len(highs), part_cap), pack.n_words(k), dev)
+    _partition(uploads, highs_d, low, high, k, P, part_cap, out)
+    return (*out[:3], out[3].cpu().numpy().astype(np.int64))
 
 
 def assemble_round_plain(r: int, blk_w, blk_pay, blk_off, bases, buf_slots: int):

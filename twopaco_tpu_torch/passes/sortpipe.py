@@ -93,14 +93,14 @@ class Ops:
 KERNELS = Ops(
     records.build_sort_records, records.build_sort_records_batches, sort.sort_records,
     judge.judge_compact,
-    partition.partition_batch, partition.assemble_round,
+    partition.partition_scan, partition.assemble_round,
     stream.compact_append, histogram.histogram_vertex_hashes_batches,
     occ.sort_occurrences,
 )
 PLAIN = Ops(
     records.build_sort_records_plain, records.build_sort_records_batches_plain,
     sort.sort_records_plain,
-    judge.judge_compact_plain, partition.partition_batch_plain,
+    judge.judge_compact_plain, partition.partition_scan_plain,
     partition.assemble_round_plain, stream.compact_append_plain,
     histogram.histogram_vertex_hashes_batches_plain, occ.sort_occurrences_plain,
 )
@@ -455,9 +455,8 @@ def build_junctions_sorted(
             intervals = _live_intervals(hist, n_rounds)
             part_cap = -(-int(slack * bp) // len(intervals))
             highs = [h for _l, h in intervals]
-            *blocks, counts = partition.partition_scan(
+            *blocks, counts = ops.partition(
                 uploads, highs, 0, MASK32, k=k, P=P, part_cap=part_cap,
-                fn=ops.partition,
             )
             if (counts <= part_cap).all():
                 break
@@ -524,9 +523,9 @@ def build_junctions_sorted(
             if not all(ckpt.has_round(r + j) for j in range(n_real)):
                 blocks = None  # the previous group's blocks go first
                 t0 = time.time()
-                *blocks, counts = partition.partition_scan(
+                *blocks, counts = ops.partition(
                     uploads, g_highs + [ghigh] * (n_inner - n_real), glow, ghigh,
-                    k=k, P=P, part_cap=part_cap, fn=ops.partition,
+                    k=k, P=P, part_cap=part_cap,
                 )
                 if (counts[:, :n_real] > part_cap).any():
                     raise RuntimeError(

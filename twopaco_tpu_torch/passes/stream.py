@@ -56,6 +56,9 @@ def compact_append(words, payload, pos, buf, state, lim: int):
     All n rows are written at min(off, lim), stably partitioned with the
     real rows first; then overflow |= off + cnt > lim and off = min(off,
     lim) + cnt (cnt = real rows). Nothing is read back to the host.
+
+    On the card: two launches (compact.cu), over a look-back scratch kept
+    across calls; n == 0 launches nothing.
     """
     buf_w, buf_pay, buf_pos = buf
     if build.on_cpu(words, payload, pos, buf_w, buf_pay, buf_pos, state):
@@ -73,18 +76,20 @@ def compact_append(words, payload, pos, buf, state, lim: int):
     if not 0 <= lim <= S - n:
         raise ValueError(f"lim {lim} outside [0, {S - n}]")
     if n >= 1 << 32:
-        raise ValueError(f"{n} records exceed the compaction's u32 scan")
+        raise ValueError(f"{n} records exceed the compaction's u32 ranks")
+    if n == 0:
+        return
     lib = build.lib()
     dev = words.device
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    incl = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.tp_scan_scratch_words(n), dtype=torch.int32, device=dev)
+    tiles = -(-n // lib.tp_compact_tile())
+    scratch, epoch = build.lookback_scratch(dev, 16 + tiles * 8, "compact")
     rc = lib.tp_compact_append(
         words.data_ptr(), payload.data_ptr(), pos.data_ptr(), n, w,
         buf_w.data_ptr(), buf_pay.data_ptr(), buf_pos.data_ptr(), int(lim),
-        state.data_ptr(), flags.data_ptr(), incl.data_ptr(), scratch.data_ptr(),
-        build.stream_ptr(),
+        state.data_ptr(), scratch.data_ptr(), scratch.numel(), epoch, build.stream_ptr(),
     )
+    if rc != 0:
+        build.drop_lookback_scratch(dev, "compact")
     build.check(rc, "compact_append")
     build.count_launch("compact")
 
