@@ -44,12 +44,15 @@
    own; the two filters must then be equal), then on one batch against the
    whole slice's filter, in the byte layout at f=30, the bit layout at
    f=34 (64-bit probe indices) and the block layout at f=30; extract on
-   the byte mask, lookup against the slice's junction table;
+   the byte mask; the lookup first over the round's 123 batches and byte
+   masks in one call (as pass 4 makes it), then on batch 0, against the
+   slice's junction table;
 8. runs the slice through the Bloom engine (`--tpu-engine bloom`): -f 30
    (auto: byte), --tpu-layout bit -f 34, --tpu-layout block -f 30, and
    -f 30 -r 4, each with the counters reset just before and read just
    after; each must launch the Bloom kernels and the sort and judge of
-   its verify pass, the fill and the mark exactly once a round, and write
+   its verify pass, the fill and the mark exactly once a round, the lookup
+   once a run, and write
    SLICE_SHA256; a one-round run must count the candidates that the round
    mark of its layout counted in step 7; then a Bloom run through the
    plain versions on the card, the same bytes again;
@@ -83,15 +86,18 @@
    match; the byte fill is also timed into a zeroed shard, every slot new;
    the device kernels of one call each of the route, the bucket's two
    modes, the record build's table (one kernel), both judges (two kernels
-   each), the -r 4 partition pass (two) and the compaction (two) are
-   listed by one torch.profiler session;
+   each), the -r 4 partition pass (two), the compaction (two) and the
+   Bloom lookup of the -r 1 run's batches (two) are listed by one
+   torch.profiler session; the mark finish (byte f=30, 4 shards) is also
+   run at each forced run of 1, 2, 4 and 8 positions a thread, exact, and
+   timed on the device;
    the probe is also held against its plain version on hand-made received
    blocks (rows of 0, cap, chunk-boundary and random sent counts; the mark
    cap, and an odd cap starting 8 bytes off 16-byte alignment) (in the
    profiler session: k_route and k_route_tail; one bucketing kernel a
    mode; one k_records; k_judge_scan and k_judge_write a judge;
-   k_partition and k_part_tail; k_compact_real and k_compact_rest; no
-   count or scan kernel, no memset);
+   k_partition and k_part_tail; k_compact_real and k_compact_rest;
+   k_lookup and k_lookup_tail; no count or scan kernel, no memset);
 12. runs the slice through the dist-bloom engine, each with the counters
    reset just before and read just after, each launching the four
    entries and the dist engine's kernels and writing SLICE_SHA256:
@@ -352,7 +358,7 @@ def sector_flags(filt):
     call touches are flagged, so that each counts once in its bound."""
     import torch
 
-    return torch.zeros(nbytes(filt) // SECTOR, dtype=torch.bool, device=filt.device)
+    return torch.zeros(-(-nbytes(filt) // SECTOR), dtype=torch.bool, device=filt.device)
 
 
 def flag_sectors(flags, slots, layout: str) -> None:
@@ -410,6 +416,37 @@ def mark_sectors(flags, filt, upload, gate, cfg) -> None:
         alive &= slot_set[..., j]
 
 
+def lookup_sectors(flags, upload, mask, table, k: int, P: int) -> None:
+    """Flag the 32-byte sectors of the (J, w) junction table that the
+    lookup's searches of a batch read: each row its lower bound compares
+    (the middle row of every step while lo < hi, then the row at lo), the
+    sectors of its w words."""
+    import torch
+
+    from twopaco_tpu_torch.ops import pack
+    from twopaco_tpu_torch.passes import mark, records
+
+    J, w = table.shape
+    canon, _pay, _hv, ok = records.batch_records_plain(*upload, k=k, P=P)
+    keys = canon[ok & mark.unpack_mask(mask, P).reshape(-1)]
+    tab = pack.as_i64(table)
+    lo = torch.zeros(len(keys), dtype=torch.int64, device=keys.device)
+    hi = torch.full_like(lo, J)
+
+    def touch(rows):
+        flags[rows * (4 * w) // SECTOR] = True
+        flags[(rows * (4 * w) + 4 * w - 1) // SECTOR] = True
+
+    while bool((lo < hi).any()):
+        act = lo < hi
+        mid = lo + ((hi - lo) >> 1)
+        touch(mid[act])
+        right = act & pack.lex_less(tab[mid.clamp(max=J - 1)], keys)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(act & ~right, mid, hi)
+    touch(lo[lo < J])
+
+
 def probe_sectors(filt, slots, layout: str) -> int:
     """The distinct filter sectors of the slot indices, each once."""
     flags = sector_flags(filt)
@@ -418,8 +455,8 @@ def probe_sectors(filt, slots, layout: str) -> int:
 
 
 def count_sectors(fn, filt, uploads) -> int:
-    """The distinct filter sectors that fn(flags, upload) flags over the
-    uploads, each once."""
+    """The distinct sectors of filt (a filter, or the lookup's junction
+    table) that fn(flags, upload) flags over the uploads, each once."""
     flags = sector_flags(filt)
     for u in uploads:
         fn(flags, u)
@@ -442,6 +479,25 @@ def exact(name, kernel, plain, results, what=""):
     require(err == 0, f"{name} {what}: kernel disagrees with its plain version ({err})")
     results.setdefault(name, []).append(dict(max_abs_err=err))
     print(f"exact {name} {what}")
+
+
+def device_ms(fn, reps: int):
+    """Mean device ms of fn() over reps runs queued behind a sleeping kernel,
+    so that the host's time to enqueue them is hidden and the CUDA events
+    around them time the device's work back to back (after one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device cycles: longer than the enqueue
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def timed_each(prepare, fn, reps: int):
@@ -1180,6 +1236,8 @@ def main() -> int:
                 ops=bloom_ops(n_slots, k, nt, bcfg.q, 6))
         _m, rcounts = mark.bloom_mark_batches(filt_k, uploads, *full, cfg=bcfg)
         round_cands[lay] = int(rcounts.sum())
+        if lay == "byte":
+            round_masks = _m  # pass 4's masks of a one-round run
         print(f"Bloom {lay} f={bcfg.f} round: {len(uploads)} batches in one launch each; "
               f"{n_fill} filter sectors set by the fill, {n_reads} read by the mark, of "
               f"{nbytes(filt_k) // SECTOR}; {int(rcounts.sum())} candidates of {n_slots} "
@@ -1207,7 +1265,6 @@ def main() -> int:
         if lay == "byte":
             mask0, count0 = bmask, int(bcount)
         del filt_k, bmask
-    del uploads
     (buf_k, st_k), (buf_p, st_p) = (extract.new_buffer(count0, w, dev) for _ in "kp")
     compare(
         "bloom_extract",
@@ -1221,17 +1278,42 @@ def main() -> int:
     )
     require(st_k.tolist() == [count0, 0], f"extract state {st_k.tolist()}")
     del buf_k, buf_p
+    # the lookup: the main path's call first (its time is the one reported),
+    # the round's batches and byte masks in one call; the bound reads the
+    # uploads and the masks once (a candidate's key is built from its upload
+    # words) and each distinct 32-byte sector of the junction table that the
+    # searches touch, once, and writes the outputs
+    n_cand = round_cands["byte"]
+    n_tab = count_sectors(lambda fl, um: lookup_sectors(fl, *um, slice_table, k, P),
+                          slice_table, list(zip(uploads, round_masks)))
+    compare(
+        "bloom_lookup",
+        lambda: lookup.pass4_lookup_batches(uploads, round_masks, slice_table, n_cand, bases,
+                                            k=k, P=P),
+        lambda: lookup.pass4_lookup_batches_plain(uploads, round_masks, slice_table, n_cand,
+                                                  bases, k=k, P=P),
+        3, results, in_bytes=nbytes(uploads, round_masks) + n_tab * SECTOR,
+        ops=n_cand * 6 * k,
+    )
+    n_run = int(lookup.pass4_lookup_batches(uploads, round_masks, slice_table, n_cand, bases,
+                                            k=k, P=P)[2])
+    require(0 < n_run <= n_cand, f"lookup of the round: {n_run} hits of {n_cand} candidates")
+    print(f"lookup of the round's {len(uploads)} batches in one call: {n_run} of {n_cand} "
+          f"candidates found; {n_tab} junction-table sectors searched of "
+          f"{-(-nbytes(slice_table) // SECTOR)} {label}")
+    n_tab0 = count_sectors(lambda fl, um: lookup_sectors(fl, *um, slice_table, k, P),
+                           slice_table, [(args, mask0)])
     compare(
         "bloom_lookup",
         lambda: lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P),
         lambda: lookup.pass4_lookup_plain(*args, mask0, slice_table, count0, k=k, P=P),
-        10, results, in_bytes=nbytes(args, mask0) + count0 * 4 * w, ops=count0 * 6 * k,
+        10, results, in_bytes=nbytes(args, mask0) + n_tab0 * SECTOR,
+        ops=count0 * 6 * k,
     )
     n_hit = int(lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P)[2])
     require(n_hit > 0, "lookup found no junction in the first batch")
     print(f"lookup: {n_hit} of {count0} candidates found among "
           f"{slice_table.shape[0]} junctions")
-    del slice_table
     torch.cuda.synchronize()
 
     phase("slice: the Bloom engine (--tpu-engine bloom)")
@@ -1246,6 +1328,8 @@ def main() -> int:
         for name in ("bloom_fill", "bloom_mark"):
             require(launches[tag][name] == n_rounds,
                     f"{tag}: {launches[tag][name]} {name} launches, not one a round")
+        require(launches[tag]["bloom_lookup"] == 1,
+                f"{tag}: {launches[tag]['bloom_lookup']} lookup calls, not one a run")
         require(sum(line.startswith("Round ") and "seconds" in line
                     for line in text.splitlines()) == n_rounds, f"{tag}: not {n_rounds} rounds")
         for line in text.splitlines():
@@ -1409,7 +1493,9 @@ def main() -> int:
                 lambda: judge.judge_records(*judge_once[:2]),
                 lambda: partition.partition_scan(uploads, highs, 0, 0xFFFFFFFF, k=k, P=P,
                                                  part_cap=part_cap),
-                lambda: stream.compact_append(*recs4, cbuf, cstate, recs4[1].numel()))])
+                lambda: stream.compact_append(*recs4, cbuf, cstate, recs4[1].numel()),
+                lambda: lookup.pass4_lookup_batches(uploads, round_masks, slice_table,
+                                                    round_cands["byte"], bases, k=k, P=P))])
             names = " ".join(kern)
             def count(prefix):
                 return sum(c for kk, (c, _t) in kern.items() if kk.startswith(prefix))
@@ -1422,18 +1508,20 @@ def main() -> int:
                     and count("k_judge_write<true") == count("k_judge_write<false") == 1
                     and count("k_partition<") == count("k_part_tail") == 1
                     and count("k_compact_real") == count("k_compact_rest") == 1
+                    and count("k_lookup<") == count("k_lookup_tail") == 1
                     and "k_scan" not in names and "k_shard_count" not in names
                     and "Memset" not in names,
-                    f"route, shard_bucket, build_records, judge, partition, compact: device "
-                    f"launches of one call each {kern}")
+                    f"route, shard_bucket, build_records, judge, partition, compact, lookup: "
+                    f"device launches of one call each {kern}")
             print(f"route, shard_bucket fill, shard_bucket mark, build_records (the -r 1 "
                   f"round's {len(uploads)} batches), judge_compact and judge_records (the "
                   f"long_group case, {judge_once[0].shape[0]} records), partition_scan (the "
-                  f"-r {ROUNDS} pass's {len(uploads)} batches) and compact_append (shard 0's "
-                  f"{recs4[1].numel()} records): device launches of one call each "
+                  f"-r {ROUNDS} pass's {len(uploads)} batches), compact_append (shard 0's "
+                  f"{recs4[1].numel()} records) and pass4_lookup_batches (the -r 1 run's "
+                  f"{len(uploads)} batches): device launches of one call each "
                   f"({sum(t for _c, t in kern.values()):.4f} ms on the device): "
                   + ", ".join(f"{kk} x{c} {t:.4f} ms" for kk, (c, t) in kern.items()))
-            del route_once, recs4, send_k, judge_once, cbuf, cstate
+            del route_once, recs4, send_k, judge_once, cbuf, cstate, round_masks, slice_table
         if tiny:
             continue
         # the whole slice into the sharded filter, as the main path fills it

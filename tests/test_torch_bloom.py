@@ -458,3 +458,75 @@ def test_pass4_lookup_empty_table():
     assert int(jcnt) == int(tcnt) == 0
     assert np.array_equal(np.asarray(jpos), tpos.numpy())
     assert np.array_equal(np.asarray(jids), tids.numpy())
+
+
+@pytest.mark.parametrize("k", [7, 25, 101])
+@pytest.mark.parametrize("table_kind", ["all", "half"])
+def test_pass4_lookup_batches(k, table_kind):
+    """pass4_lookup_batches (its plain version on the CPU) over a table of
+    uneven batches at ascending bases with a gap equals JAX's pass4_lookup
+    applied batch by batch, each batch's hits offset by its base and
+    concatenated: positions, ids and count exact, the unused slots padded;
+    a cap below the count keeps the first hits and counts them all."""
+    batches = _uneven_batches(k, seed=11)
+    uploads = [_forms(c, v)[2] for c, v in batches]
+    jforms = [_forms(np.pad(c, ((0, B - len(c)), (0, 0))), np.pad(v, (0, B - len(v))))[:2]
+              for c, v in batches]
+    jcfg, tcfg = _cfgs(k, "byte")
+    filt = fill.bloom_fill_batches(bloom.make_filter(F, "byte", "cpu"), uploads, *FULL, cfg=tcfg)
+    masks, counts = mark.bloom_mark_batches(filt, uploads, *FULL, cfg=tcfg)
+    n_cand = int(counts.sum())
+    buf, state = extract.new_buffer(n_cand, pack.n_words(k), "cpu")
+    for i, (up, m) in enumerate(zip(uploads, masks)):
+        extract.extract_records(up[0], up[1], m, buf, state, i * B * P, k=k, P=P)
+    table = judge.judge_compact(*sort.sort_records(*buf, key_bits=2 * k))[0]
+    table = table if table_kind == "all" else table[::2].contiguous()
+    bases = [0, 4 * P, 9 * P, 13 * P]  # a gap after the second batch
+    want_pos, want_ids = [], []
+    for (jcodes, jvalid), m, base in zip(jforms, masks, bases):
+        jmask = np.pad(m.numpy(), ((0, B - len(m)), (0, 0)))
+        jpos, jids, jcnt = jk.pass4_lookup(jcodes, jnp.asarray(jmask), jvalid,
+                                           jnp.asarray(table.numpy()), cfg=jcfg, cap=B * P)
+        want_pos.append(np.asarray(jpos)[: int(jcnt)].astype(np.int64) + base)
+        want_ids.append(np.asarray(jids)[: int(jcnt)])
+    want_pos, want_ids = np.concatenate(want_pos), np.concatenate(want_ids)
+    n = len(want_pos)
+    assert n > 0 and np.all(np.diff(want_pos) > 0)
+    pad = bases[-1] + len(batches[-1][0]) * P
+    for cap in (n_cand, n // 2):
+        pos, ids, cnt = lookup.pass4_lookup_batches(uploads, masks, table, cap, bases, k=k, P=P)
+        assert pos.dtype == torch.int64 and ids.dtype == torch.int32 and int(cnt) == n
+        m = min(n, cap)
+        assert np.array_equal(pos.numpy()[:m], want_pos[:m])
+        assert np.array_equal(ids.numpy()[:m], want_ids[:m])
+        assert (pos.numpy()[m:] == pad).all() and (ids.numpy()[m:] == lookup.INVALID_ID32).all()
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_mask_store_group_masks(tmp_path, monkeypatch, spill):
+    """MaskStore.group_masks: the OR of every round's masks of a group of
+    batches, whether the rounds stay as they are (one kept round: its own
+    tensors), were restored as arrays, or spilled to files; group_size
+    follows TWOPACO_MASK_SPILL_BYTES."""
+    from twopaco_tpu_torch.passes import bloompipe
+
+    rng = np.random.default_rng(4)
+    n_b, rows, width = 5, 3, P // 8
+    rounds = [rng.integers(0, 256, size=(n_b, rows, width)).astype(np.uint8) for _ in range(3)]
+    monkeypatch.setenv("TWOPACO_MASK_SPILL_BYTES", str(2 * rows * width if spill else 1 << 30))
+    store = bloompipe.MaskStore(str(tmp_path), est_bytes=sum(r.nbytes for r in rounds))
+    assert (store.dir is not None) == spill
+    assert store.group_size(rows * width) == (2 if spill else 1 << 62)
+    store.add_round([torch.from_numpy(m) for m in rounds[0]])
+    store.add_round(list(rounds[1]))  # a round restored from a checkpoint
+    store.add_round([torch.from_numpy(m) for m in rounds[2]])
+    want = rounds[0] | rounds[1] | rounds[2]
+    for g0, g1 in ((0, 2), (2, 4), (4, 5), (0, 5)):
+        got = store.group_masks(g0, g1, torch.device("cpu"))
+        assert len(got) == g1 - g0
+        assert np.array_equal(np.stack([m.numpy() for m in got]), want[g0:g1])
+    store.cleanup()
+    one = bloompipe.MaskStore(None, est_bytes=0)
+    kept = [torch.from_numpy(m) for m in rounds[0]]
+    one.add_round(kept)
+    assert all(a is b for a, b in zip(one.group_masks(1, 4, torch.device("cpu")), kept[1:4]))

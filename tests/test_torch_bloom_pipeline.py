@@ -254,3 +254,20 @@ def test_bloom_example_goldens(tmp_path, k, rounds):
     np.testing.assert_array_equal(chrs, want_c)
     np.testing.assert_array_equal(pos, want_p)
     assert _groups(chrs, pos, ids) == _groups(want_c, want_p, want_i)
+
+
+@pytest.mark.parametrize("budget", [1, 2 * 4 * 256 // 8])
+def test_bloom_mask_spill_groups_sort_bytes(tmp_path, monkeypatch, budget):
+    """At -r 2 with a tiny TWOPACO_MASK_SPILL_BYTES the rounds' masks go to
+    files and pass 4 runs a group of batches a call (one batch, or the
+    two whose masks fit the budget): the .dbg is the sort engine's."""
+    texts = _genomes(31, length=1500, n=4, rate=0.04)
+    cfg = config_from_jax(_jcfg(11, rounds=2))
+    sort_b, _ = _port(tmp_path, PipelineConfig(**{**cfg.__dict__, "engine": "sort"}),
+                      "sort.dbg", _seqs(texts))
+    monkeypatch.setenv("TWOPACO_MASK_SPILL_BYTES", str(budget))
+    spill_dir = tmp_path / "spill"
+    spill_dir.mkdir()
+    bloom_b, enum = _port(tmp_path, cfg, "bloom.dbg", _seqs(texts), tmpdir=str(spill_dir))
+    assert bloom_b == sort_b and len(bloom_b) > 0 and len(enum.stats.rounds) == 2
+    assert not os.listdir(spill_dir)

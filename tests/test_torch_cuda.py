@@ -408,7 +408,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from twopaco_tpu_torch.ops import pack
-from twopaco_tpu_torch.passes import partition, records, stream
+from twopaco_tpu_torch.passes import lookup, partition, records, stream
 
 dev = torch.device("cuda")
 rng = np.random.default_rng(3)
@@ -425,10 +425,16 @@ bounds = [1 << 30, 2 << 30, 3 << 30, 0xFFFFFFFF]
 highs = pack.as_u32(torch.tensor(bounds, device=dev))
 recs = records.build_sort_records(*ups[0], 0, k=k, P=P, low=1 << 30, high=3 << 30)
 buf, state = stream.new_round_buffer(4 * B * P, pack.n_words(k), dev)
+table = torch.from_numpy(np.unique(pack.as_i64(recs[0]).cpu().numpy()[::3], axis=0)
+                         .astype(np.uint32)).to(dev)
+masks = [torch.from_numpy(rng.integers(0, 256, size=(B, P // 8)).astype(np.uint8)).to(dev)
+         for _ in ups]
 calls = (
     lambda: partition.partition_scan(ups, bounds, 0, 0xFFFFFFFF, k=k, P=P, part_cap=40_000),
     lambda: partition.partition_batch(*ups[0], highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=40_000),
     lambda: stream.compact_append(*recs, buf, state, 3 * B * P),
+    lambda: lookup.pass4_lookup_batches(ups, masks, table, 5 * B * P, [i * B * P for i in range(5)],
+                                        k=k, P=P),
 )
 for fn in calls:  # the kept scratch allocated, the library loaded
     fn()
@@ -447,10 +453,11 @@ print("LAUNCHES " + json.dumps(names))
 
 
 def test_partition_compact_device_launches(dev):
-    """One partition_scan over a table of 5 batches, one partition_batch
-    and one compact_append launch two kernels each (k_partition and
-    k_part_tail, k_compact_real and k_compact_rest), and no scan kernel,
-    no memset and nothing else: copies only."""
+    """One partition_scan over a table of 5 batches, one partition_batch,
+    one compact_append and one pass4_lookup_batches over 5 batches launch
+    two kernels each (k_partition and k_part_tail, k_compact_real and
+    k_compact_rest, k_lookup and k_lookup_tail), and no scan kernel, no
+    memset and nothing else: copies only."""
     import subprocess
     import sys
 
@@ -462,7 +469,7 @@ def test_partition_compact_device_launches(dev):
     names = json.loads(lines[-1][len("LAUNCHES "):])
     kernels = {n: c for n, c in names.items() if not n.startswith("Memcpy")}
     assert kernels == {"k_partition<2>": 2, "k_part_tail": 2, "k_compact_real<2>": 1,
-                       "k_compact_rest<2>": 1}, names
+                       "k_compact_rest<2>": 1, "k_lookup<2>": 1, "k_lookup_tail": 1}, names
 
 
 @pytest.mark.parametrize("k", [11, 25, 101])
@@ -732,6 +739,104 @@ def test_bloom_lookup_kernel(dev, k, table):
     assert (int(want[2]) > 0) == (table != "empty")
 
 
+def _lookup_case(dev, k, rows, P, seed, density=0.4):
+    """Batches of `rows` rows (N runs, short and zero valid counts) on dev,
+    random masks of the given bit density, their bases (ascending, a gap
+    after the first), and a junction table of the canonical k-mers of every
+    other valid position (so some candidates hit, some miss)."""
+    rng = np.random.default_rng(seed)
+    uploads = [_to(dev, *_n_run_batch(rng, r, P, k)) for r in rows]
+    masks = [torch.from_numpy(np.packbits(rng.random((r, P)) < density, axis=1)).to(dev)
+             for r in rows]
+    bases, b0 = [], 0
+    for i, r in enumerate(rows):
+        bases.append(b0)
+        b0 += (r + (7 if i == 0 else 0)) * P
+    keys = []
+    for up in uploads:
+        canon, _pay, _hv, ok = records.batch_records_plain(*(t.cpu() for t in up), k=k, P=P)
+        keys.append(canon[ok].numpy()[::2])
+    table = np.unique(np.concatenate(keys), axis=0).astype(np.uint32)
+    return uploads, masks, bases, torch.from_numpy(table).to(dev)
+
+
+def _lookup_both(uploads, masks, table, cap, bases, k, P):
+    build.reset_launch_counts()
+    got = lookup.pass4_lookup_batches(uploads, masks, table, cap, bases, k=k, P=P)
+    assert build.launch_counts() == {"bloom_lookup": 1}
+    want = lookup.pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k, P=P)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    return int(want[2])
+
+
+@pytest.mark.parametrize("k", [11, 25, 33, 49, 101])
+@pytest.mark.parametrize("case", ["uneven", "odd_rows", "one_junction", "zero_mask",
+                                  "cap_exact", "cap_short", "dense"])
+def test_bloom_lookup_batches_kernel(dev, k, case):
+    """pass4_lookup_batches: one call (one launch and its tail) over a table
+    of batches with different row counts at ascending bases with a gap,
+    equal to the plain per-batch loop: positions, ids, count and padding.
+    Batches of 16 rows of 512 positions hold two 4096-position tiles, 264
+    positions a row puts rows across tile edges; hits cross tiles and
+    batches. Also a one-row table (J = 1), an all-zero mask, cap exactly the
+    hit count and below it, and every bit set."""
+    P = 264 if case == "odd_rows" else 512
+    rows = [16, 8, 16, 3, 1]
+    density = 1.0 if case == "dense" else 0.4
+    uploads, masks, bases, table = _lookup_case(dev, k, rows, P, seed=k + len(case),
+                                                density=density)
+    if case == "one_junction":  # the row of a hit in the middle of the hits
+        _p, ids, cnt = lookup.pass4_lookup_batches_plain(uploads, masks, table, 1 << 20,
+                                                         bases, k=k, P=P)
+        row = abs(int(ids[int(cnt) // 2])) - 1
+        table = table[row : row + 1].contiguous()
+    if case == "zero_mask":
+        masks = [torch.zeros_like(m) for m in masks]
+    n_cand = sum(int(np.unpackbits(m.cpu().numpy()).sum()) for m in masks)
+    cap = max(n_cand, 1)
+    if case in ("cap_exact", "cap_short"):
+        n = int(lookup.pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k,
+                                                  P=P)[2])
+        cap = n if case == "cap_exact" else n // 3
+    n = _lookup_both(uploads, masks, table, cap, bases, k, P)
+    assert (n == 0) == (case == "zero_mask")
+    if case == "one_junction":
+        assert n > 0
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_bloom_lookup_batches_rounds(dev, monkeypatch, tmp_path, spill):
+    """Two rounds' masks through bloompipe.MaskStore, kept on the card or
+    spilled to files (then a group of two batches a call, as the Bloom
+    engine's pass 4 makes them): each group's call equals the plain version
+    on the rounds' OR."""
+    from twopaco_tpu_torch.passes import bloompipe
+
+    k, P, rows = 25, 512, [8, 8, 8, 8, 8]
+    uploads, masks, bases, table = _lookup_case(dev, k, rows, P, seed=2 + spill)
+    rng = np.random.default_rng(9)
+    other = [torch.from_numpy(np.packbits(rng.random((r, P)) < 0.1, axis=1)).to(dev)
+             for r in rows]
+    batch_bytes = 8 * P // 8
+    monkeypatch.setenv("TWOPACO_MASK_SPILL_BYTES", str(2 * batch_bytes if spill else 1 << 30))
+    store = bloompipe.MaskStore(str(tmp_path), est_bytes=2 * len(rows) * batch_bytes)
+    store.add_round(masks)
+    store.add_round(other)
+    per = min(store.group_size(batch_bytes), len(rows))
+    assert per == (2 if spill else len(rows))
+    total = 0
+    for g0 in range(0, len(rows), per):
+        g1 = min(g0 + per, len(rows))
+        got = store.group_masks(g0, g1, dev)
+        want = [a | b for a, b in zip(masks[g0:g1], other[g0:g1])]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        cap = sum(int(np.unpackbits(m.cpu().numpy()).sum()) for m in want)
+        total += _lookup_both(uploads[g0:g1], got, table, cap, bases[g0:g1], k, P)
+    store.cleanup()
+    assert total > 0
+
+
 def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
     """A CUDA tensor given to a Bloom wrapper launches its kernel: the
     plain versions, made to raise here, are never called."""
@@ -740,7 +845,8 @@ def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
 
     for mod, name in ((fill, "bloom_fill_plain"), (mark, "bloom_mark_plain"),
                       (fill, "bloom_fill_batches_plain"), (mark, "bloom_mark_batches_plain"),
-                      (extract, "extract_records_plain"), (lookup, "pass4_lookup_plain")):
+                      (extract, "extract_records_plain"), (lookup, "pass4_lookup_plain"),
+                      (lookup, "pass4_lookup_batches_plain")):
         monkeypatch.setattr(mod, name, boom)
     rng = np.random.default_rng(5)
     k, B, P = 25, 8, 256
@@ -756,9 +862,10 @@ def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
         u[0], u[1], m, *extract.new_buffer(int(c), pack.n_words(k), dev), 0, k=k, P=P)
     tab = judge.judge_compact(*sort.sort_records(*buf, key_bits=2 * k))[0]
     lookup.pass4_lookup(*u, m, tab, int(c), k=k, P=P)
+    lookup.pass4_lookup_batches([u, u], [m, m], tab, 2 * int(c), [0, B * P], k=k, P=P)
     assert build.launch_counts() == {
         "bloom_fill": 6, "bloom_mark": 6, "bloom_extract": 1, "sort_records": 1,
-        "judge_compact": 1, "bloom_lookup": 1,
+        "judge_compact": 1, "bloom_lookup": 2,
     }
 
 
@@ -785,6 +892,7 @@ def test_bloom_pipeline_cuda_equals_cpu(dev, tmp_path, layout, rounds, k):
                 "judge_compact", "bloom_lookup",
             }
             assert counts["bloom_fill"] == counts["bloom_mark"] == rounds  # one a round
+            assert counts["bloom_lookup"] == 1  # one call a run
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
     assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0
@@ -1340,12 +1448,14 @@ def test_fill_local_bucketed_rows(dev, D, layout, f):
     assert _filters_equal(fk, fp) and bool(fp.view(torch.uint8).any())
 
 
-def test_shard_probe_and_mark_finish_unsent_probes(dev):
+@pytest.mark.parametrize("q", [1, 3, 5])
+@pytest.mark.parametrize("k", [25, 33])
+def test_shard_probe_and_mark_finish_unsent_probes(dev, q, k):
     """Probes past a tiny cap are not sent and read as misses, in the
     kernels as in the plain versions (the counts may then differ from a
     full cap's, and the engine raises on the overflow)."""
-    k, P, q, D = 25, 256, 3, 4
-    rng = np.random.default_rng(3)
+    P, D = 256, 4
+    rng = np.random.default_rng(3 + q + k)
     args = _to(dev, *_genome_batch(rng, 8, P, k))
     scfg = _shard_cfg(k, 20, "byte", q, P, 8 * D, D)
     filt = bloom.make_filter(20, "byte", dev, slots=scfg.local_slots)
@@ -1363,6 +1473,37 @@ def test_shard_probe_and_mark_finish_unsent_probes(dev):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert int(outs[1][2]) > 0 and int(outs[1][5]) > 0
+
+
+@pytest.mark.parametrize("run", [8, 4, 2, 1])
+@pytest.mark.parametrize("q", [1, 5])
+@pytest.mark.parametrize("k", [25, 33])
+@pytest.mark.parametrize("gate", ["full", "narrow"])
+def test_shard_mark_finish_runs(dev, run, q, k, gate):
+    """The mark finish where a thread rolls along runs of 8, 4, 2 and 1
+    positions: a batch sized so that the card's grid takes that run (1.5
+    times the rows whose threads would give every SM 1024 at it), with N
+    runs, short and zero valid counts, and random probe slots (a tenth not
+    sent) into a block of hits of which most are set: the mask and count
+    equal the plain version's, in one launch."""
+    P = 512
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    R = int(1.5 * 1024 * sms * run / P)
+    assert build.lib().tp_bloom_run(R * P, 1) == run
+    rng = np.random.default_rng(run * 1000 + q * 10 + k + len(gate))
+    args = _to(dev, *_n_run_batch(rng, R, P, k))
+    cfg = PassConfig(k=k, q=q, f=20, layout="byte", positions_per_row=P, rows_per_batch=R)
+    gen = torch.Generator(device=dev).manual_seed(run + q + k)
+    S = 1 << 20
+    slots = torch.randint(0, S, (8 * q, R * P), generator=gen, device=dev, dtype=torch.int32)
+    slots[torch.rand(slots.shape, generator=gen, device=dev) < 0.1] = -1
+    back = (torch.rand(S, generator=gen, device=dev) < 0.85).to(torch.uint8)
+    low, high = (0, 0xFFFFFFFF) if gate == "full" else (1 << 30, 3 << 30)
+    build.reset_launch_counts()
+    mk, ck = shardbloom.mark_finish(back, slots, *args, low, high, cfg=cfg)
+    assert build.launch_counts() == {"shard_mark_finish": 1}
+    mp, cp = shardbloom.mark_finish_plain(back, slots, *args, low, high, cfg=cfg)
+    assert torch.equal(mk, mp) and torch.equal(ck, cp) and 0 < int(cp) < R * P
 
 
 @pytest.mark.parametrize("k", [11, 25, 101])

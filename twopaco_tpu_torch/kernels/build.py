@@ -84,8 +84,9 @@ _SIGNATURES = {
     "tp_bloom_extract": (
         [_P] * 2 + [_I] * 5 + [_P, _LL] + [_P] * 3 + [_LL] + [_P] * 5, _I
     ),
+    "tp_lookup_tile": ([], _I),
     "tp_bloom_lookup": (
-        [_P] * 3 + [_I] * 5 + [_P] * 2 + [_LL] * 2 + [_P] * 12, _I
+        [_P, _P, _I, _LL, _I, _I, _P, _P] + [_LL] * 3 + [_P] * 4 + [_SZ, _U32, _P], _I
     ),
     "tp_shard_scratch_bytes": ([_SZ, _I, _I, _I, _I], _SZ),
     "tp_shard_bucket": (
@@ -189,7 +190,8 @@ LIBRARY = KernelLibrary()
 _LAUNCHES: Counter = Counter()
 # the look-back scratch of each (device, stream, name): "bucket", shared by
 # route.cu and bloom_shard.cu's bucketing, "judge" (judge.cu), "partition"
-# (partition.cu) and "compact" (compact.cu): [uint8 tensor, epoch counter]
+# (partition.cu), "compact" (compact.cu) and "lookup" (bloom_lookup.cu):
+# [uint8 tensor, epoch counter]
 _LOOKBACK: dict = {}
 _EPOCHS = (1 << 30) - 1
 
@@ -238,17 +240,24 @@ def drop_lookback_scratch(device: torch.device, name: str = "bucket") -> None:
     _LOOKBACK.pop((device.index, stream_ptr(), name), None)
 
 
-def batch_table(uploads, offsets=None) -> torch.Tensor:
+_TABLE_COLS = 7  # int64 a row of batch_table
+
+
+def batch_table(uploads, offsets=None, tail=None):
     """The device table of a kernel call over batches (common.cuh TpBatch):
     a row of 7 int64 a (packed, nmask, valid) batch (its three pointers,
     rows, RW, NW, and its offset, e.g. of its mask in the Bloom mark's
     output; 0 where none is given), copied from pinned memory so that the
-    copy needs no wait for the stream's earlier work."""
+    copy needs no wait for the stream's earlier work. With tail (int64
+    values, e.g. the lookup's batch bases) they follow the rows in the same
+    copy, and the result is (table, the tail's view)."""
     offsets = offsets or [0] * len(uploads)
-    rows = [(p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1], m.shape[1], off)
-            for (p, m, v), off in zip(uploads, offsets)]
-    return torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+    flat = [x for (p, m, v), off in zip(uploads, offsets)
+            for x in (p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1],
+                      m.shape[1], off)]
+    table = torch.tensor(flat + list(tail or ()), dtype=torch.int64).pin_memory().to(
         uploads[0][0].device, non_blocking=True)
+    return table if tail is None else (table, table[_TABLE_COLS * len(uploads):])
 
 
 def count_launch(name: str) -> None:

@@ -1,157 +1,319 @@
-// Bloom lookup: the junction ids of a window batch's candidate positions
-// (pass 4 of the Bloom engine).
+// Bloom lookup: the junction ids of the candidate positions of a run's
+// window batches (pass 4 of the Bloom engine), one launch and a tail a
+// call.
 //
 // Replaces twopaco_tpu/passes/kernels.py:506 pass4_lookup (a sort to
 // compact the candidates, a fixed-step vectorised lower bound, a second
-// sort to compact the hits).
+// sort to compact the hits), over a device table of batches.
 //
-// Candidates: the positions t = b*P + i whose bit is set in the mask (the
-// OR of every round's), inside the row's valid count, with no N in their
-// window. Each candidate's canonical k-mer is searched in the sorted (J, w)
-// junction table (u32 words compared as unsigned, lexicographically); a
-// hit gets id +(rank+1) when the forward strand is canonical, else
-// -(rank+1). Output: the hits' flat positions (int32) and ids (int32) in
-// ascending position order, at most cap of them, and the number of hits
-// (int64, which may exceed cap: the caller checks).
+// Candidates: the positions t = row*P + col of a batch whose bit is set in
+// its mask (the OR of every round's), inside the row's valid count, with
+// no N in their window. Each candidate's canonical k-mer is searched in
+// the sorted (J, w) junction table (u32 words compared as unsigned,
+// lexicographically); a hit gets id +(rank+1) when the forward strand is
+// canonical, else -(rank+1). Output: the hits' global positions (the
+// batch's base + t, int64) and ids (int32), batch by batch and ascending
+// in each, at most cap of them; the number of hits (int64, which may
+// exceed cap: the caller checks); slots past it hold `pad` and
+// INVALID_ID32.
 //
-// Bound: the search, log2(J) dependent reads of the table a candidate
-// (a few percent of the positions). Design: both compactions run on the
-// shared scan (scan.cu): the candidates are compacted first, with their
-// canonical keys, so the search threads are dense; the hits are compacted
-// second, which keeps the candidates' ascending order.
+// Bound: bytes, the masks and the candidates' windows read, the hits
+// written, and the distinct 32-byte sectors of the junction table that the
+// searches touch. Design: no scan and no n-sized scratch. A block takes the
+// next tile of LK_TILE positions from an atomic counter (tile t of batch b
+// is call tile b * tiles + t, as in partition.cu, so a look-back reads only
+// earlier tiles of the call); a thread reads the mask bytes of LK_PER
+// consecutive positions, tests its set bits (valid count, N) and the block
+// ranks the candidates by a prefix over the threads into shared memory, in
+// position order. Then a thread a candidate (dense, LK_TILE / TP_THREADS
+// rounds at most): its canonical key built in registers from scratch (16
+// chars a word from two packed words by a funnel shift; the forward word
+// bit-reversed, the reverse complement's complemented in place), a lower
+// bound over the table, and the hits ranked by ballots into the same
+// shared memory (in place: a hit's rank never passes its candidate's
+// index). common.cuh's block-wide look-back gives the tile's offset in the
+// call's output; the hits are stored coalesced. The last tile writes the
+// count; the tail fills the slots past it and resets the tile counter. The
+// status words carry a per-call epoch in a scratch kept across calls
+// (kernels/build.py lookback_scratch, "lookup").
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-__global__ void k_lookup_flags(const uint32_t* __restrict__ packed,
-                               const uint32_t* __restrict__ nmask,
-                               const int32_t* __restrict__ valid,
-                               const uint8_t* __restrict__ mask, int P, int k,
-                               int RW, int NW, size_t n,
-                               uint32_t* __restrict__ flags) {
-    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n) return;
-    const int b = (int)(t / P);
-    const int i = (int)(t - (size_t)b * P);
-    const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-    flags[t] = ((mask[t >> 3] >> (7 - (t & 7))) & 1u) &&
-               tp_position_ok(row, i, k, valid[b]);
+constexpr int LK_PER = 16;                     // positions a thread (2 mask bytes)
+constexpr int LK_TILE = TP_THREADS * LK_PER;   // positions a tile
+constexpr int TAIL_CHUNK = 4096;               // output slots a tail block
+constexpr int32_t INVALID_ID32 = 0x7fffffff;
+
+struct LookupArgs {
+    const TpBatch* table;     // a row's out_off: its mask's bytes from `mask`
+    const long long* bases;   // batch b's first global position
+    const uint8_t* mask;
+    int P, k, w;
+    long long tiles;          // tiles a batch
+    long long n_tiles;        // tiles of the call
+    const uint32_t* jt;       // the (J, w) junction table
+    long long J, cap;
+    long long* out_pos;
+    int32_t* out_ids;
+    long long* count;
+    uint32_t* tile_ctr;
+    uint64_t* status;         // a word a call tile
+    uint32_t epoch;
+};
+
+// 16 chars of a row from char p (p >= -15), little-first (char p + q at
+// bits 2q); chars before the row and past its words read as 0
+__device__ __forceinline__ uint32_t chars16(const uint32_t* packed, int RW, int p) {
+    const int wi = p >> 4;  // floor
+    const uint32_t lo = wi >= 0 ? packed[wi] : 0u;
+    const uint32_t hi = wi + 1 < RW ? packed[wi + 1] : 0u;
+    return __funnelshift_r(lo, hi, 2 * (p & 15));
 }
 
-__global__ void k_lookup_keys(const uint32_t* __restrict__ packed,
-                              const uint32_t* __restrict__ nmask, int P,
-                              int k, int w, int RW, int NW,
-                              const uint32_t* __restrict__ flags,
-                              const uint32_t* __restrict__ incl, size_t n,
-                              int32_t* __restrict__ cand_pos,
-                              uint32_t* __restrict__ keys,
-                              uint32_t* __restrict__ cand_rc) {
-    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n || !flags[t]) return;
-    const size_t c = incl[t] - 1;
-    const int b = (int)(t / P);
-    const int i = (int)(t - (size_t)b * P);
-    const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-    cand_pos[c] = (int32_t)t;
-    cand_rc[c] = (tp_canonical_record(row, i, k, w, keys + c * w) >> 16) & 1u;
+// The 2-bit chars of v in reverse order (char q to char 15 - q)
+__device__ __forceinline__ uint32_t rev2(uint32_t v) {
+    const uint32_t x = __brev(v);
+    return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
 }
 
-__device__ __forceinline__ bool row_less(const uint32_t* a, const uint32_t* b,
-                                         int w) {
-    for (int m = 0; m < w; ++m)
-        if (a[m] != b[m]) return a[m] < b[m];
-    return false;
+// Word m of the forward k-mer at char s (MSB-first, left-aligned, chars
+// past k zero) or of its reverse complement (rc char t = 3 - char s+k-1-t:
+// the 16 chars ending at s+k-1-16m, complemented, already in MSB-first
+// order)
+__device__ __forceinline__ uint32_t key_word(const uint32_t* packed, int RW, int s, int k, int m,
+                                             bool rc) {
+    const int left = k - 16 * m;  // chars of the k-mer in this word, if below 16
+    const uint32_t keep = left >= 16 ? 0xffffffffu : 0xffffffffu << (32 - 2 * left);
+    return (rc ? ~chars16(packed, RW, s + k - 16 - 16 * m) : rev2(chars16(packed, RW, s + 16 * m)))
+           & keep;
 }
 
-__global__ void k_lookup_search(const uint32_t* __restrict__ keys,
-                                const uint32_t* __restrict__ cand_rc,
-                                const uint32_t* __restrict__ incl, size_t n,
-                                const uint32_t* __restrict__ table,
-                                long long J, int w,
-                                uint32_t* __restrict__ found,
-                                int32_t* __restrict__ ids) {
-    const size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= n) return;
-    if (c >= incl[n - 1]) {  // past the last candidate
-        found[c] = 0;
-        return;
+// The canonical k-mer of the window at char s (the lexicographic min of the
+// strands; a palindrome is forward): its first W words into key, words W ..
+// w-1 left to key_word; is_rc: the reverse complement is canonical
+template <int W>
+__device__ __forceinline__ void canonical_key(const uint32_t* packed, int RW, int s, int k, int w,
+                                              uint32_t* key, bool& is_rc) {
+    uint32_t fw[W], rc[W];
+#pragma unroll
+    for (int m = 0; m < W; ++m) {
+        fw[m] = key_word(packed, RW, s, k, m, false);
+        rc[m] = key_word(packed, RW, s, k, m, true);
     }
-    const uint32_t* key = keys + c * w;
-    long long lo = 0, hi = J;  // lower bound: first row >= key
-    while (lo < hi) {
-        const long long mid = lo + ((hi - lo) >> 1);
-        if (row_less(table + mid * w, key, w))
-            lo = mid + 1;
-        else
-            hi = mid;
+    bool done = false;
+    is_rc = false;
+#pragma unroll
+    for (int m = 0; m < W; ++m)
+        if (!done && fw[m] != rc[m]) {
+            is_rc = rc[m] < fw[m];
+            done = true;
+        }
+    for (int m = W; !done && m < w; ++m) {
+        const uint32_t f = key_word(packed, RW, s, k, m, false);
+        const uint32_t r = key_word(packed, RW, s, k, m, true);
+        if (f != r) {
+            is_rc = r < f;
+            done = true;
+        }
     }
-    const bool hit = lo < J && !row_less(key, table + lo * w, w);
-    found[c] = hit;
-    ids[c] = cand_rc[c] ? -(int32_t)(lo + 1) : (int32_t)(lo + 1);
+#pragma unroll
+    for (int m = 0; m < W; ++m) key[m] = is_rc ? rc[m] : fw[m];
 }
 
-__global__ void k_lookup_scatter(const uint32_t* __restrict__ found,
-                                 const uint32_t* __restrict__ incl, size_t n,
-                                 const int32_t* __restrict__ cand_pos,
-                                 const int32_t* __restrict__ ids,
-                                 long long cap, int32_t* __restrict__ out_pos,
-                                 int32_t* __restrict__ out_ids) {
-    const size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= n || !found[c]) return;
-    const long long d = (long long)incl[c] - 1;
-    if (d >= cap) return;
-    out_pos[d] = cand_pos[c];
-    out_ids[d] = ids[c];
+// Table row `row` against the key: -1 below it, 0 equal, 1 above (the
+// row's first W words loaded together)
+template <int W>
+__device__ __forceinline__ int cmp_row(const uint32_t* jt, long long row, int w,
+                                       const uint32_t* key, const uint32_t* packed, int RW, int s,
+                                       int k, bool is_rc) {
+    const uint32_t* tr = jt + row * w;
+    uint32_t v[W];
+#pragma unroll
+    for (int m = 0; m < W; ++m) v[m] = __ldg(tr + m);
+    int c = 0;
+#pragma unroll
+    for (int m = 0; m < W; ++m)
+        if (c == 0 && v[m] != key[m]) c = v[m] < key[m] ? -1 : 1;
+    for (int m = W; c == 0 && m < w; ++m) {
+        const uint32_t a = __ldg(tr + m);
+        const uint32_t b = key_word(packed, RW, s, k, m, is_rc);
+        if (a != b) c = a < b ? -1 : 1;
+    }
+    return c;
 }
 
-__global__ void k_lookup_count(const uint32_t* __restrict__ incl, size_t n,
-                               long long* __restrict__ count) {
-    count[0] = incl[n - 1];
+// W: the key words held in registers, min(w, 4) (below 4 the key's words
+// are known at compile time)
+template <int W>
+__global__ void __launch_bounds__(TP_THREADS) k_lookup(LookupArgs a) {
+    __shared__ uint16_t s_pos[LK_TILE];  // the tile's candidates, then its hits
+    __shared__ int32_t s_id[LK_TILE];    // the hits' ids
+    __shared__ uint32_t s_scan[TP_WARPS];
+    __shared__ uint32_t s_tile;
+    __shared__ int s_stop;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    if (tid == 0) s_tile = atomicAdd(a.tile_ctr, 1u);
+    __syncthreads();
+    const size_t tile = s_tile;
+    const int b = (int)(tile / (size_t)a.tiles);
+    const long long t0 = (long long)(tile - (size_t)b * a.tiles) * LK_TILE;
+    const TpBatch* bt = a.table + b;
+    const long long n_b = bt->rows * a.P;
+    const int P = a.P, k = a.k, w = W < 4 ? W : a.w;
+
+    // the thread's candidates: bit q for position x0 + q
+    const long long x0 = t0 + (long long)tid * LK_PER;
+    uint32_t cand = 0;
+    if (x0 < n_b) {
+        const uint8_t* m = a.mask + bt->out_off + (x0 >> 3);
+        // n_b and x0 are multiples of 8: the second byte lies in the batch
+        // or wholly past it
+        const uint32_t two = ((uint32_t)m[0] << 24) | (x0 + 8 < n_b ? (uint32_t)m[1] << 16 : 0u);
+        for (uint32_t v = __brev(two); v; v &= v - 1) {  // position x0 + q at bit q
+            const int q = __ffs(v) - 1;
+            const long long x = x0 + q;
+            const int r = (int)(x / P);
+            const int i = (int)(x - (long long)r * P);
+            const TpRow row{bt->packed + (size_t)r * bt->RW, bt->nmask + (size_t)r * bt->NW};
+            if (tp_position_ok(row, i, k, bt->valid[r])) cand |= 1u << q;
+        }
+    }
+    uint32_t n_cand;
+    uint32_t c_off = tp_block_excl_scan((uint32_t)__popc(cand), s_scan, n_cand);
+    for (uint32_t v = cand; v; v &= v - 1) s_pos[c_off++] = (uint16_t)(tid * LK_PER + __ffs(v) - 1);
+    __syncthreads();
+
+    // a thread a candidate: key, lower bound, the hits ranked into s_pos
+    // and s_id in candidate order
+    uint32_t hits = 0;
+    for (uint32_t c0 = 0; c0 < n_cand; c0 += TP_THREADS) {
+        const uint32_t c = c0 + tid;
+        bool hit = false;
+        int32_t id = 0;
+        uint16_t lp = 0;
+        if (c < n_cand) {
+            lp = s_pos[c];
+            const long long x = t0 + lp;
+            const int r = (int)(x / P);
+            const int s = (int)(x - (long long)r * P) + 1;  // the window's first char
+            const uint32_t* packed = bt->packed + (size_t)r * bt->RW;
+            const int RW = (int)bt->RW;
+            uint32_t key[W];
+            bool is_rc;
+            canonical_key<W>(packed, RW, s, k, w, key, is_rc);
+            long long lo = 0, hi = a.J;  // the first row >= key
+            while (lo < hi) {
+                const long long mid = lo + ((hi - lo) >> 1);
+                if (cmp_row<W>(a.jt, mid, w, key, packed, RW, s, k, is_rc) < 0)
+                    lo = mid + 1;
+                else
+                    hi = mid;
+            }
+            hit = lo < a.J && cmp_row<W>(a.jt, lo, w, key, packed, RW, s, k, is_rc) == 0;
+            id = is_rc ? -(int32_t)(lo + 1) : (int32_t)(lo + 1);
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) s_scan[warp] = __popc(bal);
+        __syncthreads();  // every read of this round's candidates is done
+        uint32_t below = 0, round = 0;
+#pragma unroll
+        for (int u = 0; u < TP_WARPS; ++u) {
+            below += u < warp ? s_scan[u] : 0u;
+            round += s_scan[u];
+        }
+        if (hit) {
+            const uint32_t d = hits + below + __popc(bal & ((1u << lane) - 1u));
+            s_pos[d] = lp;  // d <= c: no candidate still to be read
+            s_id[d] = id;
+        }
+        hits += round;
+        __syncthreads();
+    }
+
+    // the tile's offset in the call's output; the hits stored coalesced
+    const uint32_t excl = tp_block_lookback(a.status, a.epoch, tile, hits, s_scan, &s_stop);
+    if (tile + 1 == (size_t)a.n_tiles && tid == 0) *a.count = (long long)excl + hits;
+    const long long base = a.bases[b] + t0;
+    for (uint32_t j = tid; j < hits; j += TP_THREADS) {
+        const long long d = (long long)excl + j;
+        if (d < a.cap) {
+            a.out_pos[d] = base + s_pos[j];
+            a.out_ids[d] = s_id[j];
+        }
+    }
+}
+
+// The slots from the count to cap, and the tile counter back to 0 for the
+// next call
+__global__ void k_lookup_tail(LookupArgs a, long long pad) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *a.tile_ctr = 0;
+    const long long cnt = *a.count;
+    const long long c0 = (long long)blockIdx.x * TAIL_CHUNK;
+    const long long end = min(c0 + TAIL_CHUNK, a.cap);
+    for (long long j = max(cnt, c0) + threadIdx.x; j < end; j += TP_THREADS) {
+        a.out_pos[j] = pad;
+        a.out_ids[j] = INVALID_ID32;
+    }
+}
+
+template <int W>
+cudaError_t launch(const LookupArgs& a, long long pad, cudaStream_t st) {
+    k_lookup<W><<<(unsigned)a.n_tiles, TP_THREADS, 0, st>>>(a);
+    TP_LAUNCH_CHECK();
+    k_lookup_tail<<<(unsigned)std::max<long long>(1, (a.cap + TAIL_CHUNK - 1) / TAIL_CHUNK),
+                    TP_THREADS, 0, st>>>(a, pad);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-// table: (J, w) u32 sorted, J >= 1; out_pos, out_ids: cap int32 each;
-// count: one int64. Scratch (sized by the caller), n = B*P: flags, incl_a,
-// incl_b, cand_rc (n u32 each), cand_pos, ids (n int32 each), keys (n*w
-// u32), the scan scratch (tp_scan_scratch_words(n) u32).
-extern "C" int tp_bloom_lookup(const void* packed, const void* nmask,
-                               const void* valid, int B, int P, int k, int RW,
-                               int NW, const void* mask, const void* table,
-                               long long J, long long cap, void* out_pos,
-                               void* out_ids, void* count, void* flags,
-                               void* incl_a, void* incl_b, void* cand_rc,
-                               void* cand_pos, void* ids, void* keys,
-                               void* scratch, void* stream) {
-    const size_t n = (size_t)B * P;
-    if (n == 0 || J < 1) return (int)cudaErrorInvalidValue;
+// Positions a look-back tile: the scratch of a call is 8 + nb * max(1,
+// ceil(max_pos / tile)) * 8 bytes
+extern "C" int tp_lookup_tile() { return LK_TILE; }
+
+// The hits of nb batches in one launch and a tail. table: nb TpBatch rows
+// (out_off: the byte offset of the batch's (rows, P/8) mask from mask);
+// bases: nb int64; max_pos: the most positions of a batch (< 2^31 in all);
+// jt: (J, w) u32 sorted, 1 <= J < 2^31 - 1; cap >= 0; out_pos (cap int64),
+// out_ids (cap int32), count (one int64). scratch: scratch_bytes
+// (tp_lookup_tile) zeroed before its first call and kept across calls,
+// each call with another epoch (< 2^30) than the one before.
+extern "C" int tp_bloom_lookup(const void* table, const void* bases, int nb, long long max_pos,
+                               int P, int k, const void* mask, const void* jt, long long J,
+                               long long cap, long long pad, void* out_pos, void* out_ids,
+                               void* count, void* scratch, size_t scratch_bytes,
+                               uint32_t epoch, void* stream) {
+    const long long tiles = std::max<long long>(1, (max_pos + LK_TILE - 1) / LK_TILE);
+    if (table == nullptr || nb < 1 || max_pos < 0 || (long long)nb * max_pos >= (1ll << 31) ||
+        P < 8 || P % 8 != 0 || k < 1 || J < 1 || J >= (1ll << 31) - 1 || cap < 0 ||
+        epoch > TP_EPOCH_MASK || scratch == nullptr ||
+        scratch_bytes < (size_t)(8 + nb * tiles * 8))
+        return (int)cudaErrorInvalidValue;
+    LookupArgs a{};
+    a.table = (const TpBatch*)table;
+    a.bases = (const long long*)bases;
+    a.mask = (const uint8_t*)mask;
+    a.P = P, a.k = k, a.w = (k + 15) / 16;
+    a.tiles = tiles;
+    a.n_tiles = nb * tiles;
+    a.jt = (const uint32_t*)jt;
+    a.J = J, a.cap = cap;
+    a.out_pos = (long long*)out_pos;
+    a.out_ids = (int32_t*)out_ids;
+    a.count = (long long*)count;
+    a.tile_ctr = (uint32_t*)scratch;
+    a.status = (uint64_t*)((char*)scratch + 8);
+    a.epoch = epoch;
     const cudaStream_t st = (cudaStream_t)stream;
-    const unsigned nb = tp_blocks(n, TP_THREADS);
-    const int w = (k + 15) / 16;
-    uint32_t* fl = (uint32_t*)flags;
-    uint32_t* ia = (uint32_t*)incl_a;
-    uint32_t* ib = (uint32_t*)incl_b;
-    k_lookup_flags<<<nb, TP_THREADS, 0, st>>>(
-        (const uint32_t*)packed, (const uint32_t*)nmask,
-        (const int32_t*)valid, (const uint8_t*)mask, P, k, RW, NW, n, fl);
-    TP_LAUNCH_CHECK();
-    cudaError_t e = tp_scan_inclusive_u32(fl, ia, n, (uint32_t*)scratch, st);
-    if (e != cudaSuccess) return (int)e;
-    k_lookup_keys<<<nb, TP_THREADS, 0, st>>>(
-        (const uint32_t*)packed, (const uint32_t*)nmask, P, k, w, RW, NW, fl,
-        ia, n, (int32_t*)cand_pos, (uint32_t*)keys, (uint32_t*)cand_rc);
-    TP_LAUNCH_CHECK();
-    // the candidate flags are spent: the hit flags take their place
-    k_lookup_search<<<nb, TP_THREADS, 0, st>>>(
-        (const uint32_t*)keys, (const uint32_t*)cand_rc, ia, n,
-        (const uint32_t*)table, J, w, fl, (int32_t*)ids);
-    TP_LAUNCH_CHECK();
-    e = tp_scan_inclusive_u32(fl, ib, n, (uint32_t*)scratch, st);
-    if (e != cudaSuccess) return (int)e;
-    k_lookup_scatter<<<nb, TP_THREADS, 0, st>>>(
-        fl, ib, n, (const int32_t*)cand_pos, (const int32_t*)ids, cap,
-        (int32_t*)out_pos, (int32_t*)out_ids);
-    TP_LAUNCH_CHECK();
-    k_lookup_count<<<1, 1, 0, st>>>(ib, n, (long long*)count);
-    return (int)cudaGetLastError();
+    switch (a.w) {
+        case 1: return (int)launch<1>(a, pad, st);
+        case 2: return (int)launch<2>(a, pad, st);
+        case 3: return (int)launch<3>(a, pad, st);
+        default: return (int)launch<4>(a, pad, st);
+    }
 }

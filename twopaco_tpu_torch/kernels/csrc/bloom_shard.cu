@@ -72,6 +72,19 @@
 // a slot the batch probes twice a few slots apart (an edge from both of
 // its vertices) is one request; 4 slots a lane (16-byte loads) spread it
 // over 128 slots and measured slower.
+//
+// The mark finish: one launch a call. A thread takes a run of positions of
+// one row (the Bloom round kernels' rule, common.cuh tp_bloom_grid: 8,
+// halved while the call's threads would not give every SM 1024, so 1 at a
+// dist-bloom shard's 64 rows of 2048), rolls the strand hashes of table 1
+// along it with the char tables in shared memory (no table in a stack
+// frame), and keeps the window's last N. For a position in the round with
+// prev and next ACGT it loads the first probe slots of its six needed
+// edges together (coalesced along the positions), then their hits
+// together, then slot j only of the edges still alive, as bloom_mark.cu
+// reads its filter: a few dependent round trips a position instead of up
+// to 6q pairs one after another. Its bytes: the probe slots it reads, the
+// upload form, a hit a read slot and the mask.
 #include <algorithm>
 #include <type_traits>
 
@@ -473,43 +486,101 @@ __global__ void k_shard_probe(const uint64_t* __restrict__ recv, size_t cap,
     }
 }
 
-__global__ void k_shard_mark_finish(const uint8_t* __restrict__ back,
-                                    const uint32_t* __restrict__ probe_slot,
-                                    const uint32_t* __restrict__ packed,
-                                    const uint32_t* __restrict__ nmask,
-                                    const int32_t* __restrict__ valid, int B,
-                                    int P, int k, int RW, int NW,
-                                    uint32_t low, uint32_t high, TpTabs tabs,
-                                    int q, uint8_t* __restrict__ mask,
-                                    unsigned long long* __restrict__ count) {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long n = (long long)B * P;
-    bool cand = false;
-    if (t < n) {
-        const int b = (int)(t / P);
-        const int i = (int)(t - (long long)b * P);
-        const TpRow row{packed + (size_t)b * RW, nmask + (size_t)b * NW};
-        uint32_t hf[4], hr[4];
-        if (tp_mark_position(row, i, k, valid[b], low, high, tabs, 1, hf, hr)) {
-            cand = tp_mark_decide(row.ext(i), row.ext(i + k + 1),
-                                  [&](int side, uint32_t c) {
-                const int e = (side * 4 + (int)c) * q;
-                for (int j = 0; j < q; ++j) {
-                    const uint32_t s = probe_slot[(size_t)(e + j) * n + t];
-                    if (s == NOT_SENT || !back[s]) return false;
-                }
-                return true;
-            });
-        }
+// The mark finish's arguments: the batch (B*P = n positions), table 1 of
+// the char tables, the probe slots and the hits sent back
+struct FinishArgs {
+    const uint8_t* back;
+    const uint32_t* probe_slot;
+    const uint32_t* packed;
+    const uint32_t* nmask;
+    const int32_t* valid;
+    long long n;
+    int P, k, RW, NW, q, run;
+    uint32_t low, high;
+    uint32_t tab[4];  // TABLE_1: the vertex hash
+    uint8_t* mask;
+    unsigned long long* count;
+};
+
+// One of the needed edges (bit e of need: probe rows e*q .. e*q + q-1)
+// hits at position t: slot j of every edge whose probes 0 .. j-1 hit, for
+// j = 0, 1, ...: the probe slots of those edges loaded together (coalesced
+// along t), then their hits together, so that no load waits on another
+// edge's and a later probe is read only while its edge can still hit. A
+// probe not sent (NOT_SENT) reads as a miss.
+__device__ __forceinline__ bool any_probe_hits(const uint32_t* __restrict__ probe_slot,
+                                               const uint8_t* __restrict__ back, long long n,
+                                               int q, unsigned need, long long t) {
+    unsigned alive = need;
+    for (int j = 0; j < q && alive; ++j) {
+        uint32_t s[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            s[e] = (alive >> e) & 1u ? __ldg(probe_slot + (size_t)(e * q + j) * n + t) : NOT_SENT;
+        uint32_t h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) h[e] = s[e] != NOT_SENT ? __ldg(back + s[e]) : 0u;
+        unsigned set = 0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) set |= (h[e] != 0 ? 1u : 0u) << e;
+        alive = set;
     }
-    tp_pack_runs(cand ? 1u : 0u, 1, t, t < n, mask, count);
+    return alive != 0;
 }
 
-TpTabs load_tabs(const uint32_t* tabs) {
-    TpTabs tt;
-    for (int u = 0; u < 4; ++u)
-        for (int c = 0; c < 4; ++c) tt.t[u].t[c] = tabs[4 * u + c];
-    return tt;
+// A thread a run of `run` positions of one row (P % 8 == 0), the strand
+// hashes of table 1 rolled along it with the char tables in shared memory
+// and the window's last N kept, as bloom_mark.cu's. A position in the round
+// (a record, vertex hash in [low, high]) is a candidate when prev or next
+// is N, or when one of its six edges c·V (c != prev) and V·c (c != next)
+// hits: kernels.py:315 mark_decide, as bloom_mark.cu decides it. The run's
+// decisions are packed by common.cuh tp_pack_runs.
+__global__ void __launch_bounds__(TP_THREADS) k_shard_mark_finish(FinishArgs a) {
+    __shared__ uint32_t s_T[4], s_Tk[4], s_Tk1[4];
+    // thread 0 at fixed indices: an index into the parameters that depends
+    // on the thread would copy them to a stack frame
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const uint32_t t = a.tab[c];
+            s_T[c] = t;
+            s_Tk[c] = tp_rotl32(t, (uint32_t)a.k);
+            s_Tk1[c] = tp_rotl32(t, (uint32_t)(a.k - 1));
+        }
+    }
+    __syncthreads();
+    const long long x0 = ((long long)blockIdx.x * TP_THREADS + threadIdx.x) * a.run;
+    const bool live = x0 < a.n;  // every lane packs, live or not
+    unsigned bits = 0;           // bit s: position x0 + s is a candidate
+    if (live) {
+        const int k = a.k;
+        const int r = (int)(x0 / a.P);
+        const int i0 = (int)(x0 - (long long)r * a.P);
+        const int end = min(i0 + a.run, (int)a.valid[r]);
+        const TpRow row{a.packed + (size_t)r * a.RW, a.nmask + (size_t)r * a.NW};
+        uint32_t hf[4], hr[4];
+        int last_n = 0;
+        if (i0 < end) {
+            tp_window_hashes(row, i0 + 1, k, 1, s_T, hf, hr);
+            last_n = tp_last_n(row, i0 + 1, i0 + k);  // up to V's last char
+        }
+        for (int i = i0; i < end; ++i) {
+            const uint32_t next = row.ext(i + k + 1);
+            const uint32_t hv = hf[0] + hr[0];
+            if (last_n < i + 1 && hv >= a.low && hv <= a.high) {
+                const uint32_t prev = row.ext(i);
+                bool cand = prev >= 4 || next >= 4;
+                if (!cand)
+                    cand = any_probe_hits(a.probe_slot, a.back, a.n, a.q,
+                                          (0xfu & ~(1u << prev)) | (0xf0u & ~(16u << next)),
+                                          x0 + (i - i0));
+                bits |= (unsigned)cand << (i - i0);
+            }
+            if (next >= 4) last_n = i + k + 1;
+            if (i + 1 < end) tp_roll_hashes(row, i + 1, k, 1, s_T, s_Tk, s_Tk1, hf, hr);
+        }
+    }
+    tp_pack_runs(bits, a.run, x0, live, a.mask, a.count);
 }
 
 template <bool MARK, bool W64>
@@ -629,8 +700,10 @@ extern "C" int tp_shard_probe(const void* recv, size_t rows, size_t cap,
 
 // The candidate mask of a batch from the hits sent back: back (D*cap u8,
 // indexed by the probe slots of tp_shard_bucket's mark mode), probe_slot
-// ((8q, B*P) u32), the batch and round as tp_shard_bucket's. Outputs: mask
-// (B*P/8 u8, P % 8 == 0), count (one int64, added to).
+// ((8q, B*P) u32), the batch and round as tp_shard_bucket's (tabs: table 1
+// is read). A thread rolls along the Bloom round kernels' run for the
+// batch (tp_bloom_run(B*P, 1)). Outputs: mask (B*P/8 u8, P % 8 == 0),
+// count (one int64, added to). One launch.
 extern "C" int tp_shard_mark_finish(const void* back, const void* probe_slot,
                                     const void* packed, const void* nmask,
                                     const void* valid, int B, int P, int k,
@@ -639,12 +712,22 @@ extern "C" int tp_shard_mark_finish(const void* back, const void* probe_slot,
                                     void* mask, void* count, void* stream) {
     const long long n = (long long)B * P;
     if (n == 0) return 0;
-    if (P % 8 != 0 || q < 1) return (int)cudaErrorInvalidValue;
-    k_shard_mark_finish<<<tp_blocks((size_t)n, TP_THREADS), TP_THREADS, 0,
-                          (cudaStream_t)stream>>>(
-        (const uint8_t*)back, (const uint32_t*)probe_slot,
-        (const uint32_t*)packed, (const uint32_t*)nmask,
-        (const int32_t*)valid, B, P, k, RW, NW, low, high, load_tabs(tabs), q,
-        (uint8_t*)mask, (unsigned long long*)count);
+    if (P % 8 != 0 || q < 1 || k < 1)
+        return (int)cudaErrorInvalidValue;
+    FinishArgs a{};
+    a.back = (const uint8_t*)back;
+    a.probe_slot = (const uint32_t*)probe_slot;
+    a.packed = (const uint32_t*)packed;
+    a.nmask = (const uint32_t*)nmask;
+    a.valid = (const int32_t*)valid;
+    a.n = n, a.P = P, a.k = k, a.RW = RW, a.NW = NW, a.q = q;
+    a.low = low, a.high = high;
+    for (int c = 0; c < 4; ++c) a.tab[c] = tabs[c];
+    a.mask = (uint8_t*)mask;
+    a.count = (unsigned long long*)count;
+    dim3 grid;
+    const cudaError_t e = tp_bloom_grid(n, 1, a.run, grid);
+    if (e != cudaSuccess) return (int)e;
+    k_shard_mark_finish<<<grid.x, TP_THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

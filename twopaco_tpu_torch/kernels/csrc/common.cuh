@@ -24,8 +24,7 @@ inline unsigned tp_blocks(size_t n, size_t per_block) {
 }
 
 // Inclusive prefix sum of n u32 values (in may equal out). scratch holds
-// tp_scan_scratch_words(n) u32 words. Used by the Bloom engine's extract
-// and lookup.
+// tp_scan_scratch_words(n) u32 words. Used by the Bloom engine's extract.
 cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
                                   size_t n, uint32_t* scratch,
                                   cudaStream_t stream);
@@ -66,10 +65,6 @@ struct TpBatch {
     const uint32_t* nmask;
     const int32_t* valid;
     long long rows, RW, NW, out_off;
-};
-
-struct TpTab {
-    uint32_t t[4];
 };
 
 __device__ __forceinline__ uint32_t tp_rotl32(uint32_t x, uint32_t s) {
@@ -173,30 +168,6 @@ __device__ __forceinline__ uint32_t tp_comp4(uint32_t c) {
     return c < 4 ? 3u - c : 4u;
 }
 
-// Forward and reverse-complement Buzhash of the k-char window starting at
-// char s (N hashes as code 0):
-//     hf = XOR_j rotl(T[c_{s+j}], k-1-j),  hr = XOR_j rotl(T[3-c_{s+j}], j)
-__device__ __forceinline__ void tp_strand_hashes(const TpRow& row, int s,
-                                                 int k, const TpTab& tab,
-                                                 uint32_t& hf, uint32_t& hr) {
-    hf = 0;
-    hr = 0;
-    for (int j = 0; j < k; ++j) {
-        const uint32_t c = row.code(s + j);
-        hf ^= tp_rotl32(tab.t[c], (uint32_t)(k - 1 - j));
-        hr ^= tp_rotl32(tab.t[3u - c], (uint32_t)j);
-    }
-}
-
-// Vertex hash of position i: hf + hr of its k-char window, mod 2^32 (the
-// same for both strands)
-__device__ __forceinline__ uint32_t tp_vertex_hash(const TpRow& row, int i,
-                                                   int k, const TpTab& tab) {
-    uint32_t hf, hr;
-    tp_strand_hashes(row, i + 1, k, tab, hf, hr);
-    return hf + hr;
-}
-
 // Position i has a record at all: inside the row's valid count and no N
 // in its window
 __device__ __forceinline__ bool tp_position_ok(const TpRow& row, int i, int k,
@@ -231,31 +202,8 @@ __device__ __forceinline__ uint32_t tp_canonical_record(
     return in | (out << 8) | ((uint32_t)is_rc << 16) | TP_REAL;
 }
 
-// The sort record of position i: tp_canonical_record when the position
-// has a record (tp_position_ok) and its vertex hash lies in [low, high];
-// else all-ones sentinel words and payload 0, so it sorts after every
-// k-mer. *hv receives the vertex hash.
-__device__ __forceinline__ uint32_t tp_build_record(
-    const TpRow& row, int i, int k, int w, int valid, uint32_t low,
-    uint32_t high, const TpTab& tab, uint32_t* __restrict__ wout,
-    uint32_t* hv) {
-    const uint32_t h = tp_vertex_hash(row, i, k, tab);
-    *hv = h;
-    if (!(tp_position_ok(row, i, k, valid) && h >= low && h <= high)) {
-        for (int m = 0; m < w; ++m) wout[m] = 0xffffffffu;
-        return 0u;
-    }
-    return tp_canonical_record(row, i, k, w, wout);
-}
-
 // ---- the Bloom engine's hashes (ops/buzhash.py probe_indices_from_sym),
 // shared by bloom_fill.cu, bloom_mark.cu and bloom_shard.cu
-
-// The four char tables (TABLE_1 .. TABLE_4): tables 1-2 give 32-bit probe
-// indices, all four 64-bit ones (f > 32)
-struct TpTabs {
-    TpTab t[4];
-};
 
 // Kirsch-Mitzenmacher index j of an edge, mod 2^f: f <= 32 from the u32
 // pair (e0, e1), f > 32 (f <= 63) from H1 = e2 << 32 | e0 and H2 = e3 << 32
@@ -277,44 +225,6 @@ constexpr int TP_LAYOUT_BYTE = 0;
 constexpr int TP_LAYOUT_BIT = 1;
 constexpr int TP_LAYOUT_BLOCK = 2;
 constexpr int TP_BLOCK_WORDS = 8;  // a block: 256 bits
-
-// ---- the dist-bloom mark finish's view of a position (bloom_shard.cu)
-
-// Mark (twopaco_tpu kernels.py:273 mark_indices): true for a position with
-// a record whose vertex hash lies in [low, high] (mark_decide's `base`);
-// hf, hr get the strand hashes of the first nt tables (nt >= 1).
-__device__ __forceinline__ bool tp_mark_position(const TpRow& row, int i,
-                                                 int k, int valid,
-                                                 uint32_t low, uint32_t high,
-                                                 const TpTabs& tabs, int nt,
-                                                 uint32_t* hf, uint32_t* hr) {
-    if (!tp_position_ok(row, i, k, valid)) return false;
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-        if (u < nt) tp_strand_hashes(row, i + 1, k, tabs.t[u], hf[u], hr[u]);
-    const uint32_t hv = hf[0] + hr[0];
-    return hv >= low && hv <= high;
-}
-
-// The candidate decision of a vertex in the round (kernels.py:315
-// mark_decide, the reference's CandidateCheckingWorker):
-//     in  = 2 [prev is N] + sum_c ([c == prev] or hit(0, c))  > 1, or
-//     out = 2 [next is N] + sum_c ([c == next] or hit(1, c))  > 1
-// over c in ACGT; hit(side, c) is the Bloom hit of the in-edge c·V (side
-// 0) or the out-edge V·c (side 1), asked only while it can change the
-// answer.
-template <class Hit>
-__device__ __forceinline__ bool tp_mark_decide(uint32_t prev, uint32_t next,
-                                               Hit hit) {
-    for (int side = 0; side < 2; ++side) {
-        const uint32_t own = side ? next : prev;
-        int cnt = own >= 4 ? 2 : 0;
-        for (uint32_t c = 0; c < 4 && cnt <= 1; ++c)
-            cnt += c == own ? 1 : (int)hit(side, c);
-        if (cnt > 1) return true;
-    }
-    return false;
-}
 
 // A warp's candidate decisions into the packed mask (kernels.py:336
 // pack_mask: 8 positions a byte, MSB first) and their count added to
@@ -493,6 +403,42 @@ __device__ __forceinline__ void tp_owner_lookback(int D, size_t tile, uint32_t e
     }
 }
 
+// One owner, a block-wide look-back (compact.cu's real rows, bloom_lookup.cu's
+// hits): the tile's count own is published first (tile 0: as its inclusive
+// prefix); then thread j reads the status word of tile top - j, TP_THREADS
+// earlier tiles a round trip, and the block sums back to the nearest
+// inclusive prefix. -> the count of the tiles before `tile`; the tile's
+// inclusive prefix published. Every thread calls; ends with a barrier.
+__device__ __forceinline__ uint32_t tp_block_lookback(uint64_t* status, uint32_t epoch,
+                                                      size_t tile, uint32_t own,
+                                                      uint32_t* s_scan, int* s_stop) {
+    if (threadIdx.x == 0)
+        tp_store_relaxed(status + tile, tp_status(tile == 0 ? TP_ST_INCL : TP_ST_AGG, own, epoch));
+    uint32_t excl = 0;
+    for (long long top = (long long)tile - 1; top >= 0; top -= TP_THREADS) {
+        const long long t = top - threadIdx.x;
+        uint64_t v = 0;
+        if (t >= 0) {
+            do {
+                v = tp_load_relaxed(status + t);
+            } while (!tp_status_ready(v, epoch));
+        }
+        if (threadIdx.x == 0) *s_stop = TP_THREADS;
+        __syncthreads();
+        if (v & TP_ST_INCL) atomicMin(s_stop, (int)threadIdx.x);
+        __syncthreads();
+        const int stop = *s_stop;
+        uint32_t sum;
+        tp_block_excl_scan((int)threadIdx.x <= stop ? (uint32_t)v : 0u, s_scan, sum);
+        excl += sum;
+        if (stop < TP_THREADS) break;
+    }
+    if (tile > 0 && threadIdx.x == 0)
+        tp_store_relaxed(status + tile, tp_status(TP_ST_INCL, excl + own, epoch));
+    __syncthreads();
+    return excl;
+}
+
 // The owner whose run of the tile holds staged slot t (t < s_tex[D]): the
 // last owner whose run starts at or before t
 __device__ __forceinline__ int tp_run_owner(const uint32_t* s_tex, int D, uint32_t t) {
@@ -525,12 +471,14 @@ __device__ __forceinline__ void tp_owner_tail(const uint64_t* __restrict__ last,
         clear(d * cap + j);
 }
 
-// ---- rolled strand hashes (bloom_shard.cu's bucketing, histogram.cu): the
-// char tables T[4u + c] of tables u < nt in shared memory, never indexed out
-// of the parameter space at run time
+// ---- rolled strand hashes (bloom_shard.cu's bucketing and mark finish,
+// histogram.cu, the Bloom fill and mark): the char tables T[4u + c] of
+// tables u < nt in shared memory, never indexed out of the parameter space
+// at run time
 
-// Strand hashes of the k-char window at char s under the first nt tables
-// (tp_strand_hashes; N reads as code 0)
+// Forward and reverse-complement Buzhash of the k-char window at char s
+// under the first nt tables (N hashes as code 0):
+//     hf = XOR_j rotl(T[c_{s+j}], k-1-j),  hr = XOR_j rotl(T[3-c_{s+j}], j)
 __device__ __forceinline__ void tp_window_hashes(const TpRow& row, int s, int k,
                                                  int nt, const uint32_t* T,
                                                  uint32_t* hf, uint32_t* hr) {

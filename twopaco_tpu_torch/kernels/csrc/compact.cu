@@ -24,8 +24,8 @@
 // any store, since a store may alias a later load and loads between
 // stores go one at a time); it ranks its real rows by ballots, and the
 // tile publishes its count and takes its prefix over the earlier tiles by
-// a decoupled look-back that reads 256 earlier tiles' status words at a
-// time (one round trip for calls of up to 256 tiles), then stores the real
+// common.cuh's block-wide look-back, which reads 256 earlier tiles' status
+// words at a time (one round trip for calls of up to 256 tiles), then stores the real
 // rows from the registers at off_c + prefix + rank (the real rows of a
 // warp's 32 consecutive rows land on consecutive buffer rows).
 // k_compact_rest, a block a tile, loads the same rows with the tile's
@@ -143,36 +143,6 @@ __device__ __forceinline__ uint32_t warps_below(const uint32_t* s_wc, int warp, 
     return below;
 }
 
-// The real rows of the tiles before `tile`, by a decoupled look-back over
-// their status words TP_THREADS at a time (thread j reads tile top - j, the
-// block sums back to the nearest inclusive prefix), and the tile's
-// inclusive prefix (own: its count) published. Every thread calls.
-__device__ __forceinline__ uint32_t lookback(const CompactArgs& a, size_t tile, uint32_t own,
-                                             uint32_t* s_scan, int* s_stop) {
-    uint32_t excl = 0;
-    for (long long top = (long long)tile - 1; top >= 0; top -= TP_THREADS) {
-        const long long t = top - threadIdx.x;
-        uint64_t v = 0;
-        if (t >= 0) {
-            do {
-                v = tp_load_relaxed(a.status + t);
-            } while (!tp_status_ready(v, a.epoch));
-        }
-        if (threadIdx.x == 0) *s_stop = TP_THREADS;
-        __syncthreads();
-        if (v & TP_ST_INCL) atomicMin(s_stop, (int)threadIdx.x);
-        __syncthreads();
-        const int stop = *s_stop;
-        uint32_t sum;
-        tp_block_excl_scan((int)threadIdx.x <= stop ? (uint32_t)v : 0u, s_scan, sum);
-        excl += sum;
-        if (stop < TP_THREADS) break;
-    }
-    if (tile > 0 && threadIdx.x == 0)
-        tp_store_relaxed(a.status + tile, tp_status(TP_ST_INCL, excl + own, a.epoch));
-    return excl;
-}
-
 template <int W>
 __global__ void __launch_bounds__(TP_THREADS) k_compact_real(CompactArgs a) {
     __shared__ uint32_t s_wc[TP_WARPS], s_scan[TP_WARPS];
@@ -199,10 +169,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_compact_real(CompactArgs a) {
     // the tile's count published, its prefix over the earlier tiles
     uint32_t own;
     const uint32_t below = warps_below(s_wc, warp, own);
-    if (tid == 0)
-        tp_store_relaxed(a.status + tile,
-                         tp_status(tile == 0 ? TP_ST_INCL : TP_ST_AGG, own, a.epoch));
-    const uint32_t excl = lookback(a, tile, own, s_scan, &s_stop);
+    const uint32_t excl = tp_block_lookback(a.status, a.epoch, tile, own, s_scan, &s_stop);
     const long long off_c = min(off, a.lim);
     if (tile == 0 && tid == 0) *a.off_c = off_c;
     rows.store(a, t0 + w0, lane, real, rank, (size_t)off_c + excl + below);

@@ -5,7 +5,7 @@
 // twopaco_tpu/passes/kernels.py:582 histogram_vertex_hashes summed over a
 // run's batches (twopaco_tpu/passes/sortpipe.py:282 _histogram_scan): bin =
 // hv >> 16 of each position inside its row's valid count whose window holds
-// no N (common.cuh tp_vertex_hash, tp_position_ok), over each batch's
+// no N (its strand hashes' sum, common.cuh tp_position_ok), over each batch's
 // leading rows (the caller passes max(B // stride, 1) of them for a strided
 // sample). With word0 = 1 it replaces twopaco_tpu/parallel/distpipe.py:102
 // word0_histogram summed over a shard's batches: the same positions, binned

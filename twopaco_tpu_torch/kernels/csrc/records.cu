@@ -6,9 +6,10 @@
 // whole-batch append into the round buffer (:326 append_records): the
 // kernel writes each record straight into the round buffer.
 //
-// Per position i of row r of a batch: the record of common.cuh
-// tp_build_record (canonical words, payload, vertex-hash gate [low,
-// high]) at out_off + r*P + i, with pos = pos_base + r*P + i (int64).
+// Per position i of row r of a batch: its sort record (common.cuh
+// tp_canonical_record's words and payload where the position has a record
+// whose vertex hash lies in [low, high], else all-ones words and payload
+// 0) at out_off + r*P + i, with pos = pos_base + r*P + i (int64).
 // With a candidate mask `gate` (the dist-bloom engine's,
 // twopaco_tpu/parallel/distpipe.py:168: (rows, P/8) u8, MSB first), a
 // position whose bit is 0 gets the sentinel record (all-ones words,

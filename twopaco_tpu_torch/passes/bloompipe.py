@@ -16,8 +16,9 @@ TwoPaCo's own algorithm (vertexenumerator.h:122-466):
             (passes/sort.py, passes/judge.py), whose junction table is
             the round's junctions;
   3. host: the rounds' junctions into one sorted dictionary;
-  4. device, per batch: the ids of the candidate positions found in the
-     dictionary (passes/lookup.py), then the junction list written with
+  4. device, in one call over the run's batches (a group of batches a call
+     when the masks spilled): the ids of the candidate positions found in
+     the dictionary (passes/lookup.py), then the junction list written with
      stubs (pipeline.emit_junctions).
 
 TWOPACO_UNIFORM_SPLIT=0 splits the hash space by a measured histogram
@@ -77,13 +78,15 @@ class Ops:
 
 KERNELS = Ops(
     fill.bloom_fill_batches, mark.bloom_mark_batches, extract.extract_records, sort.sort_records,
-    judge.judge_compact, lookup.pass4_lookup, histogram.histogram_vertex_hashes_batches,
+    judge.judge_compact, lookup.pass4_lookup_batches, histogram.histogram_vertex_hashes_batches,
 )
 PLAIN = Ops(
     fill.bloom_fill_batches_plain, mark.bloom_mark_batches_plain, extract.extract_records_plain,
-    sort.sort_records_plain, judge.judge_compact_plain, lookup.pass4_lookup_plain,
+    sort.sort_records_plain, judge.judge_compact_plain, lookup.pass4_lookup_batches_plain,
     histogram.histogram_vertex_hashes_batches_plain,
 )
+# positions a lookup call may hold (its ranks and ids are int32)
+LOOKUP_POSITIONS = (1 << 31) - 1
 
 
 class MaskStore:
@@ -92,13 +95,14 @@ class MaskStore:
     files, vertexenumerator.h:485-490). Up to TWOPACO_MASK_SPILL_BYTES of
     masks in the run (default 1 GiB) they stay where they are, on the
     device; above it each round's are written once to a .npy file in a
-    fresh directory under tmpdir and read back memory-mapped."""
+    fresh directory under tmpdir and read back memory-mapped, a group of
+    batches at a time."""
 
     def __init__(self, tmpdir: str | None, est_bytes: int):
-        budget = int(os.environ.get("TWOPACO_MASK_SPILL_BYTES", str(1 << 30)))
+        self.budget = int(os.environ.get("TWOPACO_MASK_SPILL_BYTES", str(1 << 30)))
         self.dir = (
             tempfile.mkdtemp(prefix="twopaco_masks_", dir=tmpdir)
-            if est_bytes > budget else None
+            if est_bytes > self.budget else None
         )
         self._rounds: list = []  # per round: a list of masks, or a path
         self._views = None  # pass 4's view of every round
@@ -113,18 +117,35 @@ class MaskStore:
         np.save(path, np.stack([np.asarray(torch.as_tensor(m).cpu()) for m in masks]))
         self._rounds.append(path)
 
-    def batch_mask(self, bi: int, device) -> torch.Tensor:
-        """The OR of every round's mask of batch bi, on `device`."""
+    def group_size(self, batch_bytes: int) -> int:
+        """Batches a pass-4 group holds: all of them while the masks stay
+        on the device; when spilled, as many as TWOPACO_MASK_SPILL_BYTES of
+        one group's masks (at least one)."""
+        return 1 << 62 if self.dir is None else max(1, self.budget // max(batch_bytes, 1))
+
+    def group_masks(self, first: int, stop: int, device) -> list:
+        """The OR of every round's mask of batches first .. stop-1, on
+        device: per batch a (B, P/8) uint8 tensor. One round kept on the
+        device: its own masks; else each round's group stacked, moved to
+        the device once and ORed into the first."""
         if self._views is None:
             self._views = [
                 np.load(e, mmap_mode="r") if isinstance(e, str) else e for e in self._rounds
             ]
+        group = [rm[first:stop] for rm in self._views]
+        if len(group) == 1 and all(isinstance(m, torch.Tensor) for m in group[0]):
+            return list(group[0])  # the mark's outputs, on the device
         out = None
-        for rm in self._views:
-            m = rm[bi]
-            m = (torch.from_numpy(np.array(m)) if isinstance(m, np.ndarray) else m).to(device)
-            out = m.clone() if out is None else out.bitwise_or_(m)
-        return out
+        for part in group:
+            if isinstance(part, np.ndarray):  # a spilled round's rows
+                t = torch.from_numpy(np.array(part))
+            elif isinstance(part[0], np.ndarray):  # a round restored from a checkpoint
+                t = torch.from_numpy(np.stack(part))
+            else:
+                t = torch.stack(list(part))
+            t = t.to(device)
+            out = t if out is None else out.bitwise_or_(t)
+        return list(out)
 
     def cleanup(self) -> None:
         self._rounds = []
@@ -305,20 +326,24 @@ def build_junctions_bloom(
     if out_path is not None:
         t0 = time.time()
         table_d = torch.from_numpy(table).to(dev)
+        # one call over the run's batches; groups of batches when the masks
+        # spilled or the positions pass a call's int32 ranks
+        per = min(masks.group_size(B * P // 8), max(1, LOOKUP_POSITIONS // (B * P)))
         found = []
-        for bi, (up, base) in enumerate(zip(uploads, bases)):
-            cap = max(1, sum(rc[bi] for rc in round_counts))  # >= its candidates
-            pos, ids, cnt = ops.lookup(*up, masks.batch_mask(bi, dev), table_d, cap, k=k, P=P)
-            found.append((pos, ids, cnt, cap, base))
+        for g0 in range(0, len(batches), per):
+            g1 = min(g0 + per, len(batches))
+            cap = max(1, sum(sum(rc[g0:g1]) for rc in round_counts))  # >= its candidates
+            found.append((*ops.lookup(uploads[g0:g1], masks.group_masks(g0, g1, dev), table_d,
+                                      cap, bases[g0:g1], k=k, P=P), cap))
         masks.cleanup()
-        cnts = [int(c) for c in torch.stack([c for _p, _i, c, _cap, _b in found]).cpu()]
-        if any(c > cap for c, (_p, _i, _c, cap, _b) in zip(cnts, found)):
+        cnts = [int(c) for c in torch.stack([c for _p, _i, c, _cap in found]).cpu()]
+        if any(c > cap for c, (*_r, cap) in zip(cnts, found)):
             raise RuntimeError("pass 4 found more junction positions than candidates")
-        occ_pos = torch.cat(
-            [p[:c].to(torch.int64) + base for c, (p, _i, _c, _cap, base) in zip(cnts, found)]
-        ).cpu().numpy()
-        occ_ids = torch.cat([i[:c] for c, (_p, i, _c, _cap, _b) in zip(cnts, found)]).cpu().numpy()
-        del found, table_d
+        parts = [(p[:c], i[:c]) for c, (p, i, _c, _cap) in zip(cnts, found)]
+        occ_pos, occ_ids = (
+            (torch.cat(col) if len(parts) > 1 else col[0]).cpu().numpy() for col in zip(*parts)
+        )
+        del found, parts, table_d
         stats.timings["lookup"] = time.time() - t0
         t0 = time.time()
         occurrences, n_stubs = emit_junctions(

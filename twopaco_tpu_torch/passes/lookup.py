@@ -1,10 +1,12 @@
-"""Bloom lookup: the junction ids of a window batch's candidate positions
-(pass 4 of the Bloom engine).
+"""Bloom lookup: the junction ids of the candidate positions of window
+batches (pass 4 of the Bloom engine).
 
 The port of twopaco_tpu/passes/kernels.py:506 pass4_lookup. CUDA tensors
-go through kernels/csrc/bloom_lookup.cu; CPU tensors through
+go through kernels/csrc/bloom_lookup.cu, one launch and a tail a call:
+`pass4_lookup_batches` over a run's (or a group's) batches, `pass4_lookup`
+for one batch (a one-row table). CPU tensors go through
 `pass4_lookup_plain`, which runs the JAX package's fixed-step lower bound
-in plain PyTorch.
+in plain PyTorch, and its per-batch loop `pass4_lookup_batches_plain`.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from twopaco_tpu_torch.passes import mark, records
 INVALID_ID32 = (1 << 31) - 1  # the id of the unused output slots
 
 
-def _outputs(cap: int, m: int, device):
+def _outputs(cap: int, pad: int, dtype, device):
     return (
-        torch.full((cap,), m, dtype=torch.int32, device=device),
+        torch.full((cap,), pad, dtype=dtype, device=device),
         torch.full((cap,), INVALID_ID32, dtype=torch.int32, device=device),
     )
 
@@ -30,7 +32,7 @@ def _outputs(cap: int, m: int, device):
 def pass4_lookup_plain(packed, nmask, valid, mask, table, cap: int, *, k: int, P: int):
     """Plain PyTorch version of pass4_lookup (any device)."""
     B = packed.shape[0]
-    out_pos, out_ids = _outputs(cap, B * P, packed.device)
+    out_pos, out_ids = _outputs(cap, B * P, torch.int32, packed.device)
     J = table.shape[0]
     if J == 0:
         return out_pos, out_ids, torch.zeros((), dtype=torch.int64, device=packed.device)
@@ -55,58 +57,124 @@ def pass4_lookup_plain(packed, nmask, valid, mask, table, cap: int, *, k: int, P
     return out_pos, out_ids, torch.tensor(len(pos), dtype=torch.int64, device=packed.device)
 
 
-def pass4_lookup(packed, nmask, valid, mask, table, cap: int, *, k: int, P: int):
-    """Junction ids of one batch's candidate positions.
+def _pad(uploads, bases, P: int) -> int:
+    """The position past the last batch's: the value of unused slots."""
+    return int(bases[-1]) + uploads[-1][0].shape[0] * P
 
-    packed, nmask, valid: the batch's upload form; mask (B, P/8) uint8: the
-    OR of every round's candidate mask of the batch; table (J, w) uint32:
-    the sorted junction dictionary; cap: the output length (at least the
-    batch's candidate count).
+
+def pass4_lookup_batches_plain(uploads, masks, table, cap: int, bases, *, k: int, P: int):
+    """Plain PyTorch version of pass4_lookup_batches: pass4_lookup_plain a
+    batch, the hits offset by the batch's base and concatenated (any
+    device)."""
+    _check_batches(uploads, masks, bases)
+    pos, ids = [], []
+    for (packed, nmask, valid), m, base in zip(uploads, masks, bases):
+        p, i, c = pass4_lookup_plain(packed, nmask, valid, m, table, packed.shape[0] * P,
+                                     k=k, P=P)
+        c = int(c)
+        pos.append(p[:c].to(torch.int64) + int(base))
+        ids.append(i[:c])
+    pos, ids = torch.cat(pos), torch.cat(ids)
+    out_pos, out_ids = _outputs(cap, _pad(uploads, bases, P), torch.int64, pos.device)
+    n = min(len(pos), cap)
+    out_pos[:n] = pos[:n]
+    out_ids[:n] = ids[:n]
+    return out_pos, out_ids, torch.tensor(len(pos), dtype=torch.int64, device=pos.device)
+
+
+def _check_batches(uploads, masks, bases) -> None:
+    if not uploads or len(masks) != len(uploads) or len(bases) != len(uploads):
+        raise ValueError(f"{len(uploads)} batches, {len(masks)} masks, {len(bases)} bases")
+
+
+def _lookup(uploads, masks, table, cap: int, bases, k: int, P: int):
+    """The kernel's call over the batches: -> (pos int64, ids, count)."""
+    w = pack.n_words(k)
+    build.require(table, torch.uint32, "table")
+    J = table.shape[0]
+    dev = uploads[0][0].device
+    for (packed, nmask, valid), m in zip(uploads, masks):
+        B = packed.shape[0]
+        build.require(packed, torch.uint32, "packed")
+        build.require(nmask, torch.uint32, "nmask")
+        build.require(valid, torch.int32, "valid")
+        build.require(m, torch.uint8, "mask")
+        if (m.shape != (B, P // 8) or P % 8 or P < 8 or valid.shape != (B,)
+                or packed.shape[1] * 16 < P + k + 1 or nmask.shape[1] * 32 < P + k + 1):
+            raise ValueError("pass4_lookup: batch or mask shapes disagree")
+    if table.shape != (J, w):
+        raise ValueError(f"pass4_lookup: table {tuple(table.shape)} is not (J, {w})")
+    max_pos = max(up[0].shape[0] for up in uploads) * P
+    if len(uploads) * max_pos >= 1 << 31 or J >= (1 << 31) - 1:
+        raise ValueError(f"{len(uploads) * max_pos} positions or {J} junctions exceed a "
+                         "lookup call's int32 ranks and ids")
+    if cap < 0:
+        raise ValueError(f"cap {cap} < 0")
+    out_pos, out_ids = (torch.empty(cap, dtype=dt, device=dev) for dt in (torch.int64,
+                                                                         torch.int32))
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    if J == 0:  # nothing to find
+        out_pos.fill_(_pad(uploads, bases, P))
+        out_ids.fill_(INVALID_ID32)
+        return out_pos, out_ids, count.zero_()
+    lib = build.lib()
+    base = min(m.data_ptr() for m in masks)
+    tab, tab_bases = build.batch_table(uploads, [m.data_ptr() - base for m in masks],
+                                       tail=[int(b) for b in bases])
+    tiles = len(uploads) * max(1, -(-max_pos // lib.tp_lookup_tile()))
+    scratch, epoch = build.lookback_scratch(dev, 8 + tiles * 8, "lookup")
+    rc = lib.tp_bloom_lookup(
+        tab.data_ptr(), tab_bases.data_ptr(), len(uploads),
+        max_pos, P, k, base, table.data_ptr(), J, cap, _pad(uploads, bases, P),
+        out_pos.data_ptr(), out_ids.data_ptr(), count.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), epoch, build.stream_ptr(),
+    )
+    if rc != 0:
+        build.drop_lookback_scratch(dev, "lookup")
+    build.check(rc, "bloom_lookup")
+    build.count_launch("bloom_lookup")
+    return out_pos, out_ids, count
+
+
+def pass4_lookup_batches(uploads, masks, table, cap: int, bases, *, k: int, P: int):
+    """Junction ids of the candidate positions of a list of batches, in one
+    call.
+
+    uploads: (packed, nmask, valid) batches on one device; masks: per batch
+    its (B_b, P/8) uint8 mask, the OR of every round's candidate mask;
+    table (J, w) uint32: the sorted junction dictionary; cap: the output
+    length (at least the batches' candidate count); bases: each batch's
+    first global position (batch order ascending: the outputs are then
+    ascending).
 
     A candidate (mask bit set, inside the row's valid count, no N in its
     window) whose canonical k-mer is row r of the table gets id r+1, or
     -(r+1) when its reverse complement is the canonical strand.
+    -> (pos (cap,) int64 global positions base + row*P + col of the hits,
+    batch by batch and ascending in each; ids (cap,) int32; count: a 0-d
+    int64 tensor, the number of hits, which may exceed cap). Slots past
+    count hold the position past the last batch's and INVALID_ID32.
+
+    On the card one launch of the kernel and its tail over a device table
+    of the batches."""
+    if build.on_cpu(table, *(t for up in uploads for t in up), *masks):
+        return pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k, P=P)
+    _check_batches(uploads, masks, bases)
+    return _lookup(uploads, masks, table, cap, bases, k, P)
+
+
+def pass4_lookup(packed, nmask, valid, mask, table, cap: int, *, k: int, P: int):
+    """Junction ids of one batch's candidate positions.
+
+    packed, nmask, valid: the batch's upload form; mask (B, P/8) uint8: the
+    OR of every round's candidate mask of the batch; table, cap as
+    pass4_lookup_batches'.
     -> (pos (cap,) int32 batch-local flat positions row*P + col of the hits
     in ascending order, ids (cap,) int32, count: a 0-d int64 tensor, the
     number of hits). Slots past count hold B*P and INVALID_ID32.
-    """
+
+    On the card: the kernel's call over a one-row table."""
     if build.on_cpu(packed, nmask, valid, mask, table):
         return pass4_lookup_plain(packed, nmask, valid, mask, table, cap, k=k, P=P)
-    B = packed.shape[0]
-    w = pack.n_words(k)
-    build.require(packed, torch.uint32, "packed")
-    build.require(nmask, torch.uint32, "nmask")
-    build.require(valid, torch.int32, "valid")
-    build.require(mask, torch.uint8, "mask")
-    build.require(table, torch.uint32, "table")
-    J = table.shape[0]
-    if (mask.shape != (B, P // 8) or P % 8 or table.shape != (J, w)
-            or valid.shape != (B,) or packed.shape[1] * 16 < P + k + 1
-            or nmask.shape[1] * 32 < P + k + 1):
-        raise ValueError("pass4_lookup: batch, mask or table shapes disagree")
-    n = B * P
-    if n >= 1 << 31 or J >= (1 << 31) - 1:
-        raise ValueError(f"{n} positions or {J} junctions exceed the int32 outputs")
-    dev = packed.device
-    out_pos, out_ids = _outputs(cap, n, dev)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    if J == 0:  # nothing to find
-        return out_pos, out_ids, count
-    lib = build.lib()
-
-    def i32(m):
-        return torch.empty(m, dtype=torch.int32, device=dev)
-
-    flags, incl_a, incl_b, cand_rc, cand_pos, ids = (i32(n) for _ in range(6))
-    keys = i32(n * w)
-    scratch = i32(lib.tp_scan_scratch_words(n))
-    rc = lib.tp_bloom_lookup(
-        packed.data_ptr(), nmask.data_ptr(), valid.data_ptr(), B, P, k,
-        packed.shape[1], nmask.shape[1], mask.data_ptr(), table.data_ptr(), J, cap,
-        *(t.data_ptr() for t in (out_pos, out_ids, count, flags, incl_a, incl_b,
-                                 cand_rc, cand_pos, ids, keys, scratch)),
-        build.stream_ptr(),
-    )
-    build.check(rc, "bloom_lookup")
-    build.count_launch("bloom_lookup")
-    return out_pos, out_ids, count
+    pos, ids, count = _lookup([(packed, nmask, valid)], [mask], table, cap, [0], k, P)
+    return pos.to(torch.int32), ids, count

@@ -300,7 +300,9 @@ def mark_finish(back, probe_slot, packed, nmask, valid, low: int, high: int, *, 
     through its send slot (not sent: a miss), the q probes of an edge are
     ANDed, and mark.mark_decide decides each position.
     -> (mask (B, P/8) uint8, MSB first; count, the (1,) int64 number of
-    candidates, added to (a new one when None))."""
+    candidates, added to (a new one when None)).
+
+    On the card one launch."""
     extra = (back, probe_slot) + (() if count is None else (count,))
     if build.on_cpu(packed, nmask, valid, *extra):
         return mark_finish_plain(back, probe_slot, packed, nmask, valid, low, high, cfg=cfg,

@@ -11,8 +11,9 @@ kernels and warms the context) and the second is profiled: printed are
 its host wall seconds, the device seconds (the sum of the device-side
 events' time: kernels, copies, memsets; the host-side operators that
 launched them are not counted again), the busy share (device over wall),
-and the kernels that took the most device time, with the card's name and
-power limit. The dist engines run over a LocalMesh of --shards shards of the
+the kernels that took the most device time, with the card's name and
+power limit, the run's phase seconds (the CLI's `time` keys), and the
+host-side operators and runtime calls of the most self CPU time. The dist engines run over a LocalMesh of --shards shards of the
 card; the Bloom engines take the filter's --layout (auto: byte while it
 fits). Needs a CUDA device.
 """
@@ -47,7 +48,8 @@ def main(argv=None) -> int:
                    help="Bloom engines: the filter's layout")
     p.add_argument("--work", default=os.path.join("chip_smoke_work", "profile"),
                    help="directory for the slice's FASTA and .dbg")
-    p.add_argument("--top", type=int, default=10)
+    p.add_argument("--top", type=int, default=10,
+                   help="kernels and host operators listed")
     args = p.parse_args(argv)
 
     import torch
@@ -75,16 +77,17 @@ def main(argv=None) -> int:
     def run():
         if args.engine.startswith("dist"):
             mesh = LocalMesh([torch.device("cuda", 0)] * args.shards)
-            distpipe.build_junctions_dist([fa], cfg, mesh, out, device="cuda",
-                                          bloom_gate=args.engine == "dist-bloom")
+            enum = distpipe.build_junctions_dist([fa], cfg, mesh, out, device="cuda",
+                                                 bloom_gate=args.engine == "dist-bloom")
         else:
-            build_junctions([fa], cfg, out, device="cuda")
+            enum = build_junctions([fa], cfg, out, device="cuda")
         torch.cuda.synchronize()
+        return enum
 
-    run()
+    first = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run()
+        enum = run()
         wall = time.time() - t0
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not events:
@@ -101,6 +104,13 @@ def main(argv=None) -> int:
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[: args.top]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:90]}")
+    for tag, e in (("first run", first), ("profiled run", enum)):
+        print(f"phases, {tag} (s): " + " ".join(
+            f"{key}={val:.4f}" for key, val in e.stats.timings.items()))
+    host = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA]
+    print(f"host operators by self CPU time (profiled run, {len(host)} kinds):")
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[: args.top]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:90]}")
     return 0
 
 
