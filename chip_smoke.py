@@ -21,7 +21,14 @@
    one append (2048 look-back tiles), and the same appended past lim (the
    overflow flag) and at an offset past lim (the write clamped);
 4. runs the port's CLI on two inputs whose .dbg sha256 the JAX package
-   gave (tests/golden/torch_port_sha256.json) and checks the bytes;
+   gave (tests/golden/torch_port_sha256.json) and checks the bytes; then
+   the port's graphdump on the k = 101 .dbg of tests/golden/largek.fa,
+   whose group text must equal the reference graphdump's golden and whose
+   gfa1 must hold the golden's records and spell every input sequence
+   (its segment ids follow the junction ids, which the reference numbers
+   in another order); then the self test (testing/selftest.py, the sort
+   and Bloom engines against the naive oracle) at a small sweep on the
+   card;
 5. runs the slice: 8 genomes x 8,000,000 bases (seed 2016) through
    `twopaco_tpu_torch.cli.twopaco.main(["-k", "25", "-f", "30", ...])`,
    with every kernel's launch counter reset just before and read just
@@ -43,16 +50,17 @@
    them; the fill timed into a zeroed filter, each version filling its
    own; the two filters must then be equal), then on one batch against the
    whole slice's filter, in the byte layout at f=30, the bit layout at
-   f=34 (64-bit probe indices) and the block layout at f=30; extract on
-   the byte mask; the lookup first over the round's 123 batches and byte
-   masks in one call (as pass 4 makes it), then on batch 0, against the
-   slice's junction table;
+   f=34 (64-bit probe indices) and the block layout at f=30; the extract
+   first over the round's 123 batches and byte masks in one call (as the
+   round makes it), then on batch 0; the lookup first over the round's 123
+   batches and byte masks in one call (as pass 4 makes it), then on batch
+   0, against the slice's junction table;
 8. runs the slice through the Bloom engine (`--tpu-engine bloom`): -f 30
    (auto: byte), --tpu-layout bit -f 34, --tpu-layout block -f 30, and
    -f 30 -r 4, each with the counters reset just before and read just
    after; each must launch the Bloom kernels and the sort and judge of
-   its verify pass, the fill and the mark exactly once a round, the lookup
-   once a run, and write
+   its verify pass, the fill, the mark and the extract exactly once a
+   round, the lookup once a run, and write
    SLICE_SHA256; a one-round run must count the candidates that the round
    mark of its layout counted in step 7; then a Bloom run through the
    plain versions on the card, the same bytes again;
@@ -86,8 +94,9 @@
    match; the byte fill is also timed into a zeroed shard, every slot new;
    the device kernels of one call each of the route, the bucket's two
    modes, the record build's table (one kernel), both judges (two kernels
-   each), the -r 4 partition pass (two), the compaction (two) and the
-   Bloom lookup of the -r 1 run's batches (two) are listed by one
+   each), the -r 4 partition pass (two), the compaction (two), and the
+   Bloom lookup and extract of the -r 1 run's batches (two each) are
+   listed by one
    torch.profiler session; the mark finish (byte f=30, 4 shards) is also
    run at each forced run of 1, 2, 4 and 8 positions a thread, exact, and
    timed on the device;
@@ -97,7 +106,8 @@
    profiler session: k_route and k_route_tail; one bucketing kernel a
    mode; one k_records; k_judge_scan and k_judge_write a judge;
    k_partition and k_part_tail; k_compact_real and k_compact_rest;
-   k_lookup and k_lookup_tail; no count or scan kernel, no memset);
+   k_lookup and k_lookup_tail; k_extract and k_extract_tail; no count or
+   scan kernel, no memset);
 12. runs the slice through the dist-bloom engine, each with the counters
    reset just before and read just after, each launching the four
    entries and the dist engine's kernels and writing SLICE_SHA256:
@@ -121,6 +131,7 @@ output is the result object.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import io
@@ -624,6 +635,46 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
+def graphdump_text(argv) -> str:
+    """The port's graphdump CLI's standard output for argv."""
+    from twopaco_tpu_torch.cli import graphdump
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = graphdump.main(argv)
+    require(rc == 0, f"graphdump {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def gfa_spells_back(text: str, fa: str, k: int) -> None:
+    """A GFA1's paths spell its input: each path's segments, reverse-
+    complemented where the path says '-', joined over their k-char
+    overlaps, give the FASTA record the path names (segment ids follow the
+    junction ids, which the reference numbers in another order, so the
+    text itself differs from the reference's)."""
+    from twopaco_tpu_torch.io import fasta
+
+    comp = str.maketrans("ACGTN", "TGCAN")
+    seg, paths = {}, {}
+    for line in text.splitlines():
+        f = line.split("\t")
+        if f[0] == "S" and f[2] != "*":
+            seg[f[1]] = f[2]
+        elif f[0] == "P":
+            paths[f[1]] = f[2].split(",")
+    records = list(fasta.read_fasta(fa))
+    require(sorted(paths) == sorted(h for h, _c in records), f"gfa1 paths {sorted(paths)}")
+    for header, codes in records:
+        walk = ""
+        for step in paths[header]:
+            body = seg[step[:-1]]
+            if step[-1] == "-":
+                body = body.translate(comp)[::-1]
+            require(not walk or walk[-k:] == body[:k], f"gfa1 path {header}: overlap differs")
+            walk = walk + body[k:] if walk else body
+        require(walk == "".join("ACGTN"[c] for c in codes), f"gfa1 path {header} misspells it")
+
+
 def run_cli(argv, env=None, echo=True) -> str:
     """The port's CLI main() with the mode variables `env` set (and the
     others unset); echoes its output and returns it."""
@@ -718,7 +769,7 @@ def main() -> int:
         )
         from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
-        from twopaco_tpu_torch.testing import bench_data, judge_cases
+        from twopaco_tpu_torch.testing import bench_data, judge_cases, selftest
     except ImportError as e:
         print(f"chip_smoke: the twopaco_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -1115,6 +1166,33 @@ def main() -> int:
         print(f"golden {name}: sha256 matches the JAX package")
     torch.cuda.synchronize()
 
+    phase("graphdump of the card's k = 101 .dbg; the self test on the card")
+    lk = golden["largek_k101"]
+    lk_fa = os.path.join(ROOT, lk["input"])
+    lk_dbg = os.path.join(WORK, "largek_k101.dbg")
+    gold = os.path.join(ROOT, "tests", "golden", "largek_k101.")
+    t0 = time.time()
+    text = graphdump_text(["-f", "group", "-k", "101", lk_dbg])
+    with open(gold + "group") as f:
+        require(text == f.read(), "graphdump group of the card's .dbg != the reference's")
+    text = graphdump_text(["-f", "gfa1", "-k", "101", "-s", lk_fa, lk_dbg])
+    with open(gold + "gfa1") as f:
+        want = f.read()
+    kinds = [collections.Counter(line.split("\t")[0] for line in t.splitlines())
+             for t in (text, want)]
+    require(kinds[0] == kinds[1],
+            f"graphdump gfa1 records {kinds[0]} != the reference's {kinds[1]}")
+    gfa_spells_back(text, lk_fa, lk["k"])
+    print(f"graphdump of the card's k = 101 .dbg: group equals the reference graphdump's "
+          f"bytes; gfa1 has its records {dict(kinds[0])} and spells every input sequence "
+          f"({time.time() - t0:.2f} s)")
+    t0 = time.time()
+    require(selftest.run_tests(tests=1, length=400, chr_number=2, k_values=(5,),
+                               rounds_values=(1, 2), seed=11, device=dev),
+            "the self test failed on the card")
+    print(f"self test (sort and Bloom engines, k = 5, -r 1 and 2) on the card: passed "
+          f"({time.time() - t0:.2f} s)")
+
     bases_n = SLICE["n_seqs"] * SLICE["length"]
 
     def slice_run(tag, argv, env=None, phases=sortpipe.PHASES):
@@ -1265,6 +1343,26 @@ def main() -> int:
         if lay == "byte":
             mask0, count0 = bmask, int(bcount)
         del filt_k, bmask
+    # the extract: the main path's call first (its time is the one reported),
+    # the round's batches and byte masks in one call; the bound reads the
+    # uploads' words and the masks once and writes the records
+    n_cand = round_cands["byte"]
+    (buf_k, st_k), (buf_p, st_p) = (extract.new_buffer(n_cand, w, dev) for _ in "kp")
+    compare(
+        "bloom_extract",
+        lambda: (st_k.zero_(), extract.extract_records_batches(uploads, round_masks, buf_k, st_k,
+                                                               bases, k=k, P=P), *buf_k,
+                 st_k)[2:],
+        lambda: (st_p.zero_(), extract.extract_records_batches_plain(uploads, round_masks, buf_p,
+                                                                     st_p, bases, k=k, P=P),
+                 *buf_p, st_p)[2:],
+        3, results, in_bytes=nbytes([u[:2] for u in uploads], round_masks),
+        out_bytes=n_cand * (4 * w + 12), ops=n_cand * 6 * k,
+    )
+    require(st_k.tolist() == [n_cand, 0], f"extract state of the round {st_k.tolist()}")
+    print(f"extract of the round's {len(uploads)} batches in one call: {n_cand} records "
+          f"{label}")
+    del buf_k, buf_p
     (buf_k, st_k), (buf_p, st_p) = (extract.new_buffer(count0, w, dev) for _ in "kp")
     compare(
         "bloom_extract",
@@ -1283,7 +1381,6 @@ def main() -> int:
     # uploads and the masks once (a candidate's key is built from its upload
     # words) and each distinct 32-byte sector of the junction table that the
     # searches touch, once, and writes the outputs
-    n_cand = round_cands["byte"]
     n_tab = count_sectors(lambda fl, um: lookup_sectors(fl, *um, slice_table, k, P),
                           slice_table, list(zip(uploads, round_masks)))
     compare(
@@ -1325,9 +1422,9 @@ def main() -> int:
             require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
         require(f"({layout} layout)" in text, f"{tag}: not the {layout} layout")
         n_rounds = ROUNDS if "-r" in flags else 1
-        for name in ("bloom_fill", "bloom_mark"):
+        for name in ("bloom_fill", "bloom_mark", "bloom_extract"):
             require(launches[tag][name] == n_rounds,
-                    f"{tag}: {launches[tag][name]} {name} launches, not one a round")
+                    f"{tag}: {launches[tag][name]} {name} calls, not one a round")
         require(launches[tag]["bloom_lookup"] == 1,
                 f"{tag}: {launches[tag]['bloom_lookup']} lookup calls, not one a run")
         require(sum(line.startswith("Round ") and "seconds" in line
@@ -1486,6 +1583,7 @@ def main() -> int:
             # one profiler session (a later one in the process recorded no
             # device event): one call each of route, bucket fill, bucket mark
             cbuf, cstate = stream.new_round_buffer(2 * recs4[1].numel(), w, dev)
+            ebuf, estate = extract.new_buffer(round_cands["byte"], w, dev)
             kern = device_kernels(lambda: [c() for c in (
                 route_once, *bucket_once,
                 lambda: records.build_sort_records_batches(uploads, bases, k=k, P=P),
@@ -1495,7 +1593,9 @@ def main() -> int:
                                                  part_cap=part_cap),
                 lambda: stream.compact_append(*recs4, cbuf, cstate, recs4[1].numel()),
                 lambda: lookup.pass4_lookup_batches(uploads, round_masks, slice_table,
-                                                    round_cands["byte"], bases, k=k, P=P))])
+                                                    round_cands["byte"], bases, k=k, P=P),
+                lambda: extract.extract_records_batches(uploads, round_masks, ebuf, estate,
+                                                        bases, k=k, P=P))])
             names = " ".join(kern)
             def count(prefix):
                 return sum(c for kk, (c, _t) in kern.items() if kk.startswith(prefix))
@@ -1509,19 +1609,24 @@ def main() -> int:
                     and count("k_partition<") == count("k_part_tail") == 1
                     and count("k_compact_real") == count("k_compact_rest") == 1
                     and count("k_lookup<") == count("k_lookup_tail") == 1
+                    and count("k_extract<") == count("k_extract_tail") == 1
                     and "k_scan" not in names and "k_shard_count" not in names
                     and "Memset" not in names,
-                    f"route, shard_bucket, build_records, judge, partition, compact, lookup: "
-                    f"device launches of one call each {kern}")
+                    f"route, shard_bucket, build_records, judge, partition, compact, lookup, "
+                    f"extract: device launches of one call each {kern}")
             print(f"route, shard_bucket fill, shard_bucket mark, build_records (the -r 1 "
                   f"round's {len(uploads)} batches), judge_compact and judge_records (the "
                   f"long_group case, {judge_once[0].shape[0]} records), partition_scan (the "
                   f"-r {ROUNDS} pass's {len(uploads)} batches), compact_append (shard 0's "
-                  f"{recs4[1].numel()} records) and pass4_lookup_batches (the -r 1 run's "
-                  f"{len(uploads)} batches): device launches of one call each "
+                  f"{recs4[1].numel()} records), pass4_lookup_batches and "
+                  f"extract_records_batches (the -r 1 run's {len(uploads)} batches): device "
+                  f"launches of one call each "
                   f"({sum(t for _c, t in kern.values()):.4f} ms on the device): "
                   + ", ".join(f"{kk} x{c} {t:.4f} ms" for kk, (c, t) in kern.items()))
-            del route_once, recs4, send_k, judge_once, cbuf, cstate, round_masks, slice_table
+            require(estate.tolist() == [round_cands["byte"], 0],
+                    f"profiled extract state {estate.tolist()}")
+            del route_once, recs4, send_k, judge_once, cbuf, cstate, ebuf, estate, round_masks
+            del slice_table
         if tiny:
             continue
         # the whole slice into the sharded filter, as the main path fills it

@@ -386,6 +386,55 @@ def test_extract_appends_and_flags_overflow():
     assert torch.equal(buf[2][count:], B * P + one_pos[:count - 3])
 
 
+@pytest.mark.parametrize("k", [7, 25, 101])
+@pytest.mark.parametrize("short", [0, 4])  # 4: the buffer overflows
+def test_extract_records_batches_match_jax(k, short):
+    """extract_records_batches (its plain version on the CPU) over a table
+    of uneven batches (row counts 4, 2, 4, 1; N runs, short and zero valid
+    counts) at ascending bases with a gap, appended after records already
+    in the buffer, equals JAX's extract_records applied batch by batch:
+    the canonical words, in/out extensions and positions in order; a
+    buffer short of the count keeps the first records and sets the
+    overflow flag."""
+    batches = _uneven_batches(k, seed=5)
+    uploads = [_forms(c, v)[2] for c, v in batches]
+    jforms = [_forms(np.pad(c, ((0, B - len(c)), (0, 0))), np.pad(v, (0, B - len(v))))[:2]
+              for c, v in batches]
+    jcfg, tcfg = _cfgs(k, "byte")
+    filt = fill.bloom_fill_batches(bloom.make_filter(F, "byte", "cpu"), uploads, *FULL, cfg=tcfg)
+    masks, counts = mark.bloom_mark_batches(filt, uploads, *FULL, cfg=tcfg)
+    bases = [0, 4 * P, 9 * P, 13 * P]  # a gap after the second batch
+    want_w, want_in, want_out, want_pos = [], [], [], []
+    for (jcodes, _jv), m, base in zip(jforms, masks, bases):
+        jmask = np.pad(m.numpy(), ((0, B - len(m)), (0, 0)))
+        jw, jin, jout, jcount = jk.extract_records(jcodes, jnp.asarray(jmask), cfg=jcfg,
+                                                   cap=B * P)
+        c = int(jcount)
+        want_w.append(_np(jw)[:c])
+        want_in.append(_np(jin)[:c])
+        want_out.append(_np(jout)[:c])
+        want_pos.append(base + np.flatnonzero(np.unpackbits(jmask, axis=1).reshape(-1)))
+    want_w, want_in, want_out, want_pos = (np.concatenate(x) for x in
+                                           (want_w, want_in, want_out, want_pos))
+    n = len(want_pos)
+    assert n == int(counts.sum()) > 0
+    pre = 3  # records appended before the call
+    buf, state = extract.new_buffer(pre + n - short, pack.n_words(k), "cpu")
+    state[0] = pre
+    (tw, tpay, tpos), state = extract.extract_records_batches(uploads, masks, buf, state, bases,
+                                                              k=k, P=P)
+    assert state.tolist() == [pre + n, int(short > 0)]
+    m = n - short
+    assert np.array_equal(_t(pack.as_i64(tw))[pre:], want_w[:m])
+    pay = _t(pack.as_i64(tpay))[pre:]
+    assert np.array_equal(pay & 0xFF, want_in[:m])
+    assert np.array_equal((pay >> 8) & 0xFF, want_out[:m])
+    assert ((pay >> 17) & 1).all()
+    assert np.array_equal(tpos.numpy()[pre:], want_pos[:m])
+    with pytest.raises(ValueError, match="batches"):
+        extract.extract_records_batches(uploads, masks[:-1], buf, state, bases, k=k, P=P)
+
+
 def _round_records(k, seeds=(0, 1, 2)):
     """Candidate records of three batches, one buffer: JAX's concatenated
     extract rows and the port's buffer."""

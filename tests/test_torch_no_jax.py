@@ -21,7 +21,10 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "twopaco_tpu"))
 need = {"twopaco_tpu_torch.parallel.sharded", "twopaco_tpu_torch.passes.shardbloom",
-        "twopaco_tpu_torch.parallel.distpipe", "twopaco_tpu_torch.parallel.multihost"}
+        "twopaco_tpu_torch.parallel.distpipe", "twopaco_tpu_torch.parallel.multihost",
+        "twopaco_tpu_torch.formats.graphdump", "twopaco_tpu_torch.cli.graphdump",
+        "twopaco_tpu_torch.cli.naive", "twopaco_tpu_torch.testing.selftest",
+        "twopaco_tpu_torch.__main__"}
 print(len(names), bad, sorted(need - set(names)))
 sys.exit(1 if bad or len(names) < 15 or not need <= set(names) else 0)
 """

@@ -5,9 +5,9 @@
 
 Flag-compatible with the reference binary: -k/--kvalue, -f/--filtersize
 XOR --filtermemory, -q/--hashfnumber, -r/--rounds, -t/--threads,
--a/--abundance, --tmpdir, -o/--outfile, positional FASTA files; the JAX
-package's --tpu-engine, --tpu-layout, --tpu-positions, --tpu-rows and
---tpu-checkpoint.
+-a/--abundance, --tmpdir, --test, -o/--outfile, positional FASTA files;
+the JAX package's --tpu-engine, --tpu-layout, --tpu-positions, --tpu-rows
+and --tpu-checkpoint.
 
 --tpu-engine sort (the default) is the sort-join engine: it has no Bloom
 filter, so -f, --filtermemory and -q are checked and otherwise unused;
@@ -27,7 +27,9 @@ the layout resolved for a shard's ceil(2^f / D) slots, byte or bit: the
 block layout is refused). All four write the same bytes. --tpu-checkpoint DIR checkpoints each round, and a rerun
 resumes. --device picks the device: cuda (the default; raises when there
 is no card) or cpu (the plain PyTorch versions). -t is accepted and
-unused.
+unused. --test runs the reference's randomized self test
+(testing/selftest.py: the sort and Bloom engines against the naive
+oracle) on --device and exits 0 when it passes, else 1.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def make_parser() -> argparse.ArgumentParser:
         help="Vertex abundance threshold",
     )
     p.add_argument("--tmpdir", default=".", help="Temporary directory name")
+    p.add_argument("--test", action="store_true", help="Run tests")
     p.add_argument(
         "-o", "--outfile", default="de_bruijn.bin",
         help="Output file name prefix",
@@ -114,6 +117,15 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = make_parser().parse_args(argv)
+
+    if args.test:
+        from twopaco_tpu_torch.passes.sortpipe import resolve_device
+        from twopaco_tpu_torch.testing.selftest import run_tests
+
+        # the reference's sweep (constructor.cpp:147: run_tests' defaults)
+        ok = run_tests(tmpdir=args.tmpdir if args.tmpdir != "." else None,
+                       device=resolve_device(args.device))
+        return 0 if ok else 1
 
     if args.kvalue % 2 != 1:
         print("Error: value of K must be odd", file=sys.stderr)

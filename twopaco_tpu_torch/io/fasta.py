@@ -60,6 +60,33 @@ def read_all_records(
             seq_id += 1
 
 
+# byte -> uppercased byte, 0 for whitespace (drop), 255 for invalid
+_UPPER_LUT = np.full(256, 255, dtype=np.uint8)
+for _ws in b" \t\r\n\v\f":
+    _UPPER_LUT[_ws] = 0
+for _ch in dna.VALID_CHARS:
+    _UPPER_LUT[ord(_ch)] = ord(_ch)
+    _UPPER_LUT[ord(_ch.lower())] = ord(_ch)
+
+
+def read_sequences_text(paths: Iterable[str | os.PathLike]) -> Iterator[str]:
+    """Yield validated, uppercased sequence text per record, keeping the
+    ambiguity letters (graphdump spells segment bodies from this text; the
+    reference's ChrReader, streamfastaparser.h:151, keeps e.g. 'Y' as
+    'Y')."""
+    for path in paths:
+        buf = np.fromfile(os.fspath(path), dtype=np.uint8)
+        for _s, hdr_end, e in _record_spans(buf, os.fspath(path)):
+            body = buf[hdr_end + 1 : e] if hdr_end < e else buf[:0]
+            up = _UPPER_LUT[body]
+            if up.size and up.max() == 255:
+                bad = body[up == 255][0]
+                raise FastaError(
+                    f"{os.fspath(path)}: found an invalid character {chr(bad)!r}"
+                )
+            yield up[up != 0].tobytes().decode("latin-1")
+
+
 def _record_spans(buf: np.ndarray, path: str):
     """Yield (record_start, header_line_end, record_end) index triples.
 

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
-    "scan.cu", "records.cu", "sort.cu", "judge.cu", "partition.cu",
+    "records.cu", "sort.cu", "judge.cu", "partition.cu",
     "assemble.cu", "compact.cu", "histogram.cu", "bloom_fill.cu",
     "bloom_mark.cu", "bloom_extract.cu", "bloom_lookup.cu", "route.cu",
     "occ_pack.cu", "bloom_shard.cu",
@@ -50,7 +50,6 @@ _LL = ctypes.c_longlong
 _TABS = ctypes.POINTER(ctypes.c_uint32)
 _SIGNATURES = {
     "tp_error_string": ([_I], ctypes.c_char_p),
-    "tp_scan_scratch_words": ([_SZ], _SZ),
     "tp_sort_scratch_bytes": ([_SZ, _I], _SZ),
     "tp_build_records": (
         [_P, _I, _LL] + [_P] * 4 + [_LL] * 4 + [_I, _I] + [_U32] * 6 + [_P] * 4, _I
@@ -81,8 +80,9 @@ _SIGNATURES = {
     "tp_bloom_fill": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I),
     "tp_bloom_mark": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 4, _I),
     "tp_bloom_run": ([_LL, _I], _I),
+    "tp_extract_tile": ([], _I),
     "tp_bloom_extract": (
-        [_P] * 2 + [_I] * 5 + [_P, _LL] + [_P] * 3 + [_LL] + [_P] * 5, _I
+        [_P, _P, _I, _LL, _I, _I] + [_P] * 4 + [_LL, _P, _P, _SZ, _U32, _P], _I
     ),
     "tp_lookup_tile": ([], _I),
     "tp_bloom_lookup": (
@@ -190,7 +190,8 @@ LIBRARY = KernelLibrary()
 _LAUNCHES: Counter = Counter()
 # the look-back scratch of each (device, stream, name): "bucket", shared by
 # route.cu and bloom_shard.cu's bucketing, "judge" (judge.cu), "partition"
-# (partition.cu), "compact" (compact.cu) and "lookup" (bloom_lookup.cu):
+# (partition.cu), "compact" (compact.cu), "lookup" (bloom_lookup.cu) and
+# "extract" (bloom_extract.cu):
 # [uint8 tensor, epoch counter]
 _LOOKBACK: dict = {}
 _EPOCHS = (1 << 30) - 1
@@ -246,15 +247,16 @@ _TABLE_COLS = 7  # int64 a row of batch_table
 def batch_table(uploads, offsets=None, tail=None):
     """The device table of a kernel call over batches (common.cuh TpBatch):
     a row of 7 int64 a (packed, nmask, valid) batch (its three pointers,
-    rows, RW, NW, and its offset, e.g. of its mask in the Bloom mark's
-    output; 0 where none is given), copied from pinned memory so that the
-    copy needs no wait for the stream's earlier work. With tail (int64
+    valid's 0 when it is None, for a kernel that reads none; rows, RW, NW,
+    and its offset, e.g. of its mask in the Bloom mark's output; 0 where
+    none is given), copied from pinned memory so that the copy needs no
+    wait for the stream's earlier work. With tail (int64
     values, e.g. the lookup's batch bases) they follow the rows in the same
     copy, and the result is (table, the tail's view)."""
     offsets = offsets or [0] * len(uploads)
     flat = [x for (p, m, v), off in zip(uploads, offsets)
-            for x in (p.data_ptr(), m.data_ptr(), v.data_ptr(), p.shape[0], p.shape[1],
-                      m.shape[1], off)]
+            for x in (p.data_ptr(), m.data_ptr(), 0 if v is None else v.data_ptr(),
+                      p.shape[0], p.shape[1], m.shape[1], off)]
     table = torch.tensor(flat + list(tail or ()), dtype=torch.int64).pin_memory().to(
         uploads[0][0].device, non_blocking=True)
     return table if tail is None else (table, table[_TABLE_COLS * len(uploads):])

@@ -64,65 +64,6 @@ struct LookupArgs {
     uint32_t epoch;
 };
 
-// 16 chars of a row from char p (p >= -15), little-first (char p + q at
-// bits 2q); chars before the row and past its words read as 0
-__device__ __forceinline__ uint32_t chars16(const uint32_t* packed, int RW, int p) {
-    const int wi = p >> 4;  // floor
-    const uint32_t lo = wi >= 0 ? packed[wi] : 0u;
-    const uint32_t hi = wi + 1 < RW ? packed[wi + 1] : 0u;
-    return __funnelshift_r(lo, hi, 2 * (p & 15));
-}
-
-// The 2-bit chars of v in reverse order (char q to char 15 - q)
-__device__ __forceinline__ uint32_t rev2(uint32_t v) {
-    const uint32_t x = __brev(v);
-    return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
-}
-
-// Word m of the forward k-mer at char s (MSB-first, left-aligned, chars
-// past k zero) or of its reverse complement (rc char t = 3 - char s+k-1-t:
-// the 16 chars ending at s+k-1-16m, complemented, already in MSB-first
-// order)
-__device__ __forceinline__ uint32_t key_word(const uint32_t* packed, int RW, int s, int k, int m,
-                                             bool rc) {
-    const int left = k - 16 * m;  // chars of the k-mer in this word, if below 16
-    const uint32_t keep = left >= 16 ? 0xffffffffu : 0xffffffffu << (32 - 2 * left);
-    return (rc ? ~chars16(packed, RW, s + k - 16 - 16 * m) : rev2(chars16(packed, RW, s + 16 * m)))
-           & keep;
-}
-
-// The canonical k-mer of the window at char s (the lexicographic min of the
-// strands; a palindrome is forward): its first W words into key, words W ..
-// w-1 left to key_word; is_rc: the reverse complement is canonical
-template <int W>
-__device__ __forceinline__ void canonical_key(const uint32_t* packed, int RW, int s, int k, int w,
-                                              uint32_t* key, bool& is_rc) {
-    uint32_t fw[W], rc[W];
-#pragma unroll
-    for (int m = 0; m < W; ++m) {
-        fw[m] = key_word(packed, RW, s, k, m, false);
-        rc[m] = key_word(packed, RW, s, k, m, true);
-    }
-    bool done = false;
-    is_rc = false;
-#pragma unroll
-    for (int m = 0; m < W; ++m)
-        if (!done && fw[m] != rc[m]) {
-            is_rc = rc[m] < fw[m];
-            done = true;
-        }
-    for (int m = W; !done && m < w; ++m) {
-        const uint32_t f = key_word(packed, RW, s, k, m, false);
-        const uint32_t r = key_word(packed, RW, s, k, m, true);
-        if (f != r) {
-            is_rc = r < f;
-            done = true;
-        }
-    }
-#pragma unroll
-    for (int m = 0; m < W; ++m) key[m] = is_rc ? rc[m] : fw[m];
-}
-
 // Table row `row` against the key: -1 below it, 0 equal, 1 above (the
 // row's first W words loaded together)
 template <int W>
@@ -139,7 +80,7 @@ __device__ __forceinline__ int cmp_row(const uint32_t* jt, long long row, int w,
         if (c == 0 && v[m] != key[m]) c = v[m] < key[m] ? -1 : 1;
     for (int m = W; c == 0 && m < w; ++m) {
         const uint32_t a = __ldg(tr + m);
-        const uint32_t b = key_word(packed, RW, s, k, m, is_rc);
+        const uint32_t b = tp_key_word(packed, RW, s, k, m, is_rc);
         if (a != b) c = a < b ? -1 : 1;
     }
     return c;
@@ -205,7 +146,7 @@ __global__ void __launch_bounds__(TP_THREADS) k_lookup(LookupArgs a) {
             const int RW = (int)bt->RW;
             uint32_t key[W];
             bool is_rc;
-            canonical_key<W>(packed, RW, s, k, w, key, is_rc);
+            tp_canonical_key<W>(packed, RW, s, k, w, key, is_rc);
             long long lo = 0, hi = a.J;  // the first row >= key
             while (lo < hi) {
                 const long long mid = lo + ((hi - lo) >> 1);

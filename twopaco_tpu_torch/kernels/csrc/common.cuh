@@ -23,14 +23,6 @@ inline unsigned tp_blocks(size_t n, size_t per_block) {
     return (unsigned)((n + per_block - 1) / per_block);
 }
 
-// Inclusive prefix sum of n u32 values (in may equal out). scratch holds
-// tp_scan_scratch_words(n) u32 words. Used by the Bloom engine's extract.
-cudaError_t tp_scan_inclusive_u32(const uint32_t* in, uint32_t* out,
-                                  size_t n, uint32_t* scratch,
-                                  cudaStream_t stream);
-
-extern "C" size_t tp_scan_scratch_words(size_t n);
-
 // Stable LSD radix sort of n u64 keys by bits [lo, hi) (sort.cu) over
 // tp_radix_passes(lo, hi) digit passes that alternate between key and
 // key_alt: the result is in key after an even count, in key_alt after an
@@ -200,6 +192,68 @@ __device__ __forceinline__ uint32_t tp_canonical_record(
     const uint32_t in = is_rc ? tp_comp4(next) : prev;
     const uint32_t out = is_rc ? tp_comp4(prev) : next;
     return in | (out << 8) | ((uint32_t)is_rc << 16) | TP_REAL;
+}
+
+// ---- a window's canonical k-mer from its upload words, 16 chars a word
+// (bloom_lookup.cu's keys, bloom_extract.cu's records)
+
+// 16 chars of a row from char p (p >= -15), little-first (char p + q at
+// bits 2q); chars before the row and past its words read as 0
+__device__ __forceinline__ uint32_t tp_chars16(const uint32_t* packed, int RW, int p) {
+    const int wi = p >> 4;  // floor
+    const uint32_t lo = wi >= 0 ? packed[wi] : 0u;
+    const uint32_t hi = wi + 1 < RW ? packed[wi + 1] : 0u;
+    return __funnelshift_r(lo, hi, 2 * (p & 15));
+}
+
+// The 2-bit chars of v in reverse order (char q to char 15 - q)
+__device__ __forceinline__ uint32_t tp_rev2(uint32_t v) {
+    const uint32_t x = __brev(v);
+    return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
+
+// Word m of the forward k-mer at char s (MSB-first, left-aligned, chars
+// past k zero) or of its reverse complement (rc char t = 3 - char s+k-1-t:
+// the 16 chars ending at s+k-1-16m, complemented, already in MSB-first
+// order); N chars read as 0, as in tp_canonical_record
+__device__ __forceinline__ uint32_t tp_key_word(const uint32_t* packed, int RW, int s, int k,
+                                                int m, bool rc) {
+    const int left = k - 16 * m;  // chars of the k-mer in this word, if below 16
+    const uint32_t keep = left >= 16 ? 0xffffffffu : 0xffffffffu << (32 - 2 * left);
+    return (rc ? ~tp_chars16(packed, RW, s + k - 16 - 16 * m)
+               : tp_rev2(tp_chars16(packed, RW, s + 16 * m))) & keep;
+}
+
+// The canonical k-mer of the window at char s (the lexicographic min of the
+// strands; a palindrome is forward): its first W words into key, words W ..
+// w-1 left to tp_key_word; is_rc: the reverse complement is canonical
+template <int W>
+__device__ __forceinline__ void tp_canonical_key(const uint32_t* packed, int RW, int s, int k,
+                                                 int w, uint32_t* key, bool& is_rc) {
+    uint32_t fw[W], rc[W];
+#pragma unroll
+    for (int m = 0; m < W; ++m) {
+        fw[m] = tp_key_word(packed, RW, s, k, m, false);
+        rc[m] = tp_key_word(packed, RW, s, k, m, true);
+    }
+    bool done = false;
+    is_rc = false;
+#pragma unroll
+    for (int m = 0; m < W; ++m)
+        if (!done && fw[m] != rc[m]) {
+            is_rc = rc[m] < fw[m];
+            done = true;
+        }
+    for (int m = W; !done && m < w; ++m) {
+        const uint32_t f = tp_key_word(packed, RW, s, k, m, false);
+        const uint32_t r = tp_key_word(packed, RW, s, k, m, true);
+        if (f != r) {
+            is_rc = r < f;
+            done = true;
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < W; ++m) key[m] = is_rc ? rc[m] : fw[m];
 }
 
 // ---- the Bloom engine's hashes (ops/buzhash.py probe_indices_from_sym),

@@ -204,3 +204,9 @@ extern "C" int tp_build_records(const void* table, int nb, long long max_pos,
         default: return (int)launch<0>(a, grid, st);
     }
 }
+
+// The message of a CUDA error code that an entry point returned (any
+// source's)
+extern "C" const char* tp_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}

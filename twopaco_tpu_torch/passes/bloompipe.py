@@ -10,8 +10,8 @@ TwoPaCo's own algorithm (vertexenumerator.h:122-466):
             position in the round (passes/fill.py);
      mark   the candidate positions: a vertex with more than one in- or
             out-extension in the filter (passes/mark.py), kept for pass 4;
-     extract the candidates' records into the round's buffer
-            (passes/extract.py);
+     extract the candidates' records into the round's buffer, in one
+            call (passes/extract.py);
      verify them exactly: the sort engine's sort and judge
             (passes/sort.py, passes/judge.py), whose junction table is
             the round's junctions;
@@ -77,13 +77,14 @@ class Ops:
 
 
 KERNELS = Ops(
-    fill.bloom_fill_batches, mark.bloom_mark_batches, extract.extract_records, sort.sort_records,
-    judge.judge_compact, lookup.pass4_lookup_batches, histogram.histogram_vertex_hashes_batches,
+    fill.bloom_fill_batches, mark.bloom_mark_batches, extract.extract_records_batches,
+    sort.sort_records, judge.judge_compact, lookup.pass4_lookup_batches,
+    histogram.histogram_vertex_hashes_batches,
 )
 PLAIN = Ops(
-    fill.bloom_fill_batches_plain, mark.bloom_mark_batches_plain, extract.extract_records_plain,
-    sort.sort_records_plain, judge.judge_compact_plain, lookup.pass4_lookup_batches_plain,
-    histogram.histogram_vertex_hashes_batches_plain,
+    fill.bloom_fill_batches_plain, mark.bloom_mark_batches_plain,
+    extract.extract_records_batches_plain, sort.sort_records_plain, judge.judge_compact_plain,
+    lookup.pass4_lookup_batches_plain, histogram.histogram_vertex_hashes_batches_plain,
 )
 # positions a lookup call may hold (its ranks and ids are int32)
 LOOKUP_POSITIONS = (1 << 31) - 1
@@ -262,8 +263,7 @@ def build_junctions_bloom(
         t0 = time.time()
         n_cand = sum(counts)
         buf, state = extract.new_buffer(n_cand, w, dev)
-        for (packed, nmask, _valid), m, base in zip(uploads, round_masks, bases):
-            ops.extract(packed, nmask, m, buf, state, base, k=k, P=P)
+        ops.extract(uploads, round_masks, buf, state, bases, k=k, P=P)  # one call
         if state.tolist() != [n_cand, 0]:
             raise RuntimeError(f"candidate extraction {state.tolist()} != marks {n_cand}")
         t_extract = time.time() - t0

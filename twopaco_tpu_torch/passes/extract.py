@@ -1,9 +1,12 @@
-"""Bloom extract: a marked batch's candidate records, appended to the
-round's verify buffer.
+"""Bloom extract: the candidate records of marked window batches, appended
+to the round's verify buffer.
 
 The port of twopaco_tpu/passes/kernels.py:420 extract_records. CUDA
-tensors go through kernels/csrc/bloom_extract.cu; CPU tensors through
-`extract_records_plain`.
+tensors go through kernels/csrc/bloom_extract.cu, one launch and a tail a
+call: `extract_records_batches` over a round's batches,
+`extract_records` for one batch (a one-row table). CPU tensors go through
+`extract_records_plain` and its per-batch loop
+`extract_records_batches_plain`.
 
 The records have the sort engine's layout (passes/records.py): canonical
 words, payload in | out<<8 | is_rc<<16 | 1<<17, and position, so the round
@@ -18,6 +21,9 @@ import torch
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.passes import mark, records
+
+# positions a kernel call may hold (its ranks are u32, its tile counts int32)
+CALL_POSITIONS = (1 << 31) - 1
 
 
 def new_buffer(slots: int, w: int, device):
@@ -50,6 +56,86 @@ def extract_records_plain(packed, nmask, mask, buf, state, pos_base: int, *, k: 
     return buf, state
 
 
+def _check_batches(uploads, masks, bases) -> None:
+    if not uploads or len(masks) != len(uploads) or len(bases) != len(uploads):
+        raise ValueError(f"{len(uploads)} batches, {len(masks)} masks, {len(bases)} bases")
+
+
+def extract_records_batches_plain(uploads, masks, buf, state, bases, *, k: int, P: int):
+    """Plain PyTorch version of extract_records_batches: extract_records_plain
+    a batch, in order (any device)."""
+    _check_batches(uploads, masks, bases)
+    for (packed, nmask, _valid), m, base in zip(uploads, masks, bases):
+        extract_records_plain(packed, nmask, m, buf, state, int(base), k=k, P=P)
+    return buf, state
+
+
+def _extract(uploads, masks, buf, state, bases, k: int, P: int) -> None:
+    """The kernel's calls over the batches: one, or one a group of batches
+    when they pass CALL_POSITIONS."""
+    buf_w, buf_pay, buf_pos = buf
+    w = pack.n_words(k)
+    for t, dt, name in ((buf_w, torch.uint32, "buffer words"),
+                        (buf_pay, torch.uint32, "buffer payload"),
+                        (buf_pos, torch.int64, "buffer pos"), (state, torch.int64, "state")):
+        build.require(t, dt, name)
+    S = buf_pay.shape[0]
+    if buf_w.shape != (S, w) or buf_pos.shape != (S,) or state.shape != (2,) or P % 8 or P < 8:
+        raise ValueError("extract_records: buffer, state or P disagree")
+    for (packed, nmask, _valid), m in zip(uploads, masks):
+        build.require(packed, torch.uint32, "packed")
+        build.require(nmask, torch.uint32, "nmask")
+        build.require(m, torch.uint8, "mask")
+        if (m.shape != (packed.shape[0], P // 8) or packed.shape[1] * 16 < P + k + 1
+                or nmask.shape[1] * 32 < P + k + 1):
+            raise ValueError("extract_records: batch and mask shapes disagree")
+    lib = build.lib()
+    dev = buf_pay.device
+    max_pos = max(up[0].shape[0] for up in uploads) * P
+    if max_pos > CALL_POSITIONS:
+        raise ValueError(f"a batch of {max_pos} positions exceeds an extract call's ranks")
+    per = max(1, CALL_POSITIONS // max(max_pos, 1))
+    for g0 in range(0, len(uploads), per):
+        ups, ms = uploads[g0 : g0 + per], masks[g0 : g0 + per]
+        base = min(m.data_ptr() for m in ms)
+        tab, tab_bases = build.batch_table(ups, [m.data_ptr() - base for m in ms],
+                                           tail=[int(b) for b in bases[g0 : g0 + per]])
+        tiles = len(ups) * max(1, -(-max_pos // lib.tp_extract_tile()))
+        scratch, epoch = build.lookback_scratch(dev, 8 + tiles * 8, "extract")
+        rc = lib.tp_bloom_extract(
+            tab.data_ptr(), tab_bases.data_ptr(), len(ups), max_pos, P, k, base,
+            buf_w.data_ptr(), buf_pay.data_ptr(), buf_pos.data_ptr(), S, state.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), epoch, build.stream_ptr(),
+        )
+        if rc != 0:
+            build.drop_lookback_scratch(dev, "extract")
+        build.check(rc, "bloom_extract")
+        build.count_launch("bloom_extract")
+
+
+def extract_records_batches(uploads, masks, buf, state, bases, *, k: int, P: int):
+    """Append the records of a list of batches' marked positions to the
+    buffer, in one call.
+
+    uploads: (packed, nmask, valid) batches on one device (valid is not
+    read); masks: per batch its (B_b, P/8) uint8 mask from
+    mark.bloom_mark_batches (views of one buffer, or any tensors); buf,
+    state as extract_records'; bases: each batch's first global position.
+
+    The marked positions' records, batch by batch and in flat order in
+    each, go to rows off, off+1, ...; then off grows by their count.
+    Records past row S are dropped and set the overflow flag. Nothing is
+    read back to the host. -> (buf, state)
+
+    On the card one launch of the kernel and its tail over a device table
+    of the batches (one a group of batches past CALL_POSITIONS)."""
+    if build.on_cpu(*buf, state, *(t for up in uploads for t in up[:2]), *masks):
+        return extract_records_batches_plain(uploads, masks, buf, state, bases, k=k, P=P)
+    _check_batches(uploads, masks, bases)
+    _extract(uploads, masks, buf, state, bases, k, P)
+    return buf, state
+
+
 def extract_records(packed, nmask, mask, buf, state, pos_base: int, *, k: int, P: int):
     """Append the records of one batch's marked positions to the buffer.
 
@@ -61,37 +147,9 @@ def extract_records(packed, nmask, mask, buf, state, pos_base: int, *, k: int, P
     The marked positions' records, in flat order, go to rows off, off+1,
     ...; then off grows by their count. Records past row S are dropped and
     set the overflow flag. Nothing is read back to the host. -> (buf, state)
-    """
-    buf_w, buf_pay, buf_pos = buf
-    if build.on_cpu(packed, nmask, mask, buf_w, buf_pay, buf_pos, state):
+
+    On the card: the kernel's call over a one-row table."""
+    if build.on_cpu(packed, nmask, mask, *buf, state):
         return extract_records_plain(packed, nmask, mask, buf, state, pos_base, k=k, P=P)
-    B = packed.shape[0]
-    w = pack.n_words(k)
-    build.require(packed, torch.uint32, "packed")
-    build.require(nmask, torch.uint32, "nmask")
-    for t, dt, name in ((mask, torch.uint8, "mask"), (buf_w, torch.uint32, "buffer words"),
-                        (buf_pay, torch.uint32, "buffer payload"),
-                        (buf_pos, torch.int64, "buffer pos"), (state, torch.int64, "state")):
-        build.require(t, dt, name)
-    S = buf_pay.shape[0]
-    if (mask.shape != (B, P // 8) or P % 8 or buf_w.shape != (S, w)
-            or buf_pos.shape != (S,) or state.shape != (2,)
-            or packed.shape[1] * 16 < P + k + 1 or nmask.shape[1] * 32 < P + k + 1):
-        raise ValueError("extract_records: batch, mask, buffer or state shapes disagree")
-    n = B * P
-    if n >= 1 << 32:
-        raise ValueError(f"{n} positions exceed the extraction's u32 scan")
-    lib = build.lib()
-    dev = packed.device
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    incl = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.tp_scan_scratch_words(n), dtype=torch.int32, device=dev)
-    rc = lib.tp_bloom_extract(
-        packed.data_ptr(), nmask.data_ptr(), B, P, k, packed.shape[1], nmask.shape[1],
-        mask.data_ptr(), int(pos_base), buf_w.data_ptr(), buf_pay.data_ptr(),
-        buf_pos.data_ptr(), S, state.data_ptr(), flags.data_ptr(), incl.data_ptr(),
-        scratch.data_ptr(), build.stream_ptr(),
-    )
-    build.check(rc, "bloom_extract")
-    build.count_launch("bloom_extract")
+    _extract([(packed, nmask, None)], [mask], buf, state, [pos_base], k, P)
     return buf, state
