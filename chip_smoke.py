@@ -116,7 +116,23 @@
    refuses on one card) at -r 1 and -r 4, the CLI's `--tpu-engine
    dist-bloom -f 30` (one shard), build_junctions_multihost(bloom_gate=True)
    in a one-rank NCCL child process, and the 4-shard -f 30 run through the
-   plain versions.
+   plain versions;
+13. (native) loads the port's native host library (io/native.py, g++ at
+   first use; every run above already read the FASTA and wrote the .dbg
+   through it), holds its encoder against the numpy parser on the
+   slice's FASTA (equal headers and codes, both timed), runs the slice at
+   sort -r 1 with it and with TWOPACO_NATIVE=0, in turns, printing the
+   read, emit, emit_write and merge phases and the wall, and the Bloom
+   engine at -f 30 with it, each writing SLICE_SHA256;
+14. (serve) times one cold `python -m twopaco_tpu_torch.cli.twopaco`
+   process on the slice, then starts `python -m twopaco_tpu_torch.cli.serve
+   --device cuda` as a child and asks it through the port's tpclient
+   (built with cc): sort -r 1 twice, graphdump -f group of the first .dbg
+   (equal to the direct graphdump's text), bad arguments (rc 2), Bloom -f
+   30, sort -r 1 again, each .dbg SLICE_SHA256; then __shutdown__, after
+   which the child must exit 0 (it is killed whatever happens), and
+   prints the cold process's wall beside the first and second served
+   requests' client walls.
 
 Every kernel comparison also prints the kernel's bound (the larger of the
 bytes it must move over 3.35 TB/s, the filter's traffic counted as each
@@ -153,7 +169,7 @@ SLICE = dict(n_seqs=8, length=8_000_000, seed=2016, k=25)
 SLICE_SHA256 = "86f34ccc5bb5aa29e69df2b13aa85d3068afe54aca0e3052f93fb731dec2e1cb"
 ROUNDS = 4
 MODE_VARS = ("TWOPACO_RESIDENT", "TWOPACO_GROUPED", "TWOPACO_RESIDENT_BYTES",
-             "TWOPACO_UNIFORM_SPLIT", "TWOPACO_POS64")
+             "TWOPACO_UNIFORM_SPLIT", "TWOPACO_POS64", "TWOPACO_NATIVE")
 REPLACES = {
     "build_records": ("twopaco_tpu_torch/kernels/csrc/records.cu",
                       "twopaco_tpu/passes/sortpipe.py:143"),
@@ -747,6 +763,177 @@ def occ_sort_times(tag, fetched, w, label, reps=5):
           + f" (host of {label}; the merge sorts with kind=stable)")
 
 
+NATIVE_PHASES = ("read", "emit", "emit_write", "merge", "total")
+SERVE_START_S = 300  # the daemon's socket must appear within this
+# what a cold process pays before the run, step by step: each a process
+# that stops after its step
+COLD_STEPS = (
+    ("python", "pass"),
+    ("+ import torch", "import torch"),
+    ("+ CUDA context", "import torch; torch.zeros(1, device='cuda'); torch.cuda.synchronize()"),
+    ("+ libraries and imports",
+     "import torch; torch.zeros(1, device='cuda'); torch.cuda.synchronize()\n"
+     "from twopaco_tpu_torch.kernels import build; build.lib()\n"
+     "from twopaco_tpu_torch.io import native; assert native.available()\n"
+     "from twopaco_tpu_torch.cli import twopaco\n"
+     "from twopaco_tpu_torch.passes import pipeline, sortpipe"),
+)
+SERVE_REQUEST_S = 600
+
+
+def native_checks(fa, slice_run, launches, label) -> None:
+    """The port's native host library (io/native.py): it must load; its
+    encoder must give the numpy parser's headers and codes on the slice's
+    FASTA; the CLI at sort -r 1 with it and with TWOPACO_NATIVE=0, in turns,
+    and the Bloom engine at byte -f 30 with it, must write SLICE_SHA256."""
+    import numpy as np
+
+    from twopaco_tpu_torch.io import fasta, native
+    from twopaco_tpu_torch.passes import bloompipe
+
+    t0 = time.time()
+    loaded = native.available()
+    require(loaded, f"the native host library did not load: {native.status()}")
+    print(f"native library: {native.status()} ({time.time() - t0:.3f} s to build or find "
+          f"and load; g++ log beside it)")
+    times, parsed = {"native": [], "numpy": []}, {}
+    for how in ("native", "numpy", "numpy", "native"):
+        t0 = time.time()
+        if how == "native":
+            parsed[how] = native.encode_fasta_native(fa)
+        else:
+            parsed[how] = list(fasta._parse_buffer(np.fromfile(fa, dtype=np.uint8), fa))
+        times[how].append(time.time() - t0)
+    nat, ref = parsed["native"], parsed["numpy"]
+    require([h for h, _c in nat] == [h for h, _c in ref], "native headers != numpy headers")
+    require(all(np.array_equal(a, b) for (_h, a), (_g, b) in zip(nat, ref)),
+            "native codes != numpy codes")
+    n_codes = sum(len(c) for _h, c in nat)
+    print(f"encode the slice's FASTA ({os.path.getsize(fa)} bytes, {len(nat)} records, "
+          f"{n_codes} codes): native {times['native'][0]:.4f}, {times['native'][1]:.4f} s; "
+          f"numpy {times['numpy'][0]:.4f}, {times['numpy'][1]:.4f} s; equal headers and "
+          f"codes (host of {label})")
+    walls = {}
+    for i, how in enumerate(("native", "numpy", "numpy", "native")):
+        tag = f"{how}_r1_{i}"
+        out = os.path.join(WORK, f"slice_{tag}.dbg")
+        text, wall = slice_run(tag, ["-k", str(SLICE["k"]), "-f", "30", fa, "-o", out],
+                               env={"TWOPACO_NATIVE": "0"} if how == "numpy" else None,
+                               phases=NATIVE_PHASES[:-1])
+        require(launches[tag].get("build_records", 0) == 1, f"{tag}: no record build")
+        require(sha256(out) == SLICE_SHA256, f"{tag}: .dbg differs from SLICE_SHA256")
+        walls.setdefault(how, []).append((phase_times(text), wall))
+    for how, runs in walls.items():
+        print(f"sort -r 1, {how} I/O (two runs, in turns) {label}: " + "; ".join(
+            ", ".join(f"{n}={t[n]:.3f}" for n in NATIVE_PHASES) + f", wall={w:.3f} s"
+            for t, w in runs))
+    out = os.path.join(WORK, "slice_native_bloom.dbg")
+    text, _wall = slice_run("native_bloom", ["--tpu-engine", "bloom", "-k", str(SLICE["k"]),
+                                             "-f", "30", fa, "-o", out],
+                            phases=bloompipe.PHASES)
+    for name in BLOOM_PATH:
+        require(launches["native_bloom"].get(name, 0) > 0, f"native_bloom: no launch of {name}")
+    require("(byte layout)" in text, "native_bloom: not the byte layout")
+    require(sha256(out) == SLICE_SHA256, "native_bloom: .dbg differs from SLICE_SHA256")
+    print("native: every run wrote SLICE_SHA256")
+
+
+def serve_checks(fa, k, label) -> None:
+    """One cold CLI process on the slice, then a --device cuda daemon
+    (cli/serve.py) as a child, asked through the port's tpclient: sort -r 1
+    twice, graphdump -f group of the first .dbg (equal to the direct
+    graphdump), bad arguments (rc 2), Bloom -f 30, sort -r 1 again; then
+    __shutdown__, which must end the child with exit 0. The child is killed
+    whatever happens. Also times the steps of a cold start (COLD_STEPS)."""
+    import tempfile
+
+    from twopaco_tpu_torch.cli import serve
+
+    client = str(serve.client_path())
+    argv = ["-k", str(k), "-f", "30", fa, "-o"]
+    cold_out = os.path.join(WORK, "slice_cold.dbg")
+    t0 = time.time()
+    cold = subprocess.run([sys.executable, "-m", "twopaco_tpu_torch.cli.twopaco", *argv,
+                           cold_out], cwd=ROOT, capture_output=True, text=True,
+                          timeout=SERVE_REQUEST_S)
+    cold_wall = time.time() - t0
+    require(cold.returncode == 0, f"cold CLI process exited {cold.returncode}: "
+            f"{cold.stderr[-3000:]}")
+    require(sha256(cold_out) == SLICE_SHA256, "cold CLI process: .dbg differs")
+    starts = {}
+    for step, code in COLD_STEPS:
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                           text=True, timeout=SERVE_REQUEST_S)
+        require(r.returncode == 0, f"cold start step {step}: {r.stderr[-3000:]}")
+        starts[step] = time.time() - t0
+    cold_total = phase_times(cold.stdout)["total"]
+    print(f"cold start {label}: processes that stop after each step: "
+          + ", ".join(f"{step} {t:.3f} s" for step, t in starts.items())
+          + f"; the cold CLI process {cold_wall:.3f} s, of which its run (time total) "
+          f"{cold_total:.3f} s")
+    sock_dir = tempfile.mkdtemp(prefix="tps")
+    sock = os.path.join(sock_dir, "twopaco.sock")
+    log_path = os.path.join(WORK, "serve.log")
+    env = {v: val for v, val in os.environ.items() if v not in MODE_VARS}
+    env["TWOPACO_SERVER_SOCKET"] = sock
+    with open(log_path, "wb") as log:
+        daemon = subprocess.Popen(
+            [sys.executable, "-m", "twopaco_tpu_torch.cli.serve", "--device", "cuda",
+             "--socket", sock, "--idle-timeout", str(SERVE_REQUEST_S)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.time()
+        while not os.path.exists(sock):
+            if daemon.poll() is not None or time.time() - t0 > SERVE_START_S:
+                with open(log_path) as f:
+                    raise SmokeFailure(f"no daemon socket within {SERVE_START_S} s: {f.read()}")
+            time.sleep(0.05)
+        print(f"daemon: socket after {time.time() - t0:.3f} s {label}")
+
+        def ask(tag, *args):
+            t1 = time.time()
+            r = subprocess.run([client, *args], cwd=WORK, env=env, capture_output=True,
+                               text=True, timeout=SERVE_REQUEST_S)
+            return r, time.time() - t1
+
+        walls = []
+        for tag, extra in (("served_1", []), ("served_2", []),
+                           ("served_bloom", ["--tpu-engine", "bloom"]), ("served_3", [])):
+            out = os.path.join(WORK, f"slice_{tag}.dbg")
+            r, wall = ask(tag, "twopaco", *extra, *argv, out)
+            require(r.returncode == 0, f"{tag}: rc {r.returncode}: {r.stderr[-3000:]}")
+            require(sha256(out) == SLICE_SHA256, f"{tag}: .dbg differs from SLICE_SHA256")
+            times = phase_times(r.stdout)
+            walls.append(wall)
+            print(f"{tag}: SLICE_SHA256, client wall {wall:.3f} s {label}; phases (s): "
+                  + ", ".join(f"{n}={times[n]:.3f}" for n in ("read", "emit", "total")))
+            if tag == "served_bloom":
+                require("(byte layout)" in r.stdout, "served_bloom: not the byte layout")
+            if tag == "served_2":  # graphdump, then bad arguments, between the runs
+                first = os.path.join(WORK, "slice_served_1.dbg")
+                r, gd_wall = ask("graphdump", "graphdump", "-f", "group", "-k", str(k), first)
+                require(r.returncode == 0, f"served graphdump: rc {r.returncode}")
+                require(r.stdout == graphdump_text(["-f", "group", "-k", str(k), first]),
+                        "served graphdump group != the direct graphdump's")
+                print(f"served graphdump -f group: {len(r.stdout)} bytes, equal to the "
+                      f"direct output, client wall {gd_wall:.3f} s")
+                r, _w = ask("bad", "twopaco", "--definitely-not-a-flag")
+                require(r.returncode == 2, f"bad arguments answered {r.returncode}, not 2")
+        r, _w = ask("shutdown", "__shutdown__")
+        require(r.returncode == 0, f"__shutdown__ answered {r.returncode}")
+        rc = daemon.wait(timeout=60)
+        require(rc == 0, f"the daemon exited {rc} after __shutdown__")
+        print(f"latency, the slice at sort -r 1 {label}: cold process {cold_wall:.3f} s "
+              f"(python -m twopaco_tpu_torch.cli.twopaco); served first {walls[0]:.3f} s, "
+              f"second {walls[1]:.3f} s (tpclient wall); daemon exited 0")
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait(timeout=60)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1152,15 +1339,18 @@ def main() -> int:
     with open(GOLDEN) as f:
         golden = json.load(f)
     for name, spec in golden.items():
-        src = spec["input"]
-        if src.startswith("bench:"):
-            n, length, seed = (int(x) for x in src[6:].split(":"))
-            src = bench_data.write_bench_fasta(
-                os.path.join(WORK, f"{name}.fa"), n, length, seed)
-        else:
-            src = os.path.join(ROOT, src)
+        srcs = []
+        for i, src in enumerate(spec["input"] if isinstance(spec["input"], list)
+                                else [spec["input"]]):
+            if src.startswith("bench:"):
+                n, length, seed = (int(x) for x in src[6:].split(":"))
+                src = bench_data.write_bench_fasta(
+                    os.path.join(WORK, f"{name}_{i}.fa"), n, length, seed)
+            else:
+                src = os.path.join(ROOT, src)
+            srcs.append(src)
         out = os.path.join(WORK, f"{name}.dbg")
-        run_cli(["-k", str(spec["k"]), "-f", "20", src, "-o", out])
+        run_cli(["-k", str(spec["k"]), "-f", "20", *srcs, "-o", out])
         got = sha256(out)
         require(got == spec["sha256"], f"{name}: .dbg sha256 {got} != {spec['sha256']}")
         print(f"golden {name}: sha256 matches the JAX package")
@@ -1758,6 +1948,14 @@ def main() -> int:
     multihost_run("multihost_bloom", DIST_BLOOM_PATH, filter_bits=30)
     dist_run("dist_bloom_plain", 1, reference=True, filter_bits=30)
     require(launches["dist_bloom_plain"] == {}, "the plain dist-bloom run launched kernels")
+
+    phase("native")
+    native_checks(fa, slice_run, launches, label)
+
+    phase("serve")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the daemon plans its rounds from the card's free memory
+    serve_checks(fa, k, label)
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = []

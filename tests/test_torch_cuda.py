@@ -8,15 +8,24 @@ not have; this file imports no JAX.) Integer data: every comparison is
 exact.
 """
 
+import hashlib
 import json
 import os
+import shutil
+import socket
+import struct
+import subprocess
+import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from twopaco_tpu_torch import dna
-from twopaco_tpu_torch.io import junctions, windows
+from twopaco_tpu_torch.cli import twopaco as cli
+from twopaco_tpu_torch.io import junctions, native, windows
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import bloom, pack
 from twopaco_tpu_torch.parallel import distpipe, sharded, sortshard
@@ -27,7 +36,7 @@ from twopaco_tpu_torch.passes import (
 )
 from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, build_junctions
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
-from twopaco_tpu_torch.testing import judge_cases, oracle
+from twopaco_tpu_torch.testing import bench_data, judge_cases, oracle
 
 pytestmark = pytest.mark.cuda
 NO_AB = judge.NO_ABUNDANCE
@@ -1821,3 +1830,82 @@ def test_judge_scratch_is_small(dev, monkeypatch):
     outputs = m * (4 * sw.shape[1] + 12) + 24
     assert sum(sizes) == outputs
     assert build.lib().tp_judge_scratch_bytes(m) <= m
+
+
+# ---- the native host path and serve mode on the card
+
+def _golden_sha(name):
+    with open(os.path.join(GOLDEN, "torch_port_sha256.json")) as f:
+        return json.load(f)[name]["sha256"]
+
+
+def _file_sha(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def test_serve_cuda_daemon_golden(dev, tmp_path):
+    """A --device cuda daemon serves tests/golden/example.fa and writes
+    the JAX-confirmed sha256; __shutdown__ stops it with exit 0."""
+    root = os.path.dirname(GOLDEN)
+    sock_dir = tempfile.mkdtemp(prefix="tps")
+    sock = os.path.join(sock_dir, "cuda.sock")
+    log = open(tmp_path / "server.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "twopaco_tpu_torch.cli.serve", "--device", "cuda",
+         "--socket", sock], cwd=os.path.dirname(root), stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+
+    def ask(tool, argv):
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+            s.settimeout(300)
+            s.connect(sock)
+            req = json.dumps({"tool": tool, "argv": argv, "cwd": str(tmp_path)}).encode()
+            s.sendall(struct.pack("<I", len(req)) + req)
+            data = b""
+            while True:
+                chunk = s.recv(1 << 16)
+                if not chunk:
+                    break
+                data += chunk
+        i, err = 0, b""
+        while data[i:i + 1] != b"X":
+            (n,) = struct.unpack("<I", data[i + 1:i + 5])
+            err += data[i + 5:i + 5 + n] if data[i:i + 1] == b"E" else b""
+            i += 5 + n
+        return struct.unpack("<I", data[i + 1:i + 5])[0], err.decode()
+
+    try:
+        deadline = time.time() + 300
+        while not os.path.exists(sock):
+            assert proc.poll() is None and time.time() < deadline, open(
+                tmp_path / "server.log").read()
+            time.sleep(0.1)
+        for _ in range(2):
+            rc, err = ask("twopaco", ["-k", "11", "-f", "20", "-o", "o.dbg",
+                                      os.path.join(GOLDEN, "example.fa")])
+            assert rc == 0, err
+            assert _file_sha(tmp_path / "o.dbg") == _golden_sha("example_k11")
+        assert ask("__shutdown__", []) == (0, "")
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
+@pytest.mark.parametrize("engine", ["sort", "bloom"])
+def test_native_and_numpy_paths_same_dbg(dev, tmp_path, monkeypatch, engine):
+    """The native encoder and emit and the numpy parser and writer give the
+    same .dbg on the card (the JAX-confirmed sha256 of a two-file input)."""
+    assert native.available(), native.status()
+    paths = [bench_data.write_bench_fasta(str(tmp_path / "a.fa"), 3, 50000, 7),
+             bench_data.write_bench_fasta(str(tmp_path / "b.fa"), 2, 40000, 11)]
+    shas = []
+    for on in ("1", "0"):
+        monkeypatch.setenv("TWOPACO_NATIVE", on)
+        out = str(tmp_path / f"o{on}.dbg")
+        assert cli.main(["-k", "25", "-f", "20", "--tpu-engine", engine, *paths, "-o", out]) == 0
+        shas.append(_file_sha(out))
+    assert shas == [_golden_sha("bench_two_files_k25")] * 2

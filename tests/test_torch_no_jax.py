@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor twopaco_tpu, and
-its kernel loader raises (no fallback) when nvcc is missing."""
+"""The port stands alone: it imports neither JAX nor twopaco_tpu, its
+modules build nothing when imported (the host library and the serve
+client are built at first use), and its kernel loader raises (no
+fallback) when nvcc is missing."""
 
 import os
 import subprocess
@@ -15,6 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import importlib, pkgutil, sys
 import twopaco_tpu_torch
+from twopaco_tpu_torch import native
+native.build = None  # importing a module must build nothing
 names = [m.name for m in pkgutil.walk_packages(twopaco_tpu_torch.__path__, "twopaco_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
@@ -24,9 +28,12 @@ need = {"twopaco_tpu_torch.parallel.sharded", "twopaco_tpu_torch.passes.shardblo
         "twopaco_tpu_torch.parallel.distpipe", "twopaco_tpu_torch.parallel.multihost",
         "twopaco_tpu_torch.formats.graphdump", "twopaco_tpu_torch.cli.graphdump",
         "twopaco_tpu_torch.cli.naive", "twopaco_tpu_torch.testing.selftest",
-        "twopaco_tpu_torch.__main__"}
-print(len(names), bad, sorted(need - set(names)))
-sys.exit(1 if bad or len(names) < 15 or not need <= set(names) else 0)
+        "twopaco_tpu_torch.__main__", "twopaco_tpu_torch.io.native",
+        "twopaco_tpu_torch.cli.serve"}
+from twopaco_tpu_torch.io import native as io_native
+built = io_native.LIBRARY.path is not None
+print(len(names), bad, sorted(need - set(names)), built)
+sys.exit(1 if bad or len(names) < 15 or not need <= set(names) or built else 0)
 """
 
 

@@ -8,7 +8,8 @@ Matches the reference parser (streamfastaparser.cpp:29-93):
   - non-ACGT valid characters are kept as the ambiguity code N.
 
 Parsing is a handful of numpy passes over the whole buffer (LUT gather +
-boolean compaction).
+boolean compaction); read_fasta takes the native encoder
+(twopaco_tpu_torch/native/fastaio.cpp) first.
 """
 
 from __future__ import annotations
@@ -42,7 +43,20 @@ def _parse_buffer(buf: np.ndarray, path: str) -> Iterator[tuple[str, np.ndarray]
 
 
 def read_fasta(path: str | os.PathLike) -> Iterator[tuple[str, np.ndarray]]:
-    """Yield (header, codes uint8[0..4]) per record, in file order."""
+    """Yield (header, codes uint8[0..4]) per record, in file order.
+
+    Uses the native C++ encoder (io/native.py) when it is available, else
+    the numpy parser; a native parse error raises FastaError."""
+    from twopaco_tpu_torch.io import native
+
+    if native.available():
+        try:
+            recs = native.encode_fasta_native(path)
+        except RuntimeError as e:
+            raise FastaError(str(e)) from None
+        if recs is not None:
+            yield from recs
+            return
     buf = np.fromfile(os.fspath(path), dtype=np.uint8)
     yield from _parse_buffer(buf, os.fspath(path))
 

@@ -13,6 +13,8 @@ import os
 
 import numpy as np
 
+from twopaco_tpu_torch.io import native
+
 SEPARATOR_POS = np.uint32(0xFFFFFFFF)
 SEPARATOR_ID = np.int64((1 << 63) - 1)
 
@@ -25,11 +27,13 @@ class ChunkWriter:
     order: separator records are spliced at chromosome increments
     (including skipped chromosomes), with the chromosome counter carried
     across chunks (the reference's JunctionPositionWriter,
-    junctionapi.h:118-132)."""
+    junctionapi.h:118-132). The native emit (io/native.py) assembles a
+    chunk when it is available, the numpy body below otherwise."""
 
     def __init__(self, path: str):
         self._f = open(path, "wb")
         self._now_chr = 0
+        self._scratch = None  # the native emit's buffer, reused chunk to chunk
         sep = np.empty(1, dtype=RECORD_DTYPE)
         sep["pos"] = SEPARATOR_POS
         sep["id"] = SEPARATOR_ID
@@ -40,6 +44,18 @@ class ChunkWriter:
         if n == 0:
             return
         chrs = np.ascontiguousarray(chrs, np.int64)
+        buf = native.emit_records(
+            chrs,
+            np.ascontiguousarray(pos, np.uint32),
+            np.ascontiguousarray(ids, np.int64),
+            self._now_chr,
+            scratch=self._scratch,
+        )
+        if buf is not None:
+            self._scratch = buf.base if buf.base is not None else buf
+            self._f.write(buf.data)
+            self._now_chr = int(chrs[-1])
+            return
         scratch = np.empty((n, 3), np.uint32)
         scratch[:, 0] = pos
         scratch[:, 1:] = (
