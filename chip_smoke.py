@@ -5,6 +5,12 @@
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels from twopaco_tpu_torch/kernels/csrc;
+   then (upload) reads the slice's FASTA as the main path does, into one
+   host buffer with the window rows' table (sortpipe.read_batches), times
+   its page-locking and its H2D, holds upload.cu against its plain version on every one
+   of the slice's rows (timed against its bound) and, batch by batch,
+   against the host windows and pack_codes_host (the same words and
+   metadata); the uploads of the compares below are the kernel's;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the benchmark slice (exact: integer data), and times
    both with CUDA events: the record build first on the -r 1 round's
@@ -32,7 +38,8 @@
 5. runs the slice: 8 genomes x 8,000,000 bases (seed 2016) through
    `twopaco_tpu_torch.cli.twopaco.main(["-k", "25", "-f", "30", ...])`,
    with every kernel's launch counter reset just before and read just
-   after; it must launch the record build once; its .dbg sha256 must be
+   after; it must launch the upload and the record build once and no
+   merge (one round's entry is merged already); its .dbg sha256 must be
    SLICE_SHA256; then the same input
    through the plain versions on the card, whose .dbg must be
    byte-identical;
@@ -42,7 +49,8 @@
    TWOPACO_GROUPED=0) and histogram split (TWOPACO_UNIFORM_SPLIT=0), each
    with the counters reset just before and read just after; each must
    launch its mode's kernels (the partition once a pass: once, or once a
-   group) and write the -r 1 run's bytes; then -r 4 resident through the
+   group), the upload once and merge.cu's two entries once, and write the
+   -r 1 run's bytes; then -r 4 resident through the
    plain versions on the card, the same bytes again;
 7. holds the Bloom engine's four kernels (fill, mark, extract, lookup)
    against their plain versions: fill and mark first on the slice's
@@ -76,14 +84,18 @@
    the card, whose table and occurrences must equal the one-shard sort +
    judge_records;
 10. runs the slice through the distributed engine, each with the counters
-   reset just before and read just after, each launching its kernels and
-   writing SLICE_SHA256: build_junctions_dist over a LocalMesh of 4
+   reset just before and read just after, each launching its kernels (a
+   4-shard run: the upload once a shard, the merge once) and writing
+   SLICE_SHA256: build_junctions_dist over a LocalMesh of 4
    shards of the card at -r 1 and -r 4, the CLI's `--tpu-engine dist`
    (one shard), build_junctions_multihost in a child process under a
    one-rank NCCL group, and the 4-shard run through the plain versions;
-   and times the merge's final occurrence sort both ways (np.sort
-   default and kind="stable") on the sort engine's and the 4-shard run's
-   occurrences;
+   then (merge) holds merge.cu's two entries (merge_inv, merge_remap)
+   against their plain versions on the -r 4 resident run's and the
+   4-shard run's keyed entries, timed against their bounds (merge_remap
+   also against one torch.sort of its keys), and the device merge as the
+   path runs it against the plain versions on the card and the host
+   merge (equal tables and keys, host seconds in turns);
 11. holds the dist-bloom engine's four kernels (bloom_shard.cu: bucket,
    fill, probe, mark finish) against their plain versions at one slice
    batch's shard, the sharded filter filled with the whole slice: byte
@@ -211,6 +223,12 @@ REPLACES = {
                     "twopaco_tpu/parallel/sharded.py:149"),
     "shard_mark_finish": ("twopaco_tpu_torch/kernels/csrc/bloom_shard.cu",
                           "twopaco_tpu/parallel/sharded.py:155"),
+    "upload_rows": ("twopaco_tpu_torch/kernels/csrc/upload.cu",
+                    "twopaco_tpu/passes/sortpipe.py:1048"),
+    "merge_inv": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
+                  "twopaco_tpu/passes/sortpipe.py:1539"),
+    "merge_remap": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
+                    "twopaco_tpu/passes/sortpipe.py:1539"),
 }
 # the run whose launch counts each kernel reports: its own path
 PATH_OF = {
@@ -222,13 +240,16 @@ PATH_OF = {
     "sort_occurrences": "dist_r1", "shard_bucket_fill": "dist_bloom_r1",
     "shard_bucket_mark": "dist_bloom_r1", "shard_fill": "dist_bloom_r1",
     "shard_probe": "dist_bloom_r1", "shard_mark_finish": "dist_bloom_r1",
+    "upload_rows": "r1", "merge_inv": "resident", "merge_remap": "resident",
 }
 D4 = 4  # shards of the card in the distributed runs
 FILL_CHUNK = 4096  # received slots a block of bloom_shard.cu's fill
 PROBE_CHUNK = 4096  # ... and of its probe
 # the kernels each distributed path must launch
-DIST_PATH = ("word0_histogram", "build_records", "route", "compact", "sort_records",
-             "judge_compact", "sort_occurrences")
+DIST_PATH = ("upload_rows", "word0_histogram", "build_records", "route", "compact",
+             "sort_records", "judge_compact", "sort_occurrences")
+# ... and the merge of more than one entry (every LocalMesh run of D4 shards)
+MERGE_PATH = ("merge_inv", "merge_remap")
 DIST_BLOOM_PATH = (*DIST_PATH, "shard_bucket_fill", "shard_bucket_mark", "shard_fill",
                    "shard_probe", "shard_mark_finish")
 MH_CHILD = r"""
@@ -258,7 +279,7 @@ BLOOM_RUNS = {
     "bloom_block": (["--tpu-layout", "block", "-f", "30"], "block"),
     "bloom_r4": (["-f", "30", "-r", str(ROUNDS)], "byte"),
 }
-BLOOM_PATH = ("bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
+BLOOM_PATH = ("upload_rows", "bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
               "judge_compact", "bloom_lookup")
 
 
@@ -739,28 +760,80 @@ def capture_merge(store: dict):
         sortpipe.merge_fetched = orig
 
 
-def occ_sort_times(tag, fetched, w, label, reps=5):
-    """The merge's final occurrence sort on a run's entries, both np.sort
-    kinds, host seconds (mean of reps on copies of one buffer)."""
+def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
+    """merge.cu's two entries against their plain versions on a run's
+    keyed entries (timed against their bounds; merge_remap against one
+    torch.sort of the keys), then the device merge as the path runs it
+    (sortpipe.merge_on_device: H2D, sort.cu, merge.cu, D2H) against the
+    plain versions on the card and the host merge, host seconds, exact."""
     import numpy as np
+    import torch
 
-    from twopaco_tpu_torch.passes import sortpipe
+    from twopaco_tpu_torch.ops import pack
+    from twopaco_tpu_torch.passes import merge, occ, sort, sortpipe
 
-    _table, inv = sortpipe.merge_tables(fetched, w)
-    buf = sortpipe.packed_occurrences(fetched, inv, 32)
-    times = {}
-    for kind in ("quicksort", "stable", "stable", "quicksort"):
-        dt = 0.0
-        for _ in range(reps):
-            b = buf.copy()
-            t0 = time.time()
-            b.sort(kind=kind)
-            dt += time.time() - t0
-        times.setdefault(kind, []).append(dt / reps)
-        require(np.array_equal(b, np.sort(buf)), f"{tag}: np.sort kind {kind} differs")
-    print(f"merge occurrence sort {tag}: {len(buf)} keys in {len(fetched)} entries, "
-          + ", ".join(f"{k}={sum(v) / len(v):.4f} s" for k, v in times.items())
-          + f" (host of {label}; the merge sorts with kind=stable)")
+    require(len(fetched) > 1 and all(isinstance(e[1], occ.OccKeys) for e in fetched),
+            f"merge {tag}: not keyed entries")
+    k, w, id_bits = cfg.k, cfg.w, fetched[0][1].id_bits
+    tables = [t for t, _k, _n in fetched]
+    keys = [kk.keys for _t, kk, _n in fetched]
+    ofs = np.cumsum([[0] + [len(x) for x in keys], [0] + [len(t) for t in tables]], axis=1)
+    tab_d = torch.from_numpy(np.concatenate(tables)).to(dev)
+    keys_d = torch.from_numpy(np.concatenate(keys).view(np.int64)).to(dev)
+    ent_d = torch.from_numpy(ofs).to(dev)
+    T, n = tab_d.shape[0], keys_d.numel()
+    srt, _pay, order = sort.sort_records(
+        tab_d, torch.zeros(T, dtype=torch.int32, device=dev).view(torch.uint32),
+        torch.arange(T, device=dev), key_bits=2 * k)
+    compare("merge_inv", lambda: merge.merge_inv(srt, order),
+            lambda: merge.merge_inv_plain(srt, order), 10, results, in_bytes=nbytes(srt, order))
+    inv, dup = merge.merge_inv(srt, order)
+    require(int(dup) == 0, f"merge {tag}: {int(dup)} duplicate k-mers")
+    # in place: every call on a fresh copy of the keys (the copy untimed);
+    # the bound reads each key and each distinct 32-byte sector of inv the
+    # ids reach once, and writes each key once
+    rows = ent_d[1][torch.searchsorted(ent_d[0][1:], torch.arange(n, device=dev), right=True)]
+    ids = (keys_d & ((1 << id_bits) - 1)) - (1 << (id_bits - 1))
+    n_sect = int(torch.unique((rows + ids.abs() - 1) * 4 // SECTOR).numel())
+    del rows, ids
+    kk, kp = keys_d.clone(), keys_d.clone()
+    remapped = merge.merge_remap(keys_d.clone(), ent_d, inv, id_bits=id_bits)[0]
+    compare("merge_remap", lambda: merge.merge_remap(kk, ent_d, inv, id_bits=id_bits),
+            lambda: merge.merge_remap_plain(kp, ent_d, inv, id_bits=id_bits), 5, results,
+            in_bytes=8 * n + SECTOR * n_sect + nbytes(ent_d), out_bytes=8 * n + 16,
+            library=lambda: torch.sort(remapped),
+            prepare=(lambda: kk.copy_(keys_d), lambda: kp.copy_(keys_d)))
+    print(f"merge {tag}: {len(fetched)} entries, {T} junctions, {n} keys; merge_inv and "
+          f"merge_remap exact ({n_sect} inv sectors)")
+    # the library yardstick of the whole: torch.sort of the table's keys
+    # and of the remapped keys
+    if w == 2:
+        tkey = ((pack.as_i64(tab_d[:, 0]) - (1 << 31)) << 32) | pack.as_i64(tab_d[:, 1])
+        lib_ms = timed(lambda: (torch.sort(tkey), torch.sort(remapped)), 5)
+        print(f"merge {tag}: library (torch.sort of the table keys and of the keys) "
+              f"{lib_ms:.3f} ms")
+    del tab_d, keys_d, ent_d, srt, order, inv, kk, kp, remapped
+    times = {"device": [], "plain on the card": [], "host": []}
+    outs = {}
+    for how in ("host", "device", "plain on the card", "device", "host"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if how == "host":
+            table, inv_h = sortpipe.merge_tables(fetched, w)
+            buf = sortpipe.packed_occurrences(fetched, inv_h, 64 - id_bits)
+            buf.sort(kind="stable")
+        else:
+            table, buf = sortpipe.merge_on_device(fetched, cfg, id_bits, dev,
+                                                  reference=how != "device")
+        times[how].append(time.time() - t0)
+        outs[how] = (table, buf)
+    for how in ("device", "plain on the card"):
+        require(np.array_equal(outs[how][0], outs["host"][0])
+                and np.array_equal(outs[how][1], outs["host"][1]),
+                f"merge {tag}: the {how} merge differs from the host merge")
+    print(f"merge {tag} (host clock, in turns) {label}: " + ", ".join(
+        f"{how} " + ", ".join(f"{t:.4f}" for t in ts) + " s" for how, ts in times.items())
+        + "; equal tables and keys")
 
 
 NATIVE_PHASES = ("read", "emit", "emit_write", "merge", "total")
@@ -944,6 +1017,7 @@ def main() -> int:
     try:
         import numpy as np
 
+        from twopaco_tpu_torch import hostmem
         from twopaco_tpu_torch.io import fasta, windows
         from twopaco_tpu_torch.kernels import build
         from twopaco_tpu_torch.ops import pack
@@ -951,10 +1025,10 @@ def main() -> int:
         from twopaco_tpu_torch.parallel import distpipe, sharded, sortshard
         from twopaco_tpu_torch.parallel.mesh import LocalMesh
         from twopaco_tpu_torch.passes import (
-            bloompipe, extract, fill, histogram, judge, lookup, mark, occ, partition,
-            records, route, shardbloom, sort, sortpipe, stream,
+            bloompipe, extract, fill, histogram, judge, lookup, mark, merge, occ, partition,
+            records, route, shardbloom, sort, sortpipe, stream, upload,
         )
-        from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig
+        from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, RunStats
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
         from twopaco_tpu_torch.testing import bench_data, judge_cases, selftest
     except ImportError as e:
@@ -994,9 +1068,72 @@ def main() -> int:
     print(f"slice: {size} bytes, P={P} B={B}, {len(batches)} batches, "
           f"{n_slots} record slots ({time.time() - t0:.1f} s to make)")
 
-    phase("kernels vs plain versions")
     results: dict = {}
     launches: dict = {}  # a path's launch counts, read just after its run
+
+    phase("upload")
+    # the main path's front: the FASTA encoded into one host buffer, the
+    # window rows' metadata and table (no uint8 rows), the buffer
+    # page-locked for one H2D, one launch of upload.cu for every row
+    t0 = time.time()
+    _seqs, wrows = sortpipe.read_batches([fa], None, cfg, RunStats())
+    t_read = time.time() - t0
+    del _seqs
+    R = wrows.row_chars
+    t0 = time.time()
+    with hostmem.pinned([wrows.codes], dev):
+        t_lock = time.time() - t0
+        t0 = time.time()
+        codes_d = wrows.codes.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t_h2d = time.time() - t0
+        t0 = time.time()
+    t_unlock = time.time() - t0
+    table_d = torch.from_numpy(wrows.table).to(dev)
+    print(f"upload: read and window rows {t_read:.3f} s; {len(wrows.table)} rows of {R} chars "
+          f"from {codes_d.numel()} staged bytes; page-locking them {t_lock * 1e3:.2f} ms, "
+          f"their H2D {t_h2d * 1e3:.2f} ms = {codes_d.numel() / t_h2d / 1e9:.2f} GB/s, "
+          f"unlocking {t_unlock * 1e3:.2f} ms {label}")
+    # the same copy again, pageable and page-locked for it (lock, copy,
+    # unlock) in turns: what the lock costs once the process has paid its
+    # first one
+    h2d = {"pageable": [], "page-locked": []}
+    for how in ("pageable", "page-locked", "page-locked", "pageable"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with hostmem.pinned([wrows.codes] if how == "page-locked" else [], dev):
+            again = wrows.codes.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        h2d[how].append(time.time() - t0)
+        require(torch.equal(again, codes_d), f"upload: the {how} H2D differs")
+        del again
+    print("upload: the staged codes' H2D in turns (host clock): " + ", ".join(
+        f"{how} " + ", ".join(f"{t * 1e3:.2f}" for t in ts) + " ms" for how, ts in h2d.items())
+        + f" {label}")
+    compare("upload_rows", lambda: upload.pack_rows(codes_d, table_d, R=R),
+            lambda: upload.pack_rows_plain(codes_d, table_d, R=R), 5, results,
+            in_bytes=nbytes(codes_d, table_d))
+    got_p, got_m = (t.cpu().numpy() for t in upload.pack_rows(codes_d, table_d, R=R))
+    del codes_d, table_d
+    # the JAX package's host path at full size: its windows' uint8 rows
+    # and pack_codes_host, batch by batch, the same words and metadata
+    require(len(wrows) == len(batches), f"{len(wrows)} window batches, not {len(batches)}")
+    for i, (wb, hb) in enumerate(zip(wrows, batches)):
+        hp, hm = pack.pack_codes_host(hb.codes)
+        require(np.array_equal(got_p[i * B : (i + 1) * B], hp)
+                and np.array_equal(got_m[i * B : (i + 1) * B], hm)
+                and wb.row0 == hb.row0 and all(np.array_equal(getattr(wb, f), getattr(hb, f))
+                                               for f in ("seq_id", "pos0", "valid", "n_pos")),
+                f"upload: batch {i} differs from the host windows and pack")
+    del got_p, got_m
+    print(f"upload: the kernel's {len(wrows)} batches equal the host windows and "
+          f"pack_codes_host, word for word")
+    ustats = RunStats()
+    uploads = sortpipe.upload_batches(wrows, dev, ustats)
+    print(f"upload_batches (H2D, one launch, the batches' views): "
+          f"{ustats.timings['upload']:.4f} s {label}")
+
+    phase("kernels vs plain versions")
 
     def upload(batch):
         p, m = pack.pack_codes_host(batch.codes)
@@ -1006,7 +1143,6 @@ def main() -> int:
     # reported): the -r 1 round's table of every batch in one launch; then
     # one batch at k=25 (full gate and a narrow hash gate), one at the dist
     # append's shape (a shard's B/4 rows) and one at k=101
-    uploads = [upload(b) for b in batches]
     bases = [b.row0 * P for b in batches]
     compare(
         "build_records",
@@ -1408,12 +1544,14 @@ def main() -> int:
 
     phase("slice: port CLI on the 8 x 8 Mbase input")
     out = os.path.join(WORK, "slice.dbg")
-    with capture_merge({}) as sort_r1:
-        slice_run("r1", ["-k", str(k), "-f", "30", fa, "-o", out])
+    slice_run("r1", ["-k", str(k), "-f", "30", fa, "-o", out])
     for name in ("build_records", "sort_records", "judge_compact", "sort_occurrences"):
         require(launches["r1"].get(name, 0) > 0, f"{name}: no launch in the slice run")
     require(launches["r1"]["build_records"] == 1,
             f"r1: {launches['r1']['build_records']} build_records launches, not one a round")
+    # one launch packs every row; one round's entry needs no merge
+    require(launches["r1"].get("upload_rows") == 1 and not any(
+        n in launches["r1"] for n in MERGE_PATH), f"r1: upload or merge launches wrong")
     slice_sha = sha256(out)
     size_dbg = os.path.getsize(out)
     require(size_dbg > 0 and size_dbg % 12 == 0, f"slice .dbg has {size_dbg} bytes")
@@ -1439,12 +1577,17 @@ def main() -> int:
         "histogram": ({"TWOPACO_UNIFORM_SPLIT": "0"},
                       ("histogram", "partition", "assemble"), "resident parts"),
     }
+    sort_r4 = {}
     for tag, (env, kernels, split_line) in modes.items():
         out_r = os.path.join(WORK, f"slice_r{ROUNDS}_{tag}.dbg")
-        text, _wall = slice_run(tag, ["-k", str(k), "-f", "30", "-r", str(ROUNDS), fa,
-                                      "-o", out_r], env)
+        with capture_merge(sort_r4 if tag == "resident" else {}):
+            text, _wall = slice_run(tag, ["-k", str(k), "-f", "30", "-r", str(ROUNDS), fa,
+                                          "-o", out_r], env)
         for name in (*kernels, "sort_records", "judge_compact"):
             require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
+        # the rounds' keyed entries merge on the card, one call each
+        require(launches[tag].get("upload_rows") == 1 and all(
+            launches[tag].get(n) == 1 for n in MERGE_PATH), f"{tag}: upload or merge launches")
         require(launches[tag].get("histogram", 1) == 1, f"{tag}: not one histogram launch")
         # one partition call a pass: the run's, or one a group of rounds
         require(launches[tag].get("partition", 0) == {"grouped": 2, "stream": 0}.get(tag, 1),
@@ -1474,7 +1617,7 @@ def main() -> int:
         "block": PassConfig(k=k, f=30, layout="block", positions_per_row=P, rows_per_batch=B),
     }
     full = (0, 0xFFFFFFFF)
-    uploads = [upload(b) for b in batches]
+    uploads = sortpipe.upload_batches(wrows, dev, RunStats())
     round_cands = {}  # a layout's candidates in the round mark, for its engine run
     for lay, bcfg in bcfgs.items():
         filt_k = bloom.make_filter(bcfg.f, lay, dev)
@@ -1610,6 +1753,7 @@ def main() -> int:
                                       "-o", out_b], phases=bloompipe.PHASES)
         for name in BLOOM_PATH:
             require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
+        require(launches[tag]["upload_rows"] == 1, f"{tag}: not one upload launch")
         require(f"({layout} layout)" in text, f"{tag}: not the {layout} layout")
         n_rounds = ROUNDS if "-r" in flags else 1
         for name in ("bloom_fill", "bloom_mark", "bloom_extract"):
@@ -1666,6 +1810,12 @@ def main() -> int:
         print(f"{tag}: launches {launches[tag]}")
         print(f"{tag} phases (s) {label}: " + ", ".join(
             f"{n}={enum.stats.timings[n]:.3f}" for n in (*distpipe.PHASES, "total")))
+        # a shard's rows in one launch each; the shards' entries merge on
+        # the card (the plain run launches nothing)
+        if not reference:
+            require(launches[tag].get("upload_rows") == D4 and all(
+                launches[tag].get(n) == 1 for n in MERGE_PATH),
+                f"{tag}: not {D4} upload launches and one merge")
         lines = "\n".join(lines).splitlines()
         for line in lines:
             if line.startswith(("Splitting", "Filter size", "Candidate marks")) or (
@@ -1729,13 +1879,15 @@ def main() -> int:
     dist_run("dist_plain", 1, reference=True)
     require(launches["dist_plain"] == {}, "the plain-version run launched kernels")
 
-    phase("the merge's final occurrence sort, both np.sort kinds")
-    occ_sort_times("sort -r 1", sort_r1["fetched"], w, label)
-    occ_sort_times(f"dist -r 1 ({D4} shards)", fetched4, w, label)
+    phase("merge")
+    merge_checks(f"sort -r {ROUNDS} resident", sort_r4["fetched"], cfg, dev, results, label)
+    merge_checks(f"dist D={D4} -r 1", fetched4, cfg, dev, results, label)
+    del sort_r4
+
     del fetched4
 
     phase("dist-bloom kernels vs plain versions (one slice batch, shards of the card)")
-    uploads = [upload(b) for b in batches]
+    uploads = sortpipe.upload_batches(wrows, dev, RunStats())
     for lay, f_bits, n_sh, rows_b, tiny in (
         ("byte", 30, D4, B, False), ("bit", 36, D4, B, False),
         ("byte", 30, 3, B - B % 3, False), ("byte", 30, D4, B, True),

@@ -31,8 +31,8 @@ from twopaco_tpu_torch.ops import bloom, pack
 from twopaco_tpu_torch.parallel import distpipe, sharded, sortshard
 from twopaco_tpu_torch.parallel.mesh import LocalMesh
 from twopaco_tpu_torch.passes import (
-    extract, fill, histogram, judge, lookup, mark, occ, partition, records, route,
-    shardbloom, sort, stream,
+    extract, fill, histogram, judge, lookup, mark, merge, occ, partition, records, route,
+    shardbloom, sort, sortpipe, stream, upload,
 )
 from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, build_junctions
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
@@ -260,8 +260,8 @@ def test_pipeline_cuda_equals_cpu(dev, tmp_path, k):
         outs.append(open(out, "rb").read())
         if device == "cuda":
             counts = build.launch_counts()
-            assert set(counts) == {"build_records", "sort_records", "judge_compact",
-                                   "sort_occurrences"}
+            assert set(counts) == {"upload_rows", "build_records", "sort_records",
+                                   "judge_compact", "sort_occurrences"}
     assert outs[0] == outs[1] and len(outs[0]) > 0
 
 
@@ -961,7 +961,7 @@ def test_bloom_pipeline_cuda_equals_cpu(dev, tmp_path, layout, rounds, k):
         if device == "cuda":
             counts = build.launch_counts()
             assert set(counts) == {
-                "bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
+                "upload_rows", "bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
                 "judge_compact", "bloom_lookup",
             }
             for name in ("bloom_fill", "bloom_mark", "bloom_extract"):
@@ -1164,8 +1164,9 @@ def test_dist_engine_cuda_equals_plain(dev, tmp_path, rounds):
         if reference:
             assert counts == {}
         else:
-            want = {"word0_histogram", "build_records", "route", "compact", "sort_records",
-                    "judge_compact", "sort_occurrences"} | ({"histogram"} if rounds > 1 else set())
+            want = {"upload_rows", "word0_histogram", "build_records", "route", "compact",
+                    "sort_records", "judge_compact", "sort_occurrences", "merge_inv",
+                    "merge_remap"} | ({"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
@@ -1649,9 +1650,10 @@ def test_dist_bloom_engine_cuda_equals_plain(dev, tmp_path, rounds, layout):
         if reference:
             assert counts == {}
         else:
-            want = {"word0_histogram", "shard_bucket_fill", "shard_bucket_mark", "shard_fill",
-                    "shard_probe", "shard_mark_finish", "build_records", "route", "compact",
-                    "sort_records", "judge_compact", "sort_occurrences"} | ({"histogram"} if rounds > 1 else set())
+            want = {"upload_rows", "word0_histogram", "shard_bucket_fill", "shard_bucket_mark",
+                    "shard_fill", "shard_probe", "shard_mark_finish", "build_records", "route",
+                    "compact", "sort_records", "judge_compact", "sort_occurrences", "merge_inv",
+                    "merge_remap"} | ({"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
@@ -1909,3 +1911,230 @@ def test_native_and_numpy_paths_same_dbg(dev, tmp_path, monkeypatch, engine):
         assert cli.main(["-k", "25", "-f", "20", "--tpu-engine", engine, *paths, "-o", out]) == 0
         shas.append(_file_sha(out))
     assert shas == [_golden_sha("bench_two_files_k25")] * 2
+
+
+# ---- the upload (upload.cu) and the merge (merge.cu)
+
+
+def _staged(rng, k, P, B, n=12):
+    """(staged codes padded to 16 bytes, window_rows) of n sequences of
+    awkward lengths with N runs, staged back to back at odd offsets."""
+    lengths = [0, 3, k - 1, k, k + P - 1, k + P] + [
+        int(x) for x in rng.integers(1, 5 * P + k, size=n)]
+    codes = rng.integers(0, 4, size=sum(lengths)).astype(np.uint8)
+    codes[rng.random(len(codes)) < 0.02] = 4
+    for i in rng.integers(0, max(len(codes) - 40, 1), size=8):
+        codes[i : i + 33] = 4
+    staged = np.zeros(-(-len(codes) // 16) * 16, np.uint8)
+    staged[: len(codes)] = codes
+    return staged, windows.window_rows(lengths, windows.WindowConfig(k, P, B))
+
+
+@pytest.mark.parametrize("k,P,B", [(25, 2048, 256), (5, 16, 3), (101, 64, 4), (33, 100, 5),
+                                   (63, 31, 7)])
+def test_upload_kernel(dev, k, P, B):
+    """upload.cu against its plain version, exact: rows at every offset
+    mod 16 (aligned and unaligned loads), cut at sequence ends, pad rows,
+    and a hand-made table (offsets before the codes, past them, clamped
+    spans)."""
+    rng = np.random.default_rng(k + P)
+    staged, rows = _staged(rng, k, P, B)
+    assert len({int(o) % 16 for o in rows.table[:, 0]}) >= 4  # unaligned rows
+    extra = np.array([[-5, 0, 40], [len(staged) - 3, 0, len(staged)], [7, -9, 1 << 40],
+                      [0, 0, 0], [-100, 0, 5]], np.int64)
+    R = rows.row_chars
+    for table in (rows.table, extra):
+        codes_d, table_d = _to(dev, staged, np.ascontiguousarray(table))
+        build.reset_launch_counts()
+        got = upload.pack_rows(codes_d, table_d, R=R)
+        assert build.launch_counts() == {"upload_rows": 1}
+        want = upload.pack_rows_plain(codes_d, table_d, R=R)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and _equal(a, b)
+
+
+def test_upload_kernel_refuses_unpadded_codes(dev):
+    codes = torch.zeros(17, dtype=torch.uint8, device=dev)
+    table = torch.zeros((1, 3), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        upload.pack_rows(codes, table, R=30)
+    with pytest.raises(ValueError, match="aligned"):
+        upload.pack_rows(torch.zeros(33, dtype=torch.uint8, device=dev)[1:17], table, R=30)
+
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_upload_in_chunks_on_the_card(dev, D):
+    """upload_batches under a staging budget of about two batches, a whole
+    run's rows and each of D shards': one launch a chunk, the card's
+    batches equal to the plain version's on the CPU, exact."""
+    k, P, B = 25, 256, 8
+    cfg = PipelineConfig(k=k, positions_per_row=P, rows_per_batch=B)
+    _seqs, rows_all = sortpipe.read_batches(None, _dist_inputs(length=9000), cfg,
+                                            sortpipe.RunStats())
+    budget = 2 * (B * (P + k + 1) + 24 * B)
+    for s in range(D):
+        rows = slice(s * B // D, (s + 1) * B // D)
+        r = len(range(B)[rows])
+        idx = (np.arange(len(rows_all))[:, None] * B + np.arange(B)[rows]).reshape(-1)
+        chunks, _least = upload.plan_chunks(rows_all.table[idx], rows_all.row_chars, r,
+                                            rows_all.codes.numel(), budget)
+        assert len(chunks) > 2
+        build.reset_launch_counts()
+        got = sortpipe.upload_batches(rows_all, dev, sortpipe.RunStats(), rows,
+                                      stage_bytes=budget)
+        assert build.launch_counts() == {"upload_rows": len(chunks)}
+        want = sortpipe.upload_batches(rows_all, torch.device("cpu"), sortpipe.RunStats(), rows)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert all(_equal(a, b) for a, b in zip(g, w))
+
+
+def test_serve_request_leaves_no_page_locked_memory(dev, tmp_path):
+    """A request served on the card (serve._serve_one in this process)
+    leaves PyTorch's page-locked host allocator as it found it: the staged
+    input (4 MB) and the rounds' fetches are page-locked only for their
+    copies (hostmem.pinned), never allocated or cached there."""
+    import threading
+
+    from twopaco_tpu_torch.cli import serve
+
+    fa = bench_data.write_bench_fasta(str(tmp_path / "in.fa"), 2, 2_000_000, 5)
+
+    def held():  # the allocator's blocks, in use or cached
+        return {k: v for k, v in torch.cuda.host_memory_stats().items()
+                if k.startswith("allocated_bytes") and k.endswith(".current")}
+
+    def one_request():
+        srv, cli_end = socket.socketpair()
+        with srv, cli_end:
+            req = json.dumps({"tool": "twopaco", "cwd": str(tmp_path), "argv": [
+                "-k", "25", "-f", "20", "-r", "3", fa, "-o", "o.dbg"]}).encode()
+            cli_end.sendall(struct.pack("<I", len(req)) + req)
+
+            def serve_and_close():
+                serve._serve_one(srv)
+                srv.shutdown(socket.SHUT_WR)
+
+            t = threading.Thread(target=serve_and_close)
+            t.start()
+            data = b""
+            while chunk := cli_end.recv(1 << 16):
+                data += chunk
+            t.join()
+        assert data[-5:-4] == b"X", data[-2000:]
+        return struct.unpack("<I", data[-4:])[0]
+
+    torch.cuda.synchronize()
+    before = held()
+    assert one_request() == 0
+    after = held()
+    grown = {k: after[k] - before.get(k, 0) for k in after}
+    assert grown and all(v < (1 << 20) for v in grown.values()), (before, after)
+    assert one_request() == 0
+    assert held() == after
+
+
+def _merge_inputs(rng, n_entries, k, id_bits, rows=3000, occ=20000, n_slots=1 << 20):
+    """(table (T, w) uint32, keys (n,) int64, entries (2, N+1) int64) numpy:
+    N keyed entries of disjoint sorted random k-mer tables and position-
+    sorted keys, concatenated."""
+    w = -(-k // 16)
+    words = rng.integers(0, 1 << 32, size=(rows, w), dtype=np.uint64).astype(np.uint32)
+    words[:, -1] &= np.uint32(pack.last_word_mask(k))
+    words = np.unique(words, axis=0)
+    owner = rng.integers(0, n_entries, size=len(words))
+    pos = rng.choice(n_slots, size=occ, replace=False)
+    pos_owner = rng.integers(0, n_entries, size=occ)
+    tables, keys = [], []
+    for e in range(n_entries):
+        t = words[owner == e]
+        p = np.sort(pos[pos_owner == e]) if len(t) else np.zeros(0, np.int64)
+        ids = rng.integers(1, len(t) + 1, size=len(p)) * rng.choice([-1, 1], size=len(p))
+        tables.append(t)
+        keys.append((p.astype(np.int64) << id_bits) | (ids + (1 << (id_bits - 1))))
+    entries = np.cumsum([[0] + [len(x) for x in keys], [0] + [len(t) for t in tables]], axis=1)
+    return np.concatenate(tables), np.concatenate(keys).astype(np.int64), entries
+
+
+@pytest.mark.parametrize("n_entries,k,id_bits", [(1, 25, 32), (2, 25, 32), (5, 11, 32),
+                                                 (4, 101, 24), (3, 33, 30)])
+def test_merge_kernels(dev, n_entries, k, id_bits):
+    """merge.cu's two entries and the merge as a whole against their plain
+    versions, exact."""
+    rng = np.random.default_rng(n_entries * k)
+    table, keys, entries = _merge_inputs(rng, n_entries, k, id_bits)
+    tab_d, keys_d, ent_d = _to(dev, table, keys, entries)
+    srt, _pay, order = sort.sort_records(
+        tab_d, torch.zeros(len(table), dtype=torch.int32, device=dev).view(torch.uint32),
+        torch.arange(len(table), device=dev), key_bits=2 * k)
+    build.reset_launch_counts()
+    inv, dup = merge.merge_inv(srt, order)
+    assert build.launch_counts() == {"merge_inv": 1}
+    want_inv, want_dup = merge.merge_inv_plain(srt, order)
+    assert _equal(inv, want_inv) and int(dup) == int(want_dup) == 0
+    build.reset_launch_counts()
+    got = merge.merge_remap(keys_d.clone(), ent_d, inv, id_bits=id_bits)
+    assert build.launch_counts() == {"merge_remap": 1}
+    want = merge.merge_remap_plain(keys_d.clone(), ent_d, inv, id_bits=id_bits)
+    assert _equal(got[0], want[0]) and got[1].tolist() == want[1].tolist() == [0, 0]
+    build.reset_launch_counts()
+    got = merge.merge_packed(tab_d, keys_d.clone(), ent_d, key_bits=2 * k, id_bits=id_bits)
+    assert build.launch_counts() == {"sort_records": 1, "merge_inv": 1, "merge_remap": 1}
+    want = merge.merge_packed_plain(tab_d, keys_d.clone(), ent_d, key_bits=2 * k,
+                                    id_bits=id_bits)
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+    assert got[2].tolist() == [0, 0, 0]
+
+
+def test_merge_kernels_flag_faults(dev):
+    """Duplicate rows, ids of 0 and ids past their entry's table are
+    counted as the plain versions count them."""
+    rng = np.random.default_rng(9)
+    table, keys, entries = _merge_inputs(rng, 3, 25, 32)
+    table[entries[1, 1]] = table[entries[1, 1] - 1]  # entry 1's first row = entry 0's last
+    keys[[5, 17, 400]] = (keys[[5, 17, 400]] & ~0xFFFFFFFF) | (1 << 31)  # id 0
+    keys[[9, 1000]] = (keys[[9, 1000]] & ~0xFFFFFFFF) | ((1 << 31) + len(table) + 3)  # past
+    args = _to(dev, table, keys, entries)
+    got = merge.merge_packed(args[0], args[1].clone(), args[2], key_bits=50, id_bits=32)
+    want = merge.merge_packed_plain(args[0], args[1].clone(), args[2], key_bits=50, id_bits=32)
+    assert got[2].tolist() == want[2].tolist() == [1, 3, 2]
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+
+
+def test_merge_path_on_the_card(dev, tmp_path):
+    """-r 3 on the card merges its three keyed rounds with merge.cu, -r 1
+    with neither entry; a free-memory figure below the merge's buffers
+    takes the host merge: every .dbg the same."""
+    sequences = _dist_inputs()
+    outs = []
+    for rounds in (1, 3):
+        cfg = PipelineConfig(k=25, rounds=rounds, positions_per_row=256, rows_per_batch=8)
+        out = str(tmp_path / f"r{rounds}.dbg")
+        build.reset_launch_counts()
+        build_junctions_sorted(None, cfg, out, sequences=sequences, device="cuda")
+        counts = build.launch_counts()
+        assert (counts.get("merge_inv", 0), counts.get("merge_remap", 0)) == (
+            (0, 0) if rounds == 1 else (1, 1)), counts
+        outs.append(open(out, "rb").read())
+    got = {}
+    orig = sortpipe.merge_fetched
+
+    def capture(fetched, batches, *a, **kw):
+        got.update(fetched=fetched, batches=batches)
+        return orig(fetched, batches, *a, **kw)
+
+    sortpipe.merge_fetched = capture
+    try:
+        build_junctions_sorted(None, cfg, None, sequences=sequences, device="cuda")
+    finally:
+        sortpipe.merge_fetched = orig
+    lines = []
+    out = str(tmp_path / "host.dbg")
+    sortpipe.merge_fetched(got["fetched"], got["batches"], cfg, out, sortpipe.RunStats(),
+                           lines.append, 0.0, n_slots=len(got["batches"]) * 8 * 256,
+                           wide=False, n_sequences=len(sequences), dev=dev, free=1)
+    assert any("Merge on the host" in s for s in lines)
+    outs.append(open(out, "rb").read())
+    assert outs[0] == outs[1] == outs[2] and len(outs[0]) > 0

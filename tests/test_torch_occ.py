@@ -188,17 +188,20 @@ def _key_entries():
 
 
 def test_merge_mixed_and_unpacked(tmp_path, jax_dbg):
-    """Raw and sorted-key entries merge to the same bytes; so does the
-    unpacked merge, which decodes the keys (forced by a sequence count
-    past the packed ids)."""
+    """Raw and sorted-key entries merge to the same bytes (the keys by the
+    device merge's plain version, and by the host merge when the free
+    memory is too small); so does the unpacked merge, which decodes the
+    keys (forced by a sequence count past the packed ids)."""
     fetched, batches = _key_entries()
     cfg = config_from_jax(_jcfg())
     mixed = [sortpipe.raw_entry(fetched[0]), fetched[1], sortpipe.raw_entry(fetched[2])]
-    for name, entries, n_seq in (("keys", fetched, 4), ("mixed", mixed, 4),
-                                 ("unpacked", fetched, 1 << 31)):
+    for name, entries, n_seq, free in (("keys", fetched, 4, None), ("host", fetched, 4, 1),
+                                       ("mixed", mixed, 4, None),
+                                       ("unpacked", fetched, 1 << 31, None)):
         out = str(tmp_path / f"{name}.dbg")
         sortpipe.merge_fetched(entries, batches, cfg, out, RunStats(), print, 0.0,
-                               n_slots=3 * 4 * 256, wide=False, n_sequences=n_seq)
+                               n_slots=3 * 4 * 256, wide=False, n_sequences=n_seq,
+                               dev=torch.device("cpu"), free=free)
         assert open(out, "rb").read() == jax_dbg, name
 
 
@@ -211,10 +214,11 @@ def test_merge_rejects_corrupt_key_entries():
         k[0] = (k[0] & ~np.uint64(0xFFFFFFFF)) | np.uint64(bad_id + (1 << 31))
         with pytest.raises(RuntimeError, match=msg):
             sortpipe.merge_rounds_packed([(table, OccKeys(k, 32), None)] + fetched[1:], batches,
-                                         cfg, None, RunStats(), print, 0.0)
+                                         cfg, None, RunStats(), print, 0.0,
+                                         dev=torch.device("cpu"), free=1)
     with pytest.raises(ValueError, match="id bits"):
         sortpipe.merge_rounds_packed(fetched, batches, cfg, None, RunStats(), print, 0.0,
-                                     pos_bits=40)
+                                     pos_bits=40, dev=torch.device("cpu"), free=1)
 
 
 @pytest.mark.parametrize("kind", ["stable", "quicksort"])

@@ -13,6 +13,7 @@ split gives the same bytes, so one JAX run is the reference for all.
 
 import numpy as np
 import pytest
+import torch
 
 from twopaco_tpu import dna as jdna
 from twopaco_tpu.cli.twopaco import main as jax_main
@@ -175,7 +176,7 @@ def test_merge_packed_matches_jax(tmp_path, fetched_rounds, jax_dbg, pos_bits):
     tout, jout = str(tmp_path / "t.dbg"), str(tmp_path / "j.dbg")
     sortpipe.merge_rounds_packed(
         fetched, batches, config_from_jax(jcfg), tout, RunStats(), print, 0.0,
-        pos_bits=pos_bits,
+        pos_bits=pos_bits, dev=torch.device("cpu"), free=None,
     )
     jsort.merge_rounds_packed(
         _jax_fetched(fetched), batches, jcfg.pass_config(filterless=True), jcfg,
@@ -214,10 +215,12 @@ def test_merge_rejects_corrupt_rounds(fetched_rounds):
         with pytest.raises(RuntimeError, match=msg):
             sortpipe.merge_rounds_packed(
                 [(t0, p0, ids)] + rest, batches, cfg, None, RunStats(), print, 0.0,
+                dev=torch.device("cpu"), free=None,
             )
     with pytest.raises(AssertionError, match="duplicate"):
         sortpipe.merge_rounds_packed(
             [(t0, p0, i0), (t0, p0, i0)], batches, cfg, None, RunStats(), print, 0.0,
+            dev=torch.device("cpu"), free=None,
         )
 
 

@@ -9,7 +9,8 @@ Matches the reference parser (streamfastaparser.cpp:29-93):
 
 Parsing is a handful of numpy passes over the whole buffer (LUT gather +
 boolean compaction); read_fasta takes the native encoder
-(twopaco_tpu_torch/native/fastaio.cpp) first.
+(twopaco_tpu_torch/native/fastaio.cpp) first. read_all_staged puts every
+record's codes in one buffer, the form the card's upload reads.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Iterable, Iterator
 import numpy as np
 
 from twopaco_tpu_torch import dna
+from twopaco_tpu_torch.hostmem import host_bytes
 
 
 class FastaError(RuntimeError):
@@ -72,6 +74,59 @@ def read_all_records(
         for header, codes in read_fasta(path):
             yield seq_id, header, codes
             seq_id += 1
+
+
+STAGE_ALIGN = 16  # a staged buffer's length is a multiple of this (upload.cu's loads)
+
+
+def _padded(n: int) -> int:
+    return -(-n // STAGE_ALIGN) * STAGE_ALIGN
+
+
+def stage_codes(codes):
+    """The codes arrays copied back to back into one host buffer
+    (hostmem.host_bytes), padded to STAGE_ALIGN
+    bytes: the form the card's upload reads (io/windows.py window_rows
+    gives the rows' spans in it)."""
+    buf = host_bytes(_padded(sum(len(c) for c in codes)))
+    out = buf.numpy()
+    ofs = 0
+    for c in codes:
+        out[ofs : ofs + len(c)] = c
+        ofs += len(c)
+    return buf
+
+
+def read_all_staged(paths: Iterable[str | os.PathLike]):
+    """read_all_records' sequences and stage_codes' buffer of their codes.
+    The native encoder writes the codes straight into the buffer (sized by
+    the files) and the sequences are views of it; the numpy parser's codes
+    are copied in.
+
+    -> ([(seq_id, codes)], the buffer)"""
+    from twopaco_tpu_torch.io import native
+
+    paths = [os.fspath(p) for p in paths]
+    if not native.available():
+        recs = [c for _sid, _h, c in read_all_records(paths)]
+        return list(enumerate(recs)), stage_codes(recs)
+    try:
+        size = sum(os.path.getsize(p) for p in paths)
+    except OSError as e:
+        raise FastaError(f"Can't open file {e.filename}") from None
+    buf = host_bytes(size + STAGE_ALIGN)
+    out = buf.numpy()
+    recs, used = [], 0
+    for path in paths:
+        try:
+            got = native.encode_fasta_native(path, out[used:])
+        except RuntimeError as e:
+            raise FastaError(str(e)) from None
+        if got is None:  # unloaded since available(): not expected
+            raise FastaError(f"native encoder unavailable: {native.status()}")
+        recs.extend(c for _h, c in got)
+        used += sum(len(c) for _h, c in got)
+    return list(enumerate(recs)), buf[: _padded(used)]
 
 
 # byte -> uppercased byte, 0 for whitespace (drop), 255 for invalid

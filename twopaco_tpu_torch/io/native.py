@@ -141,21 +141,27 @@ def emit_records(
     return scratch[:written]
 
 
-def encode_fasta_native(path) -> list[tuple[str, np.ndarray]] | None:
+def encode_fasta_native(path, out: np.ndarray | None = None
+                        ) -> list[tuple[str, np.ndarray]] | None:
     """Parse and encode one FASTA natively; None if unavailable.
 
     Returns [(header, codes uint8)] like the numpy parser, the codes views
-    of one buffer of the file's size. Raises RuntimeError on invalid
-    input (the reference's conditions) or a file that cannot be read."""
+    of one buffer: `out` (uint8, written from its start; the file's size
+    always suffices), else a new one of the file's size. Raises
+    RuntimeError on invalid input (the reference's conditions), a file
+    that cannot be read, or codes that do not fit `out`."""
     lib = LIBRARY.get()
     if lib is None:
         return None
     path = os.fspath(path)
     try:
-        cap = max(os.path.getsize(path), 1)
+        size = os.path.getsize(path)
     except OSError:
         raise RuntimeError(f"Can't open file {path}") from None
-    codes = big_empty(cap, np.uint8)
+    if out is not None and (out.dtype != np.uint8 or not out.flags.c_contiguous):
+        raise ValueError(f"encode_fasta_native: want a C-contiguous uint8 out, got {out.dtype}")
+    codes = big_empty(max(size, 1), np.uint8) if out is None else out
+    cap = codes.size
     res = _TpFastaResult()
     rc = lib.tp_encode_fasta_into(
         path.encode(),

@@ -34,7 +34,7 @@ SOURCES = (
     "records.cu", "sort.cu", "judge.cu", "partition.cu",
     "assemble.cu", "compact.cu", "histogram.cu", "bloom_fill.cu",
     "bloom_mark.cu", "bloom_extract.cu", "bloom_lookup.cu", "route.cu",
-    "occ_pack.cu", "bloom_shard.cu",
+    "occ_pack.cu", "bloom_shard.cu", "upload.cu", "merge.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -77,6 +77,9 @@ _SIGNATURES = {
         [_P] * 3 + [_SZ, _I, _I, _P, _I, _P, _SZ, _U32] + [_P] * 5, _I
     ),
     "tp_sort_occurrences": ([_P, _P, _SZ, _I, _LL] + [_P] * 3 + [_SZ, _P, _P], _I),
+    "tp_upload_rows": ([_P, _LL, _P, _LL, _I, _P, _P, _P], _I),
+    "tp_merge_inv": ([_P, _P, _SZ, _I, _P, _P, _P], _I),
+    "tp_merge_remap": ([_P, _SZ, _P, _I, _P, _LL, _I, _P, _P, _SZ, _P, _P], _I),
     "tp_bloom_fill": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I),
     "tp_bloom_mark": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 4, _I),
     "tp_bloom_run": ([_LL, _I], _I),

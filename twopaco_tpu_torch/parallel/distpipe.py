@@ -47,6 +47,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from twopaco_tpu_torch import hostmem
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
 from twopaco_tpu_torch.parallel.mesh import local_mesh, on_device
@@ -187,11 +188,14 @@ def build_junctions_dist(
 
     # every process reads the input (host work); a shard uploads its rows
     sequences, batches = sortpipe.read_batches(input_paths, sequences, config, stats)
-    uploads = {
-        s: sortpipe.upload_batches(batches, mesh.device(s), stats,
-                                   rows=slice(s * rows, (s + 1) * rows))
-        for s in mesh.shards
-    }
+    uploads = {}
+    # one page-lock of the staged codes serves every shard's copies
+    with hostmem.pinned([batches.codes], dev):
+        for s in mesh.shards:
+            with on_device(mesh.device(s)):
+                uploads[s] = sortpipe.upload_batches(batches, mesh.device(s), stats,
+                                                     rows=slice(s * rows, (s + 1) * rows),
+                                                     reference=reference)
     n_slots = len(batches) * B * P
     wide = sortpipe.wide_layout(config, n_slots)
     id_bits = sortpipe.key_id_bits(n_slots, len(sequences), wide)
@@ -290,10 +294,14 @@ def build_junctions_dist(
             fetched.extend(entries)
 
     del uploads
-    return sortpipe.merge_fetched(
-        fetched, batches, config, out_path if mesh.is_writer() else None, stats, log,
-        t_start, n_slots=n_slots, wide=wide, n_sequences=len(sequences),
-    )
+    # the merge runs on this process's first shard's device
+    mdev = mesh.device(mesh.shards[0])
+    with on_device(mdev):
+        return sortpipe.merge_fetched(
+            fetched, batches, config, out_path if mesh.is_writer() else None, stats, log,
+            t_start, n_slots=n_slots, wide=wide, n_sequences=len(sequences), dev=mdev,
+            free=sortpipe._free_bytes(mdev), reference=reference,
+        )
 
 
 def _fill_round(mesh, ops, scfg: ShardedConfig, uploads, n_batches: int, low: int,

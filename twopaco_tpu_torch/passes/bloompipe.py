@@ -3,8 +3,8 @@
 The port of twopaco_tpu/passes/pipeline.py:639-924, the reference
 TwoPaCo's own algorithm (vertexenumerator.h:122-466):
 
-  1. host: read, window batches and upload, as the sort engine does them
-     (sortpipe.load_batches);
+  1. read, window rows and upload, as the sort engine does them
+     (sortpipe.load_batches: the rows packed on the device);
   2. device, per round (a vertex-hash interval, the reference's -r):
      fill   a 2^f-slot Bloom filter with the canonical edges of every
             position in the round (passes/fill.py);
@@ -201,7 +201,8 @@ def build_junctions_bloom(
     stats.timings.update(dict.fromkeys(PHASES, 0.0))
     t_start = time.time()
 
-    sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats)
+    sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats,
+                                               reference=reference)
     bases = [b.row0 * P for b in batches]
     log(
         f"Engine = bloom ({dev.type})\nVertex length = {k}\n"

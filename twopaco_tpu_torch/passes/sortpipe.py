@@ -2,17 +2,20 @@
 
 The port of twopaco_tpu/passes/sortpipe.py:1008 build_junctions_sorted:
 
-  1. host: read FASTA, cut window batches, pack them 2 bits a char plus
-     an N mask, upload;
+  1. host: read FASTA into one staged buffer and cut the window rows
+     (io/windows.py window_rows: metadata and a row table); device: the
+     staged codes packed 2 bits a char plus an N mask (passes/upload.py);
   2. device, per round: the round's records (one per vertex position
      whose hash lies in the round's interval) in a sort buffer, sorted by
      k-mer words (passes/sort.py), judged and compacted into the round's
      junction table and (position, +-id) occurrences (passes/judge.py),
      the occurrences sorted by position as u64 merge keys (passes/occ.py)
      when the merge will take its packed path, fetched;
-  3. host: merge the rounds' tables into the sorted global dictionary,
-     remap the round-local ids, merge the rounds' occurrences by position,
-     and write the junction list with stubs.
+  3. merge the rounds' tables into the sorted global dictionary, remap
+     the round-local ids and merge the rounds' occurrences by position (one
+     round: nothing to do; N: on the device, passes/merge.py, or on the
+     host where its buffers do not fit), and write the junction list with
+     stubs (host).
 
 Rounds split the hash space (the reference's -r semantics), so a round
 holds about 1/R of the records. How a round's buffer is filled is the
@@ -37,6 +40,7 @@ wide merge layout of inputs of 2^32 or more slots.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -46,13 +50,14 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from twopaco_tpu_torch import dna
+from twopaco_tpu_torch import dna, hostmem
 from twopaco_tpu_torch.hostmem import big_empty
 from twopaco_tpu_torch.io import fasta as fasta_io
 from twopaco_tpu_torch.io import windows
-from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
-from twopaco_tpu_torch.passes import histogram, judge, occ, partition, records, sort, stream
+from twopaco_tpu_torch.passes import (
+    histogram, judge, merge, occ, partition, records, sort, stream, upload,
+)
 from twopaco_tpu_torch.passes.histogram import BIN_POW
 from twopaco_tpu_torch.passes.occ import OccKeys
 from twopaco_tpu_torch.passes.pipeline import (
@@ -308,55 +313,87 @@ def _complete_checkpoint_intervals(directory, config, n_slots, fingerprint):
 # ---- the run ---------------------------------------------------------
 
 
-def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: RunStats):
+def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: RunStats, *,
+                 reference: bool = False):
     """The host front of every engine: read the FASTA files (unless
-    `sequences` is given), cut the window batches, pack them 2 bits a char
-    plus an N mask (2.25 bits a char over the link) and upload them, with
-    the `read`, `windows` and `upload` times in stats.
+    `sequences` is given) into one staged buffer, cut the window rows and
+    pack and upload them on dev, with the `read`, `windows` and `upload`
+    times in stats. reference=True packs with the plain version.
 
     -> (sequences, batches, uploads = [(packed, nmask, valid)] on dev)"""
     sequences, batches = read_batches(input_paths, sequences, config, stats)
-    return sequences, batches, upload_batches(batches, dev, stats)
+    return sequences, batches, upload_batches(batches, dev, stats, reference=reference)
 
 
 def read_batches(input_paths, sequences, config: PipelineConfig, stats: RunStats):
-    """load_batches' host half: -> (sequences, window batches)."""
+    """load_batches' host half: every sequence's codes in one staged host
+    buffer (the native encoder writes straight into it, given sequences
+    are copied in) and the window rows' metadata and row table over it
+    (io/windows.py window_rows). -> (sequences, windows.WindowRows)"""
     t0 = time.time()
     if sequences is None:
-        sequences = [
-            (sid, codes)
-            for sid, _hdr, codes in fasta_io.read_all_records(input_paths)
-        ]
+        sequences, codes = fasta_io.read_all_staged(input_paths)
+    else:
+        codes = fasta_io.stage_codes([c for _sid, c in sequences])
     stats.timings["read"] = time.time() - t0
     t0 = time.time()
-    batches = list(windows.iter_window_batches(iter(sequences), config.window_config()))
-    stats.total_positions = sum(int(b.valid.sum()) for b in batches)
+    batches = windows.window_rows([len(c) for _sid, c in sequences], config.window_config(),
+                                  seq_ids=[sid for sid, _c in sequences])
+    batches.codes = codes
+    stats.total_positions = int(sum(int(b.valid.sum()) for b in batches))
     stats.timings["windows"] = time.time() - t0
     if not batches:
         raise ValueError(f"no input sequence has {config.k} or more chars")
     return sequences, batches
 
 
-def upload_batches(batches, dev, stats: RunStats, rows: slice = slice(None)):
-    """The batches' rows `rows`, packed and uploaded to dev (the `upload`
-    time is added to stats). -> [(packed, nmask, valid)]"""
+def upload_batches(batches, dev, stats: RunStats, rows: slice = slice(None), *,
+                   reference: bool = False, stage_bytes: int | None = None):
+    """The batches' rows `rows` (of each batch), packed on dev from the
+    run's staged codes (passes/upload.py; reference=True: the plain
+    version), the `upload` time added to stats.
+
+    The codes go up in chunks of consecutive batches (upload.plan_chunks):
+    a chunk's rows read one span of the staged codes, which is copied
+    (page-locked for the copy) and packed with one launch, so at most
+    stage_bytes of staged codes and row table are on dev at once (None:
+    the free memory less the packed form; no limit on the CPU). A run
+    that fits takes one chunk. -> [(packed, nmask, valid)], a batch's
+    tensors row slices of three."""
     t0 = time.time()
-    packed_np = [pack.pack_codes_host(b.codes[rows]) for b in batches]
-    upload = sum(p.nbytes + m.nbytes for p, m in packed_np)
+    B = len(batches[0].seq_id)
+    sel = np.arange(B)[rows]
+    r = len(sel)
+    idx = (np.arange(len(batches))[:, None] * B + sel).reshape(-1)
+    table = batches.table[idx]
+    valid = np.concatenate([b.valid for b in batches])[idx]
+    codes, R = batches.codes, batches.row_chars
+    RW, NW = upload.row_words(R)
+    out_bytes = len(idx) * (4 * (RW + NW) + 4)
     free = _free_bytes(dev)
-    if free is not None and upload > free:
+    budget = stage_bytes
+    if budget is None and free is not None:
+        budget = free - out_bytes
+    chunks, least = upload.plan_chunks(table, R, r, codes.numel(), budget)
+    if free is not None and out_bytes + least > free:
         raise RuntimeError(
-            f"the input's upload needs {_gib(upload)} of device memory, "
+            f"the input's upload needs {_gib(out_bytes + least)} of device memory, "
             f"{_gib(free)} is free"
         )
-    uploads = [
-        (
-            torch.from_numpy(p).to(dev),
-            torch.from_numpy(m).to(dev),
-            torch.from_numpy(np.ascontiguousarray(b.valid[rows])).to(dev),
-        )
-        for (p, m), b in zip(packed_np, batches)
-    ]
+    packed = torch.empty((len(idx), RW), dtype=torch.uint32, device=dev)
+    nmask = torch.empty((len(idx), NW), dtype=torch.uint32, device=dev)
+    valid_d = torch.from_numpy(valid).to(dev)
+    pack_fn = upload.pack_rows_plain if reference else upload.pack_rows
+    for b0, b1, lo, hi in chunks:
+        table_d = torch.from_numpy(table[b0 * r : b1 * r] - lo).to(dev)
+        span = codes[lo:hi]
+        with hostmem.pinned([span], dev):  # waits for the launch on leaving
+            codes_d = span.to(dev, non_blocking=True)
+            pack_fn(codes_d, table_d, R=R,
+                    out=(packed[b0 * r : b1 * r], nmask[b0 * r : b1 * r]))
+            del codes_d, table_d
+    uploads = [(packed[b * r : (b + 1) * r], nmask[b * r : (b + 1) * r],
+                valid_d[b * r : (b + 1) * r]) for b in range(len(batches))]
     _sync(dev)
     stats.timings["upload"] = stats.timings.get("upload", 0.0) + time.time() - t0
     return uploads
@@ -390,7 +427,8 @@ def build_junctions_sorted(
     stats.timings.update(dict.fromkeys(PHASES, 0.0))
     t_start = time.time()
 
-    sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats)
+    sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats,
+                                               reference=reference)
     bp = B * P
     nb = len(batches)
     n_slots = nb * bp
@@ -604,10 +642,11 @@ def build_junctions_sorted(
         )
         ckpt.save_round(r, entry, stats.rounds[-1])
 
-    blocks = uploads = None  # release the device state before the host tail
+    blocks = uploads = None  # release the device state before the merge
     return merge_fetched(
         fetched, batches, config, out_path, stats, log, t_start,
-        n_slots=n_slots, wide=wide, n_sequences=len(sequences),
+        n_slots=n_slots, wide=wide, n_sequences=len(sequences), dev=dev,
+        free=_free_bytes(dev), reference=reference,
     )
 
 
@@ -654,20 +693,35 @@ def finish_occurrences(ops, occ_pos, occ_id, id_bits: int | None, n_slots: int):
     return ops.occ(occ_pos, occ_id, id_bits=id_bits, pos_limit=n_slots)
 
 
+def _host_copies(tensors):
+    """CPU copies of tensors of one device: on a card, async copies into
+    buffers page-locked for the copies (hostmem.pinned) and one sync; CPU
+    tensors as they are."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return list(tensors)
+    out = [hostmem.host_empty(t.shape, t.dtype) for t in tensors]
+    with hostmem.pinned(out, dev):
+        for o, t in zip(out, tensors):
+            o.copy_(t, non_blocking=True)
+    return out
+
+
 def fetch_entry(table_d, occ_d, id_bits: int | None):
     """The merge entry of a judged round (D2H): (table, occ_pos, occ_ids)
-    raw, or (table, OccKeys, None) for sorted keys; raises when the
-    occurrence sort flagged a position or id that does not fit its key."""
+    raw, or (table, OccKeys, None) for sorted keys (by _host_copies);
+    raises when the occurrence sort flagged a position or id that does not
+    fit its key."""
     a, b = occ_d
-    table = table_d.cpu().numpy()
     if id_bits is None:
-        return table, a.cpu().numpy(), b.cpu().numpy()
-    if int(b):
+        return table_d.cpu().numpy(), a.cpu().numpy(), b.cpu().numpy()
+    table, keys, bad = _host_copies([table_d, a, b])
+    if int(bad):
         raise RuntimeError(
-            f"{int(b)} occurrences with a position or id outside the merge key "
+            f"{int(bad)} occurrences with a position or id outside the merge key "
             "(corrupt round)"
         )
-    return table, OccKeys(a.cpu().numpy().view(np.uint64), id_bits), None
+    return table.numpy(), OccKeys(keys.numpy().view(np.uint64), id_bits), None
 
 
 def raw_entry(entry):
@@ -680,7 +734,8 @@ def raw_entry(entry):
 
 def merge_fetched(
     fetched, batches, config, out_path, stats, log, t_start,
-    *, n_slots: int, wide: bool, n_sequences: int,
+    *, n_slots: int, wide: bool, n_sequences: int, dev, free: int | None,
+    reference: bool = False,
 ) -> Enumerator:
     """Merge the rounds and write the junction list (twopaco_tpu
     sortpipe.py:1467). fetched = one entry a round (or a shard's block of
@@ -688,7 +743,8 @@ def merge_fetched(
     row of table)) raw, or (table, OccKeys, None) with the occurrences as
     position-sorted u64 keys (passes/occ.py); the entries' k-mer sets are
     disjoint. Picks the packed u64 merge when every id and position fits
-    one key, else the unpacked int64 merge.
+    one key, else the unpacked int64 merge. dev, free, reference: where
+    the packed merge of keyed entries may run (merge_rounds_packed).
 
     u64 keys: position in the high pos_bits, biased signed id below.
     Inputs under 2^32 slots split 32/32 (u32 views: fast paths); wide
@@ -698,7 +754,7 @@ def merge_fetched(
     if _packed_merge(total_j, n_sequences, 64 - pos_bits):
         return merge_rounds_packed(
             fetched, batches, config, out_path, stats, log, t_start,
-            pos_bits=pos_bits,
+            pos_bits=pos_bits, dev=dev, free=free, reference=reference,
         )
     raw = [raw_entry(e) for e in fetched]
     return merge_rounds_and_emit(
@@ -720,22 +776,50 @@ def _merge_keys(cat: np.ndarray, w: int) -> np.ndarray:
 
 
 def merge_rounds_packed(
-    fetched, batches, config, out_path, stats, log, t_start, pos_bits: int = 32,
+    fetched, batches, config, out_path, stats, log, t_start, pos_bits: int = 32, *,
+    dev, free: int | None, reference: bool = False,
 ) -> Enumerator:
     """Merge into ONE u64 key buffer (pos << id_bits | id + 2^(id_bits-1),
-    id_bits = 64 - pos_bits), sorted in place (twopaco_tpu
-    sortpipe.py:1539). The global table is the rounds' tables sorted; the
-    keys are unique (rounds partition the k-mer space), so the inverse of
-    that sort remaps each round's local ids with no search. Raises on
-    duplicate keys across rounds, on an id past its round's table, on id
-    0, and on a position past pos_bits."""
+    id_bits = 64 - pos_bits), sorted, and the global table: the entries'
+    tables sorted (twopaco_tpu sortpipe.py:1539). Raises on duplicate keys
+    across entries, on an id past its entry's table, on id 0, and on a
+    position past pos_bits.
+
+    Entries of sorted keys (OccKeys, every one): one is already merged
+    (its table is the global table, its ids global, its keys sorted: they
+    are only checked); N merge on dev (passes/merge.py; reference=True: the
+    plain versions) when its buffers fit `free` device bytes (None: no
+    limit). Otherwise (no dev, too little memory: a log line says so; or a
+    raw entry among them) the host merge: the keys are unique (entries
+    partition the k-mer space), so the inverse of the tables' sort remaps
+    each entry's local ids with no search, and the buffer is sorted in
+    place."""
     id_bits = 64 - pos_bits
     t0 = time.time()
-    table, inv = merge_tables(fetched, config.w)
-    buf = packed_occurrences(fetched, inv, pos_bits)
-    # sorted-key entries arrive as sorted runs: timsort ("stable") merges
-    # them, 5-10x faster than the default quicksort here (PERF.md)
-    buf.sort(kind="stable")
+    keyed = bool(fetched) and all(isinstance(e[1], OccKeys) for e in fetched)
+    for _t, keys, _none in fetched:
+        if isinstance(keys, OccKeys) and keys.id_bits != id_bits:
+            raise ValueError(f"keys of {keys.id_bits} id bits in a {id_bits}-bit merge")
+    on_dev = keyed and len(fetched) > 1
+    if on_dev and free is not None:
+        need = merge.device_bytes(sum(len(e[0]) for e in fetched), config.w,
+                                  sum(len(e[1]) for e in fetched), id_bits)
+        if need > free:
+            log(f"Merge on the host: the device merge needs {_gib(need)}, {_gib(free)} "
+                "is free")
+            on_dev = False
+    if keyed and len(fetched) == 1:
+        table, keys, _none = fetched[0]
+        buf = keys.keys
+        _check_key_ids(buf, id_bits, len(table))
+    elif on_dev:
+        table, buf = merge_on_device(fetched, config, id_bits, dev, reference)
+    else:
+        table, inv = merge_tables(fetched, config.w)
+        buf = packed_occurrences(fetched, inv, pos_bits)
+        # sorted-key entries arrive as sorted runs: timsort ("stable")
+        # merges them, 5-10x faster than the default quicksort here
+        buf.sort(kind="stable")
     stats.timings["merge"] = time.time() - t0
 
     stats.distinct_junctions = len(table)
@@ -753,6 +837,60 @@ def merge_rounds_packed(
     stats.timings["total"] = time.time() - t_start
     log(f"Distinct junctions = {enum.vertices_count}")
     return enum
+
+
+def _check_key_ids(keys: np.ndarray, id_bits: int, n_table: int) -> None:
+    """Raise as packed_occurrences does on a key whose id is 0 or passes
+    the table (keys: u64, biased ids in the low id_bits)."""
+    if not len(keys):
+        return
+    if id_bits == 32:  # little-endian: u32 [0] is the biased id; ^ 2^31 unbiases it
+        mag = np.abs(keys.view(np.int32)[0::2] ^ np.int32(-(1 << 31)))
+    else:
+        low = (keys & np.uint64((1 << id_bits) - 1)).view(np.int64)
+        mag = np.abs(low - (np.int64(1) << (id_bits - 1)))
+    lo, hi = int(mag.min()), int(mag.max())
+    if hi > n_table or lo < 0:  # lo < 0: the int32 |-2^31|
+        raise RuntimeError(f"occurrence id out of range: an |id| past table size {n_table}")
+    if lo == 0:
+        raise RuntimeError("occurrence id 0 (corrupt round)")
+
+
+def merge_on_device(fetched, config, id_bits: int, dev, reference: bool):
+    """The merge of N keyed entries on dev (passes/merge.py): the tables
+    and the key runs up in one copy each (async, the entries page-locked
+    for it), the merge, the global table and keys back in one sync.
+    -> (table, keys u64), raising as the host merge does."""
+    tables = [t for t, _k, _n in fetched]
+    keys = [k.keys for _t, k, _n in fetched]
+    rows = np.cumsum([0] + [len(t) for t in tables])
+    kofs = np.cumsum([0] + [len(k) for k in keys])
+    ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+    with ctx:
+        table_d = torch.empty((int(rows[-1]), config.w), dtype=torch.uint32, device=dev)
+        keys_d = torch.empty(int(kofs[-1]), dtype=torch.int64, device=dev)
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in tables + keys]
+        with hostmem.pinned(host, dev):
+            for i in range(len(tables)):
+                table_d[rows[i] : rows[i + 1]].copy_(host[i], non_blocking=True)
+                keys_d[kofs[i] : kofs[i + 1]].copy_(host[len(tables) + i].view(torch.int64),
+                                                    non_blocking=True)
+        entries = torch.from_numpy(np.stack([kofs, rows]).astype(np.int64)).to(dev)
+        fn = merge.merge_packed_plain if reference else merge.merge_packed
+        gtab, gkeys, faults = fn(table_d, keys_d, entries, key_bits=2 * config.k,
+                                 id_bits=id_bits)
+        table, buf, faults = _host_copies([gtab, gkeys, faults])
+    dup, id0, past = (int(x) for x in faults)
+    if dup:
+        raise AssertionError(
+            "duplicate junction keys across rounds — hash intervals "
+            "must partition the k-mer space"
+        )
+    if past:
+        raise RuntimeError(f"occurrence id out of range: {past} ids past their entry's table")
+    if id0:
+        raise RuntimeError("occurrence id 0 (corrupt round)")
+    return table.numpy(), buf.numpy().view(np.uint64)
 
 
 def merge_tables(fetched, w: int):
