@@ -90,12 +90,13 @@
    shards of the card at -r 1 and -r 4, the CLI's `--tpu-engine dist`
    (one shard), build_junctions_multihost in a child process under a
    one-rank NCCL group, and the 4-shard run through the plain versions;
-   then (merge) holds merge.cu's two entries (merge_inv, merge_remap)
-   against their plain versions on the -r 4 resident run's and the
-   4-shard run's keyed entries, timed against their bounds (merge_remap
-   also against one torch.sort of its keys), and the device merge as the
-   path runs it against the plain versions on the card and the host
-   merge (equal tables and keys, host seconds in turns);
+   then (merge) holds merge.cu's two entries (merge_rows, merge_keys)
+   against their plain versions on the keyed entries of the -r 4 resident
+   run (4), the 4-shard run (4) and the 4-shard -r 4 run (16), timed
+   against their bounds (merge_keys also against one torch.sort of its
+   keys), and the device merge as the path runs it against the plain
+   versions on the card and the host merge (equal tables and keys, host
+   seconds in turns);
 11. holds the dist-bloom engine's four kernels (bloom_shard.cu: bucket,
    fill, probe, mark finish) against their plain versions at one slice
    batch's shard, the sharded filter filled with the whole slice: byte
@@ -225,10 +226,10 @@ REPLACES = {
                           "twopaco_tpu/parallel/sharded.py:155"),
     "upload_rows": ("twopaco_tpu_torch/kernels/csrc/upload.cu",
                     "twopaco_tpu/passes/sortpipe.py:1048"),
-    "merge_inv": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
-                  "twopaco_tpu/passes/sortpipe.py:1539"),
-    "merge_remap": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
-                    "twopaco_tpu/passes/sortpipe.py:1539"),
+    "merge_rows": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
+                   "twopaco_tpu/passes/sortpipe.py:1539"),
+    "merge_keys": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
+                   "twopaco_tpu/passes/sortpipe.py:1539"),
 }
 # the run whose launch counts each kernel reports: its own path
 PATH_OF = {
@@ -240,7 +241,7 @@ PATH_OF = {
     "sort_occurrences": "dist_r1", "shard_bucket_fill": "dist_bloom_r1",
     "shard_bucket_mark": "dist_bloom_r1", "shard_fill": "dist_bloom_r1",
     "shard_probe": "dist_bloom_r1", "shard_mark_finish": "dist_bloom_r1",
-    "upload_rows": "r1", "merge_inv": "resident", "merge_remap": "resident",
+    "upload_rows": "r1", "merge_rows": "resident", "merge_keys": "resident",
 }
 D4 = 4  # shards of the card in the distributed runs
 FILL_CHUNK = 4096  # received slots a block of bloom_shard.cu's fill
@@ -249,7 +250,7 @@ PROBE_CHUNK = 4096  # ... and of its probe
 DIST_PATH = ("upload_rows", "word0_histogram", "build_records", "route", "compact",
              "sort_records", "judge_compact", "sort_occurrences")
 # ... and the merge of more than one entry (every LocalMesh run of D4 shards)
-MERGE_PATH = ("merge_inv", "merge_remap")
+MERGE_PATH = ("merge_rows", "merge_keys")
 DIST_BLOOM_PATH = (*DIST_PATH, "shard_bucket_fill", "shard_bucket_mark", "shard_fill",
                    "shard_probe", "shard_mark_finish")
 MH_CHILD = r"""
@@ -762,19 +763,19 @@ def capture_merge(store: dict):
 
 def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
     """merge.cu's two entries against their plain versions on a run's
-    keyed entries (timed against their bounds; merge_remap against one
-    torch.sort of the keys), then the device merge as the path runs it
-    (sortpipe.merge_on_device: H2D, sort.cu, merge.cu, D2H) against the
-    plain versions on the card and the host merge, host seconds, exact."""
+    keyed entries (timed against their bounds; merge_keys against one
+    torch.sort of its keys), then the device merge as the path runs it
+    (sortpipe.merge_on_device: H2D, merge.cu, D2H) against the plain
+    versions on the card and the host merge, host seconds, exact."""
     import numpy as np
     import torch
 
     from twopaco_tpu_torch.ops import pack
-    from twopaco_tpu_torch.passes import merge, occ, sort, sortpipe
+    from twopaco_tpu_torch.passes import merge, occ, sortpipe
 
     require(len(fetched) > 1 and all(isinstance(e[1], occ.OccKeys) for e in fetched),
             f"merge {tag}: not keyed entries")
-    k, w, id_bits = cfg.k, cfg.w, fetched[0][1].id_bits
+    w, id_bits = cfg.w, fetched[0][1].id_bits
     tables = [t for t, _k, _n in fetched]
     keys = [kk.keys for _t, kk, _n in fetched]
     ofs = np.cumsum([[0] + [len(x) for x in keys], [0] + [len(t) for t in tables]], axis=1)
@@ -782,37 +783,30 @@ def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
     keys_d = torch.from_numpy(np.concatenate(keys).view(np.int64)).to(dev)
     ent_d = torch.from_numpy(ofs).to(dev)
     T, n = tab_d.shape[0], keys_d.numel()
-    srt, _pay, order = sort.sort_records(
-        tab_d, torch.zeros(T, dtype=torch.int32, device=dev).view(torch.uint32),
-        torch.arange(T, device=dev), key_bits=2 * k)
-    compare("merge_inv", lambda: merge.merge_inv(srt, order),
-            lambda: merge.merge_inv_plain(srt, order), 10, results, in_bytes=nbytes(srt, order))
-    inv, dup = merge.merge_inv(srt, order)
+    # the tables read once, the global table, inv and dup written once
+    compare("merge_rows", lambda: merge.merge_rows(tab_d, ent_d[1]),
+            lambda: merge.merge_rows_plain(tab_d, ent_d[1]), 10, results,
+            in_bytes=nbytes(tab_d, ent_d[1]))
+    _gt, inv, dup = merge.merge_rows(tab_d, ent_d[1])
     require(int(dup) == 0, f"merge {tag}: {int(dup)} duplicate k-mers")
-    # in place: every call on a fresh copy of the keys (the copy untimed);
-    # the bound reads each key and each distinct 32-byte sector of inv the
-    # ids reach once, and writes each key once
+    # each key read and written once, and each distinct 32-byte sector of
+    # inv that the ids reach, once
     rows = ent_d[1][torch.searchsorted(ent_d[0][1:], torch.arange(n, device=dev), right=True)]
     ids = (keys_d & ((1 << id_bits) - 1)) - (1 << (id_bits - 1))
     n_sect = int(torch.unique((rows + ids.abs() - 1) * 4 // SECTOR).numel())
     del rows, ids
-    kk, kp = keys_d.clone(), keys_d.clone()
-    remapped = merge.merge_remap(keys_d.clone(), ent_d, inv, id_bits=id_bits)[0]
-    compare("merge_remap", lambda: merge.merge_remap(kk, ent_d, inv, id_bits=id_bits),
-            lambda: merge.merge_remap_plain(kp, ent_d, inv, id_bits=id_bits), 5, results,
+    compare("merge_keys", lambda: merge.merge_keys(keys_d, ent_d, inv, id_bits=id_bits),
+            lambda: merge.merge_keys_plain(keys_d, ent_d, inv, id_bits=id_bits), 10, results,
             in_bytes=8 * n + SECTOR * n_sect + nbytes(ent_d), out_bytes=8 * n + 16,
-            library=lambda: torch.sort(remapped),
-            prepare=(lambda: kk.copy_(keys_d), lambda: kp.copy_(keys_d)))
-    print(f"merge {tag}: {len(fetched)} entries, {T} junctions, {n} keys; merge_inv and "
-          f"merge_remap exact ({n_sect} inv sectors)")
-    # the library yardstick of the whole: torch.sort of the table's keys
-    # and of the remapped keys
-    if w == 2:
+            library=lambda: torch.sort(keys_d))
+    print(f"merge {tag}: {len(fetched)} entries, {T} junctions, {n} keys; merge_rows and "
+          f"merge_keys exact ({n_sect} inv sectors)")
+    if w == 2:  # the table's yardstick: torch.sort of its rows as one key
         tkey = ((pack.as_i64(tab_d[:, 0]) - (1 << 31)) << 32) | pack.as_i64(tab_d[:, 1])
-        lib_ms = timed(lambda: (torch.sort(tkey), torch.sort(remapped)), 5)
-        print(f"merge {tag}: library (torch.sort of the table keys and of the keys) "
-              f"{lib_ms:.3f} ms")
-    del tab_d, keys_d, ent_d, srt, order, inv, kk, kp, remapped
+        print(f"merge {tag}: library torch.sort of the table's keys "
+              f"{timed(lambda: torch.sort(tkey), 10):.4f} ms")
+        del tkey
+    del tab_d, keys_d, ent_d, inv, _gt
     times = {"device": [], "plain on the card": [], "host": []}
     outs = {}
     for how in ("host", "device", "plain on the card", "device", "host"):
@@ -1832,14 +1826,14 @@ def main() -> int:
     require(len(fetched4) == D4, f"dist_r1: {len(fetched4)} merge entries, not {D4}")
     # the measurement pass: one histogram launch a shard over its batches
     require(launches["dist_r1"]["word0_histogram"] == D4, "dist_r1: not one word0 launch a shard")
-    _fetched, lines = dist_run("dist_r4", ROUNDS)
+    fetched44, lines = dist_run("dist_r4", ROUNDS)
     for name in (*DIST_PATH, "histogram"):
         require(launches["dist_r4"].get(name, 0) > 0, f"dist_r4: no launch of {name}")
     require(launches["dist_r4"]["word0_histogram"] == launches["dist_r4"]["histogram"] == D4,
             "dist_r4: not one launch of each histogram a shard")
     require(sum(line.startswith("Round ") and "seconds" in line for line in lines) == ROUNDS,
             f"dist_r4: not {ROUNDS} rounds")
-    del _fetched
+    require(len(fetched44) == D4 * ROUNDS, f"dist_r4: {len(fetched44)} merge entries")
     out_c = os.path.join(WORK, "slice_dist_cli.dbg")
     slice_run("dist_cli", ["--tpu-engine", "dist", "-k", str(k), "-f", "30", fa, "-o", out_c],
               phases=distpipe.PHASES)
@@ -1882,7 +1876,8 @@ def main() -> int:
     phase("merge")
     merge_checks(f"sort -r {ROUNDS} resident", sort_r4["fetched"], cfg, dev, results, label)
     merge_checks(f"dist D={D4} -r 1", fetched4, cfg, dev, results, label)
-    del sort_r4
+    merge_checks(f"dist D={D4} -r {ROUNDS}", fetched44, cfg, dev, results, label)
+    del sort_r4, fetched44
 
     del fetched4
 

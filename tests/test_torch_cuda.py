@@ -1165,8 +1165,8 @@ def test_dist_engine_cuda_equals_plain(dev, tmp_path, rounds):
             assert counts == {}
         else:
             want = {"upload_rows", "word0_histogram", "build_records", "route", "compact",
-                    "sort_records", "judge_compact", "sort_occurrences", "merge_inv",
-                    "merge_remap"} | ({"histogram"} if rounds > 1 else set())
+                    "sort_records", "judge_compact", "sort_occurrences", "merge_rows",
+                    "merge_keys"} | ({"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
@@ -1652,8 +1652,8 @@ def test_dist_bloom_engine_cuda_equals_plain(dev, tmp_path, rounds, layout):
         else:
             want = {"upload_rows", "word0_histogram", "shard_bucket_fill", "shard_bucket_mark",
                     "shard_fill", "shard_probe", "shard_mark_finish", "build_records", "route",
-                    "compact", "sort_records", "judge_compact", "sort_occurrences", "merge_inv",
-                    "merge_remap"} | ({"histogram"} if rounds > 1 else set())
+                    "compact", "sort_records", "judge_compact", "sort_occurrences", "merge_rows",
+                    "merge_keys"} | ({"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
@@ -2034,15 +2034,19 @@ def test_serve_request_leaves_no_page_locked_memory(dev, tmp_path):
     assert held() == after
 
 
-def _merge_inputs(rng, n_entries, k, id_bits, rows=3000, occ=20000, n_slots=1 << 20):
+def _merge_inputs(rng, n_entries, k, id_bits, rows=3000, occ=20000, n_slots=1 << 20,
+                  ranges=False):
     """(table (T, w) uint32, keys (n,) int64, entries (2, N+1) int64) numpy:
     N keyed entries of disjoint sorted random k-mer tables and position-
-    sorted keys, concatenated."""
+    sorted keys, concatenated; ranges: each entry a contiguous range of the
+    k-mers (the dist shards' entries)."""
     w = -(-k // 16)
     words = rng.integers(0, 1 << 32, size=(rows, w), dtype=np.uint64).astype(np.uint32)
     words[:, -1] &= np.uint32(pack.last_word_mask(k))
     words = np.unique(words, axis=0)
     owner = rng.integers(0, n_entries, size=len(words))
+    if ranges:
+        owner = np.sort(owner)
     pos = rng.choice(n_slots, size=occ, replace=False)
     pos_owner = rng.integers(0, n_entries, size=occ)
     tables, keys = [], []
@@ -2056,35 +2060,63 @@ def _merge_inputs(rng, n_entries, k, id_bits, rows=3000, occ=20000, n_slots=1 <<
     return np.concatenate(tables), np.concatenate(keys).astype(np.int64), entries
 
 
-@pytest.mark.parametrize("n_entries,k,id_bits", [(1, 25, 32), (2, 25, 32), (5, 11, 32),
-                                                 (4, 101, 24), (3, 33, 30)])
-def test_merge_kernels(dev, n_entries, k, id_bits):
-    """merge.cu's two entries and the merge as a whole against their plain
-    versions, exact."""
-    rng = np.random.default_rng(n_entries * k)
-    table, keys, entries = _merge_inputs(rng, n_entries, k, id_bits)
+def _check_merge(dev, table, keys, entries, id_bits, tile=None, fan=merge.FAN_IN):
+    """merge_rows and merge_keys (one launch count each) against their plain
+    versions, exact; the input keys left as they were; -> the faults."""
     tab_d, keys_d, ent_d = _to(dev, table, keys, entries)
-    srt, _pay, order = sort.sort_records(
-        tab_d, torch.zeros(len(table), dtype=torch.int32, device=dev).view(torch.uint32),
-        torch.arange(len(table), device=dev), key_bits=2 * k)
     build.reset_launch_counts()
-    inv, dup = merge.merge_inv(srt, order)
-    assert build.launch_counts() == {"merge_inv": 1}
-    want_inv, want_dup = merge.merge_inv_plain(srt, order)
-    assert _equal(inv, want_inv) and int(dup) == int(want_dup) == 0
+    got = merge.merge_rows(tab_d, ent_d[1], tile=tile, fan=fan)
+    assert build.launch_counts() == ({"merge_rows": 1} if len(table) else {})
+    want = merge.merge_rows_plain(tab_d, ent_d[1])
+    for a, b in zip(got, want):
+        assert _equal(a, b)
     build.reset_launch_counts()
-    got = merge.merge_remap(keys_d.clone(), ent_d, inv, id_bits=id_bits)
-    assert build.launch_counts() == {"merge_remap": 1}
-    want = merge.merge_remap_plain(keys_d.clone(), ent_d, inv, id_bits=id_bits)
-    assert _equal(got[0], want[0]) and got[1].tolist() == want[1].tolist() == [0, 0]
+    got_k = merge.merge_keys(keys_d, ent_d, got[1], id_bits=id_bits, tile=tile, fan=fan)
+    assert build.launch_counts() == ({"merge_keys": 1} if len(keys) else {})
+    want_k = merge.merge_keys_plain(keys_d, ent_d, want[1], id_bits=id_bits)
+    assert _equal(got_k[0], want_k[0]) and got_k[1].tolist() == want_k[1].tolist()
+    assert np.array_equal(keys_d.cpu().numpy(), keys)
+    return [int(got[2])] + got_k[1].tolist()
+
+
+@pytest.mark.parametrize("tile", [None, 1, 5, 64])
+@pytest.mark.parametrize("n_entries,k,id_bits,ranges", [
+    (1, 25, 32, False), (2, 25, 32, False), (5, 11, 32, False), (4, 101, 24, False),
+    (3, 33, 30, False), (16, 25, 32, False), (16, 25, 32, True), (40, 25, 32, False),
+    (40, 11, 40, True),
+])
+def test_merge_kernels(dev, n_entries, k, id_bits, ranges, tile):
+    """merge.cu's two entries against their plain versions, exact, at the
+    default tiles and at tiles forced small (splits on run ends), on random
+    and range-partitioned entries (past FAN_IN entries: rounds; fan 2:
+    more rounds, FAN_MAX: one); the merge as a whole launches the two and
+    no sort."""
+    rng = np.random.default_rng(n_entries * k + id_bits)
+    table, keys, entries = _merge_inputs(rng, n_entries, k, id_bits, ranges=ranges)
+    assert _check_merge(dev, table, keys, entries, id_bits, tile=tile) == [0, 0, 0]
+    if tile is None and n_entries > 2:
+        for fan in (2, merge.FAN_MAX):
+            assert _check_merge(dev, table, keys, entries, id_bits, fan=fan) == [0, 0, 0]
+    tab_d, keys_d, ent_d = _to(dev, table, keys, entries)
     build.reset_launch_counts()
-    got = merge.merge_packed(tab_d, keys_d.clone(), ent_d, key_bits=2 * k, id_bits=id_bits)
-    assert build.launch_counts() == {"sort_records": 1, "merge_inv": 1, "merge_remap": 1}
-    want = merge.merge_packed_plain(tab_d, keys_d.clone(), ent_d, key_bits=2 * k,
-                                    id_bits=id_bits)
+    got = merge.merge_packed(tab_d, keys_d, ent_d, key_bits=2 * k, id_bits=id_bits)
+    assert build.launch_counts() == {"merge_rows": 1, "merge_keys": 1}
+    want = merge.merge_packed_plain(tab_d, keys_d, ent_d, key_bits=2 * k, id_bits=id_bits)
     for a, b in zip(got, want):
         assert _equal(a, b)
     assert got[2].tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("n_entries,ranges", [(4, False), (16, False), (16, True)])
+def test_merge_kernels_large(dev, n_entries, ranges):
+    """The same at the default tiles on a million keys and 200,000 rows
+    (many waves of tile blocks), exact; empty inputs launch nothing."""
+    rng = np.random.default_rng(n_entries)
+    table, keys, entries = _merge_inputs(rng, n_entries, 25, 32, rows=200_000, occ=1_000_000,
+                                         n_slots=1 << 26, ranges=ranges)
+    assert _check_merge(dev, table, keys, entries, 32) == [0, 0, 0]
+    empty = np.zeros((0, 2), np.uint32), np.zeros(0, np.int64), np.zeros((2, 3), np.int64)
+    assert _check_merge(dev, *empty, 32) == [0, 0, 0]
 
 
 def test_merge_kernels_flag_faults(dev):
@@ -2092,20 +2124,27 @@ def test_merge_kernels_flag_faults(dev):
     counted as the plain versions count them."""
     rng = np.random.default_rng(9)
     table, keys, entries = _merge_inputs(rng, 3, 25, 32)
-    table[entries[1, 1]] = table[entries[1, 1] - 1]  # entry 1's first row = entry 0's last
+    # entry 1's first row also in entry 0, in its place there (the runs
+    # stay sorted): one duplicate
+    x = table[entries[1, 1]]
+    e0 = table[: entries[1, 1]].astype(np.uint64)
+    r = int(np.searchsorted(e0[:, 0] << np.uint64(32) | e0[:, 1],
+                            np.uint64(x[0]) << np.uint64(32) | np.uint64(x[1]), side="right"))
+    table[r] = x
     keys[[5, 17, 400]] = (keys[[5, 17, 400]] & ~0xFFFFFFFF) | (1 << 31)  # id 0
     keys[[9, 1000]] = (keys[[9, 1000]] & ~0xFFFFFFFF) | ((1 << 31) + len(table) + 3)  # past
+    assert _check_merge(dev, table, keys, entries, 32) == [1, 3, 2]
     args = _to(dev, table, keys, entries)
-    got = merge.merge_packed(args[0], args[1].clone(), args[2], key_bits=50, id_bits=32)
-    want = merge.merge_packed_plain(args[0], args[1].clone(), args[2], key_bits=50, id_bits=32)
+    got = merge.merge_packed(*args, key_bits=50, id_bits=32)
+    want = merge.merge_packed_plain(*args, key_bits=50, id_bits=32)
     assert got[2].tolist() == want[2].tolist() == [1, 3, 2]
     for a, b in zip(got, want):
         assert _equal(a, b)
 
 
 def test_merge_path_on_the_card(dev, tmp_path):
-    """-r 3 on the card merges its three keyed rounds with merge.cu, -r 1
-    with neither entry; a free-memory figure below the merge's buffers
+    """-r 3 on the card merges its three keyed rounds with merge.cu's two
+    entries, -r 1 with neither; a free-memory figure below the merge's buffers
     takes the host merge: every .dbg the same."""
     sequences = _dist_inputs()
     outs = []
@@ -2115,7 +2154,7 @@ def test_merge_path_on_the_card(dev, tmp_path):
         build.reset_launch_counts()
         build_junctions_sorted(None, cfg, out, sequences=sequences, device="cuda")
         counts = build.launch_counts()
-        assert (counts.get("merge_inv", 0), counts.get("merge_remap", 0)) == (
+        assert (counts.get("merge_rows", 0), counts.get("merge_keys", 0)) == (
             (0, 0) if rounds == 1 else (1, 1)), counts
         outs.append(open(out, "rb").read())
     got = {}

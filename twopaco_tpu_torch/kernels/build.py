@@ -78,8 +78,8 @@ _SIGNATURES = {
     ),
     "tp_sort_occurrences": ([_P, _P, _SZ, _I, _LL] + [_P] * 3 + [_SZ, _P, _P], _I),
     "tp_upload_rows": ([_P, _LL, _P, _LL, _I, _P, _P, _P], _I),
-    "tp_merge_inv": ([_P, _P, _SZ, _I, _P, _P, _P], _I),
-    "tp_merge_remap": ([_P, _SZ, _P, _I, _P, _LL, _I, _P, _P, _SZ, _P, _P], _I),
+    "tp_merge_rows": ([_P, _LL, _I, _P, _I, _I, _I] + [_P] * 4 + [_LL] + [_P] * 3, _I),
+    "tp_merge_keys": ([_P, _LL, _P, _I, _P, _LL, _I, _I, _I] + [_P] * 3 + [_LL, _P, _P], _I),
     "tp_bloom_fill": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I),
     "tp_bloom_mark": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 4, _I),
     "tp_bloom_run": ([_LL, _I], _I),

@@ -619,6 +619,21 @@ inline cudaError_t tp_bloom_grid(long long max_pos, int nb, int& run, dim3& grid
     return cudaSuccess;
 }
 
+// ---- cp.async (sm_80 on): a global -> shared copy that bypasses the
+// registers; a thread's copies complete at tp_cp_async_wait_all (merge.cu
+// stages its runs' windows with them)
+template <int BYTES>
+__device__ __forceinline__ void tp_cp_async(void* smem, const void* gmem) {
+    static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async copies 4, 8 or 16 bytes");
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s), "l"(gmem), "n"(BYTES)
+                 : "memory");
+}
+
+__device__ __forceinline__ void tp_cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+}
+
 // set() once a device and process (bit d of `ready` for devices 0 .. 63;
 // past them every call): kernel attributes
 template <class Set>

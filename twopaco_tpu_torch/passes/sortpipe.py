@@ -803,7 +803,7 @@ def merge_rounds_packed(
     on_dev = keyed and len(fetched) > 1
     if on_dev and free is not None:
         need = merge.device_bytes(sum(len(e[0]) for e in fetched), config.w,
-                                  sum(len(e[1]) for e in fetched), id_bits)
+                                  sum(len(e[1]) for e in fetched), len(fetched))
         if need > free:
             log(f"Merge on the host: the device merge needs {_gib(need)}, {_gib(free)} "
                 "is free")
