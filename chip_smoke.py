@@ -1011,7 +1011,7 @@ def main() -> int:
     try:
         import numpy as np
 
-        from twopaco_tpu_torch import hostmem
+        from twopaco_tpu_torch import hostmem, trace
         from twopaco_tpu_torch.io import fasta, windows
         from twopaco_tpu_torch.kernels import build
         from twopaco_tpu_torch.ops import pack
@@ -1122,10 +1122,9 @@ def main() -> int:
     del got_p, got_m
     print(f"upload: the kernel's {len(wrows)} batches equal the host windows and "
           f"pack_codes_host, word for word")
-    ustats = RunStats()
-    uploads = sortpipe.upload_batches(wrows, dev, ustats)
+    uploads = sortpipe.upload_batches(wrows, dev)  # its `upload` span is a root here
     print(f"upload_batches (H2D, one launch, the batches' views): "
-          f"{ustats.timings['upload']:.4f} s {label}")
+          f"{trace.last_build()[0].seconds:.4f} s {label}")
 
     phase("kernels vs plain versions")
 
@@ -1611,7 +1610,7 @@ def main() -> int:
         "block": PassConfig(k=k, f=30, layout="block", positions_per_row=P, rows_per_batch=B),
     }
     full = (0, 0xFFFFFFFF)
-    uploads = sortpipe.upload_batches(wrows, dev, RunStats())
+    uploads = sortpipe.upload_batches(wrows, dev)
     round_cands = {}  # a layout's candidates in the round mark, for its engine run
     for lay, bcfg in bcfgs.items():
         filt_k = bloom.make_filter(bcfg.f, lay, dev)
@@ -1882,7 +1881,7 @@ def main() -> int:
     del fetched4
 
     phase("dist-bloom kernels vs plain versions (one slice batch, shards of the card)")
-    uploads = sortpipe.upload_batches(wrows, dev, RunStats())
+    uploads = sortpipe.upload_batches(wrows, dev)
     for lay, f_bits, n_sh, rows_b, tiny in (
         ("byte", 30, D4, B, False), ("bit", 36, D4, B, False),
         ("byte", 30, 3, B - B % 3, False), ("byte", 30, D4, B, True),

@@ -1980,10 +1980,10 @@ def test_upload_in_chunks_on_the_card(dev, D):
                                             rows_all.codes.numel(), budget)
         assert len(chunks) > 2
         build.reset_launch_counts()
-        got = sortpipe.upload_batches(rows_all, dev, sortpipe.RunStats(), rows,
+        got = sortpipe.upload_batches(rows_all, dev, rows,
                                       stage_bytes=budget)
         assert build.launch_counts() == {"upload_rows": len(chunks)}
-        want = sortpipe.upload_batches(rows_all, torch.device("cpu"), sortpipe.RunStats(), rows)
+        want = sortpipe.upload_batches(rows_all, torch.device("cpu"), rows)
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert all(_equal(a, b) for a, b in zip(g, w))
@@ -2172,7 +2172,7 @@ def test_merge_path_on_the_card(dev, tmp_path):
     lines = []
     out = str(tmp_path / "host.dbg")
     sortpipe.merge_fetched(got["fetched"], got["batches"], cfg, out, sortpipe.RunStats(),
-                           lines.append, 0.0, n_slots=len(got["batches"]) * 8 * 256,
+                           lines.append, n_slots=len(got["batches"]) * 8 * 256,
                            wide=False, n_sequences=len(sequences), dev=dev, free=1)
     assert any("Merge on the host" in s for s in lines)
     outs.append(open(out, "rb").read())

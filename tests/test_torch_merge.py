@@ -259,7 +259,7 @@ def test_merge_faults_raise_as_the_host_merge(n_entries, what, free):
     exc, msg = FAULTS[what]
     with pytest.raises(exc, match=msg):
         sortpipe.merge_rounds_packed(fetched, batches, PipelineConfig(k=25), None, RunStats(),
-                                     print, 0.0, dev=CPU, free=free)
+                                     print, dev=CPU, free=free)
 
 
 def _key_run(rounds):
@@ -290,7 +290,7 @@ def test_small_free_memory_takes_the_host_merge(tmp_path, monkeypatch):
     kw = dict(n_slots=len(batches) * 4 * 256, wide=False, n_sequences=4, dev=CPU)
     lines = []
     out_d, out_h = str(tmp_path / "d.dbg"), str(tmp_path / "h.dbg")
-    sortpipe.merge_fetched(fetched, batches, cfg, out_d, RunStats(), lines.append, 0.0,
+    sortpipe.merge_fetched(fetched, batches, cfg, out_d, RunStats(), lines.append,
                            free=None, **kw)
     assert not any("Merge on the host" in s for s in lines)
 
@@ -298,7 +298,7 @@ def test_small_free_memory_takes_the_host_merge(tmp_path, monkeypatch):
         raise AssertionError("the device merge ran")
 
     monkeypatch.setattr(merge, "merge_packed", refuse)
-    sortpipe.merge_fetched(fetched, batches, cfg, out_h, RunStats(), lines.append, 0.0,
+    sortpipe.merge_fetched(fetched, batches, cfg, out_h, RunStats(), lines.append,
                            free=1, **kw)
     assert any("Merge on the host" in s for s in lines)
     assert open(out_h, "rb").read() == open(out_d, "rb").read()

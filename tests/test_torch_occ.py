@@ -199,7 +199,7 @@ def test_merge_mixed_and_unpacked(tmp_path, jax_dbg):
                                        ("mixed", mixed, 4, None),
                                        ("unpacked", fetched, 1 << 31, None)):
         out = str(tmp_path / f"{name}.dbg")
-        sortpipe.merge_fetched(entries, batches, cfg, out, RunStats(), print, 0.0,
+        sortpipe.merge_fetched(entries, batches, cfg, out, RunStats(), print,
                                n_slots=3 * 4 * 256, wide=False, n_sequences=n_seq,
                                dev=torch.device("cpu"), free=free)
         assert open(out, "rb").read() == jax_dbg, name
@@ -214,10 +214,10 @@ def test_merge_rejects_corrupt_key_entries():
         k[0] = (k[0] & ~np.uint64(0xFFFFFFFF)) | np.uint64(bad_id + (1 << 31))
         with pytest.raises(RuntimeError, match=msg):
             sortpipe.merge_rounds_packed([(table, OccKeys(k, 32), None)] + fetched[1:], batches,
-                                         cfg, None, RunStats(), print, 0.0,
+                                         cfg, None, RunStats(), print,
                                          dev=torch.device("cpu"), free=1)
     with pytest.raises(ValueError, match="id bits"):
-        sortpipe.merge_rounds_packed(fetched, batches, cfg, None, RunStats(), print, 0.0,
+        sortpipe.merge_rounds_packed(fetched, batches, cfg, None, RunStats(), print,
                                      pos_bits=40, dev=torch.device("cpu"), free=1)
 
 

@@ -175,7 +175,7 @@ def test_merge_packed_matches_jax(tmp_path, fetched_rounds, jax_dbg, pos_bits):
     jcfg = _jcfg()
     tout, jout = str(tmp_path / "t.dbg"), str(tmp_path / "j.dbg")
     sortpipe.merge_rounds_packed(
-        fetched, batches, config_from_jax(jcfg), tout, RunStats(), print, 0.0,
+        fetched, batches, config_from_jax(jcfg), tout, RunStats(), print,
         pos_bits=pos_bits, dev=torch.device("cpu"), free=None,
     )
     jsort.merge_rounds_packed(
@@ -192,7 +192,7 @@ def test_merge_unpacked_matches_jax(tmp_path, fetched_rounds, jax_dbg):
     tables = [t for t, _, _ in fetched]
     occ = [(p, i) for _, p, i in fetched]
     sortpipe.merge_rounds_and_emit(
-        tables, occ, batches, config_from_jax(jcfg), tout, RunStats(), print, 0.0,
+        tables, occ, batches, config_from_jax(jcfg), tout, RunStats(), print,
     )
     jsort.merge_rounds_and_emit(
         tables, occ, batches, jcfg.pass_config(filterless=True), jcfg, jout,
@@ -214,12 +214,12 @@ def test_merge_rejects_corrupt_rounds(fetched_rounds):
     for msg, ids in bad_ids.items():
         with pytest.raises(RuntimeError, match=msg):
             sortpipe.merge_rounds_packed(
-                [(t0, p0, ids)] + rest, batches, cfg, None, RunStats(), print, 0.0,
+                [(t0, p0, ids)] + rest, batches, cfg, None, RunStats(), print,
                 dev=torch.device("cpu"), free=None,
             )
     with pytest.raises(AssertionError, match="duplicate"):
         sortpipe.merge_rounds_packed(
-            [(t0, p0, i0), (t0, p0, i0)], batches, cfg, None, RunStats(), print, 0.0,
+            [(t0, p0, i0), (t0, p0, i0)], batches, cfg, None, RunStats(), print,
             dev=torch.device("cpu"), free=None,
         )
 
@@ -239,7 +239,7 @@ def test_emit_id_bits_matches_jax(tmp_path, fetched_rounds, jax_dbg, id_bits):
     try:
         sortpipe.merge_rounds_and_emit(
             [t for t, _, _ in fetched], [(p, i) for _, p, i in fetched], batches,
-            config_from_jax(_jcfg()), None, RunStats(), print, 0.0,
+            config_from_jax(_jcfg()), None, RunStats(), print,
         )
     finally:
         sortpipe.finish_emit = orig

@@ -50,7 +50,7 @@ def _sequences(seed, k, P, n=9):
 def _port(seqs, k, P, B, rows=slice(None), stage_bytes=None):
     cfg = PipelineConfig(k=k, positions_per_row=P, rows_per_batch=B)
     _seqs, batches = sortpipe.read_batches(None, seqs, cfg, RunStats())
-    return batches, sortpipe.upload_batches(batches, CPU, RunStats(), rows=rows,
+    return batches, sortpipe.upload_batches(batches, CPU, rows=rows,
                                             stage_bytes=stage_bytes)
 
 
@@ -152,11 +152,11 @@ def test_upload_needs_one_batch_of_free_memory(monkeypatch):
                                         batches.codes.numel(), None)
     assert least < batches.codes.numel()
     monkeypatch.setattr(sortpipe, "_free_bytes", lambda dev: out_bytes + least)
-    uploads = sortpipe.upload_batches(batches, CPU, RunStats())
+    uploads = sortpipe.upload_batches(batches, CPU)
     _assert_matches_jax(seqs, k, P, B, batches, uploads)
     monkeypatch.setattr(sortpipe, "_free_bytes", lambda dev: out_bytes + least - 1)
     with pytest.raises(RuntimeError, match="the input's upload needs"):
-        sortpipe.upload_batches(batches, CPU, RunStats())
+        sortpipe.upload_batches(batches, CPU)
 
 
 def _write_fasta(path, records):
@@ -190,7 +190,7 @@ def test_upload_two_files_match_jax(tmp_path, monkeypatch, native_io):
     assert len(staged) % fasta.STAGE_ALIGN == 0
     n = sum(len(c) for _s, c in jseqs)
     np.testing.assert_array_equal(staged[:n], np.concatenate([c for _s, c in jseqs]))
-    uploads = sortpipe.upload_batches(batches, CPU, RunStats())
+    uploads = sortpipe.upload_batches(batches, CPU)
     _assert_matches_jax(jseqs, k, P, B, batches, uploads)
 
 

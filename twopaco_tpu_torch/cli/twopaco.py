@@ -7,7 +7,9 @@ Flag-compatible with the reference binary: -k/--kvalue, -f/--filtersize
 XOR --filtermemory, -q/--hashfnumber, -r/--rounds, -t/--threads,
 -a/--abundance, --tmpdir, --test, -o/--outfile, positional FASTA files;
 the JAX package's --tpu-engine, --tpu-layout, --tpu-positions, --tpu-rows
-and --tpu-checkpoint.
+and --tpu-checkpoint; --tpu-profile DIR writes a torch.profiler trace of
+the run (the program's spans, the host's operators and, on a card, the
+device's work, on one clock) to DIR/twopaco.trace.json, a Chrome trace.
 
 --tpu-engine sort (the default) is the sort-join engine: it has no Bloom
 filter, so -f, --filtermemory and -q are checked and otherwise unused;
@@ -30,14 +32,24 @@ is no card) or cpu (the plain PyTorch versions). -t is accepted and
 unused. --test runs the reference's randomized self test
 (testing/selftest.py: the sort and Bloom engines against the naive
 oracle) on --device and exits 0 when it passes, else 1.
+
+A run is one span tree (trace.py) under the root span `twopaco`. After
+the counts it prints a `time\t<phase>\t<seconds>` line a phase of the
+engine (the seconds of its spans, summed; 0.000 where it did not run)
+and, once the root has closed, `span\t<name>\t<count>\t<seconds>\t<self
+seconds>` a span name and `counter\t<span name>\t<key>\t<value>` a
+counter of the tree.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import sys
+
+from twopaco_tpu_torch import trace
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -85,6 +97,11 @@ def make_parser() -> argparse.ArgumentParser:
         help="Round-boundary checkpoint directory (resume on rerun)",
     )
     p.add_argument(
+        "--tpu-profile", default=None, metavar="DIR",
+        help="Write a torch.profiler trace of the run to DIR (a Chrome trace: "
+        "the spans, host operators and device work on one clock)",
+    )
+    p.add_argument(
         "--tpu-engine", choices=["sort", "bloom", "dist", "dist-bloom"],
         default="sort",
         help="Engine: sort-join (default), Bloom two-pass, the distributed "
@@ -127,6 +144,15 @@ def main(argv: list[str] | None = None) -> int:
                        device=resolve_device(args.device))
         return 0 if ok else 1
 
+    with _profiled(args.tpu_profile, args.device):
+        with trace.span("twopaco"):
+            rc = _run(args)
+    if rc == 0:
+        _print_spans(trace.last_build())
+    return rc
+
+
+def _run(args) -> int:
     if args.kvalue % 2 != 1:
         print("Error: value of K must be odd", file=sys.stderr)
         return 1
@@ -183,12 +209,44 @@ def main(argv: list[str] | None = None) -> int:
         # filters past their layout, rows not a multiple of the devices
         print(f"Error: {e}", file=sys.stderr)
         return 1
-    print(f"Distinct junctions = {enum.vertices_count}")
-    # one line per phase, summed over rounds: the same keys in every mode
-    for name, val in enum.stats.timings.items():
-        print(f"time\t{name}\t{val:.3f}")
-    print()
+    with trace.span("report"):
+        print(f"Distinct junctions = {enum.vertices_count}")
+        # one line per phase, summed over rounds: the same keys in every mode
+        for name, val in enum.stats.timings.items():
+            print(f"time\t{name}\t{val:.3f}")
+        print()
     return 0
+
+
+@contextlib.contextmanager
+def _profiled(directory: str | None, device: str):
+    """Run the block under torch.profiler (the CPU, and CUDA for a cuda
+    run) and write its Chrome trace to directory/twopaco.trace.json; with
+    no directory, run it as it is."""
+    if directory is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device == "cuda" and torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(directory, "twopaco.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Profile trace = {path}")
+
+
+def _print_spans(spans) -> None:
+    """The span tree's `span` and `counter` lines (module docstring)."""
+    for name, row in trace.by_name(spans).items():
+        print(f"span\t{name}\t{row['n']}\t{row['total']:.6f}\t{row['self']:.6f}")
+        for key, val in row["counters"].items():
+            print(f"counter\t{name}\t{key}\t{val:.6f}" if isinstance(val, float)
+                  else f"counter\t{name}\t{key}\t{val}")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,8 @@ import mmap
 import numpy as np
 import torch
 
+from twopaco_tpu_torch import trace
+
 _MMAP_MIN_BYTES = 64 << 20
 
 
@@ -86,22 +88,27 @@ def pinned(tensors, dev: torch.device):
     and unlock them. A no-op off a card. Whole pages are locked: inside
     the block, copy only from or to these tensors (host_bytes' memory
     shares its pages with nothing else). Pages that an enclosing block
-    holds locked are left to it."""
+    holds locked are left to it. Spans: `pin.lock` (attr bytes), `pin.wait`
+    (the sync on leaving), `pin.unlock`."""
     if dev.type != "cuda":
         yield
         return
     rt = torch.cuda.cudart()
     done = []
     try:
-        for run in _page_spans(tensors):
-            if any(a <= run[0] and run[1] <= b for a, b in _locked):
-                continue
-            torch.cuda.check_error(rt.cudaHostRegister(run[0], run[1] - run[0], 0))
-            done.append(run)
-            _locked.append(run)
+        with trace.span("pin.lock") as sp:
+            for run in _page_spans(tensors):
+                if any(a <= run[0] and run[1] <= b for a, b in _locked):
+                    continue
+                torch.cuda.check_error(rt.cudaHostRegister(run[0], run[1] - run[0], 0))
+                done.append(run)
+                _locked.append(run)
+            sp.attrs["bytes"] = sum(b - a for a, b in done)
         yield
     finally:
-        torch.cuda.current_stream(dev).synchronize()
-        for run in done:
-            _locked.remove(run)
-            torch.cuda.check_error(rt.cudaHostUnregister(run[0]))
+        with trace.span("pin.wait"):
+            torch.cuda.current_stream(dev).synchronize()
+        with trace.span("pin.unlock"):
+            for run in done:
+                _locked.remove(run)
+                torch.cuda.check_error(rt.cudaHostUnregister(run[0]))

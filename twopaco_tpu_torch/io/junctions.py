@@ -10,6 +10,7 @@ separators.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
@@ -28,18 +29,31 @@ class ChunkWriter:
     (including skipped chromosomes), with the chromosome counter carried
     across chunks (the reference's JunctionPositionWriter,
     junctionapi.h:118-132). The native emit (io/native.py) assembles a
-    chunk when it is available, the numpy body below otherwise."""
+    chunk when it is available, the numpy body below otherwise;
+    counters() says where its time went."""
 
     def __init__(self, path: str):
         self._f = open(path, "wb")
         self._now_chr = 0
         self._scratch = None  # the native emit's buffer, reused chunk to chunk
+        self._write_ns = self._sink_ns = self._close_ns = self._bytes = 0
         sep = np.empty(1, dtype=RECORD_DTYPE)
         sep["pos"] = SEPARATOR_POS
         sep["id"] = SEPARATOR_ID
         self._sep = sep.tobytes()
 
+    def _put(self, data) -> None:
+        t0 = time.perf_counter_ns()
+        self._f.write(data)
+        self._sink_ns += time.perf_counter_ns() - t0
+        self._bytes += memoryview(data).nbytes
+
     def write(self, chrs: np.ndarray, pos: np.ndarray, ids: np.ndarray):
+        t0 = time.perf_counter_ns()
+        self._write(chrs, pos, ids)
+        self._write_ns += time.perf_counter_ns() - t0
+
+    def _write(self, chrs: np.ndarray, pos: np.ndarray, ids: np.ndarray):
         n = len(chrs)
         if n == 0:
             return
@@ -53,7 +67,7 @@ class ChunkWriter:
         )
         if buf is not None:
             self._scratch = buf.base if buf.base is not None else buf
-            self._f.write(buf.data)
+            self._put(buf.data)
             self._now_chr = int(chrs[-1])
             return
         scratch = np.empty((n, 3), np.uint32)
@@ -67,14 +81,23 @@ class ChunkWriter:
         prev[1:] = chrs[:-1]
         start = 0
         for i in np.flatnonzero(chrs != prev):
-            self._f.write(rec[start:i].data)
-            self._f.write(self._sep * int(chrs[i] - prev[i]))
+            self._put(rec[start:i].data)
+            self._put(self._sep * int(chrs[i] - prev[i]))
             start = int(i)
-        self._f.write(rec[start:].data)
+        self._put(rec[start:].data)
         self._now_chr = int(chrs[-1])
 
     def close(self) -> None:
-        self._f.close()
+        t0 = time.perf_counter_ns()
+        self._f.close()  # the buffered tail goes to the file here
+        self._close_ns = time.perf_counter_ns() - t0
+
+    def counters(self) -> dict:
+        """Once closed: the seconds spent in the file's writes and its
+        close (sink_s), the rest of the write calls (assemble_s: the
+        records' assembly), and the bytes written."""
+        return dict(assemble_s=(self._write_ns - self._sink_ns) / 1e9,
+                    sink_s=(self._sink_ns + self._close_ns) / 1e9, bytes=self._bytes)
 
     def __enter__(self):
         return self

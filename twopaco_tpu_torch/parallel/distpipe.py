@@ -40,14 +40,13 @@ and the .dbg; barriers order checkpoint reads after the writes.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from twopaco_tpu_torch import hostmem
+from twopaco_tpu_torch import hostmem, trace
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
 from twopaco_tpu_torch.parallel.mesh import local_mesh, on_device
@@ -63,6 +62,7 @@ from twopaco_tpu_torch.passes.pipeline import (
     PipelineConfig,
     RunStats,
     _input_fingerprint,
+    timed_engine,
 )
 
 # the sort engine's phase keys, plus route (routing, exchange and append)
@@ -144,6 +144,7 @@ def _shard_free(mesh) -> int | None:
     return None if least < 0 else least
 
 
+@timed_engine(PHASES)
 def build_junctions_dist(
     input_paths: Sequence[str] | None,
     config: PipelineConfig,
@@ -183,8 +184,6 @@ def build_junctions_dist(
     )
     rows = B // D
     stats = RunStats()
-    stats.timings.update(dict.fromkeys(PHASES, 0.0))
-    t_start = time.time()
 
     # every process reads the input (host work); a shard uploads its rows
     sequences, batches = sortpipe.read_batches(input_paths, sequences, config, stats)
@@ -193,7 +192,7 @@ def build_junctions_dist(
     with hostmem.pinned([batches.codes], dev):
         for s in mesh.shards:
             with on_device(mesh.device(s)):
-                uploads[s] = sortpipe.upload_batches(batches, mesh.device(s), stats,
+                uploads[s] = sortpipe.upload_batches(batches, mesh.device(s),
                                                      rows=slice(s * rows, (s + 1) * rows),
                                                      reference=reference)
     n_slots = len(batches) * B * P
@@ -203,43 +202,43 @@ def build_junctions_dist(
         f"Engine = distributed {'bloom-gated ' if bloom_gate else ''}sort-join over {D} "
         f"shards ({dev.type})\nVertex length = {k}\nRecord slots = {n_slots}"
     )
-    free = _shard_free(mesh)
-    if scfg is not None:
-        need = scfg.shard_bytes()
-        log(f"Hash functions = {config.hash_functions}\nFilter size = {1 << config.filter_bits} "
-            f"({scfg.base.layout} layout, {scfg.local_slots} slots a shard)")
-        if free is not None:
-            # each shard's filter and mark buffers live through its round
-            if need >= free:
-                raise RuntimeError(
-                    f"a shard's Bloom filter and mark buffers ({sortpipe._gib(need)}) do not "
-                    f"fit its free device memory ({sortpipe._gib(free)}): shard over more "
-                    "devices or lower -f/--filtermemory"
-                )
-            free -= need
-
-    n_rounds, route_cap = plan_dist(config, mesh, n_slots, free)
+    with trace.span("plan"):
+        free = _shard_free(mesh)
+        if scfg is not None:
+            need = scfg.shard_bytes()
+            log(f"Hash functions = {config.hash_functions}\n"
+                f"Filter size = {1 << config.filter_bits} "
+                f"({scfg.base.layout} layout, {scfg.local_slots} slots a shard)")
+            if free is not None:
+                # each shard's filter and mark buffers live through its round
+                if need >= free:
+                    raise RuntimeError(
+                        f"a shard's Bloom filter and mark buffers ({sortpipe._gib(need)}) do "
+                        f"not fit its free device memory ({sortpipe._gib(free)}): shard over "
+                        "more devices or lower -f/--filtermemory"
+                    )
+                free -= need
+        n_rounds, route_cap = plan_dist(config, mesh, n_slots, free)
     # measurement passes: routing bounds (canonical word0 mass) and round
     # intervals (vertex-hash mass)
-    t0 = time.time()
-    whist, hhist = {}, {}
-    for s in mesh.shards:
-        with on_device(mesh.device(s)):
-            whist[s] = ops.word0(uploads[s], k=k, P=P)
-            hhist[s] = (ops.histogram(uploads[s], k=k, P=P) if n_rounds > 1
-                        else torch.zeros_like(whist[s]))
-    both = mesh.all_gather({s: torch.cat([whist[s], hhist[s]]).to(torch.int64)
-                            for s in mesh.shards}).sum(axis=0)
-    bounds = route_bounds_from_hist(both[: 1 << BIN_POW], D)
-    bounds_d = {
-        s: pack.as_u32(torch.from_numpy(bounds.astype(np.int64)).to(mesh.device(s)))
-        for s in mesh.shards
-    }
-    intervals = (
-        sortpipe._live_intervals(both[1 << BIN_POW :], n_rounds) if n_rounds > 1
-        else [(0, MASK32)]
-    )
-    stats.timings["hist"] = time.time() - t0
+    with trace.span("hist"):
+        whist, hhist = {}, {}
+        for s in mesh.shards:
+            with on_device(mesh.device(s)):
+                whist[s] = ops.word0(uploads[s], k=k, P=P)
+                hhist[s] = (ops.histogram(uploads[s], k=k, P=P) if n_rounds > 1
+                            else torch.zeros_like(whist[s]))
+        both = mesh.all_gather({s: torch.cat([whist[s], hhist[s]]).to(torch.int64)
+                                for s in mesh.shards}).sum(axis=0)
+        bounds = route_bounds_from_hist(both[: 1 << BIN_POW], D)
+        bounds_d = {
+            s: pack.as_u32(torch.from_numpy(bounds.astype(np.int64)).to(mesh.device(s)))
+            for s in mesh.shards
+        }
+        intervals = (
+            sortpipe._live_intervals(both[1 << BIN_POW :], n_rounds) if n_rounds > 1
+            else [(0, MASK32)]
+        )
     if len(intervals) > 1:
         log(f"Splitting the input kmers set ({len(intervals)} rounds)")
     # no filter here: PassConfig carries the shapes only (any -f runs)
@@ -270,28 +269,30 @@ def build_junctions_dist(
             log(f"Round {r}: restored from checkpoint")
             continue
         log(f"Round {r}, {low}:{high}")
-        entries, rstats = _run_round(mesh, ops, dcfg, batches, uploads, bounds_d,
-                                     low, high, config.abundance, id_bits, n_slots, scfg)
-        stats.rounds.append(rstats)
-        for key in ROUND_PHASES:
-            stats.timings[key] += rstats[f"t_{key}"]
-        log(
-            f"Round {r} seconds: " + " ".join(
-                f"{key}={rstats[f't_{key}']:.4f}" for key in ROUND_PHASES
-            ) + f"\nTrue junctions = {rstats['true_junctions']}\n"
-            f"Distinct k-mers = {rstats['hash_table_size']}\n"
-            + (f"Candidate marks count = {rstats['marks']}" if bloom_gate
-               else f"Occurrences = {rstats['marks']}")
-        )
-        if checkpoint_dir is not None:
-            entry = _round_entry(entries, w)
-            if mesh.is_writer():
-                ckpt.save_round(r, entry, rstats)
-            # no process resumes past a round whose file is not written yet
-            mesh.barrier(f"ckpt_round_{r}")
-            fetched.append(entry)
-        else:
-            fetched.extend(entries)
+        with trace.span("round", r=r, low=low, high=high) as rspan:
+            entries, rstats = _run_round(mesh, ops, dcfg, batches, uploads, bounds_d,
+                                         low, high, config.abundance, id_bits, n_slots, scfg)
+            t = trace.totals(rspan)
+            rstats.update((f"t_{key}", t.get(key, 0.0)) for key in ROUND_PHASES)
+            stats.rounds.append(rstats)
+            log(
+                f"Round {r} seconds: " + " ".join(
+                    f"{key}={rstats[f't_{key}']:.4f}" for key in ROUND_PHASES
+                ) + f"\nTrue junctions = {rstats['true_junctions']}\n"
+                f"Distinct k-mers = {rstats['hash_table_size']}\n"
+                + (f"Candidate marks count = {rstats['marks']}" if bloom_gate
+                   else f"Occurrences = {rstats['marks']}")
+            )
+            if checkpoint_dir is not None:
+                with trace.span("checkpoint"):
+                    entry = _round_entry(entries, w)
+                    if mesh.is_writer():
+                        ckpt.save_round(r, entry, rstats)
+                    # no process resumes past a round whose file is not written yet
+                    mesh.barrier(f"ckpt_round_{r}")
+                fetched.append(entry)
+            else:
+                fetched.extend(entries)
 
     del uploads
     # the merge runs on this process's first shard's device
@@ -299,7 +300,7 @@ def build_junctions_dist(
     with on_device(mdev):
         return sortpipe.merge_fetched(
             fetched, batches, config, out_path if mesh.is_writer() else None, stats, log,
-            t_start, n_slots=n_slots, wide=wide, n_sequences=len(sequences), dev=mdev,
+            n_slots=n_slots, wide=wide, n_sequences=len(sequences), dev=mdev,
             free=sortpipe._free_bytes(mdev), reference=reference,
         )
 
@@ -324,19 +325,18 @@ def _fill_round(mesh, ops, scfg: ShardedConfig, uploads, n_batches: int, low: in
 def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int,
                high: int, abundance: int, id_bits: int | None, n_slots: int,
                scfg: ShardedConfig | None = None):
-    """One round over the mesh -> (merge entries of every shard in shard
-    order, on every process; the round's stats). scfg: the Bloom gate's
+    """One round over the mesh, in spans `fill`, `mark`, `build`, `route`,
+    `sort`, `judge` and `fetch` -> (merge entries of every shard in shard
+    order, on every process; the round's counts). scfg: the Bloom gate's
     sharded filter, or None for none."""
     cfg = dcfg.base
     D, P, w = dcfg.n_shards, cfg.P, cfg.w
     rows = cfg.B // D
-    t_fill = t_mark = t_build = t_route = 0.0
     filt = marks = None
     if scfg is not None:
-        t0 = time.time()
-        filt = _fill_round(mesh, ops, scfg, uploads, len(batches), low, high)
-        mark_step = sharded_mark_step(mesh, scfg, ops)
-        t_fill = time.time() - t0
+        with trace.span("fill"):
+            filt = _fill_round(mesh, ops, scfg, uploads, len(batches), low, high)
+            mark_step = sharded_mark_step(mesh, scfg, ops)
     masks = dict.fromkeys(mesh.shards)
     bufs, over = {}, {}
     recs, send = {}, {}
@@ -353,41 +353,37 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
     for b, batch in enumerate(batches):
         if filt is not None:
             # mark probes that cannot be sent count as route drops
-            t0 = time.time()
-            masks, marks, over = mark_step(filt, {s: uploads[s][b] for s in mesh.shards},
-                                           low, high, over, marks)
+            with trace.span("mark"):
+                masks, marks, over = mark_step(filt, {s: uploads[s][b] for s in mesh.shards},
+                                               low, high, over, marks)
+                for s in mesh.shards:
+                    sortpipe._sync(mesh.device(s))
+        with trace.span("build"):
+            for s in mesh.shards:
+                with on_device(mesh.device(s)):
+                    ops.build(*uploads[s][b], (batch.row0 + s * rows) * P, k=cfg.k, P=P,
+                              low=low, high=high, out=recs[s], mask=masks[s])
             for s in mesh.shards:
                 sortpipe._sync(mesh.device(s))
-            t_mark += time.time() - t0
-        t0 = time.time()
-        for s in mesh.shards:
-            with on_device(mesh.device(s)):
-                ops.build(*uploads[s][b], (batch.row0 + s * rows) * P, k=cfg.k, P=P,
-                          low=low, high=high, out=recs[s], mask=masks[s])
-        for s in mesh.shards:
-            sortpipe._sync(mesh.device(s))
-        t1 = time.time()
-        sends = {}
-        for s in mesh.shards:
-            with on_device(mesh.device(s)):
-                *sends[s], _ = ops.route(*recs[s], D, dcfg.route_cap, bounds=bounds_d[s],
-                                         overflow=over[s], out=send[s])
-        recv = mesh.all_to_all(sends)
-        for s in mesh.shards:
-            with on_device(mesh.device(s)):
-                buf, state = bufs[s]
-                ops.compact(*recv[s], buf, state, dcfg.dev_slots - dcfg.block)
-        for s in mesh.shards:
-            sortpipe._sync(mesh.device(s))
-        t_build += t1 - t0
-        t_route += time.time() - t1
+        with trace.span("route"):
+            sends = {}
+            for s in mesh.shards:
+                with on_device(mesh.device(s)):
+                    *sends[s], _ = ops.route(*recs[s], D, dcfg.route_cap, bounds=bounds_d[s],
+                                             overflow=over[s], out=send[s])
+            recv = mesh.all_to_all(sends)
+            for s in mesh.shards:
+                with on_device(mesh.device(s)):
+                    buf, state = bufs[s]
+                    ops.compact(*recv[s], buf, state, dcfg.dev_slots - dcfg.block)
+            for s in mesh.shards:
+                sortpipe._sync(mesh.device(s))
 
     del filt, masks  # the filter is freed before the finish
     # (route drops, buffer fill, buffer overflow) of every shard
-    t0 = time.time()
-    fill = mesh.all_gather({s: torch.cat([over[s], bufs[s][1]]) for s in mesh.shards})
-    n_marks = None if marks is None else int(mesh.all_gather(marks).sum())
-    t_route += time.time() - t0
+    with trace.span("route"):
+        fill = mesh.all_gather({s: torch.cat([over[s], bufs[s][1]]) for s in mesh.shards})
+        n_marks = None if marks is None else int(mesh.all_gather(marks).sum())
     overflow = int(fill[:, 0].sum() + fill[:, 2].sum())
     if overflow:
         raise RuntimeError(
@@ -395,43 +391,35 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
             "raise PipelineConfig.round_slack or rounds"
         )
 
-    t_sort = t_judge = t_fetch = 0.0
     blocks = {}
     for s in mesh.shards:
         d = mesh.device(s)
         with on_device(d):
             n = int(fill[s, 1])
             (bw, bpay, bpos), _state = bufs.pop(s)
-            t0 = time.time()
-            sw, spay, spos = ops.sort(bw[:n], bpay[:n], bpos[:n], key_bits=2 * cfg.k)
-            del bw, bpay, bpos
-            sortpipe._sync(d)
-            t1 = time.time()
-            table_d, occ_pos_d, occ_id_d, n_groups, n_junc, n_occ = ops.judge(
-                sw, spay, spos, abundance)
-            del sw, spay, spos
-            occ_d = sortpipe.finish_occurrences(ops, occ_pos_d, occ_id_d, id_bits, n_slots)
-            del occ_pos_d, occ_id_d
-            sortpipe._sync(d)
-            t2 = time.time()
-            entry = sortpipe.fetch_entry(table_d, occ_d, id_bits)
-            del table_d, occ_d
-            t3 = time.time()
-        t_sort += t1 - t0
-        t_judge += t2 - t1
-        t_fetch += t3 - t2
+            with trace.span("sort"):
+                sw, spay, spos = ops.sort(bw[:n], bpay[:n], bpos[:n], key_bits=2 * cfg.k)
+                del bw, bpay, bpos
+                sortpipe._sync(d)
+            with trace.span("judge"):
+                table_d, occ_pos_d, occ_id_d, n_groups, n_junc, n_occ = ops.judge(
+                    sw, spay, spos, abundance)
+                del sw, spay, spos
+                occ_d = sortpipe.finish_occurrences(ops, occ_pos_d, occ_id_d, id_bits, n_slots)
+                del occ_pos_d, occ_id_d
+                sortpipe._sync(d)
+            with trace.span("fetch"):
+                entry = sortpipe.fetch_entry(table_d, occ_d, id_bits)
+                del table_d, occ_d
         blocks[s] = (entry, n_groups, n_junc, n_occ)
-    t0 = time.time()
-    gathered = mesh.gather(blocks)
-    t_fetch += time.time() - t0
+    with trace.span("fetch"):
+        gathered = mesh.gather(blocks)
     rstats = dict(
         low=low, high=high,
         marks=sum(g[3] for g in gathered) if n_marks is None else n_marks,
         hash_table_size=sum(g[1] for g in gathered),
         true_junctions=sum(g[2] for g in gathered),
         false_positives=0,
-        t_fill=t_fill, t_mark=t_mark, t_build=t_build, t_route=t_route, t_sort=t_sort,
-        t_judge=t_judge, t_fetch=t_fetch,
     )
     return [g[0] for g in gathered], rstats
 

@@ -32,14 +32,13 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-import time
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from twopaco_tpu_torch import dna
+from twopaco_tpu_torch import dna, trace
 from twopaco_tpu_torch.ops import bloom
 from twopaco_tpu_torch.ops.pack import MASK32
 from twopaco_tpu_torch.passes import extract, fill, histogram, judge, lookup, mark, sort
@@ -52,6 +51,7 @@ from twopaco_tpu_torch.passes.pipeline import (
     _input_fingerprint,
     _split_rounds,
     emit_junctions,
+    timed_engine,
 )
 from twopaco_tpu_torch.passes.sortpipe import _sync, load_batches, resolve_device
 
@@ -175,6 +175,7 @@ def _checkpoint_meta(config: PipelineConfig, layout: str, intervals, fingerprint
     )
 
 
+@timed_engine(PHASES)
 def build_junctions_bloom(
     input_paths: Sequence[str] | None,
     config: PipelineConfig,
@@ -198,8 +199,6 @@ def build_junctions_bloom(
     cfg = config.pass_config()  # raises the layout's capacity errors first
     k, P, B, w = cfg.k, cfg.P, cfg.B, cfg.w
     stats = RunStats()
-    stats.timings.update(dict.fromkeys(PHASES, 0.0))
-    t_start = time.time()
 
     sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats,
                                                reference=reference)
@@ -213,16 +212,15 @@ def build_junctions_bloom(
 
     # ---- round split (reference InitialFilterFillerWorker analogue) ----
     if config.rounds > 1:
-        t0 = time.time()
-        if os.environ.get("TWOPACO_UNIFORM_SPLIT", "1") != "0":
-            # near-uniform Buzhash values: a uniform split is as balanced
-            # as a counted one, and rounds here only bound the filter
-            # probes, so imbalance costs time, never correctness
-            hist = np.ones(1 << BIN_POW, np.int64)
-        else:
-            hist = histogram.histogram_scan(uploads, k=k, P=P, fn=ops.histogram)
-        intervals = _split_rounds(hist, config.rounds, BIN_POW)
-        stats.timings["hist"] = time.time() - t0
+        with trace.span("hist"):
+            if os.environ.get("TWOPACO_UNIFORM_SPLIT", "1") != "0":
+                # near-uniform Buzhash values: a uniform split is as balanced
+                # as a counted one, and rounds here only bound the filter
+                # probes, so imbalance costs time, never correctness
+                hist = np.ones(1 << BIN_POW, np.int64)
+            else:
+                hist = histogram.histogram_scan(uploads, k=k, P=P, fn=ops.histogram)
+            intervals = _split_rounds(hist, config.rounds, BIN_POW)
         log(f"Splitting the input kmers set ({len(intervals)} rounds)... {intervals}")
     else:
         intervals = [(0, MASK32)]
@@ -248,113 +246,108 @@ def build_junctions_bloom(
             log(f"Round {r}: restored from checkpoint")
             continue
         log(f"Round {r}, {low}:{high}")
+        with trace.span("round", r=r, low=low, high=high) as rspan:
+            with trace.span("fill"):
+                filt = bloom.make_filter(cfg.f, cfg.layout, dev)
+                ops.fill(filt, uploads, low, high, cfg=cfg)  # one launch a round
+                _sync(dev)
 
-        t0 = time.time()
-        filt = bloom.make_filter(cfg.f, cfg.layout, dev)
-        ops.fill(filt, uploads, low, high, cfg=cfg)  # one launch a round
-        _sync(dev)
-        t_fill = time.time() - t0
+            with trace.span("mark"):
+                # one launch
+                round_masks, counts_d = ops.mark(filt, uploads, low, high, cfg=cfg)
+                del filt
+                counts = [int(c) for c in counts_d.cpu()]  # one fetch for every batch's count
 
-        t0 = time.time()
-        round_masks, counts_d = ops.mark(filt, uploads, low, high, cfg=cfg)  # one launch
-        del filt
-        counts = [int(c) for c in counts_d.cpu()]  # one fetch for every batch's count
-        t_mark = time.time() - t0
+            with trace.span("extract"):
+                n_cand = sum(counts)
+                buf, state = extract.new_buffer(n_cand, w, dev)
+                ops.extract(uploads, round_masks, buf, state, bases, k=k, P=P)  # one call
+                if state.tolist() != [n_cand, 0]:
+                    raise RuntimeError(f"candidate extraction {state.tolist()} != marks {n_cand}")
 
-        t0 = time.time()
-        n_cand = sum(counts)
-        buf, state = extract.new_buffer(n_cand, w, dev)
-        ops.extract(uploads, round_masks, buf, state, bases, k=k, P=P)  # one call
-        if state.tolist() != [n_cand, 0]:
-            raise RuntimeError(f"candidate extraction {state.tolist()} != marks {n_cand}")
-        t_extract = time.time() - t0
+            # ---- exact verification: the sort engine's sort and judge -------
+            with trace.span("verify"):
+                if n_cand:
+                    verdict = ops.judge(*ops.sort(*buf, key_bits=2 * k), config.abundance)
+                    junc_words = verdict[0].cpu().numpy()
+                    n_groups, n_junc = verdict[3], verdict[4]
+                    del verdict
+                else:
+                    junc_words = np.zeros((0, w), np.uint32)
+                    n_groups = n_junc = 0
+                del buf
+                _sync(dev)
 
-        # ---- exact verification: the sort engine's sort and judge -------
-        t0 = time.time()
-        if n_cand:
-            verdict = ops.judge(*ops.sort(*buf, key_bits=2 * k), config.abundance)
-            junc_words = verdict[0].cpu().numpy()
-            n_groups, n_junc = verdict[3], verdict[4]
-            del verdict
-        else:
-            junc_words = np.zeros((0, w), np.uint32)
-            n_groups = n_junc = 0
-        del buf
-        _sync(dev)
-        t_verify = time.time() - t0
-
-        junction_words.append(junc_words)
-        round_counts.append(counts)
-        stats.rounds.append(dict(
-            low=low, high=high, marks=n_cand, hash_table_size=n_groups,
-            true_junctions=n_junc, false_positives=n_groups - n_junc,
-            t_fill=t_fill, t_mark=t_mark, t_extract=t_extract, t_verify=t_verify,
-        ))
-        for key, val in (("fill", t_fill), ("mark", t_mark),
-                         ("extract", t_extract), ("verify", t_verify)):
-            stats.timings[key] += val
-        log(
-            f"Round {r} seconds: fill={t_fill:.4f} mark={t_mark:.4f} "
-            f"extract={t_extract:.4f} verify={t_verify:.4f}\n"
-            f"True junctions = {n_junc}\nFalse junctions = {n_groups - n_junc}\n"
-            f"Hash table size = {n_groups}\nCandidate marks count = {n_cand}"
-        )
-        if ckpt.dir is not None:
-            ckpt.save_round(
-                r, stats.rounds[-1], junc_words=junc_words,
-                masks=torch.stack(round_masks).cpu().numpy(),
-                counts=np.asarray(counts, np.int64),
+            junction_words.append(junc_words)
+            round_counts.append(counts)
+            t = trace.totals(rspan)
+            t_fill, t_mark, t_extract, t_verify = (
+                t.get(key, 0.0) for key in ("fill", "mark", "extract", "verify"))
+            stats.rounds.append(dict(
+                low=low, high=high, marks=n_cand, hash_table_size=n_groups,
+                true_junctions=n_junc, false_positives=n_groups - n_junc,
+                t_fill=t_fill, t_mark=t_mark, t_extract=t_extract, t_verify=t_verify,
+            ))
+            log(
+                f"Round {r} seconds: fill={t_fill:.4f} mark={t_mark:.4f} "
+                f"extract={t_extract:.4f} verify={t_verify:.4f}\n"
+                f"True junctions = {n_junc}\nFalse junctions = {n_groups - n_junc}\n"
+                f"Hash table size = {n_groups}\nCandidate marks count = {n_cand}"
             )
-        masks.add_round(round_masks)
-        del round_masks, counts_d
+            if ckpt.dir is not None:
+                with trace.span("checkpoint"):
+                    ckpt.save_round(
+                        r, stats.rounds[-1], junc_words=junc_words,
+                        masks=torch.stack(round_masks).cpu().numpy(),
+                        counts=np.asarray(counts, np.int64),
+                    )
+            masks.add_round(round_masks)
+            del round_masks, counts_d
 
     # ---- junction dictionary -----------------------------------------
-    t0 = time.time()
-    table = np.concatenate(junction_words)
-    if len(table):
-        keys = dna.words_to_bytes_keys(table)
-        order = np.argsort(keys, kind="stable")
-        keys = keys[order]
-        uniq = np.ones(len(keys), bool)
-        uniq[1:] = keys[1:] != keys[:-1]
-        table = np.ascontiguousarray(table[order][uniq])
+    with trace.span("dict") as dspan:
+        table = np.concatenate(junction_words)
+        if len(table):
+            keys = dna.words_to_bytes_keys(table)
+            order = np.argsort(keys, kind="stable")
+            keys = keys[order]
+            uniq = np.ones(len(keys), bool)
+            uniq[1:] = keys[1:] != keys[:-1]
+            table = np.ascontiguousarray(table[order][uniq])
     stats.distinct_junctions = len(table)
-    stats.timings["dict"] = time.time() - t0
-    log(f"Reallocating bifurcations time: {stats.timings['dict']:.1f}")
+    log(f"Reallocating bifurcations time: {dspan.seconds:.1f}")
     enum = Enumerator(table, k, stats)
 
     # ---- pass 4: ids of the candidate positions, ordered output --------
     if out_path is not None:
-        t0 = time.time()
-        table_d = torch.from_numpy(table).to(dev)
-        # one call over the run's batches; groups of batches when the masks
-        # spilled or the positions pass a call's int32 ranks
-        per = min(masks.group_size(B * P // 8), max(1, LOOKUP_POSITIONS // (B * P)))
-        found = []
-        for g0 in range(0, len(batches), per):
-            g1 = min(g0 + per, len(batches))
-            cap = max(1, sum(sum(rc[g0:g1]) for rc in round_counts))  # >= its candidates
-            found.append((*ops.lookup(uploads[g0:g1], masks.group_masks(g0, g1, dev), table_d,
-                                      cap, bases[g0:g1], k=k, P=P), cap))
-        masks.cleanup()
-        cnts = [int(c) for c in torch.stack([c for _p, _i, c, _cap in found]).cpu()]
-        if any(c > cap for c, (*_r, cap) in zip(cnts, found)):
-            raise RuntimeError("pass 4 found more junction positions than candidates")
-        parts = [(p[:c], i[:c]) for c, (p, i, _c, _cap) in zip(cnts, found)]
-        occ_pos, occ_ids = (
-            (torch.cat(col) if len(parts) > 1 else col[0]).cpu().numpy() for col in zip(*parts)
-        )
-        del found, parts, table_d
-        stats.timings["lookup"] = time.time() - t0
-        t0 = time.time()
-        occurrences, n_stubs = emit_junctions(
-            out_path, batches, occ_pos, occ_ids, len(table), P, timings=stats.timings
-        )
+        with trace.span("lookup"):
+            table_d = torch.from_numpy(table).to(dev)
+            # one call over the run's batches; groups of batches when the masks
+            # spilled or the positions pass a call's int32 ranks
+            per = min(masks.group_size(B * P // 8), max(1, LOOKUP_POSITIONS // (B * P)))
+            found = []
+            for g0 in range(0, len(batches), per):
+                g1 = min(g0 + per, len(batches))
+                cap = max(1, sum(sum(rc[g0:g1]) for rc in round_counts))  # >= its candidates
+                found.append((*ops.lookup(uploads[g0:g1], masks.group_masks(g0, g1, dev),
+                                          table_d, cap, bases[g0:g1], k=k, P=P), cap))
+            masks.cleanup()
+            cnts = [int(c) for c in torch.stack([c for _p, _i, c, _cap in found]).cpu()]
+            if any(c > cap for c, (*_r, cap) in zip(cnts, found)):
+                raise RuntimeError("pass 4 found more junction positions than candidates")
+            parts = [(p[:c], i[:c]) for c, (p, i, _c, _cap) in zip(cnts, found)]
+            occ_pos, occ_ids = (
+                (torch.cat(col) if len(parts) > 1 else col[0]).cpu().numpy()
+                for col in zip(*parts)
+            )
+            del found, parts, table_d
+        with trace.span("emit"):
+            occurrences, n_stubs = emit_junctions(
+                out_path, batches, occ_pos, occ_ids, len(table), P
+            )
         stats.occurrences = occurrences
         stats.stub_ids = n_stubs
-        stats.timings["emit"] = time.time() - t0
         log(f"True marks count: {occurrences}")
     masks.cleanup()
-    stats.timings["total"] = time.time() - t_start
     log(f"Distinct junctions = {enum.vertices_count}")
     return enum

@@ -9,6 +9,7 @@ in the sorted junction table, and stub ids are assigned in input order.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -19,7 +20,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from twopaco_tpu_torch import dna
+from twopaco_tpu_torch import dna, trace
 from twopaco_tpu_torch.io import junctions as junction_io
 from twopaco_tpu_torch.io import windows
 from twopaco_tpu_torch.ops import bloom
@@ -146,6 +147,31 @@ class RunStats:
     timings: dict = field(default_factory=dict)
 
 
+def timed_engine(phases):
+    """Run an engine (-> Enumerator) inside a `total` span and set its
+    stats.timings from the spans under it: each of `phases` summed by name
+    (0.0 where it did not run), then emit_stub and emit_write where the run
+    wrote, and `total`."""
+
+    def wrap(engine):
+        @functools.wraps(engine)
+        def run(*args, **kwargs):
+            with trace.span("total") as total:
+                enum = engine(*args, **kwargs)
+            if enum is None:  # a test stood in for the engine's tail
+                return enum
+            got = trace.totals(total)
+            t = {name: got.get(name, 0.0) for name in phases}
+            t.update((name, got[name]) for name in ("emit_stub", "emit_write") if name in got)
+            t["total"] = total.seconds
+            enum.stats.timings = t
+            return enum
+
+        return run
+
+    return wrap
+
+
 def _split_rounds(hist: np.ndarray, rounds: int, bin_pow: int) -> list[tuple[int, int]]:
     """Greedy equal-mass split of the hash space into `rounds` inclusive
     uint32 intervals (reference vertexenumerator.h:206-250)."""
@@ -251,7 +277,8 @@ class Enumerator:
     def __init__(self, junction_words: np.ndarray, k: int, stats: RunStats):
         self.k = k
         self.junction_words = junction_words  # (J, w) uint32, sorted
-        self._keys = dna.words_to_bytes_keys(junction_words)
+        with trace.span("table_keys"):
+            self._keys = dna.words_to_bytes_keys(junction_words)
         self.stats = stats
 
     @property
@@ -317,7 +344,9 @@ def _write_spliced(out_path, n_occ: int, ins, stub_flat, stub_ids, map_occ, map_
     spliced after each (occurrences and stubs are each sorted and
     disjoint), decoding chunk i+1 in a thread while chunk i is written
     (numpy releases the interpreter lock in its large passes).
-    map_occ(a, b) decodes occurrences [a, b)."""
+    map_occ(a, b) decodes occurrences [a, b). The `emit_write` span counts
+    the seconds the writer waits for a decode (decode_wait_s) and the
+    ChunkWriter's counters (assemble_s, sink_s, bytes)."""
     CH = 1 << 24
 
     def chunk_iter():
@@ -332,15 +361,24 @@ def _write_spliced(out_path, n_occ: int, ins, stub_flat, stub_ids, map_occ, map_
                     stub_flat[si : si + 1], stub_ids[si : si + 1]
                 )
 
-    with junction_io.ChunkWriter(out_path) as w, ThreadPoolExecutor(1) as pool:
-        fut = None
-        for thunk in chunk_iter():
-            nxt = pool.submit(thunk)
+    def decoded(fut):
+        t0 = time.perf_counter_ns()
+        got = fut.result()
+        sp.add("decode_wait_s", (time.perf_counter_ns() - t0) / 1e9)
+        return got
+
+    with trace.span("emit_write") as sp:
+        with junction_io.ChunkWriter(out_path) as w, ThreadPoolExecutor(1) as pool:
+            fut = None
+            for thunk in chunk_iter():
+                nxt = pool.submit(thunk)
+                if fut is not None:
+                    w.write(*decoded(fut))
+                fut = nxt
             if fut is not None:
-                w.write(*fut.result())
-            fut = nxt
-        if fut is not None:
-            w.write(*fut.result())
+                w.write(*decoded(fut))
+        for key, val in w.counters().items():
+            sp.add(key, val)
 
 
 def _row_mapper(seq_id, pos0, P: int):
@@ -367,14 +405,12 @@ def emit_junctions(
     occ_ids: np.ndarray,
     table_len: int,
     P: int,
-    timings: dict | None = None,
 ) -> tuple[int, int]:
     """Write the junction list from an UNPACKED occurrence stream:
     occ_pos sorted int64 global flat positions (row * P + col) of the
     resolved junction occurrences, occ_ids their signed ids (any width).
     The fallback of emit_junctions_packed for runs whose ids and positions
     do not fit one u64 key. Returns (records_written, stub_count)."""
-    t0 = time.time()
     occ_pos = occ_pos.astype(np.int64, copy=False)
     occ_ids = occ_ids.astype(np.int64, copy=False)
 
@@ -384,18 +420,14 @@ def emit_junctions(
         idx = np.minimum(np.searchsorted(occ_pos, flats), len(occ_pos) - 1)
         return occ_pos[idx] == flats
 
-    seq_id, pos0, stub_flat, stub_ids = _endpoint_stubs(batches, present, table_len, P)
-    ins = np.searchsorted(occ_pos, stub_flat, side="left")
-    if timings is not None:
-        timings["emit_stub"] = time.time() - t0
-    t0 = time.time()
+    with trace.span("emit_stub"):
+        seq_id, pos0, stub_flat, stub_ids = _endpoint_stubs(batches, present, table_len, P)
+        ins = np.searchsorted(occ_pos, stub_flat, side="left")
     map_flat = _row_mapper(seq_id, pos0, P)
     _write_spliced(
         out_path, len(occ_pos), ins, stub_flat, stub_ids,
         lambda a, b: map_flat(occ_pos[a:b], occ_ids[a:b]), map_flat,
     )
-    if timings is not None:
-        timings["emit_write"] = time.time() - t0
     return len(occ_pos) + len(stub_flat), len(stub_flat)
 
 
@@ -405,7 +437,6 @@ def emit_junctions_packed(
     keys: np.ndarray,
     table_len: int,
     P: int,
-    timings: dict | None = None,
     id_bits: int = 32,
 ) -> tuple[int, int]:
     """Write the junction list from a PACKED occurrence stream: keys
@@ -413,7 +444,6 @@ def emit_junctions_packed(
     Requires flat positions < 2^(64 - id_bits) and |id| < 2^(id_bits-1)
     (emit_junctions takes the rest). Returns (records_written,
     stub_count)."""
-    t0 = time.time()
     ib = np.uint64(id_bits)
     id_bias = np.int64(1) << (id_bits - 1)
     id_mask = np.uint64((1 << id_bits) - 1)
@@ -428,11 +458,9 @@ def emit_junctions_packed(
         )
         return (keys[idx] >> ib).astype(np.int64) == flats
 
-    seq_id, pos0, stub_flat, stub_ids = _endpoint_stubs(batches, present, table_len, P)
-    ins = np.searchsorted(keys, stub_flat.astype(np.uint64) << ib, side="left")
-    if timings is not None:
-        timings["emit_stub"] = time.time() - t0
-    t0 = time.time()
+    with trace.span("emit_stub"):
+        seq_id, pos0, stub_flat, stub_ids = _endpoint_stubs(batches, present, table_len, P)
+        ins = np.searchsorted(keys, stub_flat.astype(np.uint64) << ib, side="left")
     map_flat = _row_mapper(seq_id, pos0, P)
 
     def map_keys(a, b):
@@ -444,8 +472,6 @@ def emit_junctions_packed(
         return map_flat((kv >> ib).view(np.int64), (kv & id_mask).view(np.int64) - id_bias)
 
     _write_spliced(out_path, len(keys), ins, stub_flat, stub_ids, map_keys, map_flat)
-    if timings is not None:
-        timings["emit_write"] = time.time() - t0
     return len(keys) + len(stub_flat), len(stub_flat)
 
 

@@ -43,14 +43,13 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import time
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from twopaco_tpu_torch import dna, hostmem
+from twopaco_tpu_torch import dna, hostmem, trace
 from twopaco_tpu_torch.hostmem import big_empty
 from twopaco_tpu_torch.io import fasta as fasta_io
 from twopaco_tpu_torch.io import windows
@@ -69,6 +68,7 @@ from twopaco_tpu_torch.passes.pipeline import (
     _split_rounds,
     emit_junctions,
     emit_junctions_packed,
+    timed_engine,
 )
 
 RESIDENT_BYTES_CPU = 6 << 30  # the JAX package's default budget
@@ -317,12 +317,12 @@ def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: Run
                  reference: bool = False):
     """The host front of every engine: read the FASTA files (unless
     `sequences` is given) into one staged buffer, cut the window rows and
-    pack and upload them on dev, with the `read`, `windows` and `upload`
-    times in stats. reference=True packs with the plain version.
+    pack and upload them on dev, in spans `read`, `windows` and `upload`.
+    reference=True packs with the plain version.
 
     -> (sequences, batches, uploads = [(packed, nmask, valid)] on dev)"""
     sequences, batches = read_batches(input_paths, sequences, config, stats)
-    return sequences, batches, upload_batches(batches, dev, stats, reference=reference)
+    return sequences, batches, upload_batches(batches, dev, reference=reference)
 
 
 def read_batches(input_paths, sequences, config: PipelineConfig, stats: RunStats):
@@ -330,28 +330,27 @@ def read_batches(input_paths, sequences, config: PipelineConfig, stats: RunStats
     buffer (the native encoder writes straight into it, given sequences
     are copied in) and the window rows' metadata and row table over it
     (io/windows.py window_rows). -> (sequences, windows.WindowRows)"""
-    t0 = time.time()
-    if sequences is None:
-        sequences, codes = fasta_io.read_all_staged(input_paths)
-    else:
-        codes = fasta_io.stage_codes([c for _sid, c in sequences])
-    stats.timings["read"] = time.time() - t0
-    t0 = time.time()
-    batches = windows.window_rows([len(c) for _sid, c in sequences], config.window_config(),
-                                  seq_ids=[sid for sid, _c in sequences])
-    batches.codes = codes
-    stats.total_positions = int(sum(int(b.valid.sum()) for b in batches))
-    stats.timings["windows"] = time.time() - t0
+    with trace.span("read"):
+        if sequences is None:
+            sequences, codes = fasta_io.read_all_staged(input_paths)
+        else:
+            codes = fasta_io.stage_codes([c for _sid, c in sequences])
+    with trace.span("windows"):
+        batches = windows.window_rows([len(c) for _sid, c in sequences],
+                                      config.window_config(),
+                                      seq_ids=[sid for sid, _c in sequences])
+        batches.codes = codes
+        stats.total_positions = int(sum(int(b.valid.sum()) for b in batches))
     if not batches:
         raise ValueError(f"no input sequence has {config.k} or more chars")
     return sequences, batches
 
 
-def upload_batches(batches, dev, stats: RunStats, rows: slice = slice(None), *,
-                   reference: bool = False, stage_bytes: int | None = None):
+def upload_batches(batches, dev, rows: slice = slice(None), *, reference: bool = False,
+                   stage_bytes: int | None = None):
     """The batches' rows `rows` (of each batch), packed on dev from the
     run's staged codes (passes/upload.py; reference=True: the plain
-    version), the `upload` time added to stats.
+    version), in an `upload` span.
 
     The codes go up in chunks of consecutive batches (upload.plan_chunks):
     a chunk's rows read one span of the staged codes, which is copied
@@ -360,45 +359,45 @@ def upload_batches(batches, dev, stats: RunStats, rows: slice = slice(None), *,
     the free memory less the packed form; no limit on the CPU). A run
     that fits takes one chunk. -> [(packed, nmask, valid)], a batch's
     tensors row slices of three."""
-    t0 = time.time()
-    B = len(batches[0].seq_id)
-    sel = np.arange(B)[rows]
-    r = len(sel)
-    idx = (np.arange(len(batches))[:, None] * B + sel).reshape(-1)
-    table = batches.table[idx]
-    valid = np.concatenate([b.valid for b in batches])[idx]
-    codes, R = batches.codes, batches.row_chars
-    RW, NW = upload.row_words(R)
-    out_bytes = len(idx) * (4 * (RW + NW) + 4)
-    free = _free_bytes(dev)
-    budget = stage_bytes
-    if budget is None and free is not None:
-        budget = free - out_bytes
-    chunks, least = upload.plan_chunks(table, R, r, codes.numel(), budget)
-    if free is not None and out_bytes + least > free:
-        raise RuntimeError(
-            f"the input's upload needs {_gib(out_bytes + least)} of device memory, "
-            f"{_gib(free)} is free"
-        )
-    packed = torch.empty((len(idx), RW), dtype=torch.uint32, device=dev)
-    nmask = torch.empty((len(idx), NW), dtype=torch.uint32, device=dev)
-    valid_d = torch.from_numpy(valid).to(dev)
-    pack_fn = upload.pack_rows_plain if reference else upload.pack_rows
-    for b0, b1, lo, hi in chunks:
-        table_d = torch.from_numpy(table[b0 * r : b1 * r] - lo).to(dev)
-        span = codes[lo:hi]
-        with hostmem.pinned([span], dev):  # waits for the launch on leaving
-            codes_d = span.to(dev, non_blocking=True)
-            pack_fn(codes_d, table_d, R=R,
-                    out=(packed[b0 * r : b1 * r], nmask[b0 * r : b1 * r]))
-            del codes_d, table_d
-    uploads = [(packed[b * r : (b + 1) * r], nmask[b * r : (b + 1) * r],
-                valid_d[b * r : (b + 1) * r]) for b in range(len(batches))]
-    _sync(dev)
-    stats.timings["upload"] = stats.timings.get("upload", 0.0) + time.time() - t0
+    with trace.span("upload"):
+        B = len(batches[0].seq_id)
+        sel = np.arange(B)[rows]
+        r = len(sel)
+        idx = (np.arange(len(batches))[:, None] * B + sel).reshape(-1)
+        table = batches.table[idx]
+        valid = np.concatenate([b.valid for b in batches])[idx]
+        codes, R = batches.codes, batches.row_chars
+        RW, NW = upload.row_words(R)
+        out_bytes = len(idx) * (4 * (RW + NW) + 4)
+        free = _free_bytes(dev)
+        budget = stage_bytes
+        if budget is None and free is not None:
+            budget = free - out_bytes
+        chunks, least = upload.plan_chunks(table, R, r, codes.numel(), budget)
+        if free is not None and out_bytes + least > free:
+            raise RuntimeError(
+                f"the input's upload needs {_gib(out_bytes + least)} of device memory, "
+                f"{_gib(free)} is free"
+            )
+        packed = torch.empty((len(idx), RW), dtype=torch.uint32, device=dev)
+        nmask = torch.empty((len(idx), NW), dtype=torch.uint32, device=dev)
+        valid_d = torch.from_numpy(valid).to(dev)
+        pack_fn = upload.pack_rows_plain if reference else upload.pack_rows
+        for b0, b1, lo, hi in chunks:
+            table_d = torch.from_numpy(table[b0 * r : b1 * r] - lo).to(dev)
+            span = codes[lo:hi]
+            with hostmem.pinned([span], dev):  # waits for the launch on leaving
+                codes_d = span.to(dev, non_blocking=True)
+                pack_fn(codes_d, table_d, R=R,
+                        out=(packed[b0 * r : b1 * r], nmask[b0 * r : b1 * r]))
+                del codes_d, table_d
+        uploads = [(packed[b * r : (b + 1) * r], nmask[b * r : (b + 1) * r],
+                    valid_d[b * r : (b + 1) * r]) for b in range(len(batches))]
+        _sync(dev)
     return uploads
 
 
+@timed_engine(PHASES)
 def build_junctions_sorted(
     input_paths: Sequence[str] | None,
     config: PipelineConfig,
@@ -424,46 +423,45 @@ def build_junctions_sorted(
     k, P, B, w = config.k, config.positions_per_row, config.rows_per_batch, config.w
     slack = config.round_slack
     stats = RunStats()
-    stats.timings.update(dict.fromkeys(PHASES, 0.0))
-    t_start = time.time()
 
     sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats,
                                                reference=reference)
     bp = B * P
     nb = len(batches)
     n_slots = nb * bp
-    # beyond 2^32 flat positions (~4.2 Gbases) the merge keys need more
-    # than 32 position bits; TWOPACO_POS64=1 forces that layout for tests
-    wide = wide_layout(config, n_slots)
-    id_bits = key_id_bits(n_slots, len(sequences), wide)
-    log(
-        f"Engine = sort-join ({dev.type})\nVertex length = {k}\n"
-        f"Record slots = {n_slots}\nCapacity = {w} words"
-    )
-    bases = [b.row0 * P for b in batches]
-
-    free = _free_bytes(dev)
-    n_rounds, round_buf = plan_rounds(config, n_slots, bp, free)
-    budget = resident_budget(config, n_slots, bp, n_rounds, free)
-    total_bytes = int(n_slots * slack * block_bytes(w))
-    resident = (
-        n_rounds > 1
-        and total_bytes <= budget
-        and os.environ.get("TWOPACO_RESIDENT", "1") != "0"
-    )
+    with trace.span("plan"):
+        # beyond 2^32 flat positions (~4.2 Gbases) the merge keys need more
+        # than 32 position bits; TWOPACO_POS64=1 forces that layout for tests
+        wide = wide_layout(config, n_slots)
+        id_bits = key_id_bits(n_slots, len(sequences), wide)
+        log(
+            f"Engine = sort-join ({dev.type})\nVertex length = {k}\n"
+            f"Record slots = {n_slots}\nCapacity = {w} words"
+        )
+        bases = [b.row0 * P for b in batches]
+        bases_d = torch.tensor(bases, dtype=torch.int64, device=dev)
+        free = _free_bytes(dev)
+        n_rounds, round_buf = plan_rounds(config, n_slots, bp, free)
+        budget = resident_budget(config, n_slots, bp, n_rounds, free)
+        total_bytes = int(n_slots * slack * block_bytes(w))
+        resident = (
+            n_rounds > 1
+            and total_bytes <= budget
+            and os.environ.get("TWOPACO_RESIDENT", "1") != "0"
+        )
     hist = None
     if n_rounds > 1:
-        t0 = time.time()
-        if os.environ.get("TWOPACO_UNIFORM_SPLIT", "1") != "0":
-            # Buzhash values are near-uniform: a uniform split of the hash
-            # space balances the rounds to ~sqrt(records a round), and the
-            # resident partition re-splits on overflow anyway
-            hist = np.ones(1 << BIN_POW, np.int64)
-        else:
-            # a sample of ~2^23 positions: ~1% interval-mass accuracy
-            stride = max(1, 1 << max(0, n_slots.bit_length() - 24))
-            hist = histogram.histogram_scan(uploads, k=k, P=P, stride=stride, fn=ops.histogram)
-        stats.timings["hist"] = time.time() - t0
+        with trace.span("hist"):
+            if os.environ.get("TWOPACO_UNIFORM_SPLIT", "1") != "0":
+                # Buzhash values are near-uniform: a uniform split of the hash
+                # space balances the rounds to ~sqrt(records a round), and the
+                # resident partition re-splits on overflow anyway
+                hist = np.ones(1 << BIN_POW, np.int64)
+            else:
+                # a sample of ~2^23 positions: ~1% interval-mass accuracy
+                stride = max(1, 1 << max(0, n_slots.bit_length() - 24))
+                hist = histogram.histogram_scan(uploads, k=k, P=P, stride=stride,
+                                                fn=ops.histogram)
 
     fingerprint = None
     if checkpoint_dir is not None:
@@ -487,34 +485,33 @@ def build_junctions_sorted(
     if resumed_all:
         pass
     elif resident:
-        t0 = time.time()
-        n_rounds = max(config.rounds, -(-int(n_slots * slack) // round_buf))
-        for _attempt in range(6):
-            intervals = _live_intervals(hist, n_rounds)
-            part_cap = -(-int(slack * bp) // len(intervals))
-            highs = [h for _l, h in intervals]
-            *blocks, counts = ops.partition(
-                uploads, highs, 0, MASK32, k=k, P=P, part_cap=part_cap,
-            )
-            if (counts <= part_cap).all():
-                break
-            # a batch's round block overflowed its fixed cap (local k-mer
-            # hash skew): split finer and partition again
-            blocks = None
-            n_rounds = -(-n_rounds * 3) // 2
-            log(
-                f"Round block overflow (max {int(counts.max())} > {part_cap}); "
-                f"re-splitting into {n_rounds} rounds"
-            )
-        else:
-            raise RuntimeError(
-                "round block overflow persists after re-splitting — raise "
-                "PipelineConfig.round_slack"
-            )
-        del uploads  # the records live in the blocks now
-        buf_slots = nb * part_cap
-        _sync(dev)
-        stats.timings["partition"] = time.time() - t0
+        with trace.span("partition"):
+            n_rounds = max(config.rounds, -(-int(n_slots * slack) // round_buf))
+            for _attempt in range(6):
+                intervals = _live_intervals(hist, n_rounds)
+                part_cap = -(-int(slack * bp) // len(intervals))
+                highs = [h for _l, h in intervals]
+                *blocks, counts = ops.partition(
+                    uploads, highs, 0, MASK32, k=k, P=P, part_cap=part_cap,
+                )
+                if (counts <= part_cap).all():
+                    break
+                # a batch's round block overflowed its fixed cap (local k-mer
+                # hash skew): split finer and partition again
+                blocks = None
+                n_rounds = -(-n_rounds * 3) // 2
+                log(
+                    f"Round block overflow (max {int(counts.max())} > {part_cap}); "
+                    f"re-splitting into {n_rounds} rounds"
+                )
+            else:
+                raise RuntimeError(
+                    "round block overflow persists after re-splitting — raise "
+                    "PipelineConfig.round_slack"
+                )
+            del uploads  # the records live in the blocks now
+            buf_slots = nb * part_cap
+            _sync(dev)
         log(
             f"Splitting the input kmers set ({len(intervals)} rounds, "
             f"resident parts, block cap {part_cap})"
@@ -542,7 +539,6 @@ def build_junctions_sorted(
         buf_slots = n_slots  # every batch at row0 * P
 
     ckpt = _Checkpoint(checkpoint_dir, config, n_slots, intervals, fingerprint)
-    bases_d = torch.tensor(bases, dtype=torch.int64, device=dev)
 
     # grouped bookkeeping: round -> block index within its group, and the
     # rounds at which a group's partition pass runs
@@ -560,18 +556,17 @@ def build_junctions_sorted(
             glow, ghigh, g_highs, n_real = group_at[r]
             if not all(ckpt.has_round(r + j) for j in range(n_real)):
                 blocks = None  # the previous group's blocks go first
-                t0 = time.time()
-                *blocks, counts = ops.partition(
-                    uploads, g_highs + [ghigh] * (n_inner - n_real), glow, ghigh,
-                    k=k, P=P, part_cap=part_cap,
-                )
-                if (counts[:, :n_real] > part_cap).any():
-                    raise RuntimeError(
-                        f"grouped round block overflow (max {int(counts.max())} "
-                        f"> {part_cap}) — raise PipelineConfig.round_slack"
+                with trace.span("partition"):
+                    *blocks, counts = ops.partition(
+                        uploads, g_highs + [ghigh] * (n_inner - n_real), glow, ghigh,
+                        k=k, P=P, part_cap=part_cap,
                     )
-                _sync(dev)
-                stats.timings["partition"] += time.time() - t0
+                    if (counts[:, :n_real] > part_cap).any():
+                        raise RuntimeError(
+                            f"grouped round block overflow (max {int(counts.max())} "
+                            f"> {part_cap}) — raise PipelineConfig.round_slack"
+                        )
+                    _sync(dev)
         restored = ckpt.load_round(r)
         if restored is not None:
             entry, rstats = restored
@@ -584,67 +579,65 @@ def build_junctions_sorted(
             # upload are released, so the round cannot be computed
             raise RuntimeError(f"checkpoint round {r} disappeared during resume")
         log(f"Round {r}, {low}:{high}")
-        t0 = time.time()
-        if resident or groups is not None:
-            pidx = r if resident else part_of_round[r]
-            buf = ops.assemble(pidx, *blocks, bases_d, buf_slots)
-        elif len(intervals) == 1:
-            buf = ops.build_batches(uploads, bases, k=k, P=P, low=low, high=high)
-        else:
-            *buf, over = stream.stream_round(
-                uploads, bases, low, high, k=k, P=P, buf_slots=buf_slots,
-                build_fn=ops.build, compact_fn=ops.compact,
-            )
-            if over:
-                raise RuntimeError(
-                    "round record buffer overflow — increase rounds (-r) or "
-                    "PipelineConfig.round_slack"
+        with trace.span("round", r=r, low=low, high=high) as rspan:
+            with trace.span("build"):
+                if resident or groups is not None:
+                    pidx = r if resident else part_of_round[r]
+                    buf = ops.assemble(pidx, *blocks, bases_d, buf_slots)
+                elif len(intervals) == 1:
+                    buf = ops.build_batches(uploads, bases, k=k, P=P, low=low, high=high)
+                else:
+                    *buf, over = stream.stream_round(
+                        uploads, bases, low, high, k=k, P=P, buf_slots=buf_slots,
+                        build_fn=ops.build, compact_fn=ops.compact,
+                    )
+                    if over:
+                        raise RuntimeError(
+                            "round record buffer overflow — increase rounds (-r) or "
+                            "PipelineConfig.round_slack"
+                        )
+                _sync(dev)
+
+            with trace.span("sort"):
+                sw, spay, spos = ops.sort(*buf, key_bits=2 * k)
+                del buf
+                _sync(dev)
+
+            with trace.span("judge"):
+                table_d, occ_pos_d, occ_id_d, n_groups, n_junc, n_occ = ops.judge(
+                    sw, spay, spos, config.abundance
                 )
-        _sync(dev)
-        t_build = time.time() - t0
+                del sw, spay, spos
+                occ_d = finish_occurrences(ops, occ_pos_d, occ_id_d, id_bits, n_slots)
+                del occ_pos_d, occ_id_d
+                _sync(dev)
 
-        t0 = time.time()
-        sw, spay, spos = ops.sort(*buf, key_bits=2 * k)
-        del buf
-        _sync(dev)
-        t_sort = time.time() - t0
-
-        t0 = time.time()
-        table_d, occ_pos_d, occ_id_d, n_groups, n_junc, n_occ = ops.judge(
-            sw, spay, spos, config.abundance
-        )
-        del sw, spay, spos
-        occ_d = finish_occurrences(ops, occ_pos_d, occ_id_d, id_bits, n_slots)
-        del occ_pos_d, occ_id_d
-        _sync(dev)
-        t_judge = time.time() - t0
-
-        t0 = time.time()
-        entry = fetch_entry(table_d, occ_d, id_bits)
-        del table_d, occ_d
-        t_fetch = time.time() - t0
-        fetched.append(entry)
-        stats.rounds.append(
-            dict(
-                low=low, high=high, marks=n_occ, hash_table_size=n_groups,
-                true_junctions=n_junc, false_positives=0, t_build=t_build,
-                t_sort=t_sort, t_judge=t_judge, t_fetch=t_fetch,
+            with trace.span("fetch"):
+                entry = fetch_entry(table_d, occ_d, id_bits)
+                del table_d, occ_d
+            fetched.append(entry)
+            t = trace.totals(rspan)
+            t_build, t_sort, t_judge, t_fetch = (
+                t.get(key, 0.0) for key in ("build", "sort", "judge", "fetch"))
+            stats.rounds.append(
+                dict(
+                    low=low, high=high, marks=n_occ, hash_table_size=n_groups,
+                    true_junctions=n_junc, false_positives=0, t_build=t_build,
+                    t_sort=t_sort, t_judge=t_judge, t_fetch=t_fetch,
+                )
             )
-        )
-        for key, val in (("build", t_build), ("sort", t_sort),
-                         ("judge", t_judge), ("fetch", t_fetch)):
-            stats.timings[key] += val
-        log(
-            f"Round {r} seconds: build={t_build:.4f} sort={t_sort:.4f} "
-            f"judge={t_judge:.4f} fetch={t_fetch:.4f}\n"
-            f"True junctions = {n_junc}\nDistinct k-mers = {n_groups}\n"
-            f"Occurrences = {n_occ}"
-        )
-        ckpt.save_round(r, entry, stats.rounds[-1])
+            log(
+                f"Round {r} seconds: build={t_build:.4f} sort={t_sort:.4f} "
+                f"judge={t_judge:.4f} fetch={t_fetch:.4f}\n"
+                f"True junctions = {n_junc}\nDistinct k-mers = {n_groups}\n"
+                f"Occurrences = {n_occ}"
+            )
+            with trace.span("checkpoint"):
+                ckpt.save_round(r, entry, stats.rounds[-1])
 
     blocks = uploads = None  # release the device state before the merge
     return merge_fetched(
-        fetched, batches, config, out_path, stats, log, t_start,
+        fetched, batches, config, out_path, stats, log,
         n_slots=n_slots, wide=wide, n_sequences=len(sequences), dev=dev,
         free=_free_bytes(dev), reference=reference,
     )
@@ -700,7 +693,8 @@ def _host_copies(tensors):
     dev = tensors[0].device
     if dev.type != "cuda":
         return list(tensors)
-    out = [hostmem.host_empty(t.shape, t.dtype) for t in tensors]
+    with trace.span("fetch.alloc"):
+        out = [hostmem.host_empty(t.shape, t.dtype) for t in tensors]
     with hostmem.pinned(out, dev):
         for o, t in zip(out, tensors):
             o.copy_(t, non_blocking=True)
@@ -733,7 +727,7 @@ def raw_entry(entry):
 
 
 def merge_fetched(
-    fetched, batches, config, out_path, stats, log, t_start,
+    fetched, batches, config, out_path, stats, log,
     *, n_slots: int, wide: bool, n_sequences: int, dev, free: int | None,
     reference: bool = False,
 ) -> Enumerator:
@@ -753,13 +747,13 @@ def merge_fetched(
     pos_bits = merge_pos_bits(n_slots, wide)
     if _packed_merge(total_j, n_sequences, 64 - pos_bits):
         return merge_rounds_packed(
-            fetched, batches, config, out_path, stats, log, t_start,
+            fetched, batches, config, out_path, stats, log,
             pos_bits=pos_bits, dev=dev, free=free, reference=reference,
         )
     raw = [raw_entry(e) for e in fetched]
     return merge_rounds_and_emit(
         [t for t, _, _ in raw], [(p, i) for _, p, i in raw],
-        batches, config, out_path, stats, log, t_start,
+        batches, config, out_path, stats, log,
     )
 
 
@@ -776,7 +770,7 @@ def _merge_keys(cat: np.ndarray, w: int) -> np.ndarray:
 
 
 def merge_rounds_packed(
-    fetched, batches, config, out_path, stats, log, t_start, pos_bits: int = 32, *,
+    fetched, batches, config, out_path, stats, log, pos_bits: int = 32, *,
     dev, free: int | None, reference: bool = False,
 ) -> Enumerator:
     """Merge into ONE u64 key buffer (pos << id_bits | id + 2^(id_bits-1),
@@ -795,46 +789,42 @@ def merge_rounds_packed(
     each entry's local ids with no search, and the buffer is sorted in
     place."""
     id_bits = 64 - pos_bits
-    t0 = time.time()
-    keyed = bool(fetched) and all(isinstance(e[1], OccKeys) for e in fetched)
-    for _t, keys, _none in fetched:
-        if isinstance(keys, OccKeys) and keys.id_bits != id_bits:
-            raise ValueError(f"keys of {keys.id_bits} id bits in a {id_bits}-bit merge")
-    on_dev = keyed and len(fetched) > 1
-    if on_dev and free is not None:
-        need = merge.device_bytes(sum(len(e[0]) for e in fetched), config.w,
-                                  sum(len(e[1]) for e in fetched), len(fetched))
-        if need > free:
-            log(f"Merge on the host: the device merge needs {_gib(need)}, {_gib(free)} "
-                "is free")
-            on_dev = False
-    if keyed and len(fetched) == 1:
-        table, keys, _none = fetched[0]
-        buf = keys.keys
-        _check_key_ids(buf, id_bits, len(table))
-    elif on_dev:
-        table, buf = merge_on_device(fetched, config, id_bits, dev, reference)
-    else:
-        table, inv = merge_tables(fetched, config.w)
-        buf = packed_occurrences(fetched, inv, pos_bits)
-        # sorted-key entries arrive as sorted runs: timsort ("stable")
-        # merges them, 5-10x faster than the default quicksort here
-        buf.sort(kind="stable")
-    stats.timings["merge"] = time.time() - t0
+    with trace.span("merge"):
+        keyed = bool(fetched) and all(isinstance(e[1], OccKeys) for e in fetched)
+        for _t, keys, _none in fetched:
+            if isinstance(keys, OccKeys) and keys.id_bits != id_bits:
+                raise ValueError(f"keys of {keys.id_bits} id bits in a {id_bits}-bit merge")
+        on_dev = keyed and len(fetched) > 1
+        if on_dev and free is not None:
+            need = merge.device_bytes(sum(len(e[0]) for e in fetched), config.w,
+                                      sum(len(e[1]) for e in fetched), len(fetched))
+            if need > free:
+                log(f"Merge on the host: the device merge needs {_gib(need)}, {_gib(free)} "
+                    "is free")
+                on_dev = False
+        if keyed and len(fetched) == 1:
+            table, keys, _none = fetched[0]
+            buf = keys.keys
+            _check_key_ids(buf, id_bits, len(table))
+        elif on_dev:
+            table, buf = merge_on_device(fetched, config, id_bits, dev, reference)
+        else:
+            table, inv = merge_tables(fetched, config.w)
+            buf = packed_occurrences(fetched, inv, pos_bits)
+            # sorted-key entries arrive as sorted runs: timsort ("stable")
+            # merges them, 5-10x faster than the default quicksort here
+            buf.sort(kind="stable")
 
     stats.distinct_junctions = len(table)
     enum = Enumerator(table, config.k, stats)
     if out_path is not None:
-        t0 = time.time()
-        occurrences, n_stubs = emit_junctions_packed(
-            out_path, batches, buf, len(table), config.positions_per_row,
-            timings=stats.timings, id_bits=id_bits,
-        )
+        with trace.span("emit"):
+            occurrences, n_stubs = emit_junctions_packed(
+                out_path, batches, buf, len(table), config.positions_per_row, id_bits=id_bits,
+            )
         stats.occurrences = occurrences
         stats.stub_ids = n_stubs
-        stats.timings["emit"] = time.time() - t0
         log(f"True marks count: {occurrences}")
-    stats.timings["total"] = time.time() - t_start
     log(f"Distinct junctions = {enum.vertices_count}")
     return enum
 
@@ -973,46 +963,45 @@ def packed_occurrences(fetched, inv, pos_bits: int) -> np.ndarray:
 
 
 def merge_rounds_and_emit(
-    round_tables, round_occ, batches, config, out_path, stats, log, t_start,
+    round_tables, round_occ, batches, config, out_path, stats, log,
 ) -> Enumerator:
     """The unpacked merge (twopaco_tpu sortpipe.py:1677): the rounds'
     tables merged into the global sorted dictionary, local ids remapped
     by search, occurrences as int64 (position, id) pairs sorted by
     position. round_occ[r] = (occ_pos, signed local ids, |id| = 1-based
     row of round_tables[r]), in any order."""
-    t0 = time.time()
-    w = config.w
-    if sum(len(t) for t in round_tables):
-        cat = np.concatenate([t for t in round_tables if len(t)])
-        keys = _merge_keys(cat, w)
-        order = np.argsort(keys, kind="stable")
-        table = np.ascontiguousarray(cat[order])
-        global_keys = keys[order]
-    else:
-        table = np.zeros((0, w), np.uint32)
-        global_keys = _merge_keys(table, w)
+    with trace.span("merge"):
+        w = config.w
+        if sum(len(t) for t in round_tables):
+            cat = np.concatenate([t for t in round_tables if len(t)])
+            keys = _merge_keys(cat, w)
+            order = np.argsort(keys, kind="stable")
+            table = np.ascontiguousarray(cat[order])
+            global_keys = keys[order]
+        else:
+            table = np.zeros((0, w), np.uint32)
+            global_keys = _merge_keys(table, w)
 
-    all_pos, all_ids = [], []
-    for rtab, (op, oi) in zip(round_tables, round_occ):
-        if len(op) == 0:
-            continue
-        remap = np.searchsorted(global_keys, _merge_keys(rtab, w)).astype(np.int64)
-        gid = remap[np.abs(oi.astype(np.int64)) - 1] + 1
-        all_pos.append(op.astype(np.int64))
-        all_ids.append(np.sign(oi).astype(np.int64) * gid)
-    if all_pos:
-        occ_pos = np.concatenate(all_pos)
-        occ_ids = np.concatenate(all_ids)
-        order = np.argsort(occ_pos, kind="stable")
-        occ_pos, occ_ids = occ_pos[order], occ_ids[order]
-    else:
-        occ_pos = occ_ids = np.zeros(0, np.int64)
-    stats.timings["merge"] = time.time() - t0
-    return finish_emit(table, occ_pos, occ_ids, batches, config, out_path, stats, log, t_start)
+        all_pos, all_ids = [], []
+        for rtab, (op, oi) in zip(round_tables, round_occ):
+            if len(op) == 0:
+                continue
+            remap = np.searchsorted(global_keys, _merge_keys(rtab, w)).astype(np.int64)
+            gid = remap[np.abs(oi.astype(np.int64)) - 1] + 1
+            all_pos.append(op.astype(np.int64))
+            all_ids.append(np.sign(oi).astype(np.int64) * gid)
+        if all_pos:
+            occ_pos = np.concatenate(all_pos)
+            occ_ids = np.concatenate(all_ids)
+            order = np.argsort(occ_pos, kind="stable")
+            occ_pos, occ_ids = occ_pos[order], occ_ids[order]
+        else:
+            occ_pos = occ_ids = np.zeros(0, np.int64)
+    return finish_emit(table, occ_pos, occ_ids, batches, config, out_path, stats, log)
 
 
 def finish_emit(
-    table, occ_pos, occ_ids, batches, config, out_path, stats, log, t_start,
+    table, occ_pos, occ_ids, batches, config, out_path, stats, log,
 ) -> Enumerator:
     """Common tail of the unpacked merge (twopaco_tpu sortpipe.py:1747):
     the Enumerator of the global table, and the junction list written
@@ -1020,15 +1009,12 @@ def finish_emit(
     stats.distinct_junctions = len(table)
     enum = Enumerator(table, config.k, stats)
     if out_path is not None:
-        t0 = time.time()
-        occurrences, n_stubs = emit_junctions(
-            out_path, batches, occ_pos, occ_ids, len(table),
-            config.positions_per_row, timings=stats.timings,
-        )
+        with trace.span("emit"):
+            occurrences, n_stubs = emit_junctions(
+                out_path, batches, occ_pos, occ_ids, len(table), config.positions_per_row,
+            )
         stats.occurrences = occurrences
         stats.stub_ids = n_stubs
-        stats.timings["emit"] = time.time() - t0
         log(f"True marks count: {occurrences}")
-    stats.timings["total"] = time.time() - t_start
     log(f"Distinct junctions = {enum.vertices_count}")
     return enum

@@ -8,13 +8,15 @@ The slice is chip_smoke.py's: 8 genomes x 8,000,000 bases (seed 2016,
 testing/bench_data.py), k=25 (or -k), the CLI's tier (P=2048, B=256).
 The engine runs twice on one CUDA device (the first run builds the
 kernels and warms the context) and the second is profiled: printed are
-its host wall seconds, the device seconds (the sum of the device-side
-events' time: kernels, copies, memsets; the host-side operators that
-launched them are not counted again), the busy share (device over wall),
-the kernels that took the most device time, with the card's name and
-power limit, the run's phase seconds (the CLI's `time` keys), and the
-host-side operators and runtime calls of the most self CPU time. The dist engines run over a LocalMesh of --shards shards of the
-card; the Bloom engines take the filter's --layout (auto: byte while it
+its host wall seconds, the device seconds (the union of the device-side
+events' intervals: kernels, copies, memsets; the host-side operators that
+launched them are not counted again, nor the program's spans, which the
+profiler also draws on the device's timeline), the busy share (device
+over wall), the kernels that took the most device time, with the card's
+name and power limit, each run's spans (trace.py: count, seconds and
+self seconds by name, and the counters), and the host-side operators and
+runtime calls of the most self CPU time. The dist engines run over a
+LocalMesh of --shards shards of the card; the Bloom engines take the filter's --layout (auto: byte while it
 fits). Needs a CUDA device.
 """
 
@@ -26,6 +28,8 @@ import subprocess
 import sys
 import time
 
+from twopaco_tpu_torch import trace
+
 ENGINES = ("sort", "bloom", "dist", "dist-bloom")
 
 
@@ -35,6 +39,24 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def busy_us(events) -> float:
+    """Microseconds in which some device operation ran: the union of the
+    device events' intervals (the profiler's device-side ranges of user
+    annotations are no device work and are left out)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, t = 0.0, float("-inf")
+    for a, b in spans:
+        a = max(a, t)
+        if b > a:
+            busy += b - a
+            t = b
+    return busy
 
 
 def main(argv=None) -> int:
@@ -77,23 +99,25 @@ def main(argv=None) -> int:
     def run():
         if args.engine.startswith("dist"):
             mesh = LocalMesh([torch.device("cuda", 0)] * args.shards)
-            enum = distpipe.build_junctions_dist([fa], cfg, mesh, out, device="cuda",
-                                                 bloom_gate=args.engine == "dist-bloom")
+            distpipe.build_junctions_dist([fa], cfg, mesh, out, device="cuda",
+                                          bloom_gate=args.engine == "dist-bloom")
         else:
-            enum = build_junctions([fa], cfg, out, device="cuda")
+            build_junctions([fa], cfg, out, device="cuda")
         torch.cuda.synchronize()
-        return enum
 
-    first = run()
+    run()
+    first = trace.last_build()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        enum = run()
-        wall = time.time() - t0
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    profiled = trace.last_build()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not events:
         print("profile_slice: the profiler recorded no device event", file=sys.stderr)
         return 1
-    device_us = sum(e.self_device_time_total for e in events)
+    device_us = busy_us(prof.events())
     card = card_line()
     shards = f", {args.shards} shards" if args.engine.startswith("dist") else ""
     layout = f" --layout {args.layout}" if "bloom" in args.engine else ""
@@ -104,9 +128,12 @@ def main(argv=None) -> int:
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[: args.top]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:90]}")
-    for tag, e in (("first run", first), ("profiled run", enum)):
-        print(f"phases, {tag} (s): " + " ".join(
-            f"{key}={val:.4f}" for key, val in e.stats.timings.items()))
+    for tag, spans in (("first run", first), ("profiled run", profiled)):
+        print(f"spans, {tag} (name: count, seconds, self seconds; counters):")
+        for name, row in trace.by_name(spans).items():
+            counters = " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                                for k, v in row["counters"].items())
+            print(f"  {name:12s} {row['n']:5d} {row['total']:9.4f} {row['self']:9.4f}  {counters}")
     host = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA]
     print(f"host operators by self CPU time (profiled run, {len(host)} kinds):")
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[: args.top]:
