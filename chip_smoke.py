@@ -230,6 +230,10 @@ REPLACES = {
                    "twopaco_tpu/passes/sortpipe.py:1539"),
     "merge_keys": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
                    "twopaco_tpu/passes/sortpipe.py:1539"),
+    "emit_check": ("twopaco_tpu_torch/kernels/csrc/emit.cu",
+                   "twopaco_tpu/passes/pipeline.py:emit_junctions_packed"),
+    "emit_chunk": ("twopaco_tpu_torch/kernels/csrc/emit.cu",
+                   "twopaco_tpu/passes/pipeline.py:emit_junctions_packed"),
 }
 # the run whose launch counts each kernel reports: its own path
 PATH_OF = {
@@ -242,6 +246,7 @@ PATH_OF = {
     "shard_bucket_mark": "dist_bloom_r1", "shard_fill": "dist_bloom_r1",
     "shard_probe": "dist_bloom_r1", "shard_mark_finish": "dist_bloom_r1",
     "upload_rows": "r1", "merge_rows": "resident", "merge_keys": "resident",
+    "emit_check": "r1", "emit_chunk": "r1",
 }
 D4 = 4  # shards of the card in the distributed runs
 FILL_CHUNK = 4096  # received slots a block of bloom_shard.cu's fill
@@ -828,6 +833,78 @@ def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
     print(f"merge {tag} (host clock, in turns) {label}: " + ", ".join(
         f"{how} " + ", ".join(f"{t:.4f}" for t in ts) + " s" for how, ts in times.items())
         + "; equal tables and keys")
+
+
+def emit_checks(fa, cfg, dev, results, label) -> None:
+    """emit.cu's two entries against their plain versions on the slice's
+    -r 1 entry, whose keys stay on the card (the check timed over every
+    key; the chunk timed as one chunk of every record, against the bytes
+    bound), then the card emit as the path runs it (check_keys +
+    write_keys: the chunks streamed through two page-locked host buffers)
+    against the host emit of the fetched keys, host seconds in turns, each
+    file the slice's bytes."""
+    import torch
+
+    from twopaco_tpu_torch.passes import emit, occ, sortpipe
+    from twopaco_tpu_torch.passes.pipeline import build_junctions, emit_junctions_packed
+
+    got = {}
+    orig = sortpipe.merge_fetched
+
+    def capture(fetched, batches, *a, **kw):
+        got.update(fetched=list(fetched), batches=batches)
+        return orig(fetched, batches, *a, **kw)
+
+    out = os.path.join(WORK, "emit_r1.dbg")
+    sortpipe.merge_fetched = capture
+    try:
+        build_junctions([fa], cfg, out, device="cuda")
+    finally:
+        sortpipe.merge_fetched = orig
+    require(sha256(out) == SLICE_SHA256, "emit: the -r 1 run's .dbg differs")
+    (table, ck, _none), = got["fetched"]
+    batches = got["batches"]
+    require(isinstance(ck, occ.CardKeys), "emit: the -r 1 entry's keys left the card")
+    keys, id_bits, P, n_table = ck.keys, ck.id_bits, cfg.positions_per_row, len(table)
+    n = keys.numel()
+    _edges, _q, args = emit.check_inputs(batches, n, P, dev)
+    compare("emit_check",
+            lambda: emit.check(keys, *args, P=P, id_bits=id_bits, n_table=n_table),
+            lambda: emit.check_plain(keys, *args, P=P, id_bits=id_bits, n_table=n_table),
+            10, results, in_bytes=8 * n + nbytes(args))
+    found = emit.check_keys(keys, batches, n_table, P, id_bits, chunk_occ=max(n, 1))
+    pl = emit.plan(batches, found, n, n_table, P, id_bits)
+    (i0, i1, s0, s1), = pl.bounds
+    tabs = [torch.from_numpy(a).to(dev) for a in (pl.rows, pl.gap_slots, pl.gap_recs)]
+    bufs = [torch.full((3 * (s1 - s0),), fill, dtype=torch.int32, device=dev)
+            for fill in (-7, 0)]  # a word left unwritten differs
+    compare("emit_chunk",
+            lambda: (emit.chunk(keys, *tabs, bufs[0], i0=i0, i1=i1, s0=s0, P=P,
+                                id_bits=id_bits),),
+            lambda: (emit.chunk_plain(keys, *tabs, bufs[1], i0=i0, i1=i1, s0=s0, P=P,
+                                      id_bits=id_bits),),
+            10, results, in_bytes=8 * n + nbytes(tabs), out_bytes=12 * (s1 - s0))
+    print(f"emit: {n} keys, {pl.n_stubs} stubs, {s1 - s0 - n - pl.n_stubs} separators, "
+          f"{len(pl.gap_slots)} gap records; check and chunk exact")
+    del bufs, tabs
+    times = {"card": [], "host": []}
+    outs = {how: os.path.join(WORK, f"emit_{how}.dbg") for how in times}
+    for how in ("host", "card", "card", "host"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if how == "card":
+            found = emit.check_keys(keys, batches, n_table, P, id_bits)
+            emit.write_keys(outs[how], batches, keys, found, n_table, P, id_bits)
+        else:
+            host = ck.fetch()
+            sortpipe._check_key_ids(host.keys, id_bits, n_table)
+            emit_junctions_packed(outs[how], batches, host.keys, n_table, P, id_bits=id_bits)
+        times[how].append(time.time() - t0)
+    for how, path in outs.items():
+        require(sha256(path) == SLICE_SHA256, f"emit: the {how} emit's .dbg differs")
+    print(f"emit (host clock, in turns) {label}: " + ", ".join(
+        f"{how} " + ", ".join(f"{t:.4f}" for t in ts) + " s" for how, ts in times.items())
+        + "; both the slice's bytes")
 
 
 NATIVE_PHASES = ("read", "emit", "emit_write", "merge", "total")
@@ -1879,6 +1956,9 @@ def main() -> int:
     del sort_r4, fetched44
 
     del fetched4
+
+    phase("emit")
+    emit_checks(fa, cfg, dev, results, label)
 
     phase("dist-bloom kernels vs plain versions (one slice batch, shards of the card)")
     uploads = sortpipe.upload_batches(wrows, dev)

@@ -8,6 +8,7 @@ not have; this file imports no JAX.) Integer data: every comparison is
 exact.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from twopaco_tpu_torch import dna
+from twopaco_tpu_torch import dna, trace
 from twopaco_tpu_torch.cli import twopaco as cli
 from twopaco_tpu_torch.io import junctions, native, windows
 from twopaco_tpu_torch.kernels import build
@@ -31,12 +32,14 @@ from twopaco_tpu_torch.ops import bloom, pack
 from twopaco_tpu_torch.parallel import distpipe, sharded, sortshard
 from twopaco_tpu_torch.parallel.mesh import LocalMesh
 from twopaco_tpu_torch.passes import (
-    extract, fill, histogram, judge, lookup, mark, merge, occ, partition, records, route,
-    shardbloom, sort, sortpipe, stream, upload,
+    emit, extract, fill, histogram, judge, lookup, mark, merge, occ, partition, records,
+    route, shardbloom, sort, sortpipe, stream, upload,
 )
-from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, build_junctions
+from twopaco_tpu_torch.passes.pipeline import (
+    PassConfig, PipelineConfig, build_junctions, emit_junctions_packed,
+)
 from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
-from twopaco_tpu_torch.testing import bench_data, judge_cases, oracle
+from twopaco_tpu_torch.testing import bench_data, emit_cases, judge_cases, oracle
 
 pytestmark = pytest.mark.cuda
 NO_AB = judge.NO_ABUNDANCE
@@ -261,7 +264,8 @@ def test_pipeline_cuda_equals_cpu(dev, tmp_path, k):
         if device == "cuda":
             counts = build.launch_counts()
             assert set(counts) == {"upload_rows", "build_records", "sort_records",
-                                   "judge_compact", "sort_occurrences"}
+                                   "judge_compact", "sort_occurrences", "emit_check",
+                                   "emit_chunk"}
     assert outs[0] == outs[1] and len(outs[0]) > 0
 
 
@@ -2177,3 +2181,176 @@ def test_merge_path_on_the_card(dev, tmp_path):
     assert any("Merge on the host" in s for s in lines)
     outs.append(open(out, "rb").read())
     assert outs[0] == outs[1] == outs[2] and len(outs[0]) > 0
+
+
+# ---- the card emit (emit.cu): the one keyed entry's records on the card
+
+EMIT_CASES = [  # (lengths, k, P, B, id_bits, at the sequences' ends, chunk)
+    ("mixed", 11, 64, 4, 32, "random", 1 << 24),  # one chunk
+    ("mixed", 11, 64, 4, 32, "random", 97),  # 3 chunks
+    ("many", 11, 64, 4, 24, "stubs", 3),  # many chunks; edges on stubs and separators
+    ("many", 11, 64, 4, 32, "none", 1),  # a chunk an occurrence
+    ("runs", 11, 64, 4, 32, "stubs", 1 << 24),  # stub runs wider than a block's stage
+    ("runs", 11, 100, 4, 32, "random", 1000),  # P not a power of two
+    ("long", 25, 16384, 128, 32, "random", 1 << 20),  # the cell's layout, ~2.2 M keys
+]
+
+
+def _emit_case(dev, case, n_table=5000):
+    kind, k, P, B, id_bits, at_ends, chunk_occ = case
+    batches = emit_cases.batches(emit_cases.lengths(kind, k), k, P, B)
+    keys = emit_cases.keys(batches, P, id_bits, n_table, at_ends)
+    return batches, keys, torch.from_numpy(keys.view(np.int64)).to(dev), P, id_bits, chunk_occ
+
+
+@pytest.mark.parametrize("case", EMIT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_emit_kernels(dev, tmp_path, case):
+    """tp_emit_check and tp_emit_chunk against their plain versions on
+    every chunk (outputs filled differently first, so a word either
+    leaves unwritten differs), and the file against the host emit's."""
+    batches, keys, kd, P, id_bits, chunk_occ = _emit_case(dev, case)
+    n_table = 5000
+    build.reset_launch_counts()
+    found = emit.check_keys(kd, batches, n_table, P, id_bits, chunk_occ=chunk_occ)
+    assert build.launch_counts() == {"emit_check": 1}
+    plain = emit.check_keys(kd, batches, n_table, P, id_bits, chunk_occ=chunk_occ,
+                            fn=emit.check_plain)
+    for name in ("queries", "lower", "hit", "edge_keys"):
+        assert np.array_equal(getattr(found, name), getattr(plain, name)), name
+    pl = emit.plan(batches, found, len(keys), n_table, P, id_bits)
+    rows, gs, gr = (torch.from_numpy(a).to(dev) for a in (pl.rows, pl.gap_slots, pl.gap_recs))
+    for i0, i1, s0, s1 in pl.bounds:
+        got = torch.full((3 * (s1 - s0),), -7, dtype=torch.int32, device=dev)
+        want = torch.zeros_like(got)
+        emit.chunk(kd, rows, gs, gr, got, i0=i0, i1=i1, s0=s0, P=P, id_bits=id_bits)
+        emit.chunk_plain(kd, rows, gs, gr, want, i0=i0, i1=i1, s0=s0, P=P, id_bits=id_bits)
+        assert torch.equal(got, want), (i0, i1, s0, s1)
+    build.reset_launch_counts()
+    card = str(tmp_path / "card.dbg")
+    got_n = emit.write_keys(card, batches, kd, found, n_table, P, id_bits)
+    assert build.launch_counts() == {"emit_chunk": len(pl.bounds)}
+    host = str(tmp_path / "host.dbg")
+    want_n = emit_junctions_packed(host, batches, keys, n_table, P, id_bits=id_bits)
+    assert got_n == want_n
+    assert open(card, "rb").read() == open(host, "rb").read()
+
+
+@pytest.mark.parametrize("what", ["id 0", "past", "position", "order"])
+def test_emit_check_counts_faults(dev, tmp_path, what):
+    """Each planted fault counted as the plain version counts it, and
+    raised before the output exists."""
+    batches, keys, _kd, P, id_bits, _c = _emit_case(dev, EMIT_CASES[-1])
+    mask = np.uint64((1 << id_bits) - 1)
+    i = len(keys) // 2
+    if what in ("id 0", "past"):
+        bad = 0 if what == "id 0" else 5001
+        keys[i] = (keys[i] & ~mask) | np.uint64(bad + (1 << (id_bits - 1)))
+    elif what == "position":
+        keys[-1] = (keys[-1] & mask) | (np.uint64(len(emit_cases.valid_flats(batches, P)) * P)
+                                        << np.uint64(id_bits))
+    else:
+        keys[[i, i + 1]] = keys[[i + 1, i]]
+    kd = torch.from_numpy(keys.view(np.int64)).to(dev)
+    args = (kd, torch.from_numpy(np.concatenate([b.valid for b in batches])).to(dev),
+            torch.arange(0, 4096 * P, P, device=dev), torch.tensor([0, len(keys) - 1, -1],
+                                                                  device=dev))
+    got = emit.check(*args, P=P, id_bits=id_bits, n_table=5000)
+    want = emit.check_plain(*args, P=P, id_bits=id_bits, n_table=5000)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[0].sum()) >= 1
+    with pytest.raises(RuntimeError, match="occurrence"):
+        emit.check_keys(kd, batches, 5000, P, id_bits)
+
+
+def _emit_write(root):
+    (write,) = [s for s in trace.descendants(root) if s.name == "emit_write"]
+    return write
+
+
+@pytest.mark.parametrize("engine", ["sort", "dist"])
+def test_one_round_emits_on_the_card(dev, tmp_path, engine):
+    """Sort -r 1 and dist over the card's one shard keep their keys on
+    the card and write the CPU run's bytes there (card_records: every
+    record but the separators); -r 3 and 4 shards take the host emit."""
+    sequences = _dist_inputs()
+    cfg = PipelineConfig(k=25, positions_per_row=256, rows_per_batch=8)
+    runs = {"cpu": ("cpu", 1, 1), "card": (dev, 1, 1), "r3": (dev, 3, 1),
+            "shards": (dev, 1, 4)}
+    outs = {}
+    for name, (device, rounds, shards) in runs.items():
+        if engine == "sort" and shards > 1:
+            continue
+        c = dataclasses.replace(cfg, rounds=rounds)
+        out = str(tmp_path / f"{name}.dbg")
+        with trace.span("twopaco") as root:
+            if engine == "dist":
+                enum = distpipe.build_junctions_dist(None, c, LocalMesh([device] * shards), out,
+                                                     sequences=sequences, device=device)
+            else:
+                enum = build_junctions_sorted(None, c, out, sequences=sequences, device=device)
+        outs[name] = open(out, "rb").read()
+        card = _emit_write(root).counters["card_records"]
+        assert card == (enum.stats.occurrences if name == "card" else 0), name
+    assert len(set(outs.values())) == 1 and len(outs["cpu"]) > 0
+
+
+def test_card_emit_chunks_fit_the_free_memory(dev, tmp_path):
+    """-r 1 on the card with little free device memory: the emit runs in
+    smaller chunks (one emit_chunk launch each) on the card and writes
+    the same bytes; sequence ids that fall raise before the output
+    exists."""
+    sequences = _dist_inputs()
+    cfg = PipelineConfig(k=25, positions_per_row=256, rows_per_batch=8)
+    want = str(tmp_path / "want.dbg")
+    build_junctions_sorted(None, cfg, want, sequences=sequences, device="cpu")
+    got = {}
+    orig = sortpipe.merge_fetched
+
+    def capture(fetched, batches, *a, **kw):
+        got.update(fetched=fetched, batches=batches)
+        return orig(fetched, batches, *a, **kw)
+
+    sortpipe.merge_fetched = capture
+    try:
+        build_junctions_sorted(None, cfg, None, sequences=sequences, device="cuda")
+    finally:
+        sortpipe.merge_fetched = orig
+    (table, keys, _none), = got["fetched"]
+    assert isinstance(keys, occ.CardKeys)
+    n = len(keys)
+    for chunk_occ in (max(n // 50, 1), n // 3 + 1):
+        free = emit.table_bytes(got["batches"]) + 2 * 12 * chunk_occ
+        out, lines = str(tmp_path / f"c{chunk_occ}.dbg"), []
+        build.reset_launch_counts()
+        sortpipe.merge_rounds_packed(got["fetched"], got["batches"], cfg, out,
+                                     sortpipe.RunStats(), lines.append, dev=dev, free=free)
+        assert build.launch_counts() == {"emit_check": 1, "emit_chunk": -(-n // chunk_occ)}
+        assert any(f"Emit in chunks of {chunk_occ}" in s for s in lines)
+        assert open(out, "rb").read() == open(want, "rb").read()
+    out = tmp_path / "falling.dbg"
+    with pytest.raises(ValueError, match="input order"):
+        build_junctions_sorted(None, cfg, str(out), device="cuda",
+                               sequences=[(3 - i, c) for i, c in sequences])
+    assert not out.exists()
+
+
+def test_one_round_checkpoint_on_the_card(dev, tmp_path):
+    """-r 1 on the card with a checkpoint directory: the round's file
+    holds what the CPU run's holds, and a resume writes the same bytes."""
+    sequences = _dist_inputs()
+    cfg = PipelineConfig(k=25, positions_per_row=256, rows_per_batch=8)
+    files = {}
+    for device in ("cpu", "cuda"):
+        ck = str(tmp_path / f"ck_{device}")
+        out = str(tmp_path / f"{device}.dbg")
+        build_junctions_sorted(None, cfg, out, sequences=sequences, device=device,
+                               checkpoint_dir=ck)
+        files[device] = np.load(os.path.join(ck, "round_0.npz"))
+        again = str(tmp_path / f"{device}_again.dbg")
+        build_junctions_sorted(None, cfg, again, sequences=sequences, device=device,
+                               checkpoint_dir=ck)
+        assert open(again, "rb").read() == open(out, "rb").read()
+    for name in ("table", "occ_pos", "occ_ids"):
+        a, b = files["cpu"][name], files["cuda"][name]
+        assert a.dtype == b.dtype and np.array_equal(a, b), name

@@ -1,0 +1,299 @@
+"""The card emit (passes/emit.py) on CPU tensors, through its plain
+versions: the same bytes as the host emit (pipeline.emit_junctions_packed)
+and the JAX package's emit for the same keys, faults raised before the output exists, the merge's
+choice of path and its counters, and the round checkpoint's guard."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from twopaco_tpu.passes import pipeline as jpipe
+from twopaco_tpu_torch import trace
+from twopaco_tpu_torch.passes import emit, sortpipe
+from twopaco_tpu_torch.passes.occ import CardKeys, OccKeys
+from twopaco_tpu_torch.passes.pipeline import PipelineConfig, RunStats, emit_junctions_packed
+from twopaco_tpu_torch.testing import emit_cases
+
+K, P, B = 11, 64, 4
+
+
+def _batches(kind, seed=3):
+    return emit_cases.batches(emit_cases.lengths(kind, K), K, P, B, seed)
+
+
+def _keys(batches, ends, id_bits, n_table):
+    return emit_cases.keys(batches, P, id_bits, n_table, ends)
+
+
+def _card_bytes(tmp_path, batches, keys, n_table, id_bits, chunk_occ, name="card.dbg"):
+    out = str(tmp_path / name)
+    kt = torch.from_numpy(keys.view(np.int64))
+    found = emit.check_keys(kt, batches, n_table, P, id_bits, chunk_occ=chunk_occ)
+    got = emit.write_keys(out, batches, kt, found, n_table, P, id_bits)
+    return open(out, "rb").read(), got
+
+
+def _host_bytes(tmp_path, batches, keys, n_table, id_bits):
+    """The port's host emit's bytes and counts, held equal to the JAX
+    package's for the same keys."""
+    got = []
+    for name, fn in (("host", emit_junctions_packed), ("jax", jpipe.emit_junctions_packed)):
+        out = str(tmp_path / f"{name}.dbg")
+        n = fn(out, batches, keys, n_table, P, id_bits=id_bits)
+        got.append((open(out, "rb").read(), tuple(int(x) for x in n)))
+    assert got[0] == got[1]
+    return got[0]
+
+
+@pytest.mark.parametrize("chunk_occ", [1, 2, 3, 7, 1 << 24])
+@pytest.mark.parametrize("ends", ["stubs", "none", "random"])
+@pytest.mark.parametrize("lengths", ["mixed", "many"])
+@pytest.mark.parametrize("id_bits", [32, 24])
+def test_card_emit_writes_the_host_emits_bytes(tmp_path, id_bits, lengths, ends, chunk_occ):
+    """Every chunk size from one occurrence a chunk (each chunk edge then
+    falls after every stub and separator in turn) to one chunk."""
+    batches = _batches(lengths)
+    n_table = 900
+    keys = _keys(batches, ends, id_bits, n_table)
+    want, want_n = _host_bytes(tmp_path, batches, keys, n_table, id_bits)
+    got, got_n = _card_bytes(tmp_path, batches, keys, n_table, id_bits, chunk_occ)
+    assert got_n == want_n and got == want and len(want) % 12 == 0
+
+
+@pytest.mark.parametrize("chunk_occ", [64, 1 << 24])
+@pytest.mark.parametrize("ends", ["stubs", "random"])
+def test_card_emit_of_long_stub_runs(tmp_path, ends, chunk_occ):
+    """Thousands of one-position sequences in a row: runs of stubs and
+    separators wider than a kernel block's stage."""
+    batches = _batches("runs")
+    keys = _keys(batches, ends, 32, 300)
+    want, want_n = _host_bytes(tmp_path, batches, keys, 300, 32)
+    got, got_n = _card_bytes(tmp_path, batches, keys, 300, 32, chunk_occ)
+    assert got_n == want_n and got == want
+
+
+@pytest.mark.parametrize("lengths", ["mixed", "many", "runs"])
+@pytest.mark.parametrize("chunk_occ", [1, 5])
+def test_card_emit_of_no_keys(tmp_path, lengths, chunk_occ):
+    """No occurrence: stubs and separators only, in one chunk."""
+    batches = _batches(lengths)
+    keys = np.zeros(0, np.uint64)
+    want, want_n = _host_bytes(tmp_path, batches, keys, 10, 32)
+    got, got_n = _card_bytes(tmp_path, batches, keys, 10, 32, chunk_occ)
+    assert got_n == want_n and got == want and want_n[1] > 0
+
+
+def test_plan_chunks_tile_the_records(tmp_path):
+    """Chunks cover consecutive occurrences and slots, end to end."""
+    batches = _batches("mixed")
+    keys = _keys(batches, "random", 32, 50)
+    kt = torch.from_numpy(keys.view(np.int64))
+    found = emit.check_keys(kt, batches, 50, P, 32, chunk_occ=4)
+    pl = emit.plan(batches, found, len(keys), 50, P, 32)
+    want, _n = _host_bytes(tmp_path, batches, keys, 50, 32)
+    (i0, _, s0, _), (_, i1, _, s1) = pl.bounds[0], pl.bounds[-1]
+    assert (i0, s0, i1, s1) == (0, 0, len(keys), len(want) // 12)
+    for (_a, e, _s, t), (a2, _e2, s2, _t2) in zip(pl.bounds, pl.bounds[1:]):
+        assert (e, t) == (a2, s2)
+
+
+FAULTS = {
+    "id 0": (0, "occurrence id 0"),
+    "past": (51, "occurrence id out of range"),
+    "position": (None, "outside the input's positions"),
+    "order": (None, "out of position order"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(FAULTS))
+@pytest.mark.parametrize("id_bits", [32, 24])
+def test_faults_raise_before_the_output_exists(tmp_path, what, id_bits):
+    batches = _batches("mixed")
+    keys = _keys(batches, "random", id_bits, 50)
+    bad, msg = FAULTS[what]
+    mask = np.uint64((1 << id_bits) - 1)
+    if bad is not None:
+        keys[3] = (keys[3] & ~mask) | np.uint64(bad + (1 << (id_bits - 1)))
+    elif what == "position":  # past the last row's valid positions
+        keys[-1] = (keys[-1] & mask) | (np.uint64(len(emit_cases.valid_flats(batches, P)) * P)
+                                        << np.uint64(id_bits))
+    else:
+        keys[[3, 4]] = keys[[4, 3]]
+    out = tmp_path / "o.dbg"
+    with pytest.raises(RuntimeError, match=msg):
+        _card_bytes(tmp_path, batches, keys, 50, id_bits, 1 << 24, name="o.dbg")
+    assert not out.exists()
+
+
+def test_a_key_in_a_pad_row_raises(tmp_path):
+    # one row of B holds the sequence, the rest pad
+    batches = emit_cases.batches([K + 5], K, P, B)
+    keys = np.asarray([(P * 2) << 32 | (1 + (1 << 31))], np.uint64)
+    with pytest.raises(RuntimeError, match="outside the input's positions"):
+        _card_bytes(tmp_path, batches, keys, 5, 32, 8)
+
+
+def _entries(rounds, tmp_path=None, ck=None, seqs=None):
+    """The entries a CPU sort-engine run hands the merge, its batches and
+    its .dbg."""
+    got = {}
+    orig = sortpipe.merge_fetched
+
+    def capture(fetched, batches, *a, **kw):
+        got.update(fetched=list(fetched), batches=batches)
+        return orig(fetched, batches, *a, **kw)
+
+    out = None if tmp_path is None else str(tmp_path / f"r{rounds}.dbg")
+    sortpipe.merge_fetched = capture
+    try:
+        sortpipe.build_junctions_sorted(
+            None, PipelineConfig(k=K, rounds=rounds, positions_per_row=P, rows_per_batch=B),
+            out, sequences=seqs or _seqs(), device="cpu", checkpoint_dir=ck)
+    finally:
+        sortpipe.merge_fetched = orig
+    return got["fetched"], got["batches"], None if out is None else open(out, "rb").read()
+
+
+def _seqs():
+    rng = np.random.default_rng(9)
+    base = rng.integers(0, 4, 900).astype(np.uint8)
+    out = [(0, base)]
+    for i in range(1, 4):
+        s = base.copy()
+        s[rng.random(len(s)) < 0.03] = rng.integers(0, 4)
+        out.append((i, s))
+    return out
+
+
+def _merge(entries, batches, out, free=None, logs=None):
+    with trace.span("twopaco") as root:
+        enum = sortpipe.merge_rounds_packed(
+            entries, batches, PipelineConfig(k=K, positions_per_row=P, rows_per_batch=B), out,
+            RunStats(), (logs if logs is not None else []).append, dev=torch.device("cpu"),
+            free=free)
+    (write,) = _named(root, "emit_write") if out is not None else (None,)
+    return enum, write
+
+
+def _named(root, name):
+    return [s for s in trace.descendants(root) if s.name == name]
+
+
+def test_merge_of_one_card_entry(tmp_path):
+    """A keyed entry whose keys stay on their device is checked and
+    written there (card_records = its records), with the host path's
+    bytes, in chunks that fit the free device memory."""
+    fetched, batches, want = _entries(1, tmp_path)
+    (table, keys, _none), = fetched
+    assert isinstance(keys, OccKeys)
+    card = [(table, CardKeys(torch.from_numpy(keys.keys.view(np.int64)), 32), None)]
+    out = str(tmp_path / "card.dbg")
+    enum, write = _merge(card, batches, out)
+    assert open(out, "rb").read() == want
+    assert write.counters["card_records"] == enum.stats.occurrences >= len(keys) > 0
+    assert set(write.counters) >= {"decode_wait_s", "assemble_s", "sink_s", "bytes"}
+    # no output: the check alone
+    assert _merge(card, batches, None)[0].vertices_count == len(table)
+
+
+@pytest.mark.parametrize("chunk_occ", [1, 5, 64])
+def test_card_emit_chunks_fit_the_free_memory(tmp_path, chunk_occ):
+    """Little free device memory: smaller chunks (a log line), the same
+    bytes, every record still built on the card."""
+    fetched, batches, want = _entries(1, tmp_path)
+    (table, keys, _none), = fetched
+    card = [(table, CardKeys(torch.from_numpy(keys.keys.view(np.int64)), 32), None)]
+    free = emit.table_bytes(batches) + 2 * 12 * chunk_occ
+    assert emit.chunk_size(batches, free) == chunk_occ
+    out, logs = str(tmp_path / "card.dbg"), []
+    enum, write = _merge(card, batches, out, free=free, logs=logs)
+    assert open(out, "rb").read() == want
+    assert f"Emit in chunks of {chunk_occ} occurrences" in "\n".join(logs)
+    assert write.counters["card_records"] == enum.stats.occurrences
+
+
+def test_card_emit_refuses_what_it_cannot_take(tmp_path):
+    """Too little free memory for the emit's tables, a merge of several
+    entries with keys on a card, and sequence ids that fall (3, 2, 1, 0)
+    raise before the output exists."""
+    fetched, batches, _want = _entries(1)
+    (table, keys, _none), = fetched
+    card = [(table, CardKeys(torch.from_numpy(keys.keys.view(np.int64)), 32), None)]
+    out = tmp_path / "x.dbg"
+    with pytest.raises(RuntimeError, match="tables need"):
+        _merge(card, batches, str(out), free=emit.table_bytes(batches) + 2 * 12 - 1)
+    with pytest.raises(ValueError, match="several entries"):
+        _merge(card + [(table[:0], keys, None)], batches, str(out))
+    falling = sortpipe.read_batches(None, [(3 - i, c) for i, c in _seqs()],
+                                    PipelineConfig(k=K, positions_per_row=P, rows_per_batch=B),
+                                    RunStats())[1]
+    with pytest.raises(ValueError, match="sequence ids in input order"):
+        _merge(card, falling, str(out))
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("rounds", [1, 3])
+def test_host_paths_count_no_card_records(tmp_path, rounds):
+    with trace.span("twopaco") as root:
+        _entries(rounds, tmp_path)
+    (write,) = _named(root, "emit_write")
+    assert write.counters["card_records"] == 0
+
+
+def test_card_entry_faults_raise_in_the_merge(tmp_path):
+    fetched, batches, _want = _entries(1)
+    (table, keys, _none), = fetched
+    for bad, msg in ((0, "id 0"), (len(table) + 1, "out of range")):
+        k = keys.keys.copy()
+        k[0] = (k[0] & ~np.uint64(0xFFFFFFFF)) | np.uint64(bad + (1 << 31))
+        card = [(table, CardKeys(torch.from_numpy(k.view(np.int64)), 32), None)]
+        with pytest.raises(RuntimeError, match=msg):
+            _merge(card, batches, str(tmp_path / "x.dbg"))
+        assert not (tmp_path / "x.dbg").exists()
+
+
+def test_card_keys_fetch_and_decode():
+    fetched, _batches, _want = _entries(1)
+    keys = fetched[0][1]
+    card = CardKeys(torch.from_numpy(keys.keys.view(np.int64)), keys.id_bits)
+    assert len(card) == len(keys)
+    assert np.array_equal(card.fetch().keys, keys.keys)
+    for a, b in zip(card.decode(), keys.decode()):
+        assert np.array_equal(a, b)
+    table, pos, ids = sortpipe.raw_entry((fetched[0][0], card, None))
+    assert np.array_equal(pos, keys.decode()[0]) and np.array_equal(ids, keys.decode()[1])
+
+
+@pytest.mark.parametrize("rounds", [1, 3])
+def test_no_checkpoint_decodes_nothing(monkeypatch, rounds):
+    """With no checkpoint directory a sort-engine build decodes no key and
+    makes no raw entry."""
+    def refuse(*_a, **_k):
+        raise AssertionError("decoded with no checkpoint")
+
+    monkeypatch.setattr(OccKeys, "decode", refuse)
+    monkeypatch.setattr(CardKeys, "decode", refuse)
+    monkeypatch.setattr(sortpipe, "raw_entry", refuse)
+    with trace.span("twopaco") as root:
+        _entries(rounds)
+    assert not _named(root, "checkpoint")
+
+
+@pytest.mark.parametrize("rounds", [1, 3])
+def test_checkpoint_files_hold_the_decoded_rounds(tmp_path, rounds):
+    """With a directory each round's file holds its table and its keys
+    decoded (the raw form), and a resume writes the same .dbg."""
+    ck = str(tmp_path / "ck")
+    fetched, _batches, want = _entries(rounds, tmp_path, ck=ck)
+    assert len(fetched) == rounds
+    for r, entry in enumerate(fetched):
+        z = np.load(os.path.join(ck, f"round_{r}.npz"))
+        assert set(z.files) == {"stats", "table", "occ_pos", "occ_ids"}
+        for name, a in zip(("table", "occ_pos", "occ_ids"), sortpipe.raw_entry(entry)):
+            assert np.array_equal(z[name], a) and z[name].dtype == a.dtype, name
+    os.remove(os.path.join(ck, "round_0.npz"))
+    again, _b, got = _entries(rounds, tmp_path, ck=ck)
+    assert got == want
+    assert [isinstance(e[1], OccKeys) for e in again] == [True] + [False] * (rounds - 1)

@@ -8,7 +8,8 @@ host_bytes() and host_empty() torch tensors on pages of their own,
 whatever the size. pinned() page-locks such tensors only while copies to
 or from a card run (an async copy then goes by DMA, with no bounce
 buffer), so no buffer stays locked, or cached by PyTorch's page-locked
-allocator, once the copies are done.
+allocator, once the copies are done; host_copies() fetches a card's
+tensors that way.
 """
 
 from __future__ import annotations
@@ -112,3 +113,18 @@ def pinned(tensors, dev: torch.device):
             for run in done:
                 _locked.remove(run)
                 torch.cuda.check_error(rt.cudaHostUnregister(run[0]))
+
+
+def host_copies(tensors):
+    """CPU copies of tensors of one device: on a card, async copies into
+    host_empty buffers page-locked for the copies (pinned) and one sync;
+    CPU tensors as they are. Span `fetch.alloc` (the buffers)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return list(tensors)
+    with trace.span("fetch.alloc"):
+        out = [host_empty(t.shape, t.dtype) for t in tensors]
+    with pinned(out, dev):
+        for o, t in zip(out, tensors):
+            o.copy_(t, non_blocking=True)
+    return out

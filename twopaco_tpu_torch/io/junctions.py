@@ -53,6 +53,14 @@ class ChunkWriter:
         self._write(chrs, pos, ids)
         self._write_ns += time.perf_counter_ns() - t0
 
+    def write_raw(self, data) -> None:
+        """Finished records, separators in place, as they are (the card
+        emit's chunks, passes/emit.py); the chromosome counter is left
+        alone."""
+        t0 = time.perf_counter_ns()
+        self._put(data)
+        self._write_ns += time.perf_counter_ns() - t0
+
     def _write(self, chrs: np.ndarray, pos: np.ndarray, ids: np.ndarray):
         n = len(chrs)
         if n == 0:

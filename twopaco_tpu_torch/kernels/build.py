@@ -34,7 +34,7 @@ SOURCES = (
     "records.cu", "sort.cu", "judge.cu", "partition.cu",
     "assemble.cu", "compact.cu", "histogram.cu", "bloom_fill.cu",
     "bloom_mark.cu", "bloom_extract.cu", "bloom_lookup.cu", "route.cu",
-    "occ_pack.cu", "bloom_shard.cu", "upload.cu", "merge.cu",
+    "occ_pack.cu", "bloom_shard.cu", "upload.cu", "merge.cu", "emit.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -80,6 +80,9 @@ _SIGNATURES = {
     "tp_upload_rows": ([_P, _LL, _P, _LL, _I, _P, _P, _P], _I),
     "tp_merge_rows": ([_P, _LL, _I, _P, _I, _I, _I] + [_P] * 4 + [_LL] + [_P] * 3, _I),
     "tp_merge_keys": ([_P, _LL, _P, _I, _P, _LL, _I, _I, _I] + [_P] * 3 + [_LL, _P, _P], _I),
+    "tp_emit_check": ([_P, _LL, _I, _LL, _I, _P, _LL, _P, _LL] + [_P] * 3 + [_LL] + [_P] * 3,
+                      _I),
+    "tp_emit_chunk": ([_P] + [_LL] * 4 + [_P] * 3 + [_LL, _I, _I, _P, _P], _I),
     "tp_bloom_fill": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 2, _I),
     "tp_bloom_mark": ([_P, _I, _LL] + [_I] * 2 + [_U32] * 2 + [_TABS] + [_I] * 3 + [_P] * 4, _I),
     "tp_bloom_run": ([_LL, _I], _I),

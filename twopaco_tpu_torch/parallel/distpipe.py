@@ -49,7 +49,7 @@ import torch
 from twopaco_tpu_torch import hostmem, trace
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.ops.pack import MASK32
-from twopaco_tpu_torch.parallel.mesh import local_mesh, on_device
+from twopaco_tpu_torch.parallel.mesh import LocalMesh, local_mesh, on_device
 from twopaco_tpu_torch.parallel.sharded import (
     ShardedConfig, make_sharded_filter, sharded_fill_step, sharded_mark_step,
 )
@@ -270,8 +270,13 @@ def build_junctions_dist(
             continue
         log(f"Round {r}, {low}:{high}")
         with trace.span("round", r=r, low=low, high=high) as rspan:
+            # one shard of this process, one round: its keys stay on the card
+            # for the merge's emit (sortpipe.merge_rounds_packed)
+            keep = (isinstance(mesh, LocalMesh) and mesh.n_shards == 1
+                    and len(intervals) == 1)
             entries, rstats = _run_round(mesh, ops, dcfg, batches, uploads, bounds_d,
-                                         low, high, config.abundance, id_bits, n_slots, scfg)
+                                         low, high, config.abundance, id_bits, n_slots, scfg,
+                                         keep_keys=keep)
             t = trace.totals(rspan)
             rstats.update((f"t_{key}", t.get(key, 0.0)) for key in ROUND_PHASES)
             stats.rounds.append(rstats)
@@ -324,11 +329,12 @@ def _fill_round(mesh, ops, scfg: ShardedConfig, uploads, n_batches: int, low: in
 
 def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int,
                high: int, abundance: int, id_bits: int | None, n_slots: int,
-               scfg: ShardedConfig | None = None):
+               scfg: ShardedConfig | None = None, keep_keys: bool = False):
     """One round over the mesh, in spans `fill`, `mark`, `build`, `route`,
     `sort`, `judge` and `fetch` -> (merge entries of every shard in shard
     order, on every process; the round's counts). scfg: the Bloom gate's
-    sharded filter, or None for none."""
+    sharded filter, or None for none. keep_keys: a keyed entry's keys stay
+    on its card (sortpipe.fetch_entry)."""
     cfg = dcfg.base
     D, P, w = dcfg.n_shards, cfg.P, cfg.w
     rows = cfg.B // D
@@ -409,7 +415,7 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
                 del occ_pos_d, occ_id_d
                 sortpipe._sync(d)
             with trace.span("fetch"):
-                entry = sortpipe.fetch_entry(table_d, occ_d, id_bits)
+                entry = sortpipe.fetch_entry(table_d, occ_d, id_bits, keep_keys=keep_keys)
                 del table_d, occ_d
         blocks[s] = (entry, n_groups, n_junc, n_occ)
     with trace.span("fetch"):

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from twopaco_tpu_torch import hostmem
 from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.passes import sort
 
@@ -40,6 +41,28 @@ class OccKeys:
         pos = (self.keys >> ib).view(np.int64)
         low = (self.keys & np.uint64((1 << self.id_bits) - 1)).view(np.int64)
         return pos, low - (np.int64(1) << (self.id_bits - 1))
+
+
+@dataclass(frozen=True)
+class CardKeys:
+    """A round's occurrences kept where the occurrence sort left them: keys
+    (n,) int64 on a card holding OccKeys' u64 keys. The merge of one such
+    entry checks them and builds the junction list there (passes/emit.py);
+    any other use fetches them (fetch)."""
+
+    keys: torch.Tensor
+    id_bits: int
+
+    def __len__(self) -> int:
+        return self.keys.numel()
+
+    def fetch(self) -> OccKeys:
+        """The keys copied to the host (hostmem.host_copies)."""
+        (host,) = hostmem.host_copies([self.keys])
+        return OccKeys(host.numpy().view(np.uint64), self.id_bits)
+
+    def decode(self) -> tuple[np.ndarray, np.ndarray]:
+        return self.fetch().decode()
 
 
 def _bad(pos, ids, id_bits: int, pos_limit: int):

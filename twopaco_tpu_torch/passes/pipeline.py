@@ -345,8 +345,9 @@ def _write_spliced(out_path, n_occ: int, ins, stub_flat, stub_ids, map_occ, map_
     disjoint), decoding chunk i+1 in a thread while chunk i is written
     (numpy releases the interpreter lock in its large passes).
     map_occ(a, b) decodes occurrences [a, b). The `emit_write` span counts
-    the seconds the writer waits for a decode (decode_wait_s) and the
-    ChunkWriter's counters (assemble_s, sink_s, bytes)."""
+    the seconds the writer waits for a decode (decode_wait_s), the
+    ChunkWriter's counters (assemble_s, sink_s, bytes) and card_records,
+    0 here (the records built on a card, passes/emit.py)."""
     CH = 1 << 24
 
     def chunk_iter():
@@ -379,6 +380,7 @@ def _write_spliced(out_path, n_occ: int, ins, stub_flat, stub_ids, map_occ, map_
                 w.write(*decoded(fut))
         for key, val in w.counters().items():
             sp.add(key, val)
+        sp.add("card_records", 0)
 
 
 def _row_mapper(seq_id, pos0, P: int):

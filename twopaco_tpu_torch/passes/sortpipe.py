@@ -55,10 +55,10 @@ from twopaco_tpu_torch.io import fasta as fasta_io
 from twopaco_tpu_torch.io import windows
 from twopaco_tpu_torch.ops.pack import MASK32
 from twopaco_tpu_torch.passes import (
-    histogram, judge, merge, occ, partition, records, sort, stream, upload,
+    emit, histogram, judge, merge, occ, partition, records, sort, stream, upload,
 )
 from twopaco_tpu_torch.passes.histogram import BIN_POW
-from twopaco_tpu_torch.passes.occ import OccKeys
+from twopaco_tpu_torch.passes.occ import CardKeys, OccKeys
 from twopaco_tpu_torch.passes.pipeline import (
     Enumerator,
     PipelineConfig,
@@ -613,7 +613,8 @@ def build_junctions_sorted(
                 _sync(dev)
 
             with trace.span("fetch"):
-                entry = fetch_entry(table_d, occ_d, id_bits)
+                # one round: its keys stay on the card for the merge's emit
+                entry = fetch_entry(table_d, occ_d, id_bits, keep_keys=len(intervals) == 1)
                 del table_d, occ_d
             fetched.append(entry)
             t = trace.totals(rspan)
@@ -632,8 +633,9 @@ def build_junctions_sorted(
                 f"True junctions = {n_junc}\nDistinct k-mers = {n_groups}\n"
                 f"Occurrences = {n_occ}"
             )
-            with trace.span("checkpoint"):
-                ckpt.save_round(r, entry, stats.rounds[-1])
+            if ckpt.dir is not None:  # raw rounds: the keys are decoded for it
+                with trace.span("checkpoint"):
+                    ckpt.save_round(r, entry, stats.rounds[-1])
 
     blocks = uploads = None  # release the device state before the merge
     return merge_fetched(
@@ -686,42 +688,34 @@ def finish_occurrences(ops, occ_pos, occ_id, id_bits: int | None, n_slots: int):
     return ops.occ(occ_pos, occ_id, id_bits=id_bits, pos_limit=n_slots)
 
 
-def _host_copies(tensors):
-    """CPU copies of tensors of one device: on a card, async copies into
-    buffers page-locked for the copies (hostmem.pinned) and one sync; CPU
-    tensors as they are."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        return list(tensors)
-    with trace.span("fetch.alloc"):
-        out = [hostmem.host_empty(t.shape, t.dtype) for t in tensors]
-    with hostmem.pinned(out, dev):
-        for o, t in zip(out, tensors):
-            o.copy_(t, non_blocking=True)
-    return out
-
-
-def fetch_entry(table_d, occ_d, id_bits: int | None):
+def fetch_entry(table_d, occ_d, id_bits: int | None, keep_keys: bool = False):
     """The merge entry of a judged round (D2H): (table, occ_pos, occ_ids)
-    raw, or (table, OccKeys, None) for sorted keys (by _host_copies);
-    raises when the occurrence sort flagged a position or id that does not
-    fit its key."""
+    raw, or (table, OccKeys, None) for sorted keys (by hostmem.host_copies), or
+    with keep_keys on a card (the run's one entry) (table, CardKeys, None):
+    the table fetched, the keys left on the card; raises when the
+    occurrence sort flagged a position or id that does not fit its key."""
     a, b = occ_d
     if id_bits is None:
         return table_d.cpu().numpy(), a.cpu().numpy(), b.cpu().numpy()
-    table, keys, bad = _host_copies([table_d, a, b])
+    if keep_keys and a.device.type == "cuda":
+        table, bad = hostmem.host_copies([table_d, b])
+        keys = None
+    else:
+        table, keys, bad = hostmem.host_copies([table_d, a, b])
     if int(bad):
         raise RuntimeError(
             f"{int(bad)} occurrences with a position or id outside the merge key "
             "(corrupt round)"
         )
+    if keys is None:
+        return table.numpy(), CardKeys(a, id_bits), None
     return table.numpy(), OccKeys(keys.numpy().view(np.uint64), id_bits), None
 
 
 def raw_entry(entry):
     """-> (table, occ_pos int64, signed local ids) of any merge entry."""
     table, occ_pos, occ_ids = entry
-    if isinstance(occ_pos, OccKeys):
+    if isinstance(occ_pos, (OccKeys, CardKeys)):
         occ_pos, occ_ids = occ_pos.decode()
     return table, occ_pos, occ_ids
 
@@ -787,12 +781,20 @@ def merge_rounds_packed(
     raw entry among them) the host merge: the keys are unique (entries
     partition the k-mer space), so the inverse of the tables' sort remaps
     each entry's local ids with no search, and the buffer is sorted in
-    place."""
+    place.
+
+    One entry whose keys stay on their device (CardKeys) is checked there
+    and writes the junction list from there (passes/emit.py;
+    reference=True: the plain versions), in chunks that fit `free`."""
     id_bits = 64 - pos_bits
+    P = config.positions_per_row
+    check_fn, chunk_fn = (emit.check_plain, emit.chunk_plain) if reference else (emit.check,
+                                                                               emit.chunk)
     with trace.span("merge"):
+        card = _card_keys(fetched)
         keyed = bool(fetched) and all(isinstance(e[1], OccKeys) for e in fetched)
         for _t, keys, _none in fetched:
-            if isinstance(keys, OccKeys) and keys.id_bits != id_bits:
+            if isinstance(keys, (OccKeys, CardKeys)) and keys.id_bits != id_bits:
                 raise ValueError(f"keys of {keys.id_bits} id bits in a {id_bits}-bit merge")
         on_dev = keyed and len(fetched) > 1
         if on_dev and free is not None:
@@ -802,7 +804,14 @@ def merge_rounds_packed(
                 log(f"Merge on the host: the device merge needs {_gib(need)}, {_gib(free)} "
                     "is free")
                 on_dev = False
-        if keyed and len(fetched) == 1:
+        if card is not None:
+            table = fetched[0][0]
+            chunk_occ = emit.chunk_size(batches, free)
+            if chunk_occ < min(emit.CHUNK, len(card)):
+                log(f"Emit in chunks of {chunk_occ} occurrences: {_gib(free)} is free")
+            found = emit.check_keys(card.keys, batches, len(table), P, id_bits,
+                                    chunk_occ=chunk_occ, fn=check_fn)
+        elif keyed and len(fetched) == 1:
             table, keys, _none = fetched[0]
             buf = keys.keys
             _check_key_ids(buf, id_bits, len(table))
@@ -819,14 +828,26 @@ def merge_rounds_packed(
     enum = Enumerator(table, config.k, stats)
     if out_path is not None:
         with trace.span("emit"):
-            occurrences, n_stubs = emit_junctions_packed(
-                out_path, batches, buf, len(table), config.positions_per_row, id_bits=id_bits,
-            )
+            if card is not None:
+                occurrences, n_stubs = emit.write_keys(
+                    out_path, batches, card.keys, found, len(table), P, id_bits, fn=chunk_fn)
+            else:
+                occurrences, n_stubs = emit_junctions_packed(
+                    out_path, batches, buf, len(table), P, id_bits=id_bits)
         stats.occurrences = occurrences
         stats.stub_ids = n_stubs
         log(f"True marks count: {occurrences}")
     log(f"Distinct junctions = {enum.vertices_count}")
     return enum
+
+
+def _card_keys(fetched) -> CardKeys | None:
+    """The keys of the run's one keyed entry when they stayed on their
+    device (fetch_entry's keep_keys), else None."""
+    card = [k for _t, k, _n in fetched if isinstance(k, CardKeys)]
+    if card and len(fetched) > 1:
+        raise ValueError("keys left on a card in a merge of several entries")
+    return card[0] if card else None
 
 
 def _check_key_ids(keys: np.ndarray, id_bits: int, n_table: int) -> None:
@@ -869,7 +890,7 @@ def merge_on_device(fetched, config, id_bits: int, dev, reference: bool):
         fn = merge.merge_packed_plain if reference else merge.merge_packed
         gtab, gkeys, faults = fn(table_d, keys_d, entries, key_bits=2 * config.k,
                                  id_bits=id_bits)
-        table, buf, faults = _host_copies([gtab, gkeys, faults])
+        table, buf, faults = hostmem.host_copies([gtab, gkeys, faults])
     dup, id0, past = (int(x) for x in faults)
     if dup:
         raise AssertionError(
