@@ -35,8 +35,10 @@ def short_name(name: str, width: int = 80) -> str:
 def from_profiler(prof) -> dict:
     """The trace part of the record: {"span": [0, end], "builds": [[start,
     end], ...], "device": [[name, start, end], ...], "host": [[name,
-    start, end], ...]}."""
+    start, end], ...], "spans": the program's spans (spans.annotations)}."""
     from torch.autograd import DeviceType
+
+    from gpubench import spans
 
     events = list(prof.events())
     # the build ranges on the host's side; the profiler also marks each on
@@ -58,7 +60,8 @@ def from_profiler(prof) -> dict:
     builds = [[sec(r.time_range.start), sec(r.time_range.end)] for r in ranges]
     device.sort(key=lambda x: x[1])
     host.sort(key=lambda x: x[1])
-    return dict(span=[builds[0][0], builds[-1][1]], builds=builds, device=device, host=host)
+    return dict(span=[builds[0][0], builds[-1][1]], builds=builds, device=device, host=host,
+                spans=spans.annotations(prof))
 
 
 def union(intervals, lo: float, hi: float):

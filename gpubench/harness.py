@@ -31,9 +31,10 @@ metrics/<metric>.py. A metric's reader is a module with read(record) ->
 float or None (None: nothing to read, the metric is left out). The record
 is a plain dict:
   bases, sequences, k, setup_s, window_s (first build start to last build
-  end), builds: [{rc, ok, wall_s, stdout}], window_peak_bytes, and with
-  --trace 1 trace (devtrace.py's) and records (the round sort's real
-  records a build).
+  end), builds: [{rc, ok, wall_s, stdout}], window_peak_bytes, junctions
+  and occurrences (the plain reference's counts of the junctions and of
+  their occurrences), and with --trace 1 trace (devtrace.py's) and
+  records (the round sort's real records a build).
 """
 
 from __future__ import annotations
@@ -187,6 +188,64 @@ def log_summary(stdout: str) -> list[str]:
     return [ln for ln in stdout.splitlines() if ln.startswith(keep)]
 
 
+def rounds_summary(stdout: str) -> str:
+    """The rounds of a build's log: how many, and the largest and mean
+    count a round of the distinct k-mers and the junction occurrences
+    (the lines each round logs)."""
+    got = {}
+    for ln in stdout.splitlines():
+        for key in ("Distinct k-mers", "Occurrences"):
+            if ln.startswith(key + " = "):
+                got.setdefault(key, []).append(int(ln.split("=")[1]))
+    n = sum(ln.startswith("Round ") and "seconds" in ln for ln in stdout.splitlines())
+    return f"rounds: {n}" + "".join(
+        f"; {key} a round: max {max(v)}, mean {sum(v) / len(v):.1f}" for key, v in got.items())
+
+
+def span_summary(builds: list[dict]) -> list[str]:
+    """The window's span tree: each span name's mean seconds and mean self
+    seconds a build, and the mean of each build's wall less its root span
+    (the request's tail outside the program); [] where no build printed
+    spans."""
+    from gpubench import spans
+
+    parsed = [(b, spans.span_table(b["stdout"])) for b in builds]
+    parsed = [(b, row) for b, row in parsed if row[0]]
+    if not parsed:
+        return []
+    table = spans.span_means([row for _b, row in parsed])
+    tails = [b["wall_s"] - row[0][spans.ROOT_SPAN][1] for b, row in parsed
+             if spans.ROOT_SPAN in row[0]]
+    out = [f"spans, mean seconds / self seconds a build over {len(parsed)} builds:"]
+    out += [f"  span {name} {v[0]:.4f} / {v[1]:.4f} ({v[2]:g} a build)"
+            for name, v in sorted(table.items(), key=lambda kv: -kv[1][0])]
+    if tails:
+        out.append(f"  outside the root {spans.ROOT_SPAN!r}: "
+                   f"{sum(tails) / len(tails):.4f} s a build")
+    return out
+
+
+def input_shares(config: dict, seed: int) -> dict[str, float]:
+    """{repeat class: share of the base genome} of the configuration's
+    input for --seed ({} without repeats)."""
+    from gpubench import genome
+
+    repeats, length = config.get("repeats"), int(config["length"])
+    if not repeats:
+        return {}
+    return genome.class_shares(
+        repeats, genome.repeat_layout(repeats, length, genome.rng_seed(seed)), length)
+
+
+def breakdown(trace: dict) -> dict:
+    """The result line's breakdown: the device operations that took the
+    most time, and the longest idle gaps named by the program's spans."""
+    from gpubench import devtrace, spans
+
+    return dict(device_ops=devtrace.device_ops(trace),
+                idle_gaps=spans.idle_gaps(trace, trace.get("spans", [])))
+
+
 def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = "cuda",
         root: Path = ROOT, extra_argv: tuple = (), out=sys.stdout, err=sys.stderr) -> int:
     """One run of the cell; prints the result line to `out` last.
@@ -217,6 +276,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     try:
         t0 = time.perf_counter()
         seqs = genome.config_genomes(config, seed)
+        t_gen = time.perf_counter() - t0
         fasta = os.path.join(work, "input.fa")
         bases = genome.write_fasta(fasta, seqs)
         phases["input"] = time.perf_counter() - t0
@@ -279,6 +339,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         want, n_junc = reference.reference_dbg(fasta, k, device=device)
         differing = reference.records_differing(data or b"", want)
         t_ref = time.perf_counter() - t_ref
+        record["junctions"] = n_junc
+        record["occurrences"], most = reference.occurrences(want, n_junc)
         del want, data
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -300,8 +362,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
             tr = record["trace"]
             dev["busy_s"] = devtrace.busy_seconds(tr)
             dev["window_s"] = tr["span"][1] - tr["span"][0]
-            result["breakdown"] = dict(device_ops=devtrace.device_ops(tr),
-                                       idle_gaps=devtrace.idle_gaps(tr))
+            result["breakdown"] = breakdown(tr)
         result["compared"] = compared
 
         if _forbidden_loaded(err):
@@ -310,12 +371,18 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
               file=out)
         print(f"cell {workload} seed {seed}: {bases} bases, {record['sequences']} sequences, "
               f"k={k}, argv {' '.join(argv)}", file=out)
+        print(f"input: generated in {t_gen:.3f} s, FASTA written in "
+              f"{phases['input'] - t_gen:.3f} s" + "".join(
+                  f"; {c} {100 * v:.2f}%" for c, v in input_shares(config, seed).items()),
+              file=out)
         print(f"checked build: rc {checked['rc']}, {checked['size']} bytes "
               f"({checked['size'] // 12} records), {checked['wall_s']:.3f} s, "
-              f"pipe {checked['pipe_bytes']} bytes; reference {n_junc} junctions in "
+              f"pipe {checked['pipe_bytes']} bytes; reference {n_junc} junctions, "
+              f"{record['occurrences']} occurrences, the most of one junction {most}, in "
               f"{t_ref:.3f} s", file=out)
         for ln in log_summary(checked["stdout"]):
             print(f"  log: {ln}", file=out)
+        print(rounds_summary(checked["stdout"]), file=out)
         print(f"window: {len(builds)} builds in {window_s:.3f} s, walls "
               + " ".join(f"{b['wall_s']:.3f}" for b in builds), file=out)
         done = sum(b["ok"] for b in record["builds"])
@@ -327,6 +394,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         print("window cpu (this process, user + system): "
               + " ".join(f"{b['cpu_s']:.3f}" for b in builds), file=out)
         print(f"launches in the window: {json.dumps(launches, sort_keys=True)}", file=out)
+        for ln in span_summary(builds):
+            print(ln, file=out)
         print(f"setup_s {t_setup:.3f} (" + ", ".join(f"{n} {v:.3f}" for n, v in phases.items())
               + ")", file=out)
         print(json.dumps(result), file=out)

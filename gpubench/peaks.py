@@ -36,3 +36,12 @@ def sort_bytes(records: int, k: int) -> int:
     """The least bytes the round sort moves: each real record (its k-mer
     words, u32 payload and i64 position) read once and written once."""
     return records * 2 * (4 * key_words(k) + 12)
+
+
+def merge_bytes(rows: int, keys: int, k: int) -> int:
+    """The least bytes the device merge of the rounds' entries moves
+    (kernels/csrc/merge.cu, the table of PERF.md's kernel row 18): each
+    junction's table row (its k-mer words) and each junction occurrence's
+    u64 key read once and written once. The row map between the two
+    kernels is the merge's own scratch and is not counted."""
+    return 2 * rows * 4 * key_words(k) + 2 * keys * 8

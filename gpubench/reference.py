@@ -236,3 +236,20 @@ def records_differing(got: np.ndarray | bytes, want: np.ndarray) -> int:
         y = b[s:e].reshape(-1, 12)
         diff += int((x != y).any(axis=1).sum())
     return diff + abs(len(a) - len(b)) // 12
+
+
+_RECORD = np.dtype([("pos", "<u4"), ("id", "<i8")])  # 12 bytes, packed
+
+
+def occurrences(dbg: np.ndarray | bytes, n_junc: int) -> tuple[int, int]:
+    """The junction occurrences among a .dbg's records (ids of absolute
+    value 1 .. n_junc: no stub, no separator), and the most occurrences
+    of one junction."""
+    rec = np.frombuffer(dbg, dtype=np.uint8)
+    counts = np.zeros(n_junc + 1, dtype=np.int64)
+    step = 12 << 22  # 48 MiB blocks
+    end = len(rec) - len(rec) % 12
+    for s in range(0, end, step):
+        ids = np.abs(rec[s : min(s + step, end)].view(_RECORD)["id"])
+        counts += np.bincount(ids[ids <= n_junc], minlength=n_junc + 1)
+    return int(counts.sum()), int(counts.max()) if n_junc else 0

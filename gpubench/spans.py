@@ -154,7 +154,7 @@ def recorder_cost(n: int) -> float:
     return (time.perf_counter_ns() - t0) / n
 
 
-def _table(rows: list) -> dict:
+def span_means(rows: list) -> dict:
     """{name: [mean seconds, mean self seconds, mean count]} over builds'
     span tables."""
     names = list(dict.fromkeys(n for spans, _c in rows for n in spans))
@@ -199,7 +199,6 @@ def main(argv=None) -> int:
             cost_profiled = recorder_cost(2000)
         cost_plain = recorder_cost(20000)
         tr = devtrace.from_profiler(prof)
-        ann = annotations(prof)
         del prof
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -217,13 +216,13 @@ def main(argv=None) -> int:
             wall_s=[b["wall_s"] for b in builds], root_s=roots,
             tail_s=[b["wall_s"] - r for b, r in zip(builds, roots)],
             spans_a_build=n_spans, time_lines_equal_span_sums=times_match,
-            spans=_table(rows),
+            spans=span_means(rows),
             counters={f"{k[0]}.{k[1]}": sum(c.get(k, 0.0) for _s, c in rows) / len(rows)
                       for k in dict.fromkeys(k for _s, c in rows for k in c)})
     result["traced"]["busy_s"] = devtrace.busy_seconds(tr)
     result["traced"]["window_s"] = tr["span"][1] - tr["span"][0]
     result["traced"]["device_ops"] = devtrace.device_ops(tr)
-    result["traced"]["idle_gaps"] = idle_gaps(tr, ann, top=16)
+    result["traced"]["idle_gaps"] = idle_gaps(tr, tr["spans"], top=16)
     result["traced"]["idle_gaps_without_spans"] = devtrace.idle_gaps(tr)
     spans_a_build = sum(result["plain"]["spans_a_build"]) / len(plain)
     result["recorder"] = dict(ns_a_span=cost_plain, ns_a_span_profiled=cost_profiled,

@@ -13,6 +13,12 @@ from gpubench import harness
 REPO = harness.ROOT
 TINY = {"name": "tiny", "source": "test", "genomes": 4, "length": 6000, "snp_rate": 0.01,
         "n_rate": 0.001, "k": 25, "reduced": []}
+# ... with two interspersed repeat families (genome.check_repeats)
+TINY_REPEATS = dict(TINY, name="tinyrep", length=20_000, repeats=[
+    {"name": "sine", "class": "SINE", "length": 300, "share": 0.13, "divergence": [0.0, 0.1]},
+    {"name": "line", "class": "LINE", "length": 3000, "share": 0.2, "truncated": 0.8,
+     "fragment": [100, 3000], "divergence": [0.02, 0.2]},
+])
 
 
 def make_root(tmp: Path, config: dict = TINY, traffic: str = "sort-r4",
@@ -38,13 +44,17 @@ def make_root(tmp: Path, config: dict = TINY, traffic: str = "sort-r4",
     return root, name
 
 
-def run_cpu(root: Path, cell: str, seed: int = 7, seconds: float = 0.3, trace: bool = False):
+def run_cpu(root: Path, cell: str, seed: int = 7, seconds: float = 0.3, trace: bool = False,
+            out_lines: list | None = None):
     """One harness run of the cell on the CPU (the program's plain
-    versions). -> (exit code, the result line as a dict or None, stderr)"""
+    versions). -> (exit code, the result line as a dict or None, stderr);
+    out_lines, where given, gets the lines of the run's standard output."""
     out, err = io.StringIO(), io.StringIO()
     rc = harness.run(cell, seed, seconds, trace, device="cpu", root=root,
                      extra_argv=("--device", "cpu"), out=out, err=err)
     lines = out.getvalue().strip().splitlines()
+    if out_lines is not None:
+        out_lines.extend(lines)
     result = None
     if lines and lines[-1].startswith("{"):
         result = json.loads(lines[-1])

@@ -3,6 +3,7 @@
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider -m cuda gpubench/tests/test_gpubench_card.py
 """
 
+import copy
 import io
 import json
 
@@ -39,10 +40,13 @@ def test_control_fails_on_the_card(card, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("traffic,trace", [("sort-r1", True), ("sort-r4", False)])
-def test_small_cell_on_the_card(card, tmp_path, traffic, trace):
+@pytest.mark.parametrize("traffic,trace,repeats", [
+    ("sort-r1", True, False), ("sort-r4", False, False), ("sort-r4", True, True)])
+def test_small_cell_on_the_card(card, tmp_path, traffic, trace, repeats):
     config = dict(cells.TINY, genomes=8, length=200_000)
-    root, cell = cells.make_root(tmp_path, config, traffic=traffic)
+    if repeats:
+        config = dict(cells.TINY_REPEATS, genomes=8, length=200_000)
+    root, cell = cells.make_root(tmp_path, copy.deepcopy(config), traffic=traffic)
     out, err = io.StringIO(), io.StringIO()
     rc = harness.run(cell, 2**31 + 11, 2.0, trace, root=root, out=out, err=err)
     assert rc == 0, err.getvalue()
@@ -53,6 +57,9 @@ def test_small_cell_on_the_card(card, tmp_path, traffic, trace):
     if trace:
         assert 0 < result["device"]["busy_s"] < result["device"]["window_s"]
         assert 0 < result["metrics"]["sort_roofline"]["value"] < 100
+        if traffic == "sort-r4":
+            assert 0 < result["metrics"]["merge_roofline"]["value"] < 100
+        assert "no torch op" not in {name for name, _s in result["breakdown"]["idle_gaps"]}
         assert len(result["breakdown"]["device_ops"]) <= 10
     else:
         assert result["metrics"]["peak_device_gib"]["value"] > 0

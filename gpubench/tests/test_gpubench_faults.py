@@ -1,7 +1,8 @@
 """The harness's comparison catches a broken timed path: a run on the CPU
-(the program's plain versions, the card's checks skipped) with a fault
-planted under the program's entry comes out not correct. One cell has
-one card, so there is no exchange between chips to leave out."""
+(the program's plain versions, the card's checks skipped) of a tiny cell
+in four rounds (traffic sort-r4) with a fault planted under the program's
+entry comes out not correct. Every cell has one card, so there is no
+exchange between chips to leave out."""
 
 import numpy as np
 import pytest
@@ -79,6 +80,22 @@ def test_fault_in_the_window_only(tiny, monkeypatch):
     assert result["compared"]["records_differing"]["value"] == 0
     assert result["compared"]["window_builds_differing"]["value"] >= 1
     assert result["failed"] >= 1
+
+
+def test_half_the_rounds_left_out_of_the_merge(tiny, monkeypatch):
+    # the cell's -r 4: the merge gets every other round's entry
+    real = sortpipe.merge_fetched
+    seen = []
+
+    def half(fetched, *args, **kwargs):
+        seen.append(len(fetched))
+        return real(fetched[::2], *args, **kwargs)
+
+    monkeypatch.setattr(sortpipe, "merge_fetched", half)
+    rc, result, _ = cells.run_cpu(*tiny)
+    assert min(seen) >= 4
+    assert rc == 0 and result["correct"] is False
+    assert result["compared"]["records_differing"]["value"] > 0
 
 
 def test_build_that_never_writes(tiny, monkeypatch):
