@@ -1772,11 +1772,13 @@ def _judge_case(dev, name):
     return _JUDGE_CASES[name]
 
 
-def _judge_both(entry, case, abundance):
+def _judge_both(entry, case, abundance, stats=None, want_stats=None):
+    """Both versions of one judge entry; the compact entry's real records
+    and largest group into the dicts given."""
     sw, spay, spos = case
     if entry == "compact":
-        return (judge.judge_compact(sw, spay, spos, abundance),
-                judge.judge_compact_plain(sw, spay, spos, abundance))
+        return (judge.judge_compact(sw, spay, spos, abundance, stats),
+                judge.judge_compact_plain(sw, spay, spos, abundance, want_stats))
     return judge.judge_records(sw, spay, abundance), judge.judge_records_plain(sw, spay, abundance)
 
 
@@ -1786,16 +1788,57 @@ def _judge_both(entry, case, abundance):
 def test_judge_edge_cases_kernel(dev, name, abundance, entry):
     """Both judge entries on the edge inputs (a group over many tiles with
     saturated N-in counts, tile-edge groups, one record, counts off the
-    tile, over 2^24 records, all and mostly sentinels): equal to the plain
-    versions, one launch counted."""
+    tile, over 2^24 records, all and mostly sentinels, a repeat-bearing
+    round): equal to the plain versions, the compact entry's real records
+    and largest group too, one launch counted."""
     build.reset_launch_counts()
-    got, want = _judge_both(entry, _judge_case(dev, name), abundance)
+    stats, want_stats = {}, {}
+    got, want = _judge_both(entry, _judge_case(dev, name), abundance, stats, want_stats)
     assert build.launch_counts() == {f"judge_{entry}": 1}
     assert got[3:] == want[3:]
+    assert stats == want_stats
     for a, b in zip(got[:3], want[:3]):
         assert _equal(a, b)
     if name == "long_group" and abundance == NO_AB:
         assert got[4] > 0
+
+
+def test_sort_and_judge_on_repeat_groups(dev):
+    """sort.cu and judge.cu on a repeat-bearing round (judge_cases
+    repeat_groups): a k-mer group of 8 judge tiles and more (several sort
+    tiles of one key) starting and ending mid-tile, a group ending exactly
+    on a tile boundary, both strands in the groups. The records, shuffled,
+    are sorted by their 62 leading bits (k = 31) and judged; each output,
+    the real records and the largest group equal the plain versions'."""
+    words, pay, pos = judge_cases.make("repeat_groups", seed=23)
+    starts = np.flatnonzero(np.r_[True, (words[1:] != words[:-1]).any(axis=1)])
+    ends = np.r_[starts[1:], len(words)]
+    big = int(np.argmax(ends - starts))
+    assert ends[big] - starts[big] >= 8 * judge_cases.TILE
+    assert starts[big] % judge_cases.TILE and ends[big] % judge_cases.TILE
+    assert ends[big + 1] % judge_cases.TILE == 0
+    strand = (pay >> 16) & 1
+    assert set(strand[starts[big] : ends[big]]) == {0, 1}
+    perm = np.random.default_rng(5).permutation(len(words))
+    recs = (pack.as_u32(torch.from_numpy(words[perm].astype(np.int64)).to(dev)),
+            pack.as_u32(torch.from_numpy(pay[perm].astype(np.int64)).to(dev)),
+            torch.from_numpy(pos[perm]).to(dev))
+    build.reset_launch_counts()
+    srt = sort.sort_records(*recs, key_bits=62)
+    assert build.launch_counts() == {"sort_records": 1}
+    want_srt = sort.sort_records_plain(*recs, key_bits=62)
+    for a, b in zip(srt, want_srt):
+        assert _equal(a, b)
+    assert np.array_equal(pack.as_i64(srt[0]).cpu().numpy(), words.astype(np.int64))
+    for entry in ("compact", "records"):
+        stats, want_stats = {}, {}
+        got, want = _judge_both(entry, srt, NO_AB, stats, want_stats)
+        assert got[3:] == want[3:] and got[4] > 0
+        for a, b in zip(got[:3], want[:3]):
+            assert _equal(a, b)
+        if entry == "compact":
+            assert stats == want_stats == {"records": int(np.count_nonzero(pay)),
+                                           "group_max": int(ends[big] - starts[big])}
 
 
 def test_judge_twice_and_after_route(dev):
@@ -1833,7 +1876,7 @@ def test_judge_scratch_is_small(dev, monkeypatch):
     monkeypatch.setattr(torch, "empty", recording_empty)
     judge.judge_compact(sw, spay, spos)
     monkeypatch.undo()
-    outputs = m * (4 * sw.shape[1] + 12) + 24
+    outputs = m * (4 * sw.shape[1] + 12) + 5 * 8  # the records' outputs, the five counts
     assert sum(sizes) == outputs
     assert build.lib().tp_judge_scratch_bytes(m) <= m
 

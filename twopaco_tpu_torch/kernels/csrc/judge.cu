@@ -16,14 +16,16 @@
 // 1 or outdeg > 1) and (no abundance check, or size <= abundance); ranks
 // are 1-based in k-mer order, negated on the reverse strand (bit 16);
 // occurrences are compacted in record order. Counts: n_groups (real
-// groups), n_junc, n_occ.
+// groups), n_junc, n_occ, n_real (real rows) and the most real rows of
+// one group.
 //
 // Bound: bytes moved, the words and payload read twice and the outputs
 // written once. Design: two launches, no scan of n values, no n-sized
 // scratch or memset. A group's state combines associatively as a
 // segmented reduction (JSeg: the state of the rows before the span's first
-// group start, the state since its last start, and the junction groups
-// closed inside with their rows), so
+// group start, the state since its last start, the junction groups closed
+// inside with their rows, the span's real rows and its largest closed
+// group), so
 //   K1 (k_judge_scan): a block takes the next tile of J_TILE records from
 //      an atomic counter, stages its start bits (rows compared with the row
 //      before, coalesced) and payloads in shared memory, each thread folds
@@ -52,6 +54,7 @@ namespace {
 constexpr int J_ITEMS = 8;                    // records a thread
 constexpr int J_TILE = TP_THREADS * J_ITEMS;  // records a tile
 constexpr uint32_t SAT = 0x7fffu;
+constexpr int J_COUNTS = 5;                   // n_groups, n_junc, n_occ, n_real, group max
 
 // The state of (part of) a group: ACGT extension bits, N-in and N-out
 // counts and size of its real rows, and its rows
@@ -92,11 +95,12 @@ __device__ __forceinline__ bool junction(const JSt& s, uint32_t real, const JPar
 // first start), tail (the rows from the last start on), treal (the last
 // start row is real), tstart (its index in the tile), junc and occ (the
 // junction groups that start and end inside, and their rows), groups (the
-// real group starts)
+// real group starts), real (the real rows), gmax (the most real rows of a
+// group that starts and ends inside)
 struct __align__(16) JSeg {
     uint32_t has;
     JSt lead, tail;
-    uint32_t treal, tstart, junc, occ, groups;
+    uint32_t treal, tstart, junc, occ, groups, real, gmax;
 };
 
 // The span a then b
@@ -104,9 +108,11 @@ __device__ __forceinline__ JSeg seg_cat(JSeg a, const JSeg& b, const JParams& p)
     if (!b.has) {
         if (a.has) a.tail = st_add(a.tail, b.lead);
         else a.lead = st_add(a.lead, b.lead);
+        a.real += b.real;
         return a;
     }
     JSeg r = b;
+    r.real = a.real + b.real;
     if (!a.has) {
         r.lead = st_add(a.lead, b.lead);
         return r;
@@ -117,6 +123,7 @@ __device__ __forceinline__ JSeg seg_cat(JSeg a, const JSeg& b, const JParams& p)
     r.junc = a.junc + b.junc + j;
     r.occ = a.occ + b.occ + (j ? closed.rows : 0u);
     r.groups = a.groups + b.groups;
+    r.gmax = max(max(a.gmax, b.gmax), closed.size);
     return r;
 }
 
@@ -124,11 +131,13 @@ __device__ __forceinline__ JSeg seg_cat(JSeg a, const JSeg& b, const JParams& p)
 __device__ __forceinline__ void seg_row(JSeg& s, bool start, uint32_t pay, uint32_t li,
                                         const JParams& p) {
     const JSt x = row_st(pay);
+    s.real += x.size;
     if (start) {
         if (s.has) {
             const bool j = junction(s.tail, s.treal, p);
             s.junc += j;
             s.occ += j ? s.tail.rows : 0u;
+            s.gmax = max(s.gmax, s.tail.size);
         }
         s.has = 1u;
         s.tail = x;
@@ -147,7 +156,7 @@ __device__ __forceinline__ JSt st_map(const JSt& s, F f) {
     return JSt{f(s.bits), f(s.nin), f(s.nout), f(s.size), f(s.rows)};
 }
 
-// f applied to each of the 16 words of s
+// f applied to each of the 18 words of s
 template <class F>
 __device__ __forceinline__ JSeg seg_map(const JSeg& s, F f) {
     JSeg r;
@@ -159,6 +168,8 @@ __device__ __forceinline__ JSeg seg_map(const JSeg& s, F f) {
     r.junc = f(s.junc);
     r.occ = f(s.occ);
     r.groups = f(s.groups);
+    r.real = f(s.real);
+    r.gmax = f(s.gmax);
     return r;
 }
 
@@ -213,10 +224,11 @@ struct JudgeArgs {
 // A segment another block published (read from L2, past the L1)
 __device__ __forceinline__ JSeg load_seg_cg(const JSeg* src) {
     JSeg s;
+    static_assert(sizeof(JSeg) % sizeof(uint4) == 0, "a segment is whole 16-byte words");
     const uint4* p = (const uint4*)src;
     uint4* q = (uint4*)&s;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) q[u] = __ldcg(p + u);
+    for (int u = 0; u < (int)(sizeof(JSeg) / sizeof(uint4)); ++u) q[u] = __ldcg(p + u);
     return s;
 }
 
@@ -337,6 +349,8 @@ __device__ __forceinline__ void tile_lookback(const JudgeArgs& a, size_t tile, c
         a.counts[0] = inc.groups;
         a.counts[1] = inc.junc + j;
         a.counts[2] = (long long)inc.occ + (j ? inc.tail.rows : 0u);
+        a.counts[3] = inc.real;
+        a.counts[4] = max(inc.gmax, inc.tail.size);
     }
 }
 
@@ -501,7 +515,7 @@ cudaError_t judge(JudgeArgs& a, bool compact, void* scratch, size_t scratch_byte
                   uint32_t epoch, cudaStream_t st) {
     if (a.n >= (1ull << 31) || a.w < 1 || scratch == nullptr || epoch > TP_EPOCH_MASK)
         return cudaErrorInvalidValue;
-    if (a.n == 0) return cudaMemsetAsync(a.counts, 0, 3 * sizeof(long long), st);
+    if (a.n == 0) return cudaMemsetAsync(a.counts, 0, J_COUNTS * sizeof(long long), st);
     a.tiles = judge_tiles(a.n);
     // the layout follows the scratch's size, so that a kept scratch is read
     // the same way by every call
@@ -547,7 +561,8 @@ extern "C" size_t tp_judge_scratch_bytes(size_t n) {
 
 // n < 2^31 sorted records. Outputs: the junction table (n_junc rows of w
 // words), occ_pos (int64) and occ_id (int32) of the n_occ kept rows in
-// record order; counts: n_groups, n_junc, n_occ (int64). Every output
+// record order; counts: n_groups, n_junc, n_occ, n_real (the real rows)
+// and the most real rows of one group (int64, 5 of them). Every output
 // holds n rows or more.
 extern "C" int tp_judge_compact(const void* words, const void* pay, const void* pos, size_t n,
                                 int w, int check_abundance, unsigned long long abundance,

@@ -3,7 +3,7 @@
 The port of twopaco_tpu/passes/sortpipe.py:453 judge_compact_fused and of
 its semantic twin :375 judge_records (per record, no compaction: the
 distributed step's judge). CUDA tensors go through kernels/csrc/judge.cu
-(two launches a call, a kept look-back scratch of 140 bytes a tile of
+(two launches a call, a kept look-back scratch of 172 bytes a tile of
 2048 records); CPU tensors through `judge_compact_plain` and
 `judge_records_plain`.
 
@@ -15,6 +15,10 @@ clamped at 0x7FFF, ops/segments.py:132), and, when an abundance limit is
 set, at most `abundance` records. Junction ids are 1-based ranks of the
 junction groups in k-mer order, negated for records on the reverse
 strand.
+
+The judge also counts, in the copy that reads its counts back, the real
+records and the most real records of one k-mer group: judge_compact,
+given a dict `stats`, sets stats["records"] and stats["group_max"].
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def _empty(w: int, device):
 
 def _scratch(lib, m: int, dev):
     """(scratch, epoch) of a kernel call over m records: the judge's own
-    look-back scratch, kept across calls, 140 bytes a tile of 2048 records
+    look-back scratch, kept across calls, 172 bytes a tile of 2048 records
     (a flag, the tile's group segment and prefix, a rank)."""
     if m >= 1 << 31:
         raise ValueError(f"{m} records exceed the judge's u32 counts")
@@ -52,10 +56,11 @@ def _check(rc: int, name: str, dev) -> None:
     build.check(rc, name)
 
 
-def _groups_plain(words, payload, abundance: int):
+def _groups_plain(words, payload, abundance: int, stats: dict | None):
     """The group math of both judges, plain PyTorch: -> (ng group starts,
     gid group of each row, keep_g junction groups, grank 1-based rank of
-    each junction group (0 elsewhere), greal real groups)."""
+    each junction group (0 elsewhere), greal real groups); fills `stats`
+    where given."""
     m = words.shape[0]
     wd = pack.as_i64(words)
     p = pack.as_i64(payload)
@@ -79,9 +84,12 @@ def _groups_plain(words, payload, abundance: int):
     outdeg = seen_out + group_sum(out_c == 4).clamp(max=_SAT)
     greal = real[ng]  # a group's rows are all real or all sentinel
     keep_g = ((indeg > 1) | (outdeg > 1)) & greal
+    size = group_sum(torch.ones_like(rg))
     if abundance < NO_ABUNDANCE:
-        size = group_sum(torch.ones_like(rg))
         keep_g &= size <= min(abundance, (1 << 63) - 1)
+    if stats is not None:
+        stats["records"] = int(rg.numel())
+        stats["group_max"] = int(size.max())
     grank = torch.cumsum(keep_g.to(torch.int64), 0) * keep_g
     return ng, gid, keep_g, grank, greal
 
@@ -91,12 +99,24 @@ def _signed_ids(payload, r):
     return torch.where(is_rc, -r, r)
 
 
-def judge_compact_plain(words, payload, pos, abundance: int = NO_ABUNDANCE):
+def _read_counts(counts, stats: dict | None) -> list:
+    """The kernel's five counts in one copy -> [n_groups, n_junc, n_occ];
+    the real records and the largest group into `stats`."""
+    n_groups, n_junc, n_occ, n_real, group_max = counts.tolist()
+    if stats is not None:
+        stats.update(records=n_real, group_max=group_max)
+    return [n_groups, n_junc, n_occ]
+
+
+def judge_compact_plain(words, payload, pos, abundance: int = NO_ABUNDANCE,
+                        stats: dict | None = None):
     """Plain PyTorch version of judge_compact (any device)."""
     m, w = words.shape
     if m == 0:
+        if stats is not None:
+            stats.update(records=0, group_max=0)
         return _empty(w, words.device)
-    ng, gid, keep_g, grank, greal = _groups_plain(words, payload, abundance)
+    ng, gid, keep_g, grank, greal = _groups_plain(words, payload, abundance, stats)
     first_rows = torch.nonzero(ng).squeeze(1)
     table = pack.take_u32(words, first_rows[keep_g])
     r = grank[gid]
@@ -108,16 +128,18 @@ def judge_compact_plain(words, payload, pos, abundance: int = NO_ABUNDANCE):
     )
 
 
-def judge_compact(words, payload, pos, abundance: int = NO_ABUNDANCE):
+def judge_compact(words, payload, pos, abundance: int = NO_ABUNDANCE,
+                  stats: dict | None = None):
     """Judge the sorted records of one round and compact the results.
 
     words (m, w) uint32 sorted, payload (m,) uint32, pos (m,) int64.
     -> (table (n_junc, w) uint32 junction k-mers in k-mer order,
         occ_pos (n_occ,) int64, occ_id (n_occ,) int32 = +-rank, in record
         order, n_groups (real k-mer groups), n_junc, n_occ)
+    stats: a dict that gets "records" and "group_max" (module docstring).
     """
     if build.on_cpu(words, payload, pos):
-        return judge_compact_plain(words, payload, pos, abundance)
+        return judge_compact_plain(words, payload, pos, abundance, stats)
     build.require(words, torch.uint32, "words")
     build.require(payload, torch.uint32, "payload")
     build.require(pos, torch.int64, "pos")
@@ -130,7 +152,7 @@ def judge_compact(words, payload, pos, abundance: int = NO_ABUNDANCE):
     table = torch.empty((m, w), dtype=torch.uint32, device=dev)
     occ_pos = torch.empty(m, dtype=torch.int64, device=dev)
     occ_id = torch.empty(m, dtype=torch.int32, device=dev)
-    counts = torch.empty(3, dtype=torch.int64, device=dev)
+    counts = torch.empty(5, dtype=torch.int64, device=dev)
     check_ab = abundance < NO_ABUNDANCE
     rc = lib.tp_judge_compact(
         words.data_ptr(), payload.data_ptr(), pos.data_ptr(), m, w,
@@ -140,7 +162,7 @@ def judge_compact(words, payload, pos, abundance: int = NO_ABUNDANCE):
     )
     _check(rc, "judge_compact", dev)
     build.count_launch("judge_compact")
-    n_groups, n_junc, n_occ = counts.tolist()
+    n_groups, n_junc, n_occ = _read_counts(counts, stats)
     return table[:n_junc], occ_pos[:n_occ], occ_id[:n_occ], n_groups, n_junc, n_occ
 
 
@@ -151,7 +173,7 @@ def judge_records_plain(words, payload, abundance: int = NO_ABUNDANCE):
     if m == 0:
         none = torch.zeros(0, dtype=torch.bool, device=dev)
         return none, none, torch.zeros(0, dtype=torch.int32, device=dev), 0, 0, 0
-    ng, gid, keep_g, grank, greal = _groups_plain(words, payload, abundance)
+    ng, gid, keep_g, grank, greal = _groups_plain(words, payload, abundance, None)
     r = grank[gid]
     keep = r > 0
     keep_first = ng & keep
@@ -185,7 +207,7 @@ def judge_records(words, payload, abundance: int = NO_ABUNDANCE):
     keep_first = torch.empty(m, dtype=torch.bool, device=dev)
     keep = torch.empty(m, dtype=torch.bool, device=dev)
     ids = torch.empty(m, dtype=torch.int32, device=dev)
-    counts = torch.empty(3, dtype=torch.int64, device=dev)
+    counts = torch.empty(5, dtype=torch.int64, device=dev)
     check_ab = abundance < NO_ABUNDANCE
     rc = lib.tp_judge_records(
         words.data_ptr(), payload.data_ptr(), m, w, int(check_ab),
@@ -195,5 +217,5 @@ def judge_records(words, payload, abundance: int = NO_ABUNDANCE):
     )
     _check(rc, "judge_records", dev)
     build.count_launch("judge_records")
-    n_groups, n_junc, n_occ = counts.tolist()
+    n_groups, n_junc, n_occ = _read_counts(counts, None)
     return keep_first, keep, ids, n_groups, n_junc, n_occ

@@ -133,7 +133,7 @@ def slot_bytes(w: int) -> int:
     of look-back status rounded up to 1, whose remainder covers the 4 KiB a
     word of histograms in any round of a batch or more). The judge needs
     less at every w: the sorted record, its table and occurrence outputs
-    (4w + 12 again) and 140 bytes of scratch a tile of 2048 records."""
+    (4w + 12 again) and 172 bytes of scratch a tile of 2048 records."""
     rec = 4 * w + 12
     return 2 * rec + (40 if w <= 2 else 24) + -(-256 * 8 // sort.SORT_TILE)
 
@@ -420,6 +420,7 @@ def build_junctions_sorted(
     """
     dev = resolve_device(device)
     ops = PLAIN if reference else KERNELS
+    build_span = trace.current()  # the run's `total` (timed_engine)
     k, P, B, w = config.k, config.positions_per_row, config.rows_per_batch, config.w
     slack = config.round_slack
     stats = RunStats()
@@ -551,6 +552,7 @@ def build_junctions_sorted(
         part_of_round.extend(p for _l, _h, p in g_rounds)
 
     fetched = []
+    group_max = 0  # the most records of one k-mer over the judged rounds
     for r, (low, high) in enumerate(intervals):
         if r in group_at:
             glow, ghigh, g_highs, n_real = group_at[r]
@@ -603,11 +605,16 @@ def build_junctions_sorted(
                 del buf
                 _sync(dev)
 
-            with trace.span("judge"):
+            with trace.span("judge") as jspan:
+                jstats = {}
                 table_d, occ_pos_d, occ_id_d, n_groups, n_junc, n_occ = ops.judge(
-                    sw, spay, spos, config.abundance
+                    sw, spay, spos, config.abundance, jstats
                 )
                 del sw, spay, spos
+                jspan.add("records", jstats["records"])
+                jspan.add("junctions", n_junc)
+                jspan.add("occurrences", n_occ)
+                group_max = max(group_max, jstats["group_max"])
                 occ_d = finish_occurrences(ops, occ_pos_d, occ_id_d, id_bits, n_slots)
                 del occ_pos_d, occ_id_d
                 _sync(dev)
@@ -637,6 +644,8 @@ def build_junctions_sorted(
                 with trace.span("checkpoint"):
                     ckpt.save_round(r, entry, stats.rounds[-1])
 
+    if build_span is not None:
+        build_span.add("group_max", group_max)
     blocks = uploads = None  # release the device state before the merge
     return merge_fetched(
         fetched, batches, config, out_path, stats, log,

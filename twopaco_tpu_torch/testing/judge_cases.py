@@ -6,8 +6,10 @@ increasing order, then the sentinel rows (all-ones words, payload 0).
 Real rows carry random ACGT or N extensions and strands. The shapes aim
 at the kernel's tiles of TILE records: a group over many tiles with more
 than 0x7FFF N-in extensions (the saturating counts), groups on tile
-edges, one record, a count off the tile, more than 2^24 records, and
-rounds that are all or mostly sentinels.
+edges, one record, a count off the tile, more than 2^24 records,
+rounds that are all or mostly sentinels, and a repeat-bearing round (a
+k-mer group of many tiles that starts and ends mid-tile, one that ends on
+a tile boundary, both strands in every group).
 """
 
 from __future__ import annotations
@@ -60,6 +62,28 @@ def tile_edges(rng, w: int = 1):
     return from_groups(rng, sizes, w, sentinels=TILE - 3)
 
 
+def repeat_groups(rng, w: int = 2):
+    """A round of k = 31 records (w = 2, the last word's 2 low bits zero)
+    as interspersed repeats make it: small groups, then one group of 8
+    tiles and more that starts and ends mid-tile, one that ends exactly on
+    a tile boundary, groups of tens to thousands of records among small
+    ones, then sentinels. Strands are random a record, so the groups of
+    more than a few records hold both."""
+    head = list(rng.integers(1, 5, size=200))
+    if sum(head) % TILE == 0:
+        head[0] += 1
+    big = 8 * TILE + 777
+    end = sum(head) + big
+    to_edge = TILE - end % TILE  # the next group ends on a tile boundary
+    mid = [int(x) for x in rng.integers(10, 3000, size=12)]
+    tail = list(rng.integers(1, 5, size=600))
+    sizes = head + [big, to_edge] + [x for pair in zip(mid, tail) for x in pair] + tail[12:]
+    words, pay, pos = from_groups(rng, sizes, w, sentinels=1000, n_rate=0.05)
+    real = pay != 0
+    words[real, -1] &= np.uint32(0xFFFFFFFC)
+    return words, pay, pos
+
+
 def random_groups(rng, m: int, w: int, sent_frac: float = 0.1):
     """Groups of 1-4 records (most of them ~2.5) until m records, the
     last sent_frac of them sentinels."""
@@ -80,6 +104,7 @@ CASES = {
     "over_2_24": lambda rng: random_groups(rng, (1 << 24) + 4099, 1, sent_frac=0.02),
     "all_sentinels": lambda rng: from_groups(rng, [], 2, sentinels=3 * TILE + 1),
     "mostly_sentinels": lambda rng: random_groups(rng, 4 * TILE + 9, 2, sent_frac=0.97),
+    "repeat_groups": lambda rng: repeat_groups(rng),
 }
 
 

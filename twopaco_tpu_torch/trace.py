@@ -94,10 +94,13 @@ class Span:
 def span(name: str, parent: Span | None = None, **attrs) -> Span:
     """A span named `name` under `parent` (default: the innermost span open
     on this thread; none: a root)."""
-    if parent is None:
-        stack = _stack()
-        parent = stack[-1] if stack else None
-    return Span(name, parent, attrs)
+    return Span(name, parent if parent is not None else current(), attrs)
+
+
+def current() -> Span | None:
+    """The innermost span open on this thread, or None."""
+    stack = _stack()
+    return stack[-1] if stack else None
 
 
 def last_build() -> tuple:
