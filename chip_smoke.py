@@ -256,6 +256,14 @@ DIST_PATH = ("upload_rows", "word0_histogram", "build_records", "route", "compac
              "sort_records", "judge_compact", "sort_occurrences")
 # ... and the merge of more than one entry (every LocalMesh run of D4 shards)
 MERGE_PATH = ("merge_rows", "merge_keys")
+
+
+def card_emit(counts) -> bool:
+    """The junction list written on the card: one emit.cu check, a chunk
+    launch or more."""
+    return counts.get("emit_check") == 1 and counts.get("emit_chunk", 0) >= 1
+
+
 DIST_BLOOM_PATH = (*DIST_PATH, "shard_bucket_fill", "shard_bucket_mark", "shard_fill",
                    "shard_probe", "shard_mark_finish")
 MH_CHILD = r"""
@@ -770,8 +778,9 @@ def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
     """merge.cu's two entries against their plain versions on a run's
     keyed entries (timed against their bounds; merge_keys against one
     torch.sort of its keys), then the device merge as the path runs it
-    (sortpipe.merge_on_device: H2D, merge.cu, D2H) against the plain
-    versions on the card and the host merge, host seconds, exact."""
+    (sortpipe.merge_on_device: H2D, merge.cu; its keys fetched here)
+    against the plain versions on the card and the host merge, host
+    seconds, exact."""
     import numpy as np
     import torch
 
@@ -822,8 +831,10 @@ def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
             buf = sortpipe.packed_occurrences(fetched, inv_h, 64 - id_bits)
             buf.sort(kind="stable")
         else:
-            table, buf = sortpipe.merge_on_device(fetched, cfg, id_bits, dev,
-                                                  reference=how != "device")
+            table, keys_d = sortpipe.merge_on_device(fetched, cfg, id_bits, dev,
+                                                     reference=how != "device")
+            buf = occ.CardKeys(keys_d, id_bits).fetch().keys
+            del keys_d
         times[how].append(time.time() - t0)
         outs[how] = (table, buf)
     for how in ("device", "plain on the card"):
@@ -1619,9 +1630,11 @@ def main() -> int:
         require(launches["r1"].get(name, 0) > 0, f"{name}: no launch in the slice run")
     require(launches["r1"]["build_records"] == 1,
             f"r1: {launches['r1']['build_records']} build_records launches, not one a round")
-    # one launch packs every row; one round's entry needs no merge
+    # one launch packs every row; one round's entry needs no merge and is
+    # written on the card
     require(launches["r1"].get("upload_rows") == 1 and not any(
-        n in launches["r1"] for n in MERGE_PATH), f"r1: upload or merge launches wrong")
+        n in launches["r1"] for n in MERGE_PATH) and card_emit(launches["r1"]),
+            f"r1: upload, merge or emit launches wrong")
     slice_sha = sha256(out)
     size_dbg = os.path.getsize(out)
     require(size_dbg > 0 and size_dbg % 12 == 0, f"slice .dbg has {size_dbg} bytes")
@@ -1655,9 +1668,11 @@ def main() -> int:
                                           "-o", out_r], env)
         for name in (*kernels, "sort_records", "judge_compact"):
             require(launches[tag].get(name, 0) > 0, f"{tag}: no launch of {name}")
-        # the rounds' keyed entries merge on the card, one call each
+        # the rounds' keyed entries merge on the card, one call each, and
+        # the merged keys are written there
         require(launches[tag].get("upload_rows") == 1 and all(
-            launches[tag].get(n) == 1 for n in MERGE_PATH), f"{tag}: upload or merge launches")
+            launches[tag].get(n) == 1 for n in MERGE_PATH) and card_emit(launches[tag]),
+            f"{tag}: upload, merge or emit launches")
         require(launches[tag].get("histogram", 1) == 1, f"{tag}: not one histogram launch")
         # one partition call a pass: the run's, or one a group of rounds
         require(launches[tag].get("partition", 0) == {"grouped": 2, "stream": 0}.get(tag, 1),
@@ -1881,11 +1896,11 @@ def main() -> int:
         print(f"{tag} phases (s) {label}: " + ", ".join(
             f"{n}={enum.stats.timings[n]:.3f}" for n in (*distpipe.PHASES, "total")))
         # a shard's rows in one launch each; the shards' entries merge on
-        # the card (the plain run launches nothing)
+        # the card and are written there (the plain run launches nothing)
         if not reference:
             require(launches[tag].get("upload_rows") == D4 and all(
-                launches[tag].get(n) == 1 for n in MERGE_PATH),
-                f"{tag}: not {D4} upload launches and one merge")
+                launches[tag].get(n) == 1 for n in MERGE_PATH) and card_emit(launches[tag]),
+                f"{tag}: not {D4} upload launches, one merge and the card emit")
         lines = "\n".join(lines).splitlines()
         for line in lines:
             if line.startswith(("Splitting", "Filter size", "Candidate marks")) or (

@@ -1154,7 +1154,8 @@ def test_sharded_sort_step_kernels(dev):
 @pytest.mark.parametrize("rounds", [1, 2])
 def test_dist_engine_cuda_equals_plain(dev, tmp_path, rounds):
     """build_junctions_dist on a LocalMesh of 4 shards of one card: the
-    kernels' .dbg equals the plain run's and the sort engine's."""
+    kernels' .dbg equals the plain run's and the sort engine's; the
+    shards' entries merge on the card and emit.cu writes the merged keys."""
     sequences = _dist_inputs()
     cfg = PipelineConfig(k=25, rounds=rounds, positions_per_row=256, rows_per_batch=8)
     outs = []
@@ -1170,7 +1171,8 @@ def test_dist_engine_cuda_equals_plain(dev, tmp_path, rounds):
         else:
             want = {"upload_rows", "word0_histogram", "build_records", "route", "compact",
                     "sort_records", "judge_compact", "sort_occurrences", "merge_rows",
-                    "merge_keys"} | ({"histogram"} if rounds > 1 else set())
+                    "merge_keys", "emit_check", "emit_chunk"} | (
+                        {"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
@@ -1639,7 +1641,8 @@ def test_shard_wrappers_never_reach_the_plain_code(dev, monkeypatch):
 def test_dist_bloom_engine_cuda_equals_plain(dev, tmp_path, rounds, layout):
     """build_junctions_dist(bloom_gate=True) on a LocalMesh of 4 shards of
     one card: the kernels' .dbg equals the plain run's and the sort
-    engine's."""
+    engine's; the shards' entries merge on the card and emit.cu writes the
+    merged keys."""
     sequences = _dist_inputs()
     cfg = PipelineConfig(k=25, rounds=rounds, filter_bits=22, layout=layout,
                          positions_per_row=256, rows_per_batch=8)
@@ -1657,7 +1660,8 @@ def test_dist_bloom_engine_cuda_equals_plain(dev, tmp_path, rounds, layout):
             want = {"upload_rows", "word0_histogram", "shard_bucket_fill", "shard_bucket_mark",
                     "shard_fill", "shard_probe", "shard_mark_finish", "build_records", "route",
                     "compact", "sort_records", "judge_compact", "sort_occurrences", "merge_rows",
-                    "merge_keys"} | ({"histogram"} if rounds > 1 else set())
+                    "merge_keys", "emit_check", "emit_chunk"} | (
+                        {"histogram"} if rounds > 1 else set())
             assert set(counts) == want, counts
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
@@ -2315,7 +2319,9 @@ def _emit_write(root):
 def test_one_round_emits_on_the_card(dev, tmp_path, engine):
     """Sort -r 1 and dist over the card's one shard keep their keys on
     the card and write the CPU run's bytes there (card_records: every
-    record but the separators); -r 3 and 4 shards take the host emit."""
+    record but the separators); -r 3 and 4 shards merge their entries on
+    the card and write the merged keys there too; the CPU run's one entry
+    takes the host emit."""
     sequences = _dist_inputs()
     cfg = PipelineConfig(k=25, positions_per_row=256, rows_per_batch=8)
     runs = {"cpu": ("cpu", 1, 1), "card": (dev, 1, 1), "r3": (dev, 3, 1),
@@ -2334,8 +2340,49 @@ def test_one_round_emits_on_the_card(dev, tmp_path, engine):
                 enum = build_junctions_sorted(None, c, out, sequences=sequences, device=device)
         outs[name] = open(out, "rb").read()
         card = _emit_write(root).counters["card_records"]
-        assert card == (enum.stats.occurrences if name == "card" else 0), name
+        assert card == (0 if name == "cpu" else enum.stats.occurrences), name
     assert len(set(outs.values())) == 1 and len(outs["cpu"]) > 0
+
+
+def test_merged_rounds_emit_on_the_card(dev, tmp_path):
+    """-r 4 of the 8 x 1 Mbase input merges its four keyed rounds on the
+    card and writes the merged keys through emit.cu: the bytes of -r 1 and
+    of the plain versions (reference=True) on the card, the JAX-confirmed
+    sha256, card_records = the records; and the emit stays under the
+    rounds' peak: max_memory_allocated no higher than the same build with
+    no output."""
+    fa = bench_data.write_bench_fasta(str(tmp_path / "in.fa"), 8, 1_000_000, 2016)
+    cfg = PipelineConfig(k=25)
+    for name, rounds, reference in (("r1", 1, False), ("plain", 4, True), ("r4", 4, False)):
+        out = str(tmp_path / f"{name}.dbg")
+        with trace.span("twopaco") as root:
+            enum = build_junctions_sorted([fa], dataclasses.replace(cfg, rounds=rounds), out,
+                                          device="cuda", reference=reference)
+        assert _file_sha(out) == _golden_sha("bench_8x1M_k25"), name
+        assert _emit_write(root).counters["card_records"] == enum.stats.occurrences > 0, name
+    got = {}
+    orig = sortpipe.merge_fetched
+
+    def capture(fetched, *a, **kw):
+        got["keys"] = [len(e[1]) for e in fetched]
+        return orig(fetched, *a, **kw)
+
+    peaks = {}
+    sortpipe.merge_fetched = capture
+    try:
+        for out in (None, str(tmp_path / "peak.dbg")):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            build_junctions_sorted([fa], dataclasses.replace(cfg, rounds=4), out,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            peaks[out is not None] = torch.cuda.max_memory_allocated()
+    finally:
+        sortpipe.merge_fetched = orig
+    print(f"-r 4 peak: {peaks[True]} bytes with the output, {peaks[False]} without; the "
+          f"rounds' keys {[8 * n for n in got['keys']]} bytes")
+    assert peaks[True] <= peaks[False]
 
 
 def test_card_emit_chunks_fit_the_free_memory(dev, tmp_path):

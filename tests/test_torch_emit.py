@@ -3,7 +3,11 @@ versions: the same bytes as the host emit (pipeline.emit_junctions_packed)
 and the JAX package's emit for the same keys, faults raised before the output exists, the merge's
 choice of path and its counters, and the round checkpoint's guard."""
 
+import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,12 +15,14 @@ import torch
 
 from twopaco_tpu.passes import pipeline as jpipe
 from twopaco_tpu_torch import trace
-from twopaco_tpu_torch.passes import emit, sortpipe
+from twopaco_tpu_torch.io import junctions as junction_io
+from twopaco_tpu_torch.passes import emit, merge, sortpipe
 from twopaco_tpu_torch.passes.occ import CardKeys, OccKeys
 from twopaco_tpu_torch.passes.pipeline import PipelineConfig, RunStats, emit_junctions_packed
 from twopaco_tpu_torch.testing import emit_cases
 
 K, P, B = 11, 64, 4
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _batches(kind, seed=3):
@@ -135,9 +141,9 @@ def test_a_key_in_a_pad_row_raises(tmp_path):
         _card_bytes(tmp_path, batches, keys, 5, 32, 8)
 
 
-def _entries(rounds, tmp_path=None, ck=None, seqs=None):
+def _entries(rounds, tmp_path=None, ck=None, seqs=None, **cfg):
     """The entries a CPU sort-engine run hands the merge, its batches and
-    its .dbg."""
+    its .dbg (cfg: more PipelineConfig fields)."""
     got = {}
     orig = sortpipe.merge_fetched
 
@@ -149,7 +155,8 @@ def _entries(rounds, tmp_path=None, ck=None, seqs=None):
     sortpipe.merge_fetched = capture
     try:
         sortpipe.build_junctions_sorted(
-            None, PipelineConfig(k=K, rounds=rounds, positions_per_row=P, rows_per_batch=B),
+            None, PipelineConfig(k=K, rounds=rounds, positions_per_row=P, rows_per_batch=B,
+                                 **cfg),
             out, sequences=seqs or _seqs(), device="cpu", checkpoint_dir=ck)
     finally:
         sortpipe.merge_fetched = orig
@@ -215,9 +222,9 @@ def test_card_emit_chunks_fit_the_free_memory(tmp_path, chunk_occ):
 
 
 def test_card_emit_refuses_what_it_cannot_take(tmp_path):
-    """Too little free memory for the emit's tables, a merge of several
-    entries with keys on a card, and sequence ids that fall (3, 2, 1, 0)
-    raise before the output exists."""
+    """Too little free memory for the one entry's emit tables, a merge of
+    several entries with keys on a card, and sequence ids that fall (3, 2,
+    1, 0), for one entry or N merged, raise before the output exists."""
     fetched, batches, _want = _entries(1)
     (table, keys, _none), = fetched
     card = [(table, CardKeys(torch.from_numpy(keys.keys.view(np.int64)), 32), None)]
@@ -231,15 +238,188 @@ def test_card_emit_refuses_what_it_cannot_take(tmp_path):
                                     RunStats())[1]
     with pytest.raises(ValueError, match="sequence ids in input order"):
         _merge(card, falling, str(out))
+    # N entries merged on the card take its emit: the same refusal
+    with pytest.raises(ValueError, match="sequence ids in input order"):
+        _merge(_entries(3)[0], falling, str(out))
     assert not out.exists()
 
 
 @pytest.mark.parametrize("rounds", [1, 3])
 def test_host_paths_count_no_card_records(tmp_path, rounds):
+    """On the CPU one round's entry (OccKeys) takes the host emit and
+    counts no card record; three rounds merge on the merge's device and
+    their merged keys take the card emit (its plain versions here), which
+    counts every record it writes."""
     with trace.span("twopaco") as root:
         _entries(rounds, tmp_path)
     (write,) = _named(root, "emit_write")
-    assert write.counters["card_records"] == 0
+    records = len(junction_io.read_junctions(str(tmp_path / f"r{rounds}.dbg"))[0])
+    assert write.counters["card_records"] == (0 if rounds == 1 else records)
+    assert records > 0
+
+
+def _refuse(*_a, **_k):
+    raise AssertionError("the host emit ran")
+
+
+@pytest.mark.parametrize("rounds", [2, 3, 4])
+def test_merged_rounds_write_the_host_emits_bytes(tmp_path, monkeypatch, rounds):
+    """A build of N rounds merges its keyed entries on the merge's device
+    (the CPU here) and writes the merged keys through the card emit: one
+    round's host emit's bytes, card_records = the records written, no host
+    emit."""
+    _f, _b, want = _entries(1, tmp_path)
+    monkeypatch.setattr(sortpipe, "emit_junctions_packed", _refuse)
+    with trace.span("twopaco") as root:  # four rounds of these few rows need the slack
+        fetched, _b, got = _entries(rounds, tmp_path, round_slack=2.0)
+    assert len(fetched) == rounds and all(isinstance(e[1], OccKeys) for e in fetched)
+    assert got == want
+    (write,) = _named(root, "emit_write")
+    records = len(junction_io.read_junctions(str(tmp_path / f"r{rounds}.dbg"))[0])
+    assert write.counters["card_records"] == records > 0
+
+
+MERGED_FAULTS = {  # where: the entry's keys (the merge's faults) or the merged keys (the check's)
+    ("entry", "id 0"): "occurrence id 0",
+    ("entry", "past"): "occurrence id out of range",
+    ("merged", "id 0"): "occurrence id 0",
+    ("merged", "past"): "occurrence id out of range",
+    ("merged", "order"): "out of position order",
+}
+
+
+@pytest.mark.parametrize("where,what", sorted(MERGED_FAULTS))
+def test_merged_key_faults_raise_before_the_output_exists(tmp_path, monkeypatch, where, what):
+    fetched, batches, _want = _entries(3)
+    mask = np.uint64(0xFFFFFFFF)
+    if where == "entry":
+        table, keys, _none = fetched[1]
+        k = keys.keys.copy()
+        bad = 0 if what == "id 0" else len(table) + 1
+        k[0] = (k[0] & ~mask) | np.uint64(bad + (1 << 31))
+        fetched[1] = (table, OccKeys(k, 32), None)
+    else:
+        merge_on_device = sortpipe.merge_on_device
+
+        def corrupt(*a, **kw):
+            table, keys = merge_on_device(*a, **kw)
+            k = keys.numpy().view(np.uint64).copy()
+            i = len(k) // 2
+            if what == "order":
+                k[[i, i + 1]] = k[[i + 1, i]]
+            else:
+                bad = 0 if what == "id 0" else len(table) + 1
+                k[i] = (k[i] & ~mask) | np.uint64(bad + (1 << 31))
+            return table, torch.from_numpy(k.view(np.int64))
+
+        monkeypatch.setattr(sortpipe, "merge_on_device", corrupt)
+    out = tmp_path / "x.dbg"
+    with pytest.raises(RuntimeError, match=MERGED_FAULTS[where, what]):
+        _merge(fetched, batches, str(out))
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("short", [0, 1])
+def test_a_merge_whose_emit_tables_do_not_fit_takes_the_host_merge(tmp_path, monkeypatch,
+                                                                    short):
+    """The device merge is taken only where `free` holds its buffers and
+    the card emit's tables: at exactly that figure N entries merge on the
+    merge's device and the card emit writes them; a byte less, the host
+    merge and the host emit run, with a log line naming the bytes. The
+    same bytes either way."""
+    fetched, batches, want = _entries(3, tmp_path)
+    need = (merge.device_bytes(sum(len(e[0]) for e in fetched), PipelineConfig(k=K).w,
+                               sum(len(e[1]) for e in fetched), len(fetched))
+            + emit.table_bytes(batches) + 2 * 12)
+    if short:
+        monkeypatch.setattr(merge, "merge_packed", _refuse)
+    out, logs = str(tmp_path / "m.dbg"), []
+    enum, write = _merge(fetched, batches, out, free=need - short, logs=logs)
+    host = [s for s in logs if s.startswith("Merge on the host")]
+    assert host == ([f"Merge on the host: the device merge and the card emit need "
+                     f"{sortpipe._gib(need)}, {sortpipe._gib(need - 1)} is free"]
+                    if short else [])
+    assert open(out, "rb").read() == want and len(want) > 0
+    assert write.counters["card_records"] == (0 if short else enum.stats.occurrences)
+
+
+# ChunkWriter.write_raw (the card emit's writer) with every other record
+# left out ("half") or one record's position moved ("alter") from the
+# from_call-th writer on, each under one harness run of the benchmark's
+# tiny four-round cell on the CPU; the harness refuses a process that
+# holds jax, so the runs are one child process
+WRITER_FAULTS = {"half_left_out": ("half", 0), "one_altered": ("alter", 0),
+          "window_only": ("alter", 1)}
+PLANT = r"""
+import json, sys
+from pathlib import Path
+
+import numpy as np
+
+from gpubench.tests import cells
+from twopaco_tpu_torch.io import junctions
+
+real_init, real_raw = junctions.ChunkWriter.__init__, junctions.ChunkWriter.write_raw
+
+
+def run(kind, from_call, tmp):
+    writers = [0]
+
+    def init(self, path):
+        real_init(self, path)
+        self.faulty = writers[0] >= from_call
+        writers[0] += 1
+
+    def write_raw(self, data):
+        if self.faulty:
+            rec = np.array(data).view(np.int32).reshape(-1, 3).copy()
+            if kind == "half":
+                rec = rec[::2]
+            else:
+                rec[len(rec) // 2, 1] += 1
+            data = rec.reshape(-1)
+        return real_raw(self, data)
+
+    junctions.ChunkWriter.__init__, junctions.ChunkWriter.write_raw = init, write_raw
+    try:
+        rc, result, err = cells.run_cpu(*cells.make_root(tmp),
+                                        seconds=0.5 if from_call else 0.3)
+    finally:
+        junctions.ChunkWriter.__init__, junctions.ChunkWriter.write_raw = real_init, real_raw
+    return {"rc": rc, "result": result, "err": err[-4000:]}
+
+
+faults, tmp = json.loads(sys.argv[1]), Path(sys.argv[2])
+print(json.dumps({name: run(kind, from_call, tmp / name)
+                  for name, (kind, from_call) in faults.items()}))
+"""
+
+
+@pytest.fixture(scope="module")
+def planted(tmp_path_factory):
+    run = subprocess.run([sys.executable, "-c", PLANT, json.dumps(WRITER_FAULTS),
+                          str(tmp_path_factory.mktemp("plant"))],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("fault", sorted(WRITER_FAULTS))
+def test_the_benchmark_catches_a_fault_in_the_card_emit(planted, fault):
+    """The benchmark's tiny four-round cell on the CPU merges its rounds and
+    writes them through the card emit's ChunkWriter.write_raw; a fault
+    planted there comes out not correct: records differing where every
+    build is faulty, window builds differing where only the builds after
+    the checked one are."""
+    got = planted[fault]
+    result = got["result"]
+    assert got["rc"] == 0 and result["correct"] is False, got["err"]
+    differing = result["compared"]
+    if WRITER_FAULTS[fault][1]:
+        assert differing["records_differing"]["value"] == 0
+        assert differing["window_builds_differing"]["value"] >= 1 and result["failed"] >= 1
+    else:
+        assert differing["records_differing"]["value"] > 0
 
 
 def test_card_entry_faults_raise_in_the_merge(tmp_path):

@@ -45,10 +45,11 @@ class OccKeys:
 
 @dataclass(frozen=True)
 class CardKeys:
-    """A round's occurrences kept where the occurrence sort left them: keys
-    (n,) int64 on a card holding OccKeys' u64 keys. The merge of one such
-    entry checks them and builds the junction list there (passes/emit.py);
-    any other use fetches them (fetch)."""
+    """A round's occurrences kept where the occurrence sort left them, or
+    the merged keys of N entries where the device merge wrote them: keys
+    (n,) int64 on a device holding OccKeys' u64 keys. The merge checks
+    them and builds the junction list there (passes/emit.py); any other
+    use fetches them (fetch)."""
 
     keys: torch.Tensor
     id_bits: int

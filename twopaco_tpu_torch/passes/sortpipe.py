@@ -15,7 +15,8 @@ The port of twopaco_tpu/passes/sortpipe.py:1008 build_junctions_sorted:
      the round-local ids and merge the rounds' occurrences by position (one
      round: nothing to do; N: on the device, passes/merge.py, or on the
      host where its buffers do not fit), and write the junction list with
-     stubs (host).
+     stubs: from the device where the keys lie there (passes/emit.py),
+     else on the host.
 
 Rounds split the hash space (the reference's -r semantics), so a round
 holds about 1/R of the records. How a round's buffer is filled is the
@@ -792,9 +793,13 @@ def merge_rounds_packed(
     each entry's local ids with no search, and the buffer is sorted in
     place.
 
-    One entry whose keys stay on their device (CardKeys) is checked there
-    and writes the junction list from there (passes/emit.py;
-    reference=True: the plain versions), in chunks that fit `free`."""
+    Keys on a device (CardKeys: one entry whose keys stayed there, or the
+    N entries' merged keys) are checked there and write the junction list
+    from there (passes/emit.py; reference=True: the plain versions), in
+    chunks that fit the free device memory (`free` for the one entry; read
+    again after the merge). The device merge is taken only where `free`
+    also holds the card emit's tables; the one entry raises where they do
+    not fit."""
     id_bits = 64 - pos_bits
     P = config.positions_per_row
     check_fn, chunk_fn = (emit.check_plain, emit.chunk_plain) if reference else (emit.check,
@@ -807,31 +812,37 @@ def merge_rounds_packed(
                 raise ValueError(f"keys of {keys.id_bits} id bits in a {id_bits}-bit merge")
         on_dev = keyed and len(fetched) > 1
         if on_dev and free is not None:
+            # the merge's buffers, and the card emit's tables at its least
+            # chunk (one occurrence: emit.chunk_size) beside its keys
             need = merge.device_bytes(sum(len(e[0]) for e in fetched), config.w,
                                       sum(len(e[1]) for e in fetched), len(fetched))
+            need += emit.table_bytes(batches) + 2 * 12
             if need > free:
-                log(f"Merge on the host: the device merge needs {_gib(need)}, {_gib(free)} "
-                    "is free")
+                log(f"Merge on the host: the device merge and the card emit need {_gib(need)}, "
+                    f"{_gib(free)} is free")
                 on_dev = False
         if card is not None:
             table = fetched[0][0]
-            chunk_occ = emit.chunk_size(batches, free)
-            if chunk_occ < min(emit.CHUNK, len(card)):
-                log(f"Emit in chunks of {chunk_occ} occurrences: {_gib(free)} is free")
-            found = emit.check_keys(card.keys, batches, len(table), P, id_bits,
-                                    chunk_occ=chunk_occ, fn=check_fn)
         elif keyed and len(fetched) == 1:
             table, keys, _none = fetched[0]
             buf = keys.keys
             _check_key_ids(buf, id_bits, len(table))
         elif on_dev:
-            table, buf = merge_on_device(fetched, config, id_bits, dev, reference)
+            table, merged = merge_on_device(fetched, config, id_bits, dev, reference)
+            free = _free_bytes(dev)  # the merge's inputs are released
+            card = CardKeys(merged, id_bits)
         else:
             table, inv = merge_tables(fetched, config.w)
             buf = packed_occurrences(fetched, inv, pos_bits)
             # sorted-key entries arrive as sorted runs: timsort ("stable")
             # merges them, 5-10x faster than the default quicksort here
             buf.sort(kind="stable")
+        if card is not None:
+            chunk_occ = emit.chunk_size(batches, free)
+            if chunk_occ < min(emit.CHUNK, len(card)):
+                log(f"Emit in chunks of {chunk_occ} occurrences: {_gib(free)} is free")
+            found = emit.check_keys(card.keys, batches, len(table), P, id_bits,
+                                    chunk_occ=chunk_occ, fn=check_fn)
 
     stats.distinct_junctions = len(table)
     enum = Enumerator(table, config.k, stats)
@@ -879,8 +890,9 @@ def _check_key_ids(keys: np.ndarray, id_bits: int, n_table: int) -> None:
 def merge_on_device(fetched, config, id_bits: int, dev, reference: bool):
     """The merge of N keyed entries on dev (passes/merge.py): the tables
     and the key runs up in one copy each (async, the entries page-locked
-    for it), the merge, the global table and keys back in one sync.
-    -> (table, keys u64), raising as the host merge does."""
+    for it), the merge, the global table and the fault counts back in one
+    sync. -> (table, keys: (n,) int64 on dev holding the u64 keys, the
+    merge's other buffers released), raising as the host merge does."""
     tables = [t for t, _k, _n in fetched]
     keys = [k.keys for _t, k, _n in fetched]
     rows = np.cumsum([0] + [len(t) for t in tables])
@@ -899,7 +911,8 @@ def merge_on_device(fetched, config, id_bits: int, dev, reference: bool):
         fn = merge.merge_packed_plain if reference else merge.merge_packed
         gtab, gkeys, faults = fn(table_d, keys_d, entries, key_bits=2 * config.k,
                                  id_bits=id_bits)
-        table, buf, faults = hostmem.host_copies([gtab, gkeys, faults])
+        del table_d, keys_d, entries
+        table, faults = hostmem.host_copies([gtab, faults])
     dup, id0, past = (int(x) for x in faults)
     if dup:
         raise AssertionError(
@@ -910,7 +923,7 @@ def merge_on_device(fetched, config, id_bits: int, dev, reference: bool):
         raise RuntimeError(f"occurrence id out of range: {past} ids past their entry's table")
     if id0:
         raise RuntimeError("occurrence id 0 (corrupt round)")
-    return table.numpy(), buf.numpy().view(np.uint64)
+    return table.numpy(), gkeys
 
 
 def merge_tables(fetched, w: int):
