@@ -231,9 +231,9 @@ REPLACES = {
     "merge_keys": ("twopaco_tpu_torch/kernels/csrc/merge.cu",
                    "twopaco_tpu/passes/sortpipe.py:1539"),
     "emit_check": ("twopaco_tpu_torch/kernels/csrc/emit.cu",
-                   "twopaco_tpu/passes/pipeline.py:emit_junctions_packed"),
+                   "twopaco_tpu/passes/pipeline.py:462"),
     "emit_chunk": ("twopaco_tpu_torch/kernels/csrc/emit.cu",
-                   "twopaco_tpu/passes/pipeline.py:emit_junctions_packed"),
+                   "twopaco_tpu/passes/pipeline.py:462"),
 }
 # the run whose launch counts each kernel reports: its own path
 PATH_OF = {
@@ -785,7 +785,7 @@ def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
     import torch
 
     from twopaco_tpu_torch.ops import pack
-    from twopaco_tpu_torch.passes import merge, occ, sortpipe
+    from twopaco_tpu_torch.passes import merge, occ, sortpipe, versions
 
     require(len(fetched) > 1 and all(isinstance(e[1], occ.OccKeys) for e in fetched),
             f"merge {tag}: not keyed entries")
@@ -794,7 +794,7 @@ def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
     keys = [kk.keys for _t, kk, _n in fetched]
     ofs = np.cumsum([[0] + [len(x) for x in keys], [0] + [len(t) for t in tables]], axis=1)
     tab_d = torch.from_numpy(np.concatenate(tables)).to(dev)
-    keys_d = torch.from_numpy(np.concatenate(keys).view(np.int64)).to(dev)
+    keys_d = torch.cat(keys).to(dev)
     ent_d = torch.from_numpy(ofs).to(dev)
     T, n = tab_d.shape[0], keys_d.numel()
     # the tables read once, the global table, inv and dup written once
@@ -831,9 +831,10 @@ def merge_checks(tag, fetched, cfg, dev, results, label) -> None:
             buf = sortpipe.packed_occurrences(fetched, inv_h, 64 - id_bits)
             buf.sort(kind="stable")
         else:
-            table, keys_d = sortpipe.merge_on_device(fetched, cfg, id_bits, dev,
-                                                     reference=how != "device")
-            buf = occ.CardKeys(keys_d, id_bits).fetch().keys
+            table, keys_d = sortpipe.merge_on_device(
+                fetched, cfg, id_bits, dev,
+                versions.KERNELS if how == "device" else versions.PLAIN)
+            buf = occ.OccKeys(keys_d, id_bits).host()
             del keys_d
         times[how].append(time.time() - t0)
         outs[how] = (table, buf)
@@ -852,12 +853,13 @@ def emit_checks(fa, cfg, dev, results, label) -> None:
     key; the chunk timed as one chunk of every record, against the bytes
     bound), then the card emit as the path runs it (check_keys +
     write_keys: the chunks streamed through two page-locked host buffers)
-    against the host emit of the fetched keys, host seconds in turns, each
-    file the slice's bytes."""
+    against the same emit's plain versions on a CPU copy of the keys (the
+    host merge's path), host seconds in turns, each file the slice's
+    bytes."""
     import torch
 
     from twopaco_tpu_torch.passes import emit, occ, sortpipe
-    from twopaco_tpu_torch.passes.pipeline import build_junctions, emit_junctions_packed
+    from twopaco_tpu_torch.passes.pipeline import build_junctions
 
     got = {}
     orig = sortpipe.merge_fetched
@@ -875,7 +877,8 @@ def emit_checks(fa, cfg, dev, results, label) -> None:
     require(sha256(out) == SLICE_SHA256, "emit: the -r 1 run's .dbg differs")
     (table, ck, _none), = got["fetched"]
     batches = got["batches"]
-    require(isinstance(ck, occ.CardKeys), "emit: the -r 1 entry's keys left the card")
+    require(isinstance(ck, occ.OccKeys) and ck.keys.is_cuda,
+            "emit: the -r 1 entry's keys left the card")
     keys, id_bits, P, n_table = ck.keys, ck.id_bits, cfg.positions_per_row, len(table)
     n = keys.numel()
     _edges, _q, args = emit.check_inputs(batches, n, P, dev)
@@ -907,9 +910,10 @@ def emit_checks(fa, cfg, dev, results, label) -> None:
             found = emit.check_keys(keys, batches, n_table, P, id_bits)
             emit.write_keys(outs[how], batches, keys, found, n_table, P, id_bits)
         else:
-            host = ck.fetch()
-            sortpipe._check_key_ids(host.keys, id_bits, n_table)
-            emit_junctions_packed(outs[how], batches, host.keys, n_table, P, id_bits=id_bits)
+            kc = torch.from_numpy(ck.host().view("int64"))
+            found = emit.check_keys(kc, batches, n_table, P, id_bits, fn=emit.check_plain)
+            emit.write_keys(outs[how], batches, kc, found, n_table, P, id_bits,
+                            fn=emit.chunk_plain)
         times[how].append(time.time() - t0)
     for how, path in outs.items():
         require(sha256(path) == SLICE_SHA256, f"emit: the {how} emit's .dbg differs")
@@ -1108,7 +1112,7 @@ def main() -> int:
         from twopaco_tpu_torch.parallel.mesh import LocalMesh
         from twopaco_tpu_torch.passes import (
             bloompipe, extract, fill, histogram, judge, lookup, mark, merge, occ, partition,
-            records, route, shardbloom, sort, sortpipe, stream, upload,
+            records, route, shardbloom, sort, sortpipe, stream, upload, versions,
         )
         from twopaco_tpu_torch.passes.pipeline import PassConfig, PipelineConfig, RunStats
         from twopaco_tpu_torch.passes.sortpipe import build_junctions_sorted
@@ -2069,7 +2073,7 @@ def main() -> int:
         require(int(meshc.all_gather(over).sum()) == 0, "sharded fill overflowed")
         if (lay, f_bits, n_sh) == ("byte", 30, D4):
             filt_p = sharded.make_sharded_filter(meshc, scfg)
-            fill_p = sharded.sharded_fill_step(meshc, scfg, sortshard.PLAIN)
+            fill_p = sharded.sharded_fill_step(meshc, scfg, versions.PLAIN)
             over = None
             for u in uploads:
                 over = fill_p(filt_p, shard_batch(u), *full, over)

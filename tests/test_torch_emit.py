@@ -1,8 +1,10 @@
-"""The card emit (passes/emit.py) on CPU tensors, through its plain
-versions: the same bytes as the host emit (pipeline.emit_junctions_packed)
-and the JAX package's emit for the same keys, faults raised before the output exists, the merge's
-choice of path and its counters, and the round checkpoint's guard."""
+"""The emit of every packed merge (passes/emit.py) on CPU tensors,
+through its plain versions: the bytes of the JAX package's packed emit
+(twopaco_tpu pipeline.emit_junctions_packed) for the same keys and of its
+build, faults raised before the output exists, the merge's choice of path
+and its counters, and the round checkpoint's guard."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -13,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+from twopaco_tpu.passes import PipelineConfig as JaxConfig
+from twopaco_tpu.passes import build_junctions as jax_build
 from twopaco_tpu.passes import pipeline as jpipe
 from twopaco_tpu_torch import trace
 from twopaco_tpu_torch.io import junctions as junction_io
-from twopaco_tpu_torch.passes import emit, merge, sortpipe
-from twopaco_tpu_torch.passes.occ import CardKeys, OccKeys
-from twopaco_tpu_torch.passes.pipeline import PipelineConfig, RunStats, emit_junctions_packed
+from twopaco_tpu_torch.passes import emit, merge, pipeline, sortpipe
+from twopaco_tpu_torch.passes.occ import OccKeys
+from twopaco_tpu_torch.passes.pipeline import PipelineConfig, RunStats
+from twopaco_tpu_torch.passes.versions import KERNELS
 from twopaco_tpu_torch.testing import emit_cases
 
 K, P, B = 11, 64, 4
@@ -42,15 +47,11 @@ def _card_bytes(tmp_path, batches, keys, n_table, id_bits, chunk_occ, name="card
 
 
 def _host_bytes(tmp_path, batches, keys, n_table, id_bits):
-    """The port's host emit's bytes and counts, held equal to the JAX
-    package's for the same keys."""
-    got = []
-    for name, fn in (("host", emit_junctions_packed), ("jax", jpipe.emit_junctions_packed)):
-        out = str(tmp_path / f"{name}.dbg")
-        n = fn(out, batches, keys, n_table, P, id_bits=id_bits)
-        got.append((open(out, "rb").read(), tuple(int(x) for x in n)))
-    assert got[0] == got[1]
-    return got[0]
+    """The JAX package's packed emit's bytes and counts for the same
+    keys."""
+    out = str(tmp_path / "jax.dbg")
+    n = jpipe.emit_junctions_packed(out, batches, keys, n_table, P, id_bits=id_bits)
+    return open(out, "rb").read(), tuple(int(x) for x in n)
 
 
 @pytest.mark.parametrize("chunk_occ", [1, 2, 3, 7, 1 << 24])
@@ -174,12 +175,21 @@ def _seqs():
     return out
 
 
-def _merge(entries, batches, out, free=None, logs=None):
+@pytest.fixture(scope="module")
+def jax_dbg(tmp_path_factory):
+    """The JAX package's .dbg of _seqs() (every round count writes it)."""
+    out = str(tmp_path_factory.mktemp("jax") / "jax.dbg")
+    jax_build(None, JaxConfig(k=K, filter_bits=20, positions_per_row=P, rows_per_batch=B),
+              out_path=out, sequences=_seqs())
+    return open(out, "rb").read()
+
+
+def _merge(entries, batches, out, free=None, logs=None, ops=KERNELS):
     with trace.span("twopaco") as root:
         enum = sortpipe.merge_rounds_packed(
             entries, batches, PipelineConfig(k=K, positions_per_row=P, rows_per_batch=B), out,
             RunStats(), (logs if logs is not None else []).append, dev=torch.device("cpu"),
-            free=free)
+            free=free, ops=ops)
     (write,) = _named(root, "emit_write") if out is not None else (None,)
     return enum, write
 
@@ -188,14 +198,29 @@ def _named(root, name):
     return [s for s in trace.descendants(root) if s.name == name]
 
 
+def _records(path):
+    return len(junction_io.read_junctions(str(path))[0])
+
+
+def _refuse(*_a, **_k):
+    raise AssertionError("a refused path ran")
+
+
+def _refuse_unpacked_emit(monkeypatch):
+    """pipeline.emit_junctions and its writer raise: a packed merge writes
+    through emit.write_keys only."""
+    for mod, name in ((pipeline, "emit_junctions"), (pipeline, "_write_spliced"),
+                      (sortpipe, "emit_junctions")):
+        monkeypatch.setattr(mod, name, _refuse)
+
+
 def test_merge_of_one_card_entry(tmp_path):
-    """A keyed entry whose keys stay on their device is checked and
-    written there (card_records = its records), with the host path's
-    bytes, in chunks that fit the free device memory."""
+    """A keyed entry whose keys stay on their device (a one-round build's,
+    on the CPU here) is checked and written there (card_records = its
+    records), with the build's bytes."""
     fetched, batches, want = _entries(1, tmp_path)
-    (table, keys, _none), = fetched
-    assert isinstance(keys, OccKeys)
-    card = [(table, CardKeys(torch.from_numpy(keys.keys.view(np.int64)), 32), None)]
+    (table, keys, _none), = card = fetched
+    assert isinstance(keys, OccKeys) and keys.keys.dtype == torch.int64
     out = str(tmp_path / "card.dbg")
     enum, write = _merge(card, batches, out)
     assert open(out, "rb").read() == want
@@ -209,9 +234,7 @@ def test_merge_of_one_card_entry(tmp_path):
 def test_card_emit_chunks_fit_the_free_memory(tmp_path, chunk_occ):
     """Little free device memory: smaller chunks (a log line), the same
     bytes, every record still built on the card."""
-    fetched, batches, want = _entries(1, tmp_path)
-    (table, keys, _none), = fetched
-    card = [(table, CardKeys(torch.from_numpy(keys.keys.view(np.int64)), 32), None)]
+    card, batches, want = _entries(1, tmp_path)
     free = emit.table_bytes(batches) + 2 * 12 * chunk_occ
     assert emit.chunk_size(batches, free) == chunk_occ
     out, logs = str(tmp_path / "card.dbg"), []
@@ -222,61 +245,58 @@ def test_card_emit_chunks_fit_the_free_memory(tmp_path, chunk_occ):
 
 
 def test_card_emit_refuses_what_it_cannot_take(tmp_path):
-    """Too little free memory for the one entry's emit tables, a merge of
-    several entries with keys on a card, and sequence ids that fall (3, 2,
-    1, 0), for one entry or N merged, raise before the output exists."""
-    fetched, batches, _want = _entries(1)
-    (table, keys, _none), = fetched
-    card = [(table, CardKeys(torch.from_numpy(keys.keys.view(np.int64)), 32), None)]
+    """Too little free memory for the one entry's emit tables, and
+    sequence ids that fall (3, 2, 1, 0), for one entry, N merged on the
+    merge's device, N merged on the host or a whole CPU -r 1 build, raise
+    before the output exists."""
+    card, batches, _want = _entries(1)
     out = tmp_path / "x.dbg"
     with pytest.raises(RuntimeError, match="tables need"):
         _merge(card, batches, str(out), free=emit.table_bytes(batches) + 2 * 12 - 1)
-    with pytest.raises(ValueError, match="several entries"):
-        _merge(card + [(table[:0], keys, None)], batches, str(out))
-    falling = sortpipe.read_batches(None, [(3 - i, c) for i, c in _seqs()],
+    falling_seqs = [(3 - i, c) for i, c in _seqs()]
+    falling = sortpipe.read_batches(None, falling_seqs,
                                     PipelineConfig(k=K, positions_per_row=P, rows_per_batch=B),
                                     RunStats())[1]
     with pytest.raises(ValueError, match="sequence ids in input order"):
         _merge(card, falling, str(out))
-    # N entries merged on the card take its emit: the same refusal
+    # N entries merged on the device or on the host take the same emit
+    for free in (None, 1):
+        with pytest.raises(ValueError, match="sequence ids in input order"):
+            _merge(_entries(3)[0], falling, str(out), free=free)
     with pytest.raises(ValueError, match="sequence ids in input order"):
-        _merge(_entries(3)[0], falling, str(out))
-    assert not out.exists()
+        _entries(1, tmp_path, seqs=falling_seqs)
+    assert not out.exists() and not (tmp_path / "r1.dbg").exists()
 
 
 @pytest.mark.parametrize("rounds", [1, 3])
-def test_host_paths_count_no_card_records(tmp_path, rounds):
-    """On the CPU one round's entry (OccKeys) takes the host emit and
-    counts no card record; three rounds merge on the merge's device and
-    their merged keys take the card emit (its plain versions here), which
-    counts every record it writes."""
+def test_host_paths_count_no_card_records(tmp_path, monkeypatch, jax_dbg, rounds):
+    """On the CPU one round's entry keeps its keys where the occurrence
+    sort left them, and three rounds merge on the merge's device: either
+    way the keys take emit.write_keys (its plain versions here), which
+    counts every record it writes, and never the unpacked emit; the JAX
+    package's bytes."""
+    _refuse_unpacked_emit(monkeypatch)
     with trace.span("twopaco") as root:
-        _entries(rounds, tmp_path)
+        _f, _b, got = _entries(rounds, tmp_path)
     (write,) = _named(root, "emit_write")
-    records = len(junction_io.read_junctions(str(tmp_path / f"r{rounds}.dbg"))[0])
-    assert write.counters["card_records"] == (0 if rounds == 1 else records)
-    assert records > 0
-
-
-def _refuse(*_a, **_k):
-    raise AssertionError("the host emit ran")
+    records = _records(tmp_path / f"r{rounds}.dbg")
+    assert write.counters["card_records"] == records > 0
+    assert got == jax_dbg
 
 
 @pytest.mark.parametrize("rounds", [2, 3, 4])
-def test_merged_rounds_write_the_host_emits_bytes(tmp_path, monkeypatch, rounds):
+def test_merged_rounds_write_the_host_emits_bytes(tmp_path, monkeypatch, jax_dbg, rounds):
     """A build of N rounds merges its keyed entries on the merge's device
-    (the CPU here) and writes the merged keys through the card emit: one
-    round's host emit's bytes, card_records = the records written, no host
+    (the CPU here) and writes the merged keys through emit.write_keys: the
+    JAX package's bytes, card_records = the records written, no unpacked
     emit."""
-    _f, _b, want = _entries(1, tmp_path)
-    monkeypatch.setattr(sortpipe, "emit_junctions_packed", _refuse)
+    _refuse_unpacked_emit(monkeypatch)
     with trace.span("twopaco") as root:  # four rounds of these few rows need the slack
         fetched, _b, got = _entries(rounds, tmp_path, round_slack=2.0)
     assert len(fetched) == rounds and all(isinstance(e[1], OccKeys) for e in fetched)
-    assert got == want
+    assert got == jax_dbg
     (write,) = _named(root, "emit_write")
-    records = len(junction_io.read_junctions(str(tmp_path / f"r{rounds}.dbg"))[0])
-    assert write.counters["card_records"] == records > 0
+    assert write.counters["card_records"] == _records(tmp_path / f"r{rounds}.dbg") > 0
 
 
 MERGED_FAULTS = {  # where: the entry's keys (the merge's faults) or the merged keys (the check's)
@@ -294,9 +314,10 @@ def test_merged_key_faults_raise_before_the_output_exists(tmp_path, monkeypatch,
     mask = np.uint64(0xFFFFFFFF)
     if where == "entry":
         table, keys, _none = fetched[1]
-        k = keys.keys.copy()
+        k = keys.keys.clone()
+        ku = k.numpy().view(np.uint64)
         bad = 0 if what == "id 0" else len(table) + 1
-        k[0] = (k[0] & ~mask) | np.uint64(bad + (1 << 31))
+        ku[0] = (ku[0] & ~mask) | np.uint64(bad + (1 << 31))
         fetched[1] = (table, OccKeys(k, 32), None)
     else:
         merge_on_device = sortpipe.merge_on_device
@@ -321,26 +342,27 @@ def test_merged_key_faults_raise_before_the_output_exists(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("short", [0, 1])
 def test_a_merge_whose_emit_tables_do_not_fit_takes_the_host_merge(tmp_path, monkeypatch,
-                                                                    short):
+                                                                    jax_dbg, short):
     """The device merge is taken only where `free` holds its buffers and
-    the card emit's tables: at exactly that figure N entries merge on the
-    merge's device and the card emit writes them; a byte less, the host
-    merge and the host emit run, with a log line naming the bytes. The
-    same bytes either way."""
-    fetched, batches, want = _entries(3, tmp_path)
+    the emit's tables: at exactly that figure N entries merge on the
+    merge's device; a byte less, the host merge runs, with a log line
+    naming the bytes. Either way emit.write_keys writes the merged keys
+    (card_records = the records) and the unpacked emit never runs: the
+    JAX package's bytes."""
+    fetched, batches, _want = _entries(3, tmp_path)
     need = (merge.device_bytes(sum(len(e[0]) for e in fetched), PipelineConfig(k=K).w,
                                sum(len(e[1]) for e in fetched), len(fetched))
             + emit.table_bytes(batches) + 2 * 12)
-    if short:
-        monkeypatch.setattr(merge, "merge_packed", _refuse)
+    ops = dataclasses.replace(KERNELS, merge=_refuse) if short else KERNELS
+    _refuse_unpacked_emit(monkeypatch)
     out, logs = str(tmp_path / "m.dbg"), []
-    enum, write = _merge(fetched, batches, out, free=need - short, logs=logs)
+    enum, write = _merge(fetched, batches, out, free=need - short, logs=logs, ops=ops)
     host = [s for s in logs if s.startswith("Merge on the host")]
     assert host == ([f"Merge on the host: the device merge and the card emit need "
                      f"{sortpipe._gib(need)}, {sortpipe._gib(need - 1)} is free"]
                     if short else [])
-    assert open(out, "rb").read() == want and len(want) > 0
-    assert write.counters["card_records"] == (0 if short else enum.stats.occurrences)
+    assert open(out, "rb").read() == jax_dbg and len(jax_dbg) > 0
+    assert write.counters["card_records"] == enum.stats.occurrences == _records(out)
 
 
 # ChunkWriter.write_raw (the card emit's writer) with every other record
@@ -426,24 +448,30 @@ def test_card_entry_faults_raise_in_the_merge(tmp_path):
     fetched, batches, _want = _entries(1)
     (table, keys, _none), = fetched
     for bad, msg in ((0, "id 0"), (len(table) + 1, "out of range")):
-        k = keys.keys.copy()
-        k[0] = (k[0] & ~np.uint64(0xFFFFFFFF)) | np.uint64(bad + (1 << 31))
-        card = [(table, CardKeys(torch.from_numpy(k.view(np.int64)), 32), None)]
+        k = keys.keys.clone()
+        ku = k.numpy().view(np.uint64)
+        ku[0] = (ku[0] & ~np.uint64(0xFFFFFFFF)) | np.uint64(bad + (1 << 31))
+        card = [(table, OccKeys(k, 32), None)]
         with pytest.raises(RuntimeError, match=msg):
             _merge(card, batches, str(tmp_path / "x.dbg"))
         assert not (tmp_path / "x.dbg").exists()
 
 
 def test_card_keys_fetch_and_decode():
+    """OccKeys.host() is the keys as u64 on the host; decode() and
+    raw_entry give each key's position and signed id."""
     fetched, _batches, _want = _entries(1)
-    keys = fetched[0][1]
-    card = CardKeys(torch.from_numpy(keys.keys.view(np.int64)), keys.id_bits)
-    assert len(card) == len(keys)
-    assert np.array_equal(card.fetch().keys, keys.keys)
-    for a, b in zip(card.decode(), keys.decode()):
-        assert np.array_equal(a, b)
-    table, pos, ids = sortpipe.raw_entry((fetched[0][0], card, None))
-    assert np.array_equal(pos, keys.decode()[0]) and np.array_equal(ids, keys.decode()[1])
+    table, keys, _none = fetched[0]
+    host = keys.host()
+    assert len(keys) == len(host) > 0 and host.dtype == np.uint64
+    assert np.array_equal(host.view(np.int64), keys.keys.numpy())
+    want_pos = (host >> np.uint64(32)).astype(np.int64)
+    want_ids = (host & np.uint64(0xFFFFFFFF)).astype(np.int64) - (1 << 31)
+    pos, ids = keys.decode()
+    assert np.array_equal(pos, want_pos) and np.array_equal(ids, want_ids)
+    assert (np.diff(pos) > 0).all() and (ids != 0).all() and np.abs(ids).max() <= len(table)
+    t, pos, ids = sortpipe.raw_entry(fetched[0])
+    assert t is table and np.array_equal(pos, want_pos) and np.array_equal(ids, want_ids)
 
 
 @pytest.mark.parametrize("rounds", [1, 3])
@@ -454,7 +482,6 @@ def test_no_checkpoint_decodes_nothing(monkeypatch, rounds):
         raise AssertionError("decoded with no checkpoint")
 
     monkeypatch.setattr(OccKeys, "decode", refuse)
-    monkeypatch.setattr(CardKeys, "decode", refuse)
     monkeypatch.setattr(sortpipe, "raw_entry", refuse)
     with trace.span("twopaco") as root:
         _entries(rounds)
@@ -462,9 +489,12 @@ def test_no_checkpoint_decodes_nothing(monkeypatch, rounds):
 
 
 @pytest.mark.parametrize("rounds", [1, 3])
-def test_checkpoint_files_hold_the_decoded_rounds(tmp_path, rounds):
+def test_checkpoint_files_hold_the_decoded_rounds(tmp_path, monkeypatch, jax_dbg, rounds):
     """With a directory each round's file holds its table and its keys
-    decoded (the raw form), and a resume writes the same .dbg."""
+    decoded (the raw form), and a resume writes the same .dbg (at -r 3
+    round 0 is built again and the restored raw rounds take the host
+    merge): emit.write_keys writes the keys (card_records = the records;
+    never the unpacked emit), the JAX package's bytes."""
     ck = str(tmp_path / "ck")
     fetched, _batches, want = _entries(rounds, tmp_path, ck=ck)
     assert len(fetched) == rounds
@@ -474,6 +504,10 @@ def test_checkpoint_files_hold_the_decoded_rounds(tmp_path, rounds):
         for name, a in zip(("table", "occ_pos", "occ_ids"), sortpipe.raw_entry(entry)):
             assert np.array_equal(z[name], a) and z[name].dtype == a.dtype, name
     os.remove(os.path.join(ck, "round_0.npz"))
-    again, _b, got = _entries(rounds, tmp_path, ck=ck)
-    assert got == want
+    _refuse_unpacked_emit(monkeypatch)
+    with trace.span("twopaco") as root:
+        again, _b, got = _entries(rounds, tmp_path, ck=ck)
+    assert got == want == jax_dbg
     assert [isinstance(e[1], OccKeys) for e in again] == [True] + [False] * (rounds - 1)
+    (write,) = _named(root, "emit_write")
+    assert write.counters["card_records"] == _records(tmp_path / f"r{rounds}.dbg") > 0

@@ -8,6 +8,7 @@ rule against the buffers, and the .dbg of the sort and dist engines, whose
 multi-entry merges take it, against the JAX package's. Tolerance: exact
 (tables, keys, splits and .dbg bytes equal; the same errors raised)."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -22,9 +23,10 @@ from twopaco_tpu.testing import oracle
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.parallel import distpipe
 from twopaco_tpu_torch.parallel.mesh import LocalMesh
-from twopaco_tpu_torch.passes import merge, sortpipe
+from twopaco_tpu_torch.passes import emit, merge, sortpipe
 from twopaco_tpu_torch.passes.occ import OccKeys
 from twopaco_tpu_torch.passes.pipeline import PipelineConfig, RunStats, config_from_jax
+from twopaco_tpu_torch.passes.versions import KERNELS
 
 CPU = torch.device("cpu")
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -58,7 +60,7 @@ def _entries(seed, n_entries, k, id_bits, n_slots=1 << 16, rows=300, occ=2000,
         ids = rng.integers(1, len(table) + 1, size=len(p)) * rng.choice([-1, 1], size=len(p))
         keys = ((p.astype(np.uint64) << np.uint64(id_bits))
                 | (ids + bias).astype(np.uint64))
-        fetched.append((table, OccKeys(keys, id_bits), None))
+        fetched.append((table, OccKeys(torch.from_numpy(keys.view(np.int64)), id_bits), None))
     return fetched
 
 
@@ -78,7 +80,7 @@ def test_merge_packed_plain_matches_host(n_entries, pos_bits, k):
     fetched = _entries(n_entries * 100 + k, n_entries, k, id_bits)
     want_t, want_k = _host(fetched, -(-k // 16), pos_bits)
     cfg = PipelineConfig(k=k)
-    got_t, got_k = sortpipe.merge_on_device(fetched, cfg, id_bits, CPU, reference=False)
+    got_t, got_k = sortpipe.merge_on_device(fetched, cfg, id_bits, CPU, KERNELS)
     # the keys stay on the merge's device, int64-held u64
     assert got_k.dtype == torch.int64 and got_k.device == CPU
     assert got_k.numel() == sum(len(e[1]) for e in fetched)
@@ -86,7 +88,7 @@ def test_merge_packed_plain_matches_host(n_entries, pos_bits, k):
     np.testing.assert_array_equal(got_k.numpy().view(np.uint64), want_k)
     # the plain composition directly (any device), on fresh concatenations
     tab = torch.from_numpy(np.concatenate([e[0] for e in fetched]))
-    keys = torch.from_numpy(np.concatenate([e[1].keys for e in fetched]).view(np.int64))
+    keys = torch.cat([e[1].keys for e in fetched])
     ofs = np.cumsum([[0] + [len(e[1]) for e in fetched], [0] + [len(e[0]) for e in fetched]],
                     axis=1)
     gt, gk, faults = merge.merge_packed_plain(tab, keys, torch.from_numpy(ofs), key_bits=2 * k,
@@ -99,7 +101,7 @@ def test_merge_packed_plain_matches_host(n_entries, pos_bits, k):
 def _cat(fetched):
     """The entries as merge_packed takes them: (table, keys, entries)."""
     tab = torch.from_numpy(np.concatenate([e[0] for e in fetched]))
-    keys = torch.from_numpy(np.concatenate([e[1].keys for e in fetched]).view(np.int64))
+    keys = torch.cat([e[1].keys for e in fetched])
     ofs = np.cumsum([[0] + [len(e[1]) for e in fetched], [0] + [len(e[0]) for e in fetched]],
                     axis=1)
     return tab, keys, torch.from_numpy(ofs)
@@ -122,7 +124,7 @@ def _check_rows_and_keys(fetched, k, pos_bits):
     assert faults.tolist() == [0, 0]
     # the keys as they came: a new tensor is written
     np.testing.assert_array_equal(keys.numpy().view(np.uint64),
-                                  np.concatenate([e[1].keys for e in fetched]))
+                                  np.concatenate([e[1].host() for e in fetched]))
 
 
 @pytest.mark.parametrize("n_entries", [2, 5, 16, 40])
@@ -148,8 +150,7 @@ def test_merge_plain_edge_entries(layout, n_entries):
         assert any(len(e[0]) and not len(e[1]) for e in fetched)
     _check_rows_and_keys(fetched, 25, 32)
     want_t, want_k = _host(fetched, 2, 32)
-    got_t, got_k = sortpipe.merge_on_device(fetched, PipelineConfig(k=25), 32, CPU,
-                                            reference=False)
+    got_t, got_k = sortpipe.merge_on_device(fetched, PipelineConfig(k=25), 32, CPU, KERNELS)
     np.testing.assert_array_equal(got_t, want_t)
     np.testing.assert_array_equal(got_k.numpy().view(np.uint64), want_k)
 
@@ -231,7 +232,7 @@ def test_device_bytes_counts_the_merge_buffers(n_entries):
 def _corrupt(fetched, what, id_bits):
     """A copy of the entries with one fault in entry 0 (a k-mer of entry
     1's table added, or a key's id set to 0 or past entry 0's table)."""
-    out = [(t.copy(), OccKeys(k.keys.copy(), k.id_bits), n) for t, k, n in fetched]
+    out = [(t.copy(), OccKeys(k.keys.clone(), k.id_bits), n) for t, k, n in fetched]
     table, keys, _ = out[0]
     if what == "duplicate":
         both = np.concatenate([table, fetched[1][0][:1]])
@@ -239,7 +240,8 @@ def _corrupt(fetched, what, id_bits):
     else:
         bad = 0 if what == "id 0" else len(table) + 1
         mask = np.uint64((1 << id_bits) - 1)
-        keys.keys[0] = (keys.keys[0] & ~mask) | np.uint64(bad + (1 << (id_bits - 1)))
+        ku = keys.keys.numpy().view(np.uint64)
+        ku[0] = (ku[0] & ~mask) | np.uint64(bad + (1 << (id_bits - 1)))
     return out
 
 
@@ -253,11 +255,18 @@ FAULTS = {"duplicate": (AssertionError, "duplicate junction keys"),
 @pytest.mark.parametrize("free", [None, 1])
 def test_merge_faults_raise_as_the_host_merge(n_entries, what, free):
     """Exact: a duplicate k-mer across entries, an id 0 and an id past its
-    table raise the host merge's errors on every path (one entry: its
-    checks; N: the device merge, or the host merge by the size rule)."""
+    table raise the host merge's errors on every path (one entry: the
+    emit's check, whose tables need more than a byte, so free=1 gives it
+    its least, a chunk an occurrence; N: the device merge, or the host
+    merge by the size rule)."""
     fetched = _corrupt(_entries(17, max(n_entries, 2), 25, 32), what, 32)[:n_entries]
     batches = sortpipe.read_batches(None, [(0, np.zeros(40, np.uint8))],
                                     PipelineConfig(k=25), RunStats())[1]
+    if n_entries == 1 and free == 1:
+        with pytest.raises(RuntimeError, match="tables need"):
+            sortpipe.merge_rounds_packed(fetched, batches, PipelineConfig(k=25), None,
+                                         RunStats(), print, dev=CPU, free=free)
+        free = emit.table_bytes(batches) + 2 * 12
     exc, msg = FAULTS[what]
     with pytest.raises(exc, match=msg):
         sortpipe.merge_rounds_packed(fetched, batches, PipelineConfig(k=25), None, RunStats(),
@@ -283,7 +292,7 @@ def _key_run(rounds):
     return got["fetched"], got["batches"]
 
 
-def test_small_free_memory_takes_the_host_merge(tmp_path, monkeypatch):
+def test_small_free_memory_takes_the_host_merge(tmp_path):
     """Exact: with a free-memory figure below the device merge's buffers
     the host merge runs (and says so), and writes the device merge's
     bytes."""
@@ -299,9 +308,8 @@ def test_small_free_memory_takes_the_host_merge(tmp_path, monkeypatch):
     def refuse(*_a, **_kw):
         raise AssertionError("the device merge ran")
 
-    monkeypatch.setattr(merge, "merge_packed", refuse)
     sortpipe.merge_fetched(fetched, batches, cfg, out_h, RunStats(), lines.append,
-                           free=1, **kw)
+                           free=1, ops=dataclasses.replace(KERNELS, merge=refuse), **kw)
     assert any("Merge on the host" in s for s in lines)
     assert open(out_h, "rb").read() == open(out_d, "rb").read()
 
@@ -340,8 +348,10 @@ def test_dbg_matches_jax(tmp_path, monkeypatch, jax_bytes, name, run):
     through passes/merge.py (no host table sort or remap), one entry
     through neither."""
     calls = []
-    orig = merge.merge_packed
-    monkeypatch.setattr(merge, "merge_packed", lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    spy = dataclasses.replace(
+        KERNELS, merge=lambda *a, **kw: calls.append(1) or KERNELS.merge(*a, **kw))
+    monkeypatch.setattr(sortpipe, "KERNELS", spy)
+    monkeypatch.setattr(distpipe, "KERNELS", spy)
 
     def refuse(*_a, **_kw):
         raise AssertionError("host merge of keyed entries that fit")

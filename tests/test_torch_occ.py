@@ -46,7 +46,7 @@ def _port_sorted(pos, oi, id_bits, pos_limit):
                                      torch.from_numpy(oi.astype(np.int32)),
                                      id_bits=id_bits, pos_limit=pos_limit)
     assert int(bad) == 0
-    return OccKeys(keys.numpy().view(np.uint64), id_bits).decode()
+    return OccKeys(keys, id_bits).decode()
 
 
 @pytest.mark.parametrize("wide", [False, True])
@@ -148,7 +148,7 @@ def test_sort_engine_sorted_key_entries(tmp_path, monkeypatch, jax_dbg, rounds, 
     for table, keys, none in fetched:
         assert isinstance(keys, OccKeys) and none is None
         assert keys.id_bits == (31 if pos64 else 32)
-        assert (np.diff(keys.keys.astype(np.float64)) > 0).all()
+        assert (np.diff(keys.host().astype(np.float64)) > 0).all()
 
 
 def test_sort_engine_resume_from_raw_checkpoints(tmp_path, monkeypatch, jax_dbg):
@@ -210,8 +210,9 @@ def test_merge_rejects_corrupt_key_entries():
     cfg = config_from_jax(_jcfg())
     table, keys, _ = fetched[0]
     for bad_id, msg in ((0, "id 0"), (len(table) + 1, "out of range")):
-        k = keys.keys.copy()
-        k[0] = (k[0] & ~np.uint64(0xFFFFFFFF)) | np.uint64(bad_id + (1 << 31))
+        k = keys.keys.clone()
+        ku = k.numpy().view(np.uint64)
+        ku[0] = (ku[0] & ~np.uint64(0xFFFFFFFF)) | np.uint64(bad_id + (1 << 31))
         with pytest.raises(RuntimeError, match=msg):
             sortpipe.merge_rounds_packed([(table, OccKeys(k, 32), None)] + fetched[1:], batches,
                                          cfg, None, RunStats(), print,

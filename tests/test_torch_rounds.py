@@ -24,7 +24,9 @@ from twopaco_tpu.passes import pipeline as jpipe
 from twopaco_tpu.passes import sortpipe as jsort
 from twopaco_tpu.testing import oracle
 from twopaco_tpu_torch.cli.twopaco import main as port_main
-from twopaco_tpu_torch.passes import histogram, partition, pipeline, sort, sortpipe, stream
+from twopaco_tpu_torch.passes import (
+    emit, histogram, partition, pipeline, sort, sortpipe, stream,
+)
 from twopaco_tpu_torch.passes.pipeline import RunStats, config_from_jax
 
 K, PR, BR = 11, 256, 4
@@ -226,8 +228,9 @@ def test_merge_rejects_corrupt_rounds(fetched_rounds):
 
 @pytest.mark.parametrize("id_bits", [20, 31, 32, 40])
 def test_emit_id_bits_matches_jax(tmp_path, fetched_rounds, jax_dbg, id_bits):
-    """emit_junctions_packed at every key split, and the unpacked
-    emit_junctions, against the JAX package's on the same occurrences."""
+    """The packed merges' emit (emit.check_keys + write_keys on a CPU
+    tensor) at every key split, and the unpacked emit_junctions, against
+    the JAX package's packed emit on the same occurrences."""
     fetched, batches = fetched_rounds
     got = {}
 
@@ -247,11 +250,12 @@ def test_emit_id_bits_matches_jax(tmp_path, fetched_rounds, jax_dbg, id_bits):
     keys = (got["pos"].astype(np.uint64) << np.uint64(id_bits)) | (
         got["ids"] + bias
     ).astype(np.uint64)
-    outs = {}
-    for name, fn in (("port", pipeline.emit_junctions_packed),
-                     ("jax", jpipe.emit_junctions_packed)):
-        outs[name] = str(tmp_path / f"{name}.dbg")
-        fn(outs[name], batches, keys, got["n"], PR, id_bits=id_bits)
+    outs = {name: str(tmp_path / f"{name}.dbg") for name in ("port", "jax")}
+    want_n = jpipe.emit_junctions_packed(outs["jax"], batches, keys, got["n"], PR,
+                                         id_bits=id_bits)
+    kt = torch.from_numpy(keys.view(np.int64))
+    found = emit.check_keys(kt, batches, got["n"], PR, id_bits)
+    assert emit.write_keys(outs["port"], batches, kt, found, got["n"], PR, id_bits) == want_n
     unpacked = str(tmp_path / "unpacked.dbg")
     pipeline.emit_junctions(unpacked, batches, got["pos"], got["ids"], got["n"], PR)
     for path in (*outs.values(), unpacked):

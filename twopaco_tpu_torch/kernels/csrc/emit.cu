@@ -1,10 +1,9 @@
-// Emit: the junction list's 12-byte records built on the card from one
-// keyed entry's position-sorted occurrence keys.
+// Emit: the junction list's 12-byte records built on the card from a
+// packed merge's position-sorted occurrence keys.
 //
 // Replaces no TPU kernel: the JAX package fetches the keys and its host
-// emit (twopaco_tpu/passes/pipeline.py emit_junctions_packed, ChunkWriter)
-// decodes and assembles the records; the port's host emit walked the same
-// ~127 M keys at the benchmark's size (decode, assembly, a key check).
+// emit (twopaco_tpu/passes/pipeline.py:462, with ChunkWriter) decodes and
+// assembles the records, walking ~127 M keys at the benchmark's size.
 // Here the keys never leave the card:
 //
 //   tp_emit_check  one launch: the keys' faults counted (id 0, |id| past

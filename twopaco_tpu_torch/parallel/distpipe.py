@@ -53,7 +53,6 @@ from twopaco_tpu_torch.parallel.mesh import LocalMesh, local_mesh, on_device
 from twopaco_tpu_torch.parallel.sharded import (
     ShardedConfig, make_sharded_filter, sharded_fill_step, sharded_mark_step,
 )
-from twopaco_tpu_torch.parallel.sortshard import KERNELS, PLAIN
 from twopaco_tpu_torch.passes import route, sortpipe, stream
 from twopaco_tpu_torch.passes.histogram import BIN_POW
 from twopaco_tpu_torch.passes.pipeline import (
@@ -64,6 +63,7 @@ from twopaco_tpu_torch.passes.pipeline import (
     _input_fingerprint,
     timed_engine,
 )
+from twopaco_tpu_torch.passes.versions import KERNELS, PLAIN
 
 # the sort engine's phase keys, plus route (routing, exchange and append)
 # and the Bloom gate's fill and mark (0 without it)
@@ -194,7 +194,7 @@ def build_junctions_dist(
             with on_device(mesh.device(s)):
                 uploads[s] = sortpipe.upload_batches(batches, mesh.device(s),
                                                      rows=slice(s * rows, (s + 1) * rows),
-                                                     reference=reference)
+                                                     ops=ops)
     n_slots = len(batches) * B * P
     wide = sortpipe.wide_layout(config, n_slots)
     id_bits = sortpipe.key_id_bits(n_slots, len(sequences), wide)
@@ -270,7 +270,7 @@ def build_junctions_dist(
             continue
         log(f"Round {r}, {low}:{high}")
         with trace.span("round", r=r, low=low, high=high) as rspan:
-            # one shard of this process, one round: its keys stay on the card
+            # one shard of this process, one round: its keys stay on its device
             # for the merge's emit (sortpipe.merge_rounds_packed)
             keep = (isinstance(mesh, LocalMesh) and mesh.n_shards == 1
                     and len(intervals) == 1)
@@ -306,7 +306,7 @@ def build_junctions_dist(
         return sortpipe.merge_fetched(
             fetched, batches, config, out_path if mesh.is_writer() else None, stats, log,
             n_slots=n_slots, wide=wide, n_sequences=len(sequences), dev=mdev,
-            free=sortpipe._free_bytes(mdev), reference=reference,
+            free=sortpipe._free_bytes(mdev), ops=ops,
         )
 
 
@@ -334,7 +334,7 @@ def _run_round(mesh, ops, dcfg: DistConfig, batches, uploads, bounds_d, low: int
     `sort`, `judge` and `fetch` -> (merge entries of every shard in shard
     order, on every process; the round's counts). scfg: the Bloom gate's
     sharded filter, or None for none. keep_keys: a keyed entry's keys stay
-    on its card (sortpipe.fetch_entry)."""
+    on its device (sortpipe.fetch_entry)."""
     cfg = dcfg.base
     D, P, w = dcfg.n_shards, cfg.P, cfg.w
     rows = cfg.B // D

@@ -25,9 +25,9 @@ import torch
 
 from twopaco_tpu_torch.ops import bloom
 from twopaco_tpu_torch.parallel.mesh import on_device
-from twopaco_tpu_torch.parallel.sortshard import KERNELS, Ops
 from twopaco_tpu_torch.passes import shardbloom
 from twopaco_tpu_torch.passes.pipeline import PassConfig
+from twopaco_tpu_torch.passes.versions import KERNELS, Ops
 
 
 @dataclass(frozen=True)

@@ -18,56 +18,14 @@ Rows are data-parallel in (shard s builds the records of rows
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
 
 import numpy as np
 import torch
 
 from twopaco_tpu_torch.parallel.mesh import on_device
-from twopaco_tpu_torch.passes import (
-    histogram, judge, occ, records, route, shardbloom, sort, stream,
-)
+from twopaco_tpu_torch.passes import judge, route
 from twopaco_tpu_torch.passes.pipeline import PassConfig
-
-
-@dataclass(frozen=True)
-class Ops:
-    """The device functions of the distributed engine and its Bloom gate
-    (parallel/sharded.py): the kernels' wrappers, or their plain PyTorch
-    versions."""
-
-    build: Callable
-    route: Callable
-    compact: Callable
-    sort: Callable
-    judge: Callable
-    judge_records: Callable
-    occ: Callable
-    histogram: Callable
-    word0: Callable
-    bucket_fill: Callable
-    bucket_mark: Callable
-    fill_local: Callable
-    probe_local: Callable
-    mark_finish: Callable
-
-
-KERNELS = Ops(
-    records.build_sort_records, route.route_records, stream.compact_append,
-    sort.sort_records, judge.judge_compact, judge.judge_records,
-    occ.sort_occurrences, histogram.histogram_vertex_hashes_batches,
-    histogram.word0_histogram_batches,
-    shardbloom.bucket_fill, shardbloom.bucket_mark, shardbloom.fill_local,
-    shardbloom.probe_local, shardbloom.mark_finish,
-)
-PLAIN = Ops(
-    records.build_sort_records_plain, route.route_records_plain,
-    stream.compact_append_plain, sort.sort_records_plain, judge.judge_compact_plain,
-    judge.judge_records_plain, occ.sort_occurrences_plain,
-    histogram.histogram_vertex_hashes_batches_plain, histogram.word0_histogram_batches_plain,
-    shardbloom.bucket_fill_plain, shardbloom.bucket_mark_plain, shardbloom.fill_local_plain,
-    shardbloom.probe_local_plain, shardbloom.mark_finish_plain,
-)
+from twopaco_tpu_torch.passes.versions import KERNELS, Ops
 
 
 @dataclass(frozen=True)

@@ -32,7 +32,6 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
@@ -41,7 +40,7 @@ import torch
 from twopaco_tpu_torch import dna, trace
 from twopaco_tpu_torch.ops import bloom
 from twopaco_tpu_torch.ops.pack import MASK32
-from twopaco_tpu_torch.passes import extract, fill, histogram, judge, lookup, mark, sort
+from twopaco_tpu_torch.passes import extract, histogram
 from twopaco_tpu_torch.passes.histogram import BIN_POW
 from twopaco_tpu_torch.passes.pipeline import (
     Enumerator,
@@ -54,6 +53,7 @@ from twopaco_tpu_torch.passes.pipeline import (
     timed_engine,
 )
 from twopaco_tpu_torch.passes.sortpipe import _sync, load_batches, resolve_device
+from twopaco_tpu_torch.passes.versions import KERNELS, PLAIN
 
 # the phase times every run reports, summed over rounds
 PHASES = (
@@ -62,30 +62,6 @@ PHASES = (
 )
 
 
-@dataclass(frozen=True)
-class Ops:
-    """The device functions a run calls: the kernels' wrappers, or their
-    plain PyTorch versions."""
-
-    fill: Callable
-    mark: Callable
-    extract: Callable
-    sort: Callable
-    judge: Callable
-    lookup: Callable
-    histogram: Callable
-
-
-KERNELS = Ops(
-    fill.bloom_fill_batches, mark.bloom_mark_batches, extract.extract_records_batches,
-    sort.sort_records, judge.judge_compact, lookup.pass4_lookup_batches,
-    histogram.histogram_vertex_hashes_batches,
-)
-PLAIN = Ops(
-    fill.bloom_fill_batches_plain, mark.bloom_mark_batches_plain,
-    extract.extract_records_batches_plain, sort.sort_records_plain, judge.judge_compact_plain,
-    lookup.pass4_lookup_batches_plain, histogram.histogram_vertex_hashes_batches_plain,
-)
 # positions a lookup call may hold (its ranks and ids are int32)
 LOOKUP_POSITIONS = (1 << 31) - 1
 
@@ -201,7 +177,7 @@ def build_junctions_bloom(
     stats = RunStats()
 
     sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats,
-                                               reference=reference)
+                                               ops=ops)
     bases = [b.row0 * P for b in batches]
     log(
         f"Engine = bloom ({dev.type})\nVertex length = {k}\n"

@@ -1,12 +1,13 @@
-"""The emit on the card: the junction list of one keyed merge entry built
-where its keys lie, and streamed to the file in chunks.
+"""The emit of every packed merge: the junction list of the merged keys
+built where they lie, and streamed to the file in chunks.
 
-A one-round build ends with one entry whose occurrences are ~2 per input
-k-mer position as position-sorted u64 keys on the card (passes/occ.py:
-key = flat << id_bits | (signed id + 2^(id_bits-1))). The host emit
-(pipeline.emit_junctions_packed) fetches them, checks their ids and
-decodes and assembles every record on the host. Here the host receives
-records only (kernels/csrc/emit.cu):
+A packed merge (passes/sortpipe.py merge_rounds_packed) ends with ~2
+occurrences per input k-mer position as position-sorted u64 keys
+(passes/occ.py: key = flat << id_bits | (signed id + 2^(id_bits-1))): on
+the card after a one-round build or a device merge, on the host after the
+host merge or a build on the CPU. The host answers where each record
+goes from a few queries and receives the records whole, built where the
+keys lie (kernels/csrc/emit.cu on a card, the plain versions on the CPU):
 
   1. check_keys (in the merge): one launch counts the keys' faults (an id
      0, an |id| past the table, a position outside its row's valid
@@ -14,21 +15,24 @@ records only (kernels/csrc/emit.cu):
      queries: the lower bound of the first and last position of every
      row (the stubs' presence test, pipeline._endpoint_stubs, and the
      occurrences before each row) and the keys at the chunks' edges. A
-     fault raises here, before the output file is opened, with the host
-     check's message;
+     fault raises here, before the output file is opened, with the
+     merges' messages;
   2. write_keys (the emit): the host places every record (a few numpy
      passes over the rows, none over the keys): occurrence i goes to
      slot i + base[row] (base = its sequence id, the separators written
      before it, plus the stubs at or before its row's first position);
      the stubs and separators are a short list of (slot, record). One
      launch a chunk of CHUNK occurrences (fewer where the free device
-     memory asks, chunk_size) builds the chunk's records on the card; the chunk is copied into one of two host buffers, page-locked
-     for the emit, while the writer puts the previous chunk into the file.
+     memory asks, chunk_size) builds the chunk's records where the keys
+     lie; on a card the chunk is copied into one of two host buffers,
+     page-locked for the emit, while the writer puts the previous chunk
+     into the file.
 
 The bytes are ChunkWriter's (io/junctions.py) for the same keys. The
 records' sequence ids must not fall from row to row (check_keys raises;
-the engines' inputs count up from 0). CUDA tensors go through the kernels, CPU
-tensors through the plain versions (check_plain, chunk_plain).
+the engines' inputs count up from 0). CUDA tensors go through the
+kernels, CPU tensors through the plain versions (check_plain,
+chunk_plain).
 """
 
 from __future__ import annotations
@@ -227,15 +231,14 @@ def check_inputs(batches, n_occ: int, P: int, dev, chunk_occ: int = CHUNK):
 
 def check_keys(keys, batches, n_table: int, P: int, id_bits: int, *, chunk_occ: int = CHUNK,
                fn=check) -> Found:
-    """Check one keyed entry's keys (on their device) and answer the
-    emit's queries, in one call of fn (check, or check_plain) and one
-    copy back; raise on a fault, with the host check's messages
-    (sortpipe._check_key_ids) for the ids. Rows whose sequence ids fall
-    raise ValueError: the emit places separators by counting up to each
-    sequence's id."""
+    """Check the merged keys (on their device) and answer the emit's
+    queries, in one call of fn (check, or check_plain) and one copy back;
+    raise on a fault, with the merges' messages for the ids. Rows whose
+    sequence ids fall raise ValueError: the emit places separators by
+    counting up to each sequence's id."""
     seq_id = np.concatenate([b.seq_id for b in batches]).astype(np.int64)
     if (np.diff(seq_id[seq_id >= 0]) < 0).any():
-        raise ValueError("the card emit takes sequence ids in input order (0, 1, ...): "
+        raise ValueError("the emit takes sequence ids in input order (0, 1, ...): "
                          "these fall")
     edges, queries, args = check_inputs(batches, keys.numel(), P, keys.device, chunk_occ)
     flat = torch.cat(fn(keys, *args, P=P, id_bits=id_bits, n_table=n_table)).cpu().numpy()
@@ -306,14 +309,14 @@ def plan(batches, found: Found, n_occ: int, n_table: int, P: int, id_bits: int) 
 
 def write_keys(out_path: str, batches, keys, found: Found, n_table: int, P: int,
                id_bits: int, *, fn=chunk) -> tuple[int, int]:
-    """Write the junction list of one keyed entry whose keys (int64-held
-    u64, checked by check_keys) lie on a device: fn (chunk, or
-    chunk_plain) builds each chunk there; on a card each chunk is copied
-    into one of two host buffers page-locked for the emit while the
-    previous one goes to the file. Spans `emit_stub` (the plan) and
-    `emit_write` with the host emit's counters (decode_wait_s: the
-    writer's wait for a chunk) and card_records. -> (records written,
-    stub count), as emit_junctions_packed."""
+    """Write the junction list of the merged keys (int64-held u64,
+    checked by check_keys) where they lie: fn (chunk, or chunk_plain)
+    builds each chunk there; on a card each chunk is copied into one of
+    two host buffers page-locked for the emit while the previous one goes
+    to the file. Spans `emit_stub` (the plan) and `emit_write` with
+    pipeline.emit_junctions' counters (decode_wait_s: the writer's wait
+    for a chunk) and card_records (the records built here). ->
+    (records written, stub count), as pipeline.emit_junctions."""
     n_occ = keys.numel()
     with trace.span("emit_stub"):
         pl = plan(batches, found, n_occ, n_table, P, id_bits)

@@ -347,7 +347,7 @@ def _write_spliced(out_path, n_occ: int, ins, stub_flat, stub_ids, map_occ, map_
     map_occ(a, b) decodes occurrences [a, b). The `emit_write` span counts
     the seconds the writer waits for a decode (decode_wait_s), the
     ChunkWriter's counters (assemble_s, sink_s, bytes) and card_records,
-    0 here (the records built on a card, passes/emit.py)."""
+    0 here (the records built by passes/emit.py where the keys lie)."""
     CH = 1 << 24
 
     def chunk_iter():
@@ -411,8 +411,9 @@ def emit_junctions(
     """Write the junction list from an UNPACKED occurrence stream:
     occ_pos sorted int64 global flat positions (row * P + col) of the
     resolved junction occurrences, occ_ids their signed ids (any width).
-    The fallback of emit_junctions_packed for runs whose ids and positions
-    do not fit one u64 key. Returns (records_written, stub_count)."""
+    The emit of the unpacked merge (runs whose ids and positions do not
+    fit one u64 key) and of the Bloom engine; a packed merge writes its
+    keys through passes/emit.py. Returns (records_written, stub_count)."""
     occ_pos = occ_pos.astype(np.int64, copy=False)
     occ_ids = occ_ids.astype(np.int64, copy=False)
 
@@ -431,50 +432,6 @@ def emit_junctions(
         lambda a, b: map_flat(occ_pos[a:b], occ_ids[a:b]), map_flat,
     )
     return len(occ_pos) + len(stub_flat), len(stub_flat)
-
-
-def emit_junctions_packed(
-    out_path: str,
-    batches,
-    keys: np.ndarray,
-    table_len: int,
-    P: int,
-    id_bits: int = 32,
-) -> tuple[int, int]:
-    """Write the junction list from a PACKED occurrence stream: keys
-    (sorted u64) = flat_pos << id_bits | (signed id + 2^(id_bits-1)).
-    Requires flat positions < 2^(64 - id_bits) and |id| < 2^(id_bits-1)
-    (emit_junctions takes the rest). Returns (records_written,
-    stub_count)."""
-    ib = np.uint64(id_bits)
-    id_bias = np.int64(1) << (id_bits - 1)
-    id_mask = np.uint64((1 << id_bits) - 1)
-
-    def present(flats):
-        # an occurrence at flat f has key in [f << id_bits, (f + 1) << id_bits)
-        if len(keys) == 0:
-            return np.zeros(len(flats), bool)
-        idx = np.minimum(
-            np.searchsorted(keys, flats.astype(np.uint64) << ib),
-            len(keys) - 1,
-        )
-        return (keys[idx] >> ib).astype(np.int64) == flats
-
-    with trace.span("emit_stub"):
-        seq_id, pos0, stub_flat, stub_ids = _endpoint_stubs(batches, present, table_len, P)
-        ins = np.searchsorted(keys, stub_flat.astype(np.uint64) << ib, side="left")
-    map_flat = _row_mapper(seq_id, pos0, P)
-
-    def map_keys(a, b):
-        kv = keys[a:b]
-        if id_bits == 32:
-            # u32 halves through a view (little-endian: [0] = id, [1] = pos)
-            halves = kv.view(np.uint32).reshape(-1, 2)
-            return map_flat(halves[:, 1], halves[:, 0].astype(np.int64) - id_bias)
-        return map_flat((kv >> ib).view(np.int64), (kv & id_mask).view(np.int64) - id_bias)
-
-    _write_spliced(out_path, len(keys), ins, stub_flat, stub_ids, map_keys, map_flat)
-    return len(keys) + len(stub_flat), len(stub_flat)
 
 
 def build_junctions(

@@ -15,8 +15,7 @@ The port of twopaco_tpu/passes/sortpipe.py:1008 build_junctions_sorted:
      the round-local ids and merge the rounds' occurrences by position (one
      round: nothing to do; N: on the device, passes/merge.py, or on the
      host where its buffers do not fit), and write the junction list with
-     stubs: from the device where the keys lie there (passes/emit.py),
-     else on the host.
+     stubs where the merged keys lie (passes/emit.py).
 
 Rounds split the hash space (the reference's -r semantics), so a round
 holds about 1/R of the records. How a round's buffer is filled is the
@@ -44,7 +43,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import numpy as np
@@ -55,11 +53,9 @@ from twopaco_tpu_torch.hostmem import big_empty
 from twopaco_tpu_torch.io import fasta as fasta_io
 from twopaco_tpu_torch.io import windows
 from twopaco_tpu_torch.ops.pack import MASK32
-from twopaco_tpu_torch.passes import (
-    emit, histogram, judge, merge, occ, partition, records, sort, stream, upload,
-)
+from twopaco_tpu_torch.passes import emit, histogram, merge, sort, stream, upload
 from twopaco_tpu_torch.passes.histogram import BIN_POW
-from twopaco_tpu_torch.passes.occ import CardKeys, OccKeys
+from twopaco_tpu_torch.passes.occ import OccKeys
 from twopaco_tpu_torch.passes.pipeline import (
     Enumerator,
     PipelineConfig,
@@ -68,47 +64,15 @@ from twopaco_tpu_torch.passes.pipeline import (
     _input_fingerprint,
     _split_rounds,
     emit_junctions,
-    emit_junctions_packed,
     timed_engine,
 )
+from twopaco_tpu_torch.passes.versions import KERNELS, PLAIN, Ops
 
 RESIDENT_BYTES_CPU = 6 << 30  # the JAX package's default budget
 # the phase times every run reports, summed over rounds
 PHASES = (
     "read", "windows", "upload", "hist", "partition", "build", "sort",
     "judge", "fetch", "merge", "emit",
-)
-
-
-@dataclass(frozen=True)
-class Ops:
-    """The device functions a run calls: the kernels' wrappers, or their
-    plain PyTorch versions."""
-
-    build: Callable
-    build_batches: Callable
-    sort: Callable
-    judge: Callable
-    partition: Callable
-    assemble: Callable
-    compact: Callable
-    histogram: Callable
-    occ: Callable
-
-
-KERNELS = Ops(
-    records.build_sort_records, records.build_sort_records_batches, sort.sort_records,
-    judge.judge_compact,
-    partition.partition_scan, partition.assemble_round,
-    stream.compact_append, histogram.histogram_vertex_hashes_batches,
-    occ.sort_occurrences,
-)
-PLAIN = Ops(
-    records.build_sort_records_plain, records.build_sort_records_batches_plain,
-    sort.sort_records_plain,
-    judge.judge_compact_plain, partition.partition_scan_plain,
-    partition.assemble_round_plain, stream.compact_append_plain,
-    histogram.histogram_vertex_hashes_batches_plain, occ.sort_occurrences_plain,
 )
 
 
@@ -315,15 +279,15 @@ def _complete_checkpoint_intervals(directory, config, n_slots, fingerprint):
 
 
 def load_batches(input_paths, sequences, config: PipelineConfig, dev, stats: RunStats, *,
-                 reference: bool = False):
+                 ops: Ops = KERNELS):
     """The host front of every engine: read the FASTA files (unless
     `sequences` is given) into one staged buffer, cut the window rows and
-    pack and upload them on dev, in spans `read`, `windows` and `upload`.
-    reference=True packs with the plain version.
+    pack and upload them on dev (ops.pack), in spans `read`, `windows` and
+    `upload`.
 
     -> (sequences, batches, uploads = [(packed, nmask, valid)] on dev)"""
     sequences, batches = read_batches(input_paths, sequences, config, stats)
-    return sequences, batches, upload_batches(batches, dev, reference=reference)
+    return sequences, batches, upload_batches(batches, dev, ops=ops)
 
 
 def read_batches(input_paths, sequences, config: PipelineConfig, stats: RunStats):
@@ -347,11 +311,11 @@ def read_batches(input_paths, sequences, config: PipelineConfig, stats: RunStats
     return sequences, batches
 
 
-def upload_batches(batches, dev, rows: slice = slice(None), *, reference: bool = False,
+def upload_batches(batches, dev, rows: slice = slice(None), *, ops: Ops = KERNELS,
                    stage_bytes: int | None = None):
     """The batches' rows `rows` (of each batch), packed on dev from the
-    run's staged codes (passes/upload.py; reference=True: the plain
-    version), in an `upload` span.
+    run's staged codes (passes/upload.py, by ops.pack), in an `upload`
+    span.
 
     The codes go up in chunks of consecutive batches (upload.plan_chunks):
     a chunk's rows read one span of the staged codes, which is copied
@@ -383,14 +347,13 @@ def upload_batches(batches, dev, rows: slice = slice(None), *, reference: bool =
         packed = torch.empty((len(idx), RW), dtype=torch.uint32, device=dev)
         nmask = torch.empty((len(idx), NW), dtype=torch.uint32, device=dev)
         valid_d = torch.from_numpy(valid).to(dev)
-        pack_fn = upload.pack_rows_plain if reference else upload.pack_rows
         for b0, b1, lo, hi in chunks:
             table_d = torch.from_numpy(table[b0 * r : b1 * r] - lo).to(dev)
             span = codes[lo:hi]
             with hostmem.pinned([span], dev):  # waits for the launch on leaving
                 codes_d = span.to(dev, non_blocking=True)
-                pack_fn(codes_d, table_d, R=R,
-                        out=(packed[b0 * r : b1 * r], nmask[b0 * r : b1 * r]))
+                ops.pack(codes_d, table_d, R=R,
+                         out=(packed[b0 * r : b1 * r], nmask[b0 * r : b1 * r]))
                 del codes_d, table_d
         uploads = [(packed[b * r : (b + 1) * r], nmask[b * r : (b + 1) * r],
                     valid_d[b * r : (b + 1) * r]) for b in range(len(batches))]
@@ -427,7 +390,7 @@ def build_junctions_sorted(
     stats = RunStats()
 
     sequences, batches, uploads = load_batches(input_paths, sequences, config, dev, stats,
-                                               reference=reference)
+                                               ops=ops)
     bp = B * P
     nb = len(batches)
     n_slots = nb * bp
@@ -621,7 +584,7 @@ def build_junctions_sorted(
                 _sync(dev)
 
             with trace.span("fetch"):
-                # one round: its keys stay on the card for the merge's emit
+                # one round: its keys stay where they are for the merge's emit
                 entry = fetch_entry(table_d, occ_d, id_bits, keep_keys=len(intervals) == 1)
                 del table_d, occ_d
             fetched.append(entry)
@@ -651,7 +614,7 @@ def build_junctions_sorted(
     return merge_fetched(
         fetched, batches, config, out_path, stats, log,
         n_slots=n_slots, wide=wide, n_sequences=len(sequences), dev=dev,
-        free=_free_bytes(dev), reference=reference,
+        free=_free_bytes(dev), ops=ops,
     )
 
 
@@ -700,16 +663,16 @@ def finish_occurrences(ops, occ_pos, occ_id, id_bits: int | None, n_slots: int):
 
 def fetch_entry(table_d, occ_d, id_bits: int | None, keep_keys: bool = False):
     """The merge entry of a judged round (D2H): (table, occ_pos, occ_ids)
-    raw, or (table, OccKeys, None) for sorted keys (by hostmem.host_copies), or
-    with keep_keys on a card (the run's one entry) (table, CardKeys, None):
-    the table fetched, the keys left on the card; raises when the
-    occurrence sort flagged a position or id that does not fit its key."""
+    raw, or (table, OccKeys, None) for sorted keys, fetched by
+    hostmem.host_copies; with keep_keys (the run's one entry) the table is
+    fetched and the keys stay where the occurrence sort left them. Raises
+    when the occurrence sort flagged a position or id that does not fit
+    its key."""
     a, b = occ_d
     if id_bits is None:
         return table_d.cpu().numpy(), a.cpu().numpy(), b.cpu().numpy()
-    if keep_keys and a.device.type == "cuda":
-        table, bad = hostmem.host_copies([table_d, b])
-        keys = None
+    if keep_keys:
+        (table, bad), keys = hostmem.host_copies([table_d, b]), a
     else:
         table, keys, bad = hostmem.host_copies([table_d, a, b])
     if int(bad):
@@ -717,15 +680,13 @@ def fetch_entry(table_d, occ_d, id_bits: int | None, keep_keys: bool = False):
             f"{int(bad)} occurrences with a position or id outside the merge key "
             "(corrupt round)"
         )
-    if keys is None:
-        return table.numpy(), CardKeys(a, id_bits), None
-    return table.numpy(), OccKeys(keys.numpy().view(np.uint64), id_bits), None
+    return table.numpy(), OccKeys(keys, id_bits), None
 
 
 def raw_entry(entry):
     """-> (table, occ_pos int64, signed local ids) of any merge entry."""
     table, occ_pos, occ_ids = entry
-    if isinstance(occ_pos, (OccKeys, CardKeys)):
+    if isinstance(occ_pos, OccKeys):
         occ_pos, occ_ids = occ_pos.decode()
     return table, occ_pos, occ_ids
 
@@ -733,7 +694,7 @@ def raw_entry(entry):
 def merge_fetched(
     fetched, batches, config, out_path, stats, log,
     *, n_slots: int, wide: bool, n_sequences: int, dev, free: int | None,
-    reference: bool = False,
+    ops: Ops = KERNELS,
 ) -> Enumerator:
     """Merge the rounds and write the junction list (twopaco_tpu
     sortpipe.py:1467). fetched = one entry a round (or a shard's block of
@@ -741,8 +702,8 @@ def merge_fetched(
     row of table)) raw, or (table, OccKeys, None) with the occurrences as
     position-sorted u64 keys (passes/occ.py); the entries' k-mer sets are
     disjoint. Picks the packed u64 merge when every id and position fits
-    one key, else the unpacked int64 merge. dev, free, reference: where
-    the packed merge of keyed entries may run (merge_rounds_packed).
+    one key, else the unpacked int64 merge. dev, free, ops: where and by
+    what the packed merge runs (merge_rounds_packed).
 
     u64 keys: position in the high pos_bits, biased signed id below.
     Inputs under 2^32 slots split 32/32 (u32 views: fast paths); wide
@@ -752,7 +713,7 @@ def merge_fetched(
     if _packed_merge(total_j, n_sequences, 64 - pos_bits):
         return merge_rounds_packed(
             fetched, batches, config, out_path, stats, log,
-            pos_bits=pos_bits, dev=dev, free=free, reference=reference,
+            pos_bits=pos_bits, dev=dev, free=free, ops=ops,
         )
     raw = [raw_entry(e) for e in fetched]
     return merge_rounds_and_emit(
@@ -775,45 +736,37 @@ def _merge_keys(cat: np.ndarray, w: int) -> np.ndarray:
 
 def merge_rounds_packed(
     fetched, batches, config, out_path, stats, log, pos_bits: int = 32, *,
-    dev, free: int | None, reference: bool = False,
+    dev, free: int | None, ops: Ops = KERNELS,
 ) -> Enumerator:
     """Merge into ONE u64 key buffer (pos << id_bits | id + 2^(id_bits-1),
     id_bits = 64 - pos_bits), sorted, and the global table: the entries'
-    tables sorted (twopaco_tpu sortpipe.py:1539). Raises on duplicate keys
-    across entries, on an id past its entry's table, on id 0, and on a
-    position past pos_bits.
+    tables sorted (twopaco_tpu sortpipe.py:1539), then check the keys and
+    write the junction list where they lie (passes/emit.py: ops.check,
+    ops.chunk). Raises on duplicate keys across entries, on an id past its
+    entry's table, on id 0, on a position outside the input, and on keys
+    out of order, before the output opens.
 
-    Entries of sorted keys (OccKeys, every one): one is already merged
-    (its table is the global table, its ids global, its keys sorted: they
-    are only checked); N merge on dev (passes/merge.py; reference=True: the
-    plain versions) when its buffers fit `free` device bytes (None: no
-    limit). Otherwise (no dev, too little memory: a log line says so; or a
-    raw entry among them) the host merge: the keys are unique (entries
+    The keys come from one of three merges. One keyed entry (OccKeys) is
+    merged already: its table is the global table, its ids global, its
+    keys sorted. N keyed entries merge on dev (passes/merge.py, ops.merge)
+    when its buffers and the emit's tables fit `free` device bytes (None:
+    no limit). Otherwise (too little memory: a log line says so; or a raw
+    entry among them) the host merge: the keys are unique (entries
     partition the k-mer space), so the inverse of the tables' sort remaps
     each entry's local ids with no search, and the buffer is sorted in
-    place.
-
-    Keys on a device (CardKeys: one entry whose keys stayed there, or the
-    N entries' merged keys) are checked there and write the junction list
-    from there (passes/emit.py; reference=True: the plain versions), in
-    chunks that fit the free device memory (`free` for the one entry; read
-    again after the merge). The device merge is taken only where `free`
-    also holds the card emit's tables; the one entry raises where they do
-    not fit."""
+    place. The emit's chunks fit `free` for the one entry, the free memory
+    read again after a device merge, and no limit after the host merge."""
     id_bits = 64 - pos_bits
     P = config.positions_per_row
-    check_fn, chunk_fn = (emit.check_plain, emit.chunk_plain) if reference else (emit.check,
-                                                                               emit.chunk)
     with trace.span("merge"):
-        card = _card_keys(fetched)
-        keyed = bool(fetched) and all(isinstance(e[1], OccKeys) for e in fetched)
         for _t, keys, _none in fetched:
-            if isinstance(keys, (OccKeys, CardKeys)) and keys.id_bits != id_bits:
+            if isinstance(keys, OccKeys) and keys.id_bits != id_bits:
                 raise ValueError(f"keys of {keys.id_bits} id bits in a {id_bits}-bit merge")
+        keyed = bool(fetched) and all(isinstance(e[1], OccKeys) for e in fetched)
         on_dev = keyed and len(fetched) > 1
         if on_dev and free is not None:
-            # the merge's buffers, and the card emit's tables at its least
-            # chunk (one occurrence: emit.chunk_size) beside its keys
+            # the merge's buffers, and the emit's tables at its least chunk
+            # (one occurrence: emit.chunk_size) beside its keys
             need = merge.device_bytes(sum(len(e[0]) for e in fetched), config.w,
                                       sum(len(e[1]) for e in fetched), len(fetched))
             need += emit.table_bytes(batches) + 2 * 12
@@ -821,39 +774,30 @@ def merge_rounds_packed(
                 log(f"Merge on the host: the device merge and the card emit need {_gib(need)}, "
                     f"{_gib(free)} is free")
                 on_dev = False
-        if card is not None:
-            table = fetched[0][0]
-        elif keyed and len(fetched) == 1:
-            table, keys, _none = fetched[0]
-            buf = keys.keys
-            _check_key_ids(buf, id_bits, len(table))
+        if keyed and len(fetched) == 1:
+            table, keys = fetched[0][0], fetched[0][1].keys
         elif on_dev:
-            table, merged = merge_on_device(fetched, config, id_bits, dev, reference)
+            table, keys = merge_on_device(fetched, config, id_bits, dev, ops)
             free = _free_bytes(dev)  # the merge's inputs are released
-            card = CardKeys(merged, id_bits)
         else:
             table, inv = merge_tables(fetched, config.w)
             buf = packed_occurrences(fetched, inv, pos_bits)
             # sorted-key entries arrive as sorted runs: timsort ("stable")
             # merges them, 5-10x faster than the default quicksort here
             buf.sort(kind="stable")
-        if card is not None:
-            chunk_occ = emit.chunk_size(batches, free)
-            if chunk_occ < min(emit.CHUNK, len(card)):
-                log(f"Emit in chunks of {chunk_occ} occurrences: {_gib(free)} is free")
-            found = emit.check_keys(card.keys, batches, len(table), P, id_bits,
-                                    chunk_occ=chunk_occ, fn=check_fn)
+            keys, free = torch.from_numpy(buf.view(np.int64)), None
+        chunk_occ = emit.chunk_size(batches, free)
+        if chunk_occ < min(emit.CHUNK, keys.numel()):
+            log(f"Emit in chunks of {chunk_occ} occurrences: {_gib(free)} is free")
+        found = emit.check_keys(keys, batches, len(table), P, id_bits, chunk_occ=chunk_occ,
+                                fn=ops.check)
 
     stats.distinct_junctions = len(table)
     enum = Enumerator(table, config.k, stats)
     if out_path is not None:
         with trace.span("emit"):
-            if card is not None:
-                occurrences, n_stubs = emit.write_keys(
-                    out_path, batches, card.keys, found, len(table), P, id_bits, fn=chunk_fn)
-            else:
-                occurrences, n_stubs = emit_junctions_packed(
-                    out_path, batches, buf, len(table), P, id_bits=id_bits)
+            occurrences, n_stubs = emit.write_keys(out_path, batches, keys, found, len(table),
+                                                   P, id_bits, fn=ops.chunk)
         stats.occurrences = occurrences
         stats.stub_ids = n_stubs
         log(f"True marks count: {occurrences}")
@@ -861,56 +805,28 @@ def merge_rounds_packed(
     return enum
 
 
-def _card_keys(fetched) -> CardKeys | None:
-    """The keys of the run's one keyed entry when they stayed on their
-    device (fetch_entry's keep_keys), else None."""
-    card = [k for _t, k, _n in fetched if isinstance(k, CardKeys)]
-    if card and len(fetched) > 1:
-        raise ValueError("keys left on a card in a merge of several entries")
-    return card[0] if card else None
-
-
-def _check_key_ids(keys: np.ndarray, id_bits: int, n_table: int) -> None:
-    """Raise as packed_occurrences does on a key whose id is 0 or passes
-    the table (keys: u64, biased ids in the low id_bits)."""
-    if not len(keys):
-        return
-    if id_bits == 32:  # little-endian: u32 [0] is the biased id; ^ 2^31 unbiases it
-        mag = np.abs(keys.view(np.int32)[0::2] ^ np.int32(-(1 << 31)))
-    else:
-        low = (keys & np.uint64((1 << id_bits) - 1)).view(np.int64)
-        mag = np.abs(low - (np.int64(1) << (id_bits - 1)))
-    lo, hi = int(mag.min()), int(mag.max())
-    if hi > n_table or lo < 0:  # lo < 0: the int32 |-2^31|
-        raise RuntimeError(f"occurrence id out of range: an |id| past table size {n_table}")
-    if lo == 0:
-        raise RuntimeError("occurrence id 0 (corrupt round)")
-
-
-def merge_on_device(fetched, config, id_bits: int, dev, reference: bool):
-    """The merge of N keyed entries on dev (passes/merge.py): the tables
-    and the key runs up in one copy each (async, the entries page-locked
-    for it), the merge, the global table and the fault counts back in one
-    sync. -> (table, keys: (n,) int64 on dev holding the u64 keys, the
-    merge's other buffers released), raising as the host merge does."""
-    tables = [t for t, _k, _n in fetched]
+def merge_on_device(fetched, config, id_bits: int, dev, ops: Ops = KERNELS):
+    """The merge of N keyed entries on dev (passes/merge.py, ops.merge):
+    the tables and the key runs up in one copy each (async, the entries
+    page-locked for it), the merge, the global table and the
+    fault counts back in one sync. -> (table, keys: (n,) int64 on dev
+    holding the u64 keys, the merge's other buffers released), raising as
+    the host merge does."""
+    tables = [torch.from_numpy(np.ascontiguousarray(t)) for t, _k, _n in fetched]
     keys = [k.keys for _t, k, _n in fetched]
     rows = np.cumsum([0] + [len(t) for t in tables])
-    kofs = np.cumsum([0] + [len(k) for k in keys])
+    kofs = np.cumsum([0] + [k.numel() for k in keys])
     ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
     with ctx:
         table_d = torch.empty((int(rows[-1]), config.w), dtype=torch.uint32, device=dev)
         keys_d = torch.empty(int(kofs[-1]), dtype=torch.int64, device=dev)
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in tables + keys]
-        with hostmem.pinned(host, dev):
+        with hostmem.pinned(tables + keys, dev):
             for i in range(len(tables)):
-                table_d[rows[i] : rows[i + 1]].copy_(host[i], non_blocking=True)
-                keys_d[kofs[i] : kofs[i + 1]].copy_(host[len(tables) + i].view(torch.int64),
-                                                    non_blocking=True)
+                table_d[rows[i] : rows[i + 1]].copy_(tables[i], non_blocking=True)
+                keys_d[kofs[i] : kofs[i + 1]].copy_(keys[i], non_blocking=True)
         entries = torch.from_numpy(np.stack([kofs, rows]).astype(np.int64)).to(dev)
-        fn = merge.merge_packed_plain if reference else merge.merge_packed
-        gtab, gkeys, faults = fn(table_d, keys_d, entries, key_bits=2 * config.k,
-                                 id_bits=id_bits)
+        gtab, gkeys, faults = ops.merge(table_d, keys_d, entries, key_bits=2 * config.k,
+                                        id_bits=id_bits)
         del table_d, keys_d, entries
         table, faults = hostmem.host_copies([gtab, faults])
     dup, id0, past = (int(x) for x in faults)
@@ -969,7 +885,7 @@ def packed_occurrences(fetched, inv, pos_bits: int) -> np.ndarray:
         if keyed:
             if pos.id_bits != id_bits:
                 raise ValueError(f"keys of {pos.id_bits} id bits in a {id_bits}-bit merge")
-            seg64[:] = pos.keys
+            seg64[:] = pos.host()
             if id_bits == 32:  # little-endian: u32 [0] = id
                 oi = seg64.view(np.uint32).reshape(-1, 2)[:, 0].astype(np.int64) - bias
             else:

@@ -132,7 +132,7 @@ def main(argv=None) -> int:
         keys = [kk.keys for _t, kk, _n in fetched]
         ofs = np.cumsum([[0] + [len(x) for x in keys], [0] + [len(t) for t in tables]], axis=1)
         tab = torch.from_numpy(np.concatenate(tables)).to(dev)
-        kd = torch.from_numpy(np.concatenate(keys).view(np.int64)).to(dev)
+        kd = torch.cat(keys).to(dev)
         ent = torch.from_numpy(ofs).to(dev)
         res = dict(run=run, entries=len(fetched), rows=tab.shape[0], keys=kd.numel(), card=card)
         res["kernel_ms"] = time_merge(merge.merge_packed, tab, kd, ent, cfg.k, id_bits,
