@@ -60,16 +60,17 @@
    whole slice's filter, in the byte layout at f=30, the bit layout at
    f=34 (64-bit probe indices) and the block layout at f=30; the extract
    first over the round's 123 batches and byte masks in one call (as the
-   round makes it), then on batch 0; the lookup first over the round's 123
-   batches and byte masks in one call (as pass 4 makes it), then on batch
-   0, against the slice's junction table;
+   round makes it), then on batch 0; the lookup (its hits as 8-byte
+   occurrence keys) first over the round's 123 batches and byte masks in
+   one call (as pass 4 makes it), then on batch 0, against the slice's
+   junction table;
 8. runs the slice through the Bloom engine (`--tpu-engine bloom`): -f 30
    (auto: byte), --tpu-layout bit -f 34, --tpu-layout block -f 30, and
    -f 30 -r 4, each with the counters reset just before and read just
    after; each must launch the Bloom kernels and the sort and judge of
    its verify pass, the fill, the mark and the extract exactly once a
-   round, the lookup once a run, and write
-   SLICE_SHA256; a one-round run must count the candidates that the round
+   round, the lookup once a run, write its keys on the card (one emit.cu
+   check, a chunk launch or more) and write SLICE_SHA256; a one-round run must count the candidates that the round
    mark of its layout counted in step 7; then a Bloom run through the
    plain versions on the card, the same bytes again;
 9. holds the distributed engine's four kernels against their plain
@@ -993,6 +994,7 @@ def native_checks(fa, slice_run, launches, label) -> None:
     for name in BLOOM_PATH:
         require(launches["native_bloom"].get(name, 0) > 0, f"native_bloom: no launch of {name}")
     require("(byte layout)" in text, "native_bloom: not the byte layout")
+    require(card_emit(launches["native_bloom"]), "native_bloom: the keys not written on the card")
     require(sha256(out) == SLICE_SHA256, "native_bloom: .dbg differs from SLICE_SHA256")
     print("native: every run wrote SLICE_SHA256")
 
@@ -1802,20 +1804,20 @@ def main() -> int:
     # the round's batches and byte masks in one call; the bound reads the
     # uploads and the masks once (a candidate's key is built from its upload
     # words) and each distinct 32-byte sector of the junction table that the
-    # searches touch, once, and writes the outputs
+    # searches touch, once, and writes the outputs (an 8-byte key a slot)
     n_tab = count_sectors(lambda fl, um: lookup_sectors(fl, *um, slice_table, k, P),
                           slice_table, list(zip(uploads, round_masks)))
     compare(
         "bloom_lookup",
         lambda: lookup.pass4_lookup_batches(uploads, round_masks, slice_table, n_cand, bases,
-                                            k=k, P=P),
+                                            k=k, P=P, id_bits=32),
         lambda: lookup.pass4_lookup_batches_plain(uploads, round_masks, slice_table, n_cand,
-                                                  bases, k=k, P=P),
+                                                  bases, k=k, P=P, id_bits=32),
         3, results, in_bytes=nbytes(uploads, round_masks) + n_tab * SECTOR,
         ops=n_cand * 6 * k,
     )
     n_run = int(lookup.pass4_lookup_batches(uploads, round_masks, slice_table, n_cand, bases,
-                                            k=k, P=P)[2])
+                                            k=k, P=P, id_bits=32)[1])
     require(0 < n_run <= n_cand, f"lookup of the round: {n_run} hits of {n_cand} candidates")
     print(f"lookup of the round's {len(uploads)} batches in one call: {n_run} of {n_cand} "
           f"candidates found; {n_tab} junction-table sectors searched of "
@@ -1824,12 +1826,14 @@ def main() -> int:
                            slice_table, [(args, mask0)])
     compare(
         "bloom_lookup",
-        lambda: lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P),
-        lambda: lookup.pass4_lookup_plain(*args, mask0, slice_table, count0, k=k, P=P),
+        lambda: lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P, id_bits=32),
+        lambda: lookup.pass4_lookup_batches_plain([args], [mask0], slice_table, count0, [0],
+                                                  k=k, P=P, id_bits=32),
         10, results, in_bytes=nbytes(args, mask0) + n_tab0 * SECTOR,
         ops=count0 * 6 * k,
     )
-    n_hit = int(lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P)[2])
+    n_hit = int(lookup.pass4_lookup(*args, mask0, slice_table, count0, k=k, P=P,
+                                    id_bits=32)[1])
     require(n_hit > 0, "lookup found no junction in the first batch")
     print(f"lookup: {n_hit} of {count0} candidates found among "
           f"{slice_table.shape[0]} junctions")
@@ -1850,6 +1854,7 @@ def main() -> int:
                     f"{tag}: {launches[tag][name]} {name} calls, not one a round")
         require(launches[tag]["bloom_lookup"] == 1,
                 f"{tag}: {launches[tag]['bloom_lookup']} lookup calls, not one a run")
+        require(card_emit(launches[tag]), f"{tag}: the keys not written on the card")
         require(sum(line.startswith("Round ") and "seconds" in line
                     for line in text.splitlines()) == n_rounds, f"{tag}: not {n_rounds} rounds")
         for line in text.splitlines():
@@ -2028,7 +2033,8 @@ def main() -> int:
                                                  part_cap=part_cap),
                 lambda: stream.compact_append(*recs4, cbuf, cstate, recs4[1].numel()),
                 lambda: lookup.pass4_lookup_batches(uploads, round_masks, slice_table,
-                                                    round_cands["byte"], bases, k=k, P=P),
+                                                    round_cands["byte"], bases, k=k, P=P,
+                                                    id_bits=32),
                 lambda: extract.extract_records_batches(uploads, round_masks, ebuf, estate,
                                                         bases, k=k, P=P))])
             names = " ".join(kern)

@@ -41,6 +41,13 @@ def _u32(rng, shape):
     return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
 
 
+def _decode(keys, id_bits):
+    """-> (positions, signed ids) int64 of the lookup's int64-held u64 keys."""
+    u = keys.cpu().numpy().view(np.uint64)
+    pos = (u >> np.uint64(id_bits)).astype(np.int64)
+    return pos, (u & np.uint64((1 << id_bits) - 1)).astype(np.int64) - (1 << (id_bits - 1))
+
+
 # ---- hashes ----------------------------------------------------------
 
 
@@ -474,26 +481,30 @@ def test_sort_judge_equals_verify_records(k, abundance):
 
 @pytest.mark.parametrize("k", [7, 25, 101])
 def test_pass4_lookup(k):
+    """pass4_lookup's keys decode to JAX's pass4_lookup positions and ids
+    (at 32 and 20 id bits), the unused slots PAD_KEY; pass4_lookup_plain
+    is JAX's function, padding included."""
     jcodes, jvalid, targs, jcfg, tmask, count, _ = _marked(k)
     buf, _state = _extract(targs, tmask, count, k)
     table = judge.judge_compact(*sort.sort_records(*buf, key_bits=2 * k))[0]
     assert table.shape[0] > 0
-    jpos, jids, jcnt = jk.pass4_lookup(jcodes, jnp.asarray(tmask.numpy()), jvalid,
-                                       jnp.asarray(table.numpy()), cfg=jcfg, cap=count)
-    tpos, tids, tcnt = lookup.pass4_lookup(*targs, tmask, table, count, k=k, P=P)
-    n = int(jcnt)
-    assert int(tcnt) == n > 0
-    assert np.array_equal(np.asarray(jpos)[:n], tpos.numpy()[:n])
-    assert np.array_equal(np.asarray(jids)[:n], tids.numpy()[:n])
-    assert (tpos.numpy()[n:] == B * P).all() and (tids.numpy()[n:] == lookup.INVALID_ID32).all()
     # a table of every other junction: the misses drop out, ranks shift
-    half = table[::2].contiguous()
-    jpos, jids, jcnt = jk.pass4_lookup(jcodes, jnp.asarray(tmask.numpy()), jvalid,
-                                       jnp.asarray(half.numpy()), cfg=jcfg, cap=count)
-    tpos, tids, tcnt = lookup.pass4_lookup(*targs, tmask, half, count, k=k, P=P)
-    n = int(jcnt)
-    assert int(tcnt) == n and np.array_equal(np.asarray(jids)[:n], tids.numpy()[:n])
-    assert np.array_equal(np.asarray(jpos)[:n], tpos.numpy()[:n])
+    for tab in (table, table[::2].contiguous()):
+        jpos, jids, jcnt = jk.pass4_lookup(jcodes, jnp.asarray(tmask.numpy()), jvalid,
+                                           jnp.asarray(tab.numpy()), cfg=jcfg, cap=count)
+        n = int(jcnt)
+        assert n > 0
+        for id_bits in (32, 20):
+            keys, tcnt = lookup.pass4_lookup(*targs, tmask, tab, count, k=k, P=P,
+                                             id_bits=id_bits)
+            assert keys.dtype == torch.int64 and int(tcnt) == n
+            pos, ids = _decode(keys[:n], id_bits)
+            assert np.array_equal(_np(jpos)[:n], pos) and np.array_equal(_np(jids)[:n], ids)
+            assert (keys.numpy()[n:] == lookup.PAD_KEY).all()
+        ppos, pids, pcnt = lookup.pass4_lookup_plain(*targs, tmask, tab, count, k=k, P=P)
+        assert int(pcnt) == n
+        assert np.array_equal(np.asarray(jpos), ppos.numpy())
+        assert np.array_equal(np.asarray(jids), pids.numpy())
 
 
 def test_pass4_lookup_empty_table():
@@ -503,10 +514,12 @@ def test_pass4_lookup_empty_table():
     jpos, jids, jcnt = jk.pass4_lookup(jcodes, jnp.asarray(tmask.numpy()), jvalid,
                                        jnp.zeros((0, pack.n_words(k)), jnp.uint32),
                                        cfg=jcfg, cap=count)
-    tpos, tids, tcnt = lookup.pass4_lookup(*targs, tmask, empty, count, k=k, P=P)
+    keys, tcnt = lookup.pass4_lookup(*targs, tmask, empty, count, k=k, P=P, id_bits=32)
     assert int(jcnt) == int(tcnt) == 0
-    assert np.array_equal(np.asarray(jpos), tpos.numpy())
-    assert np.array_equal(np.asarray(jids), tids.numpy())
+    assert keys.shape == (count,) and (keys.numpy() == lookup.PAD_KEY).all()
+    ppos, pids, _c = lookup.pass4_lookup_plain(*targs, tmask, empty, count, k=k, P=P)
+    assert np.array_equal(np.asarray(jpos), ppos.numpy())
+    assert np.array_equal(np.asarray(jids), pids.numpy())
 
 
 @pytest.mark.parametrize("k", [7, 25, 101])
@@ -515,8 +528,10 @@ def test_pass4_lookup_batches(k, table_kind):
     """pass4_lookup_batches (its plain version on the CPU) over a table of
     uneven batches at ascending bases with a gap equals JAX's pass4_lookup
     applied batch by batch, each batch's hits offset by its base and
-    concatenated: positions, ids and count exact, the unused slots padded;
-    a cap below the count keeps the first hits and counts them all."""
+    concatenated: the keys (at 32 and 20 id bits) ascending and decoding
+    to those positions and ids, the count exact, the unused slots PAD_KEY;
+    a cap below the count keeps the first hits and counts them all; ids or
+    positions past the key layout raise."""
     batches = _uneven_batches(k, seed=11)
     uploads = [_forms(c, v)[2] for c, v in batches]
     jforms = [_forms(np.pad(c, ((0, B - len(c)), (0, 0))), np.pad(v, (0, B - len(v))))[:2]
@@ -541,14 +556,25 @@ def test_pass4_lookup_batches(k, table_kind):
     want_pos, want_ids = np.concatenate(want_pos), np.concatenate(want_ids)
     n = len(want_pos)
     assert n > 0 and np.all(np.diff(want_pos) > 0)
+    for id_bits in (32, 20):
+        for cap in (n_cand, n // 2):
+            keys, cnt = lookup.pass4_lookup_batches(uploads, masks, table, cap, bases, k=k, P=P,
+                                                    id_bits=id_bits)
+            assert keys.dtype == torch.int64 and keys.shape == (cap,) and int(cnt) == n
+            m = min(n, cap)
+            pos, ids = _decode(keys[:m], id_bits)
+            assert np.array_equal(pos, want_pos[:m]) and np.array_equal(ids, want_ids[:m])
+            assert np.all(np.diff(keys.numpy()[:m].view(np.uint64)) > 0)
+            assert (keys.numpy()[m:] == lookup.PAD_KEY).all()
     pad = bases[-1] + len(batches[-1][0]) * P
-    for cap in (n_cand, n // 2):
-        pos, ids, cnt = lookup.pass4_lookup_batches(uploads, masks, table, cap, bases, k=k, P=P)
-        assert pos.dtype == torch.int64 and ids.dtype == torch.int32 and int(cnt) == n
-        m = min(n, cap)
-        assert np.array_equal(pos.numpy()[:m], want_pos[:m])
-        assert np.array_equal(ids.numpy()[:m], want_ids[:m])
-        assert (pos.numpy()[m:] == pad).all() and (ids.numpy()[m:] == lookup.INVALID_ID32).all()
+    too_few = 65 - pad.bit_length()  # the positions need one more bit
+    with pytest.raises(ValueError, match="do not fit a key"):
+        lookup.pass4_lookup_batches(uploads, masks, table, n_cand, bases, k=k, P=P,
+                                    id_bits=too_few)
+    if len(table) >= 2:  # the ids need one more bit
+        with pytest.raises(ValueError, match="do not fit a key"):
+            lookup.pass4_lookup_batches(uploads, masks, table, n_cand, bases, k=k, P=P,
+                                        id_bits=len(table).bit_length())
 
 
 @pytest.mark.parametrize("spill", [False, True])

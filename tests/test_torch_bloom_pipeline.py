@@ -271,3 +271,76 @@ def test_bloom_mask_spill_groups_sort_bytes(tmp_path, monkeypatch, budget):
     bloom_b, enum = _port(tmp_path, cfg, "bloom.dbg", _seqs(texts), tmpdir=str(spill_dir))
     assert bloom_b == sort_b and len(bloom_b) > 0 and len(enum.stats.rounds) == 2
     assert not os.listdir(spill_dir)
+
+
+def _emit_spies(monkeypatch):
+    """Count the Bloom engine's calls of emit.write_keys, of
+    pipeline.emit_junctions and of the lookup (a call a group of
+    batches). -> the counts, a dict."""
+    import dataclasses
+
+    from twopaco_tpu_torch.passes import emit
+    from twopaco_tpu_torch.passes.versions import KERNELS
+
+    calls = {"write_keys": 0, "emit_junctions": 0, "lookup": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(emit, "write_keys", spy("write_keys", emit.write_keys))
+    monkeypatch.setattr(bloompipe, "emit_junctions",
+                        spy("emit_junctions", bloompipe.emit_junctions))
+    monkeypatch.setattr(bloompipe, "KERNELS", dataclasses.replace(
+        KERNELS, lookup=spy("lookup", KERNELS.lookup)))
+    return calls
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("spill", [False, True])
+def test_bloom_writes_its_keys_through_the_keyed_emit(tmp_path, monkeypatch, rounds, spill):
+    """Pass 4's occurrence keys take emit.write_keys, never
+    pipeline.emit_junctions, in one lookup call or (masks spilled, one
+    batch a group) several: the bytes of the JAX Bloom engine and of the
+    port's sort engine."""
+    texts = _genomes(40 + rounds, length=1500, n=4, rate=0.04)
+    jcfg = _jcfg(11, rounds=rounds)
+    if spill:
+        monkeypatch.setenv("TWOPACO_MASK_SPILL_BYTES", str(4 * 256 // 8))
+    calls = _emit_spies(monkeypatch)
+    jb, bb, sb, enum = _three_ways(tmp_path, jcfg, _seqs(texts))
+    assert jb == bb == sb and len(bb) > 0 and len(enum.stats.rounds) == rounds
+    n_batches = -(-sum(len(t) for t in texts) // (4 * 256))
+    # the sort engine's build writes through write_keys too
+    assert calls["write_keys"] == 2 and calls["emit_junctions"] == 0
+    assert (calls["lookup"] > 1) == spill and calls["lookup"] <= n_batches + 4
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_bloom_keys_past_the_packed_layout_take_emit_junctions(tmp_path, monkeypatch, spill):
+    """Where the ids with the stubs' do not fit the sort engine's key layout
+    (sortpipe._packed_merge false, forced here), pass 4's keys are decoded
+    and written by pipeline.emit_junctions: the same bytes."""
+    texts = _genomes(44, length=1500, n=4, rate=0.04)
+    cfg = config_from_jax(_jcfg(11, rounds=2))
+    keyed, _ = _port(tmp_path, cfg, "keyed.dbg", _seqs(texts))
+    if spill:
+        monkeypatch.setenv("TWOPACO_MASK_SPILL_BYTES", str(4 * 256 // 8))
+    monkeypatch.setattr(bloompipe, "_packed_merge", lambda *_a: False)
+    calls = _emit_spies(monkeypatch)
+    unpacked, enum = _port(tmp_path, cfg, "unpacked.dbg", _seqs(texts))
+    assert unpacked == keyed and len(keyed) > 0 and enum.stats.occurrences > 0
+    assert calls["emit_junctions"] == 1 and calls["write_keys"] == 0
+    assert (calls["lookup"] > 1) == spill
+
+
+def test_bloom_key_layout():
+    """key_layout: the sort engine's 32/32 split, or its wide split, where
+    the ids with the stubs' fit; else the positions' own bits."""
+    assert bloompipe.key_layout(1 << 20, 4, 1000, False) == (32, True)
+    assert bloompipe.key_layout(1 << 20, 4, 1000, True) == (31, True)
+    assert bloompipe.key_layout(5 << 32, 4, 1000, True) == (29, True)
+    assert bloompipe.key_layout(1 << 20, 4, (1 << 31) - 70, False) == (44, False)
+    assert bloompipe.key_layout(5 << 32, 4, (1 << 28) - 8, True) == (29, False)

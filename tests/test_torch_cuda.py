@@ -447,7 +447,7 @@ calls = (
     lambda: partition.partition_batch(*ups[0], highs, 0, 0xFFFFFFFF, k=k, P=P, part_cap=40_000),
     lambda: stream.compact_append(*recs, buf, state, 3 * B * P),
     lambda: lookup.pass4_lookup_batches(ups, masks, table, 5 * B * P, [i * B * P for i in range(5)],
-                                        k=k, P=P),
+                                        k=k, P=P, id_bits=32),
 )
 for fn in calls:  # the kept scratch allocated, the library loaded
     fn()
@@ -804,12 +804,12 @@ def test_bloom_lookup_kernel(dev, k, table):
     tab = {"all": tab, "half": tab[::2].contiguous(), "empty": tab[:0]}[table]
     for cap in (count, max(1, count // 3)):  # a short cap keeps the first hits
         build.reset_launch_counts()
-        got = lookup.pass4_lookup(*u, m, tab, cap, k=k, P=P)
+        got = lookup.pass4_lookup(*u, m, tab, cap, k=k, P=P, id_bits=32)
         assert build.launch_counts() == ({} if table == "empty" else {"bloom_lookup": 1})
-        want = lookup.pass4_lookup_plain(*u, m, tab, cap, k=k, P=P)
+        want = lookup.pass4_lookup_batches_plain([u], [m], tab, cap, [0], k=k, P=P, id_bits=32)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b.cpu())
-    assert (int(want[2]) > 0) == (table != "empty")
+    assert (int(want[1]) > 0) == (table != "empty")
 
 
 def _lookup_case(dev, k, rows, P, seed, density=0.4):
@@ -833,14 +833,20 @@ def _lookup_case(dev, k, rows, P, seed, density=0.4):
     return uploads, masks, bases, torch.from_numpy(table).to(dev)
 
 
-def _lookup_both(uploads, masks, table, cap, bases, k, P):
+def _lookup_both(uploads, masks, table, cap, bases, k, P, id_bits=32):
+    """The kernel's keys and count equal the plain version's (its keys
+    ascending). -> the count."""
     build.reset_launch_counts()
-    got = lookup.pass4_lookup_batches(uploads, masks, table, cap, bases, k=k, P=P)
+    got = lookup.pass4_lookup_batches(uploads, masks, table, cap, bases, k=k, P=P,
+                                      id_bits=id_bits)
     assert build.launch_counts() == {"bloom_lookup": 1}
-    want = lookup.pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k, P=P)
+    want = lookup.pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k, P=P,
+                                             id_bits=id_bits)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
-    return int(want[2])
+    n = min(int(want[1]), cap)
+    assert (np.diff(want[0][:n].cpu().numpy().view(np.uint64)) > 0).all()
+    return int(want[1])
 
 
 @pytest.mark.parametrize("k", [11, 25, 33, 49, 101])
@@ -853,16 +859,17 @@ def test_bloom_lookup_batches_kernel(dev, k, case):
     Batches of 16 rows of 512 positions hold two 4096-position tiles, 264
     positions a row puts rows across tile edges; hits cross tiles and
     batches. Also a one-row table (J = 1), an all-zero mask, cap exactly the
-    hit count and below it, and every bit set."""
+    hit count and below it, and every bit set. Keys of 32 id bits, and of
+    the fewest the table's ids need (the positions in the rest)."""
     P = 264 if case == "odd_rows" else 512
     rows = [16, 8, 16, 3, 1]
     density = 1.0 if case == "dense" else 0.4
     uploads, masks, bases, table = _lookup_case(dev, k, rows, P, seed=k + len(case),
                                                 density=density)
     if case == "one_junction":  # the row of a hit in the middle of the hits
-        _p, ids, cnt = lookup.pass4_lookup_batches_plain(uploads, masks, table, 1 << 20,
-                                                         bases, k=k, P=P)
-        row = abs(int(ids[int(cnt) // 2])) - 1
+        keys, cnt = lookup.pass4_lookup_batches_plain(uploads, masks, table, 1 << 20, bases,
+                                                      k=k, P=P, id_bits=32)
+        row = abs(int(keys[int(cnt) // 2] & 0xFFFFFFFF) - (1 << 31)) - 1
         table = table[row : row + 1].contiguous()
     if case == "zero_mask":
         masks = [torch.zeros_like(m) for m in masks]
@@ -870,9 +877,11 @@ def test_bloom_lookup_batches_kernel(dev, k, case):
     cap = max(n_cand, 1)
     if case in ("cap_exact", "cap_short"):
         n = int(lookup.pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k,
-                                                  P=P)[2])
+                                                  P=P, id_bits=32)[1])
         cap = n if case == "cap_exact" else n // 3
     n = _lookup_both(uploads, masks, table, cap, bases, k, P)
+    assert _lookup_both(uploads, masks, table, cap, bases, k, P,
+                        id_bits=len(table).bit_length() + 1) == n
     assert (n == 0) == (case == "zero_mask")
     if case == "one_junction":
         assert n > 0
@@ -906,6 +915,7 @@ def test_bloom_lookup_batches_rounds(dev, monkeypatch, tmp_path, spill):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         cap = sum(int(np.unpackbits(m.cpu().numpy()).sum()) for m in want)
         total += _lookup_both(uploads[g0:g1], got, table, cap, bases[g0:g1], k, P)
+        _lookup_both(uploads[g0:g1], got, table, cap, bases[g0:g1], k, P, id_bits=40)
     store.cleanup()
     assert total > 0
 
@@ -938,8 +948,9 @@ def test_bloom_wrappers_never_reach_the_plain_code(dev, monkeypatch):
                                                                         pack.n_words(k), dev),
                                     [0, B * P], k=k, P=P)
     tab = judge.judge_compact(*sort.sort_records(*buf, key_bits=2 * k))[0]
-    lookup.pass4_lookup(*u, m, tab, int(c), k=k, P=P)
-    lookup.pass4_lookup_batches([u, u], [m, m], tab, 2 * int(c), [0, B * P], k=k, P=P)
+    lookup.pass4_lookup(*u, m, tab, int(c), k=k, P=P, id_bits=32)
+    lookup.pass4_lookup_batches([u, u], [m, m], tab, 2 * int(c), [0, B * P], k=k, P=P,
+                                id_bits=32)
     assert build.launch_counts() == {
         "bloom_fill": 6, "bloom_mark": 6, "bloom_extract": 2, "sort_records": 1,
         "judge_compact": 1, "bloom_lookup": 2,
@@ -960,17 +971,20 @@ def test_bloom_pipeline_cuda_equals_cpu(dev, tmp_path, layout, rounds, k):
     for device in ("cuda", "cpu"):
         out = str(tmp_path / f"{device}.dbg")
         build.reset_launch_counts()
-        build_junctions(None, cfg, out, sequences=sequences, device=device)
+        with trace.span("twopaco") as root:
+            enum = build_junctions(None, cfg, out, sequences=sequences, device=device)
         outs.append(open(out, "rb").read())
-        if device == "cuda":
+        if device == "cuda":  # the card emit: every record but the separators built there
             counts = build.launch_counts()
             assert set(counts) == {
                 "upload_rows", "bloom_fill", "bloom_mark", "bloom_extract", "sort_records",
-                "judge_compact", "bloom_lookup",
+                "judge_compact", "bloom_lookup", "emit_check", "emit_chunk",
             }
             for name in ("bloom_fill", "bloom_mark", "bloom_extract"):
                 assert counts[name] == rounds  # one a round
             assert counts["bloom_lookup"] == 1  # one call a run
+            assert counts["emit_check"] == 1 and counts["emit_chunk"] >= 1
+            assert _emit_write(root).counters["card_records"] == enum.stats.occurrences > 0
     sort_out = str(tmp_path / "sort.dbg")
     build_junctions_sorted(None, cfg, sort_out, sequences=sequences, device="cuda")
     assert outs[0] == outs[1] == open(sort_out, "rb").read() and len(outs[0]) > 0
@@ -2318,32 +2332,43 @@ def _emit_write(root):
     return write
 
 
-@pytest.mark.parametrize("engine", ["sort", "dist"])
+@pytest.mark.parametrize("engine", ["sort", "dist", "bloom"])
 def test_one_round_emits_on_the_card(dev, tmp_path, engine):
     """Sort -r 1 and dist over the card's one shard keep their keys on
     the card and write the CPU run's bytes there (card_records: every
     record but the separators); -r 3 and 4 shards merge their entries on
-    the card and write the merged keys there too; the CPU run's one entry
-    takes the same emit's plain versions, which count its records too."""
+    the card and write the merged keys there too; the Bloom engine's pass
+    4 keys, at -r 1 and -r 3, stay on the card and take the same emit; the
+    CPU run takes the same emit's plain versions, which count its records
+    too. A card run launches emit_check once and emit_chunk at least
+    once."""
     sequences = _dist_inputs()
     cfg = PipelineConfig(k=25, positions_per_row=256, rows_per_batch=8)
+    if engine == "bloom":
+        cfg = dataclasses.replace(cfg, engine="bloom", filter_bits=20)
     runs = {"cpu": ("cpu", 1, 1), "card": (dev, 1, 1), "r3": (dev, 3, 1),
             "shards": (dev, 1, 4)}
     outs = {}
     for name, (device, rounds, shards) in runs.items():
-        if engine == "sort" and shards > 1:
+        if engine != "dist" and shards > 1:
             continue
         c = dataclasses.replace(cfg, rounds=rounds)
         out = str(tmp_path / f"{name}.dbg")
+        build.reset_launch_counts()
         with trace.span("twopaco") as root:
             if engine == "dist":
                 enum = distpipe.build_junctions_dist(None, c, LocalMesh([device] * shards), out,
                                                      sequences=sequences, device=device)
+            elif engine == "bloom":
+                enum = build_junctions(None, c, out, sequences=sequences, device=device)
             else:
                 enum = build_junctions_sorted(None, c, out, sequences=sequences, device=device)
         outs[name] = open(out, "rb").read()
         card = _emit_write(root).counters["card_records"]
         assert card == enum.stats.occurrences > 0, name
+        if name != "cpu":
+            counts = build.launch_counts()
+            assert counts.get("emit_check") == 1 and counts.get("emit_chunk", 0) >= 1, counts
     assert len(set(outs.values())) == 1 and len(outs["cpu"]) > 0
 
 

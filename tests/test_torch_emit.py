@@ -367,9 +367,11 @@ def test_a_merge_whose_emit_tables_do_not_fit_takes_the_host_merge(tmp_path, mon
 
 # ChunkWriter.write_raw (the card emit's writer) with every other record
 # left out ("half") or one record's position moved ("alter") from the
-# from_call-th writer on, each under one harness run of the benchmark's
-# tiny four-round cell on the CPU; the harness refuses a process that
-# holds jax, so the runs are one child process
+# from_call-th writer on, each under one harness run of a tiny cell on the
+# CPU: the benchmark's four-round sort cell, or a one-round Bloom cell of a
+# traffic file written into the temporary root (a 2^20-slot filter, where
+# bloom-f34's would take 2 GiB); the harness refuses a process that holds
+# jax, so the runs of a cell are one child process
 WRITER_FAULTS = {"half_left_out": ("half", 0), "one_altered": ("alter", 0),
           "window_only": ("alter", 1)}
 PLANT = r"""
@@ -384,7 +386,7 @@ from twopaco_tpu_torch.io import junctions
 real_init, real_raw = junctions.ChunkWriter.__init__, junctions.ChunkWriter.write_raw
 
 
-def run(kind, from_call, tmp):
+def run(kind, from_call, tmp, traffic):
     writers = [0]
 
     def init(self, path):
@@ -404,26 +406,51 @@ def run(kind, from_call, tmp):
 
     junctions.ChunkWriter.__init__, junctions.ChunkWriter.write_raw = init, write_raw
     try:
-        rc, result, err = cells.run_cpu(*cells.make_root(tmp),
-                                        seconds=0.5 if from_call else 0.3)
+        root, cell = cells.make_root(tmp, traffic=traffic["name"])
+        if "argv" in traffic:
+            (root / "gpubench" / "traffic" / f"{traffic['name']}.json").write_text(
+                json.dumps(traffic))
+        rc, result, err = cells.run_cpu(root, cell, seconds=0.5 if from_call else 0.3)
     finally:
         junctions.ChunkWriter.__init__, junctions.ChunkWriter.write_raw = real_init, real_raw
     return {"rc": rc, "result": result, "err": err[-4000:]}
 
 
-faults, tmp = json.loads(sys.argv[1]), Path(sys.argv[2])
-print(json.dumps({name: run(kind, from_call, tmp / name)
+faults, tmp, traffic = json.loads(sys.argv[1]), Path(sys.argv[2]), json.loads(sys.argv[3])
+print(json.dumps({name: run(kind, from_call, tmp / name, traffic)
                   for name, (kind, from_call) in faults.items()}))
 """
+BLOOM_TRAFFIC = {"name": "bloom-r1-f20", "argv": ["--tpu-engine", "bloom", "-r", "1", "-f", "20"],
+                 "loop": "closed, one client", "why": "a test: the Bloom engine at a small filter"}
+
+
+def _plant(tmp_path_factory, traffic):
+    run = subprocess.run([sys.executable, "-c", PLANT, json.dumps(WRITER_FAULTS),
+                          str(tmp_path_factory.mktemp("plant")), json.dumps(traffic)],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
 
 
 @pytest.fixture(scope="module")
 def planted(tmp_path_factory):
-    run = subprocess.run([sys.executable, "-c", PLANT, json.dumps(WRITER_FAULTS),
-                          str(tmp_path_factory.mktemp("plant"))],
-                         cwd=REPO, capture_output=True, text=True, timeout=600)
-    assert run.returncode == 0, run.stderr[-4000:]
-    return json.loads(run.stdout.strip().splitlines()[-1])
+    return _plant(tmp_path_factory, {"name": "sort-r4"})
+
+
+@pytest.fixture(scope="module")
+def planted_bloom(tmp_path_factory):
+    return _plant(tmp_path_factory, BLOOM_TRAFFIC)
+
+
+def _caught(got, fault):
+    result = got["result"]
+    assert got["rc"] == 0 and result["correct"] is False, got["err"]
+    differing = result["compared"]
+    if WRITER_FAULTS[fault][1]:
+        assert differing["records_differing"]["value"] == 0
+        assert differing["window_builds_differing"]["value"] >= 1 and result["failed"] >= 1
+    else:
+        assert differing["records_differing"]["value"] > 0
 
 
 @pytest.mark.parametrize("fault", sorted(WRITER_FAULTS))
@@ -433,15 +460,14 @@ def test_the_benchmark_catches_a_fault_in_the_card_emit(planted, fault):
     planted there comes out not correct: records differing where every
     build is faulty, window builds differing where only the builds after
     the checked one are."""
-    got = planted[fault]
-    result = got["result"]
-    assert got["rc"] == 0 and result["correct"] is False, got["err"]
-    differing = result["compared"]
-    if WRITER_FAULTS[fault][1]:
-        assert differing["records_differing"]["value"] == 0
-        assert differing["window_builds_differing"]["value"] >= 1 and result["failed"] >= 1
-    else:
-        assert differing["records_differing"]["value"] > 0
+    _caught(planted[fault], fault)
+
+
+@pytest.mark.parametrize("fault", sorted(WRITER_FAULTS))
+def test_the_benchmark_catches_a_fault_in_the_bloom_card_emit(planted_bloom, fault):
+    """A tiny one-round Bloom cell on the CPU writes pass 4's keys through
+    the same ChunkWriter.write_raw; the same faults come out not correct."""
+    _caught(planted_bloom[fault], fault)
 
 
 def test_card_entry_faults_raise_in_the_merge(tmp_path):

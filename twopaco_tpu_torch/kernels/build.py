@@ -92,7 +92,7 @@ _SIGNATURES = {
     ),
     "tp_lookup_tile": ([], _I),
     "tp_bloom_lookup": (
-        [_P, _P, _I, _LL, _I, _I, _P, _P] + [_LL] * 3 + [_P] * 4 + [_SZ, _U32, _P], _I
+        [_P, _P, _I, _LL, _I, _I, _P, _P, _LL, _LL, _I] + [_P] * 3 + [_SZ, _U32, _P], _I
     ),
     "tp_shard_scratch_bytes": ([_SZ, _I, _I, _I, _I], _SZ),
     "tp_shard_bucket": (

@@ -11,31 +11,33 @@
 // no N in their window. Each candidate's canonical k-mer is searched in
 // the sorted (J, w) junction table (u32 words compared as unsigned,
 // lexicographically); a hit gets id +(rank+1) when the forward strand is
-// canonical, else -(rank+1). Output: the hits' global positions (the
-// batch's base + t, int64) and ids (int32), batch by batch and ascending
-// in each, at most cap of them; the number of hits (int64, which may
-// exceed cap: the caller checks); slots past it hold `pad` and
-// INVALID_ID32.
+// canonical, else -(rank+1). Output: a u64 key a hit (held in an int64),
+// key = pos << id_bits | (id + 2^(id_bits-1)) with pos the hit's global
+// position (the batch's base + t): the layout of passes/occ.py, which the
+// emit (passes/emit.py) takes. The keys come out batch by batch and
+// ascending in each, so ascending over the call when the bases ascend; at
+// most cap of them; the number of hits (int64, which may exceed cap: the
+// caller checks); slots past it hold PAD_KEY (u64 max).
 //
-// Bound: bytes, the masks and the candidates' windows read, the hits
-// written, and the distinct 32-byte sectors of the junction table that the
-// searches touch. Design: no scan and no n-sized scratch. A block takes the
-// next tile of LK_TILE positions from an atomic counter (tile t of batch b
-// is call tile b * tiles + t, as in partition.cu, so a look-back reads only
-// earlier tiles of the call); a thread reads the mask bytes of LK_PER
-// consecutive positions, tests its set bits (valid count, N) and the block
-// ranks the candidates by a prefix over the threads into shared memory, in
-// position order. Then a thread a candidate (dense, LK_TILE / TP_THREADS
+// Bound: bytes, the masks and the candidates' windows read, the keys written
+// (8 bytes a hit), and the distinct 32-byte sectors of the junction table
+// that the searches touch. Design: no scan and no n-sized scratch. A block
+// takes the next tile of LK_TILE positions from an atomic counter (tile t of
+// batch b is call tile b * tiles + t, as in partition.cu, so a look-back
+// reads only earlier tiles of the call); a thread reads the mask bytes of
+// LK_PER consecutive positions, tests its set bits (valid count, N) and the
+// block ranks the candidates by a prefix over the threads into shared memory,
+// in position order. Then a thread a candidate (dense, LK_TILE / TP_THREADS
 // rounds at most): its canonical key built in registers from scratch (16
 // chars a word from two packed words by a funnel shift; the forward word
-// bit-reversed, the reverse complement's complemented in place), a lower
-// bound over the table, and the hits ranked by ballots into the same
-// shared memory (in place: a hit's rank never passes its candidate's
-// index). common.cuh's block-wide look-back gives the tile's offset in the
-// call's output; the hits are stored coalesced. The last tile writes the
-// count; the tail fills the slots past it and resets the tile counter. The
-// status words carry a per-call epoch in a scratch kept across calls
-// (kernels/build.py lookback_scratch, "lookup").
+// bit-reversed, the reverse complement's complemented in place), a lower bound
+// over the table, and the hits ranked by ballots into the same shared memory
+// (in place: a hit's rank never passes its candidate's index). common.cuh's
+// block-wide look-back gives the tile's offset in the call's output; the
+// hits' keys are stored coalesced, one 8-byte store a hit. The last tile
+// writes the count; the tail fills the slots past it and resets the tile
+// counter. The status words carry a per-call epoch in a scratch kept across
+// calls (kernels/build.py lookback_scratch, "lookup").
 #include <algorithm>
 
 #include "common.cuh"
@@ -45,7 +47,7 @@ namespace {
 constexpr int LK_PER = 16;                     // positions a thread (2 mask bytes)
 constexpr int LK_TILE = TP_THREADS * LK_PER;   // positions a tile
 constexpr int TAIL_CHUNK = 4096;               // output slots a tail block
-constexpr int32_t INVALID_ID32 = 0x7fffffff;
+constexpr long long PAD_KEY = -1;              // u64 max: the unused slots
 
 struct LookupArgs {
     const TpBatch* table;     // a row's out_off: its mask's bytes from `mask`
@@ -56,8 +58,8 @@ struct LookupArgs {
     long long n_tiles;        // tiles of the call
     const uint32_t* jt;       // the (J, w) junction table
     long long J, cap;
-    long long* out_pos;
-    int32_t* out_ids;
+    int id_bits;
+    long long* out_keys;
     long long* count;
     uint32_t* tile_ctr;
     uint64_t* status;         // a word a call tile
@@ -180,34 +182,32 @@ __global__ void __launch_bounds__(TP_THREADS) k_lookup(LookupArgs a) {
     const uint32_t excl = tp_block_lookback(a.status, a.epoch, tile, hits, s_scan, &s_stop);
     if (tile + 1 == (size_t)a.n_tiles && tid == 0) *a.count = (long long)excl + hits;
     const long long base = a.bases[b] + t0;
+    const long long bias = 1ll << (a.id_bits - 1);
     for (uint32_t j = tid; j < hits; j += TP_THREADS) {
         const long long d = (long long)excl + j;
-        if (d < a.cap) {
-            a.out_pos[d] = base + s_pos[j];
-            a.out_ids[d] = s_id[j];
-        }
+        if (d < a.cap)
+            a.out_keys[d] = (long long)(((unsigned long long)(base + s_pos[j]) << a.id_bits) |
+                                        (unsigned long long)(s_id[j] + bias));
     }
 }
 
 // The slots from the count to cap, and the tile counter back to 0 for the
 // next call
-__global__ void k_lookup_tail(LookupArgs a, long long pad) {
+__global__ void k_lookup_tail(LookupArgs a) {
     if (blockIdx.x == 0 && threadIdx.x == 0) *a.tile_ctr = 0;
     const long long cnt = *a.count;
     const long long c0 = (long long)blockIdx.x * TAIL_CHUNK;
     const long long end = min(c0 + TAIL_CHUNK, a.cap);
-    for (long long j = max(cnt, c0) + threadIdx.x; j < end; j += TP_THREADS) {
-        a.out_pos[j] = pad;
-        a.out_ids[j] = INVALID_ID32;
-    }
+    for (long long j = max(cnt, c0) + threadIdx.x; j < end; j += TP_THREADS)
+        a.out_keys[j] = PAD_KEY;
 }
 
 template <int W>
-cudaError_t launch(const LookupArgs& a, long long pad, cudaStream_t st) {
+cudaError_t launch(const LookupArgs& a, cudaStream_t st) {
     k_lookup<W><<<(unsigned)a.n_tiles, TP_THREADS, 0, st>>>(a);
     TP_LAUNCH_CHECK();
     k_lookup_tail<<<(unsigned)std::max<long long>(1, (a.cap + TAIL_CHUNK - 1) / TAIL_CHUNK),
-                    TP_THREADS, 0, st>>>(a, pad);
+                    TP_THREADS, 0, st>>>(a);
     return cudaGetLastError();
 }
 
@@ -220,18 +220,21 @@ extern "C" int tp_lookup_tile() { return LK_TILE; }
 // The hits of nb batches in one launch and a tail. table: nb TpBatch rows
 // (out_off: the byte offset of the batch's (rows, P/8) mask from mask);
 // bases: nb int64; max_pos: the most positions of a batch (< 2^31 in all);
-// jt: (J, w) u32 sorted, 1 <= J < 2^31 - 1; cap >= 0; out_pos (cap int64),
-// out_ids (cap int32), count (one int64). scratch: scratch_bytes
+// jt: (J, w) u32 sorted, 1 <= J < 2^31 - 1; cap >= 0; id_bits in [2, 62]
+// with J < 2^(id_bits-1) and every global position below 2^(64-id_bits)
+// (the caller checks the positions); out_keys (cap int64), count (one
+// int64). scratch: scratch_bytes
 // (tp_lookup_tile) zeroed before its first call and kept across calls,
 // each call with another epoch (< 2^30) than the one before.
 extern "C" int tp_bloom_lookup(const void* table, const void* bases, int nb, long long max_pos,
                                int P, int k, const void* mask, const void* jt, long long J,
-                               long long cap, long long pad, void* out_pos, void* out_ids,
-                               void* count, void* scratch, size_t scratch_bytes,
-                               uint32_t epoch, void* stream) {
+                               long long cap, int id_bits, void* out_keys, void* count,
+                               void* scratch, size_t scratch_bytes, uint32_t epoch,
+                               void* stream) {
     const long long tiles = std::max<long long>(1, (max_pos + LK_TILE - 1) / LK_TILE);
     if (table == nullptr || nb < 1 || max_pos < 0 || (long long)nb * max_pos >= (1ll << 31) ||
         P < 8 || P % 8 != 0 || k < 1 || J < 1 || J >= (1ll << 31) - 1 || cap < 0 ||
+        id_bits < 2 || id_bits > 62 || J >= (1ll << (id_bits - 1)) ||
         epoch > TP_EPOCH_MASK || scratch == nullptr ||
         scratch_bytes < (size_t)(8 + nb * tiles * 8))
         return (int)cudaErrorInvalidValue;
@@ -244,17 +247,17 @@ extern "C" int tp_bloom_lookup(const void* table, const void* bases, int nb, lon
     a.n_tiles = nb * tiles;
     a.jt = (const uint32_t*)jt;
     a.J = J, a.cap = cap;
-    a.out_pos = (long long*)out_pos;
-    a.out_ids = (int32_t*)out_ids;
+    a.id_bits = id_bits;
+    a.out_keys = (long long*)out_keys;
     a.count = (long long*)count;
     a.tile_ctr = (uint32_t*)scratch;
     a.status = (uint64_t*)((char*)scratch + 8);
     a.epoch = epoch;
     const cudaStream_t st = (cudaStream_t)stream;
     switch (a.w) {
-        case 1: return (int)launch<1>(a, pad, st);
-        case 2: return (int)launch<2>(a, pad, st);
-        case 3: return (int)launch<3>(a, pad, st);
-        default: return (int)launch<4>(a, pad, st);
+        case 1: return (int)launch<1>(a, st);
+        case 2: return (int)launch<2>(a, st);
+        case 3: return (int)launch<3>(a, st);
+        default: return (int)launch<4>(a, st);
     }
 }

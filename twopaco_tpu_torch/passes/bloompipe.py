@@ -17,9 +17,13 @@ TwoPaCo's own algorithm (vertexenumerator.h:122-466):
             the round's junctions;
   3. host: the rounds' junctions into one sorted dictionary;
   4. device, in one call over the run's batches (a group of batches a call
-     when the masks spilled): the ids of the candidate positions found in
-     the dictionary (passes/lookup.py), then the junction list written with
-     stubs (pipeline.emit_junctions).
+     when the masks spilled): the candidate positions found in the
+     dictionary as position-sorted u64 occurrence keys (passes/lookup.py),
+     which stay where they are: checked and written with stubs there by
+     the emit of every packed merge (passes/emit.py check_keys,
+     write_keys). Where the ids with the stubs' do not fit the sort
+     engine's key layout (sortpipe._packed_merge), the keys are fetched,
+     decoded and written by pipeline.emit_junctions.
 
 TWOPACO_UNIFORM_SPLIT=0 splits the hash space by a measured histogram
 (passes/histogram.py) instead of uniformly; TWOPACO_MASK_SPILL_BYTES
@@ -40,7 +44,7 @@ import torch
 from twopaco_tpu_torch import dna, trace
 from twopaco_tpu_torch.ops import bloom
 from twopaco_tpu_torch.ops.pack import MASK32
-from twopaco_tpu_torch.passes import extract, histogram
+from twopaco_tpu_torch.passes import emit, extract, histogram
 from twopaco_tpu_torch.passes.histogram import BIN_POW
 from twopaco_tpu_torch.passes.pipeline import (
     Enumerator,
@@ -52,7 +56,17 @@ from twopaco_tpu_torch.passes.pipeline import (
     emit_junctions,
     timed_engine,
 )
-from twopaco_tpu_torch.passes.sortpipe import _sync, load_batches, resolve_device
+from twopaco_tpu_torch.passes.occ import OccKeys
+from twopaco_tpu_torch.passes.sortpipe import (
+    _free_bytes,
+    _gib,
+    _packed_merge,
+    _sync,
+    load_batches,
+    merge_pos_bits,
+    resolve_device,
+    wide_layout,
+)
 from twopaco_tpu_torch.passes.versions import KERNELS, PLAIN
 
 # the phase times every run reports, summed over rounds
@@ -130,6 +144,18 @@ class MaskStore:
         if self.dir is not None:
             shutil.rmtree(self.dir, ignore_errors=True)
             self.dir = None
+
+
+def key_layout(n_slots: int, n_sequences: int, n_table: int, wide: bool) -> tuple[int, bool]:
+    """-> (id_bits of pass 4's occurrence keys, whether they take the
+    keyed emit). The sort engine's layout (sortpipe.merge_pos_bits) where
+    its packed merge would take the ids with the stubs'; else positions
+    below n_slots in as few high bits as they need, the emit then
+    pipeline.emit_junctions."""
+    id_bits = 64 - merge_pos_bits(n_slots, wide)
+    if _packed_merge(n_table, n_sequences, id_bits):
+        return id_bits, True
+    return min(62, 64 - max(1, (n_slots - 1).bit_length())), False
 
 
 def _checkpoint_meta(config: PipelineConfig, layout: str, intervals, fingerprint) -> dict:
@@ -294,8 +320,11 @@ def build_junctions_bloom(
     log(f"Reallocating bifurcations time: {dspan.seconds:.1f}")
     enum = Enumerator(table, k, stats)
 
-    # ---- pass 4: ids of the candidate positions, ordered output --------
+    # ---- pass 4: the candidate positions' keys, the junction list --------
     if out_path is not None:
+        n_slots = len(batches) * B * P
+        id_bits, keyed = key_layout(n_slots, len(sequences), len(table),
+                                    wide_layout(config, n_slots))
         with trace.span("lookup"):
             table_d = torch.from_numpy(table).to(dev)
             # one call over the run's batches; groups of batches when the masks
@@ -306,21 +335,34 @@ def build_junctions_bloom(
                 g1 = min(g0 + per, len(batches))
                 cap = max(1, sum(sum(rc[g0:g1]) for rc in round_counts))  # >= its candidates
                 found.append((*ops.lookup(uploads[g0:g1], masks.group_masks(g0, g1, dev),
-                                          table_d, cap, bases[g0:g1], k=k, P=P), cap))
+                                          table_d, cap, bases[g0:g1], k=k, P=P,
+                                          id_bits=id_bits), cap))
             masks.cleanup()
-            cnts = [int(c) for c in torch.stack([c for _p, _i, c, _cap in found]).cpu()]
+            del table_d
+            cnts = [int(c) for c in torch.stack([c for _k, c, _cap in found]).cpu()]
             if any(c > cap for c, (*_r, cap) in zip(cnts, found)):
                 raise RuntimeError("pass 4 found more junction positions than candidates")
-            parts = [(p[:c], i[:c]) for c, (p, i, _c, _cap) in zip(cnts, found)]
-            occ_pos, occ_ids = (
-                (torch.cat(col) if len(parts) > 1 else col[0]).cpu().numpy()
-                for col in zip(*parts)
-            )
-            del found, parts, table_d
+            # the groups' keys in batch order: ascending
+            parts = [keys[:c] for c, (keys, _c, _cap) in zip(cnts, found)]
+            keys = torch.cat(parts) if len(parts) > 1 else parts[0]
+            del found, parts
+            if keyed:
+                free = _free_bytes(dev)
+                chunk_occ = emit.chunk_size(batches, free)
+                if chunk_occ < min(emit.CHUNK, keys.numel()):
+                    log(f"Emit in chunks of {chunk_occ} occurrences: {_gib(free)} is free")
+                checked = emit.check_keys(keys, batches, len(table), P, id_bits,
+                                          chunk_occ=chunk_occ, fn=ops.check)
+            else:
+                occ_pos, occ_ids = OccKeys(keys, id_bits).decode()
+                del keys
         with trace.span("emit"):
-            occurrences, n_stubs = emit_junctions(
-                out_path, batches, occ_pos, occ_ids, len(table), P
-            )
+            if keyed:
+                occurrences, n_stubs = emit.write_keys(out_path, batches, keys, checked,
+                                                       len(table), P, id_bits, fn=ops.chunk)
+            else:
+                occurrences, n_stubs = emit_junctions(out_path, batches, occ_pos, occ_ids,
+                                                      len(table), P)
         stats.occurrences = occurrences
         stats.stub_ids = n_stubs
         log(f"True marks count: {occurrences}")

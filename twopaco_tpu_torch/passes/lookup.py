@@ -1,12 +1,17 @@
 """Bloom lookup: the junction ids of the candidate positions of window
-batches (pass 4 of the Bloom engine).
+batches (pass 4 of the Bloom engine), as the u64 occurrence keys that the
+emit takes.
 
-The port of twopaco_tpu/passes/kernels.py:506 pass4_lookup. CUDA tensors
-go through kernels/csrc/bloom_lookup.cu, one launch and a tail a call:
+The port of twopaco_tpu/passes/kernels.py:506 pass4_lookup. A hit comes
+out as key = pos << id_bits | (id + 2^(id_bits-1)), pos its global
+position: the layout of passes/occ.py, which passes/emit.py checks and
+writes where the keys lie. CUDA tensors go through
+kernels/csrc/bloom_lookup.cu, one launch and a tail a call:
 `pass4_lookup_batches` over a run's (or a group's) batches, `pass4_lookup`
 for one batch (a one-row table). CPU tensors go through
 `pass4_lookup_plain`, which runs the JAX package's fixed-step lower bound
-in plain PyTorch, and its per-batch loop `pass4_lookup_batches_plain`.
+in plain PyTorch and returns its (positions, ids), and its per-batch loop
+`pass4_lookup_batches_plain`, which packs them into keys.
 """
 
 from __future__ import annotations
@@ -19,20 +24,19 @@ from twopaco_tpu_torch.kernels import build
 from twopaco_tpu_torch.ops import pack
 from twopaco_tpu_torch.passes import mark, records
 
-INVALID_ID32 = (1 << 31) - 1  # the id of the unused output slots
-
-
-def _outputs(cap: int, pad: int, dtype, device):
-    return (
-        torch.full((cap,), pad, dtype=dtype, device=device),
-        torch.full((cap,), INVALID_ID32, dtype=torch.int32, device=device),
-    )
+INVALID_ID32 = (1 << 31) - 1  # pass4_lookup_plain's id of the unused output slots
+PAD_KEY = -1  # the key of the unused output slots: u64 max, past every key
 
 
 def pass4_lookup_plain(packed, nmask, valid, mask, table, cap: int, *, k: int, P: int):
-    """Plain PyTorch version of pass4_lookup (any device)."""
+    """The JAX package's pass4_lookup in plain PyTorch (any device): one
+    batch's hits as (pos (cap,) int32 batch-local flat positions row*P +
+    col, ascending; ids (cap,) int32; count: a 0-d int64 tensor, the
+    number of hits). Slots past count hold B*P and INVALID_ID32.
+    pass4_lookup_batches_plain packs its hits into keys."""
     B = packed.shape[0]
-    out_pos, out_ids = _outputs(cap, B * P, torch.int32, packed.device)
+    out_pos = torch.full((cap,), B * P, dtype=torch.int32, device=packed.device)
+    out_ids = torch.full((cap,), INVALID_ID32, dtype=torch.int32, device=packed.device)
     J = table.shape[0]
     if J == 0:
         return out_pos, out_ids, torch.zeros((), dtype=torch.int64, device=packed.device)
@@ -58,28 +62,32 @@ def pass4_lookup_plain(packed, nmask, valid, mask, table, cap: int, *, k: int, P
 
 
 def _pad(uploads, bases, P: int) -> int:
-    """The position past the last batch's: the value of unused slots."""
+    """The position past the last batch's."""
     return int(bases[-1]) + uploads[-1][0].shape[0] * P
 
 
-def pass4_lookup_batches_plain(uploads, masks, table, cap: int, bases, *, k: int, P: int):
+def _keys(pos, ids, id_bits: int):
+    return (pos << id_bits) | (ids.to(torch.int64) + (1 << (id_bits - 1)))
+
+
+def pass4_lookup_batches_plain(uploads, masks, table, cap: int, bases, *, k: int, P: int,
+                               id_bits: int):
     """Plain PyTorch version of pass4_lookup_batches: pass4_lookup_plain a
-    batch, the hits offset by the batch's base and concatenated (any
-    device)."""
+    batch, the hits offset by the batch's base, packed into keys and
+    concatenated (any device)."""
     _check_batches(uploads, masks, bases)
-    pos, ids = [], []
+    _check_layout(uploads, table, bases, P, id_bits)
+    keys = []
     for (packed, nmask, valid), m, base in zip(uploads, masks, bases):
         p, i, c = pass4_lookup_plain(packed, nmask, valid, m, table, packed.shape[0] * P,
                                      k=k, P=P)
         c = int(c)
-        pos.append(p[:c].to(torch.int64) + int(base))
-        ids.append(i[:c])
-    pos, ids = torch.cat(pos), torch.cat(ids)
-    out_pos, out_ids = _outputs(cap, _pad(uploads, bases, P), torch.int64, pos.device)
-    n = min(len(pos), cap)
-    out_pos[:n] = pos[:n]
-    out_ids[:n] = ids[:n]
-    return out_pos, out_ids, torch.tensor(len(pos), dtype=torch.int64, device=pos.device)
+        keys.append(_keys(p[:c].to(torch.int64) + int(base), i[:c], id_bits))
+    keys = torch.cat(keys)
+    out = torch.full((cap,), PAD_KEY, dtype=torch.int64, device=keys.device)
+    n = min(len(keys), cap)
+    out[:n] = keys[:n]
+    return out, torch.tensor(len(keys), dtype=torch.int64, device=keys.device)
 
 
 def _check_batches(uploads, masks, bases) -> None:
@@ -87,8 +95,18 @@ def _check_batches(uploads, masks, bases) -> None:
         raise ValueError(f"{len(uploads)} batches, {len(masks)} masks, {len(bases)} bases")
 
 
-def _lookup(uploads, masks, table, cap: int, bases, k: int, P: int):
-    """The kernel's call over the batches: -> (pos int64, ids, count)."""
+def _check_layout(uploads, table, bases, P: int, id_bits: int) -> None:
+    """Every id of the table and every position of the batches fits the
+    key layout."""
+    if not 2 <= id_bits <= 62:
+        raise ValueError(f"id_bits {id_bits} out of range")
+    if table.shape[0] >= 1 << (id_bits - 1) or _pad(uploads, bases, P) > 1 << (64 - id_bits):
+        raise ValueError(f"{table.shape[0]} junctions or {_pad(uploads, bases, P)} positions "
+                         f"do not fit a key of {id_bits} id bits")
+
+
+def _lookup(uploads, masks, table, cap: int, bases, k: int, P: int, id_bits: int):
+    """The kernel's call over the batches: -> (keys, count)."""
     w = pack.n_words(k)
     build.require(table, torch.uint32, "table")
     J = table.shape[0]
@@ -108,15 +126,13 @@ def _lookup(uploads, masks, table, cap: int, bases, k: int, P: int):
     if len(uploads) * max_pos >= 1 << 31 or J >= (1 << 31) - 1:
         raise ValueError(f"{len(uploads) * max_pos} positions or {J} junctions exceed a "
                          "lookup call's int32 ranks and ids")
+    _check_layout(uploads, table, bases, P, id_bits)
     if cap < 0:
         raise ValueError(f"cap {cap} < 0")
-    out_pos, out_ids = (torch.empty(cap, dtype=dt, device=dev) for dt in (torch.int64,
-                                                                         torch.int32))
+    out_keys = torch.empty(cap, dtype=torch.int64, device=dev)
     count = torch.empty((), dtype=torch.int64, device=dev)
     if J == 0:  # nothing to find
-        out_pos.fill_(_pad(uploads, bases, P))
-        out_ids.fill_(INVALID_ID32)
-        return out_pos, out_ids, count.zero_()
+        return out_keys.fill_(PAD_KEY), count.zero_()
     lib = build.lib()
     base = min(m.data_ptr() for m in masks)
     tab, tab_bases = build.batch_table(uploads, [m.data_ptr() - base for m in masks],
@@ -125,56 +141,57 @@ def _lookup(uploads, masks, table, cap: int, bases, k: int, P: int):
     scratch, epoch = build.lookback_scratch(dev, 8 + tiles * 8, "lookup")
     rc = lib.tp_bloom_lookup(
         tab.data_ptr(), tab_bases.data_ptr(), len(uploads),
-        max_pos, P, k, base, table.data_ptr(), J, cap, _pad(uploads, bases, P),
-        out_pos.data_ptr(), out_ids.data_ptr(), count.data_ptr(), scratch.data_ptr(),
+        max_pos, P, k, base, table.data_ptr(), J, cap, id_bits,
+        out_keys.data_ptr(), count.data_ptr(), scratch.data_ptr(),
         scratch.numel(), epoch, build.stream_ptr(),
     )
     if rc != 0:
         build.drop_lookback_scratch(dev, "lookup")
     build.check(rc, "bloom_lookup")
     build.count_launch("bloom_lookup")
-    return out_pos, out_ids, count
+    return out_keys, count
 
 
-def pass4_lookup_batches(uploads, masks, table, cap: int, bases, *, k: int, P: int):
-    """Junction ids of the candidate positions of a list of batches, in one
-    call.
+def pass4_lookup_batches(uploads, masks, table, cap: int, bases, *, k: int, P: int,
+                         id_bits: int):
+    """The candidate positions of a list of batches found in the junction
+    dictionary, as occurrence keys, in one call.
 
     uploads: (packed, nmask, valid) batches on one device; masks: per batch
     its (B_b, P/8) uint8 mask, the OR of every round's candidate mask;
     table (J, w) uint32: the sorted junction dictionary; cap: the output
     length (at least the batches' candidate count); bases: each batch's
-    first global position (batch order ascending: the outputs are then
-    ascending).
+    first global position (batch order ascending: the keys are then
+    ascending); id_bits: the keys' id bits (J < 2^(id_bits-1), every
+    position below 2^(64-id_bits); ValueError otherwise).
 
     A candidate (mask bit set, inside the row's valid count, no N in its
     window) whose canonical k-mer is row r of the table gets id r+1, or
     -(r+1) when its reverse complement is the canonical strand.
-    -> (pos (cap,) int64 global positions base + row*P + col of the hits,
-    batch by batch and ascending in each; ids (cap,) int32; count: a 0-d
-    int64 tensor, the number of hits, which may exceed cap). Slots past
-    count hold the position past the last batch's and INVALID_ID32.
+    -> (keys (cap,) int64 holding the u64 keys pos << id_bits | (id +
+    2^(id_bits-1)), pos the hit's global position base + row*P + col,
+    batch by batch and ascending in each; count: a 0-d int64 tensor, the
+    number of hits, which may exceed cap). Slots past count hold PAD_KEY.
 
     On the card one launch of the kernel and its tail over a device table
     of the batches."""
     if build.on_cpu(table, *(t for up in uploads for t in up), *masks):
-        return pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k, P=P)
+        return pass4_lookup_batches_plain(uploads, masks, table, cap, bases, k=k, P=P,
+                                          id_bits=id_bits)
     _check_batches(uploads, masks, bases)
-    return _lookup(uploads, masks, table, cap, bases, k, P)
+    return _lookup(uploads, masks, table, cap, bases, k, P, id_bits)
 
 
-def pass4_lookup(packed, nmask, valid, mask, table, cap: int, *, k: int, P: int):
-    """Junction ids of one batch's candidate positions.
+def pass4_lookup(packed, nmask, valid, mask, table, cap: int, *, k: int, P: int,
+                 id_bits: int):
+    """One batch's candidate positions found in the junction dictionary,
+    as occurrence keys of its batch-local flat positions row*P + col.
 
     packed, nmask, valid: the batch's upload form; mask (B, P/8) uint8: the
-    OR of every round's candidate mask of the batch; table, cap as
-    pass4_lookup_batches'.
-    -> (pos (cap,) int32 batch-local flat positions row*P + col of the hits
-    in ascending order, ids (cap,) int32, count: a 0-d int64 tensor, the
-    number of hits). Slots past count hold B*P and INVALID_ID32.
+    OR of every round's candidate mask of the batch; table, cap, id_bits as
+    pass4_lookup_batches'. -> (keys (cap,) int64, count), as
+    pass4_lookup_batches' over this one batch at base 0.
 
     On the card: the kernel's call over a one-row table."""
-    if build.on_cpu(packed, nmask, valid, mask, table):
-        return pass4_lookup_plain(packed, nmask, valid, mask, table, cap, k=k, P=P)
-    pos, ids, count = _lookup([(packed, nmask, valid)], [mask], table, cap, [0], k, P)
-    return pos.to(torch.int32), ids, count
+    return pass4_lookup_batches([(packed, nmask, valid)], [mask], table, cap, [0], k=k, P=P,
+                                id_bits=id_bits)

@@ -411,9 +411,10 @@ def emit_junctions(
     """Write the junction list from an UNPACKED occurrence stream:
     occ_pos sorted int64 global flat positions (row * P + col) of the
     resolved junction occurrences, occ_ids their signed ids (any width).
-    The emit of the unpacked merge (runs whose ids and positions do not
-    fit one u64 key) and of the Bloom engine; a packed merge writes its
-    keys through passes/emit.py. Returns (records_written, stub_count)."""
+    The emit of the unpacked merge and of the Bloom engine where the ids
+    (the stubs' too) and positions do not fit one u64 key; a packed merge
+    and every other Bloom run write their keys through passes/emit.py.
+    Returns (records_written, stub_count)."""
     occ_pos = occ_pos.astype(np.int64, copy=False)
     occ_ids = occ_ids.astype(np.int64, copy=False)
 
