@@ -3,7 +3,9 @@ into the plain record the metric readers take, and the arithmetic over it
 (the union of device time, the idle gaps and what the host did in them).
 
 Times in the record are seconds from the first traced build's start, on
-the profiler's clock."""
+the profiler's clock. Each device event keeps its card (the profiler's
+device index): a card's busy time is the union of its own events, and the
+cell's is the mean over its cards."""
 
 from __future__ import annotations
 
@@ -32,10 +34,11 @@ def short_name(name: str, width: int = 80) -> str:
     return name[:width]
 
 
-def from_profiler(prof) -> dict:
+def from_profiler(prof, cards: int = 1) -> dict:
     """The trace part of the record: {"span": [0, end], "builds": [[start,
-    end], ...], "device": [[name, start, end], ...], "host": [[name,
-    start, end], ...], "spans": the program's spans (spans.annotations)}."""
+    end], ...], "device": [[name, start, end, card], ...], "host": [[name,
+    start, end], ...], "spans": the program's spans (spans.annotations),
+    "cards": the cell's cards}."""
     from torch.autograd import DeviceType
 
     from gpubench import spans
@@ -56,12 +59,15 @@ def from_profiler(prof) -> dict:
         if e.name == BUILD_RANGE or getattr(e, "is_user_annotation", False):
             continue
         item = [e.name, sec(e.time_range.start), sec(e.time_range.end)]
-        (device if e.device_type == DeviceType.CUDA else host).append(item)
+        if e.device_type == DeviceType.CUDA:
+            device.append([*item, e.device_index])
+        else:
+            host.append(item)
     builds = [[sec(r.time_range.start), sec(r.time_range.end)] for r in ranges]
     device.sort(key=lambda x: x[1])
     host.sort(key=lambda x: x[1])
     return dict(span=[builds[0][0], builds[-1][1]], builds=builds, device=device, host=host,
-                spans=spans.annotations(prof))
+                spans=spans.annotations(prof), cards=cards)
 
 
 def union(intervals, lo: float, hi: float):
@@ -79,15 +85,21 @@ def union(intervals, lo: float, hi: float):
 
 
 def busy_seconds(trace: dict) -> float:
+    """The seconds of the traced span in which an operation ran on a card,
+    each card's union of its events, averaged over the cell's cards."""
     lo, hi = trace["span"]
-    return sum(e - s for s, e in union(((s, e) for _n, s, e in trace["device"]), lo, hi))
+    by_card: dict = {}
+    for _n, s, e, card in trace["device"]:
+        by_card.setdefault(card, []).append((s, e))
+    busy = sum(e - s for ev in by_card.values() for s, e in union(ev, lo, hi))
+    return busy / trace.get("cards", 1)
 
 
 def device_ops(trace: dict, top: int = 10):
     """[[short name, total seconds], ...] of the device operations that
     took the most time, most first."""
     tot: dict[str, float] = {}
-    for name, s, e in trace["device"]:
+    for name, s, e, _card in trace["device"]:
         key = short_name(name)
         tot[key] = tot.get(key, 0.0) + (e - s)
     return [[n, v] for n, v in sorted(tot.items(), key=lambda kv: -kv[1])[:top]]
@@ -95,7 +107,7 @@ def device_ops(trace: dict, top: int = 10):
 
 def idle_gaps(trace: dict, top: int = 10):
     """[[what the host did, seconds], ...] of the longest stretches of a
-    traced build with no device operation, longest first (gaps are cut at
+    traced build with no device operation on any card, longest first (gaps are cut at
     the builds' ends, so that one build's tail and the next one's head
     are two). A gap is named by the host operator that covers most of it
     (its innermost, where several cover as much; "no torch op" where none
@@ -103,7 +115,7 @@ def idle_gaps(trace: dict, top: int = 10):
     gaps = []
     for lo, hi in trace["builds"]:
         t = lo
-        for s, e in union(((s, e) for _n, s, e in trace["device"]), lo, hi):
+        for s, e in union(((s, e) for _n, s, e, _c in trace["device"]), lo, hi):
             if s > t:
                 gaps.append((t, s))
             t = max(t, e)

@@ -25,7 +25,7 @@ _ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
 # a repeat family's keys: {key: required}
 FAMILY_KEYS = {"name": True, "class": True, "length": True, "share": True,
                "divergence": True, "truncated": False, "fragment": False}
-_CHUNK = 1 << 24  # repeat bases laid in at once (bounds the host memory)
+_CHUNK = 1 << 24  # bases drawn, or repeat bases laid in, at once (bounds the host memory)
 
 
 def make_bench_genomes(
@@ -40,7 +40,11 @@ def make_bench_genomes(
     check_repeats takes them, laid into the base genome before its
     variants are made."""
     rng = np.random.default_rng(seed)
-    base = _ALPHA[rng.integers(0, 4, size=length)]
+    # drawn in even chunks, the same stream as one draw, so that a genome of
+    # Gbases holds no int64 code a base on the host
+    base = np.empty(length, dtype=np.uint8)
+    for a in range(0, length, _CHUNK):
+        base[a : a + _CHUNK] = _ALPHA[rng.integers(0, 4, size=min(_CHUNK, length - a))]
     if repeats:
         insert_repeats(base, repeat_layout(repeats, length, seed))
     seqs = [base]
@@ -63,15 +67,43 @@ def rng_seed(seed: int) -> int:
 
 def config_genomes(config: dict, seed: int) -> list[np.ndarray]:
     """The sequences of a configuration file's sizes for --seed."""
-    length = int(config["length"])
+    length = genome_length(config)
     repeats = config.get("repeats")
     if repeats is not None:
         check_repeats(repeats, length)
-    return make_bench_genomes(
+    seqs = make_bench_genomes(
         n_seqs=int(config["genomes"]), length=length,
         snp_rate=float(config["snp_rate"]), n_rate=float(config["n_rate"]),
         seed=rng_seed(seed), repeats=repeats,
     )
+    lengths = config.get("lengths")
+    if lengths is None:
+        return seqs
+    ends = np.cumsum([int(n) for n in lengths])
+    return [s[e - int(n) : e] for s in seqs for n, e in zip(lengths, ends)]
+
+
+def genome_length(config: dict) -> int:
+    """A genome's length in bases: the sum of the configuration's `lengths`
+    where it has them (check_lengths), else its `length`."""
+    lengths = config.get("lengths")
+    if lengths is None:
+        return int(config["length"])
+    check_lengths(lengths, config.get("length"))
+    return int(sum(lengths))
+
+
+def check_lengths(lengths, length=None) -> None:
+    """Raises a ValueError, naming the key, unless `lengths` is a non-empty
+    list of whole numbers >= 1 (a genome's sequences, in order) that adds
+    up to `length` where that is given."""
+    if (not isinstance(lengths, list) or not lengths
+            or not all(_whole(n) and n >= 1 for n in lengths)):
+        raise ValueError(f"lengths: a non-empty list of whole numbers >= 1 is wanted, "
+                         f"not {lengths!r}")
+    if length is not None and int(sum(lengths)) != length:
+        raise ValueError(f"lengths: they add up to {int(sum(lengths))}, not to the key "
+                         f"'length' {length!r}")
 
 
 # ---- interspersed repeats ---------------------------------------------------

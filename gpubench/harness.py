@@ -2,8 +2,10 @@
 
     python3 gpubench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A run, on cuda:0 (it exits 1 and prints no result without a card, or
-with fewer cards than the cell asks for):
+A run, on the first `chips` cards visible to it, the cell's (it sets
+CUDA_VISIBLE_DEVICES to them before CUDA starts, so that the program sees
+no other; it exits 1 and prints no result without a card, or with fewer
+cards than the cell asks for):
   1. set-up (setup_s, from the start of main): import torch, generate the
      cell's input from --seed (genome.py) and write it as FASTA into a
      fresh directory under TMPDIR, warm what the program's daemon warms
@@ -13,15 +15,16 @@ with fewer cards than the cell asks for):
      window's clock is under --seconds; the window ends with the last
      build's end. A build runs as the daemon runs a request
      (cli/serve.py _serve_one): twopaco_tpu_torch.cli.twopaco.main(argv)
-     with its output captured, torch.cuda.synchronize(),
-     torch.cuda.empty_cache(). argv is the configuration's -k, the traffic
-     mix's flags, the FASTA and -o <a FIFO> that a thread drains and
-     compares with the checked build's bytes as they come (sink.py): no
-     build writes its .dbg to disk. With --trace 1 the window runs under
-     torch.profiler;
+     with its output captured, then torch.cuda.synchronize() and
+     torch.cuda.empty_cache() on each of the cell's cards. argv is the
+     configuration's -k, the traffic mix's flags, the FASTA and -o <a
+     FIFO> that a thread drains and compares with the checked build's
+     bytes as they come (sink.py): no build writes its .dbg to disk. With
+     --trace 1 the window runs under torch.profiler;
   3. after the window: the checked build's .dbg against the plain
-     reference's (reference.py, run on the card once the program's memory
-     is released), the count of window builds that failed or wrote other
+     reference's (reference.py, run on the first card once the program's
+     memory is released, in as many blocks by k-mer range as its free
+     memory asks), the count of window builds that failed or wrote other
      bytes, the metrics (metrics/<name>.py, the end-to-end ones with
      --trace 0, the per-layer ones with --trace 1), and the result line.
 
@@ -30,8 +33,9 @@ by name from BENCHMARK.json: configs[].file, traffic/<traffic>.json,
 metrics/<metric>.py. A metric's reader is a module with read(record) ->
 float or None (None: nothing to read, the metric is left out). The record
 is a plain dict:
-  bases, sequences, k, setup_s, window_s (first build start to last build
-  end), builds: [{rc, ok, wall_s, stdout}], window_peak_bytes, junctions
+  bases, sequences, k, cards (the cell's chips), setup_s, window_s (first
+  build start to last build end), builds: [{rc, ok, wall_s, stdout}],
+  window_peak_bytes (the fullest card's peak in the window), junctions
   and occurrences (the plain reference's counts of the junctions and of
   their occurrences), and with --trace 1 trace (devtrace.py's) and
   records (the round sort's real records a build).
@@ -63,11 +67,25 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "twopaco_tpu")
 # ---- the cell, from BENCHMARK.json -------------------------------------
 
 
+def check_chips(bench: dict) -> None:
+    """Raises a ValueError unless every cell of the manifest asks for 1 or
+    4 chips and at most max(1, cells // 4) cells ask for 4."""
+    cells = bench["workloads"]
+    for w in cells:
+        if w["chips"] not in (1, 4) or isinstance(w["chips"], bool):
+            raise ValueError(f"workload {w['name']!r}: chips must be 1 or 4, not {w['chips']!r}")
+    four = [w["name"] for w in cells if w["chips"] == 4]
+    if len(four) > max(1, len(cells) // 4):
+        raise ValueError(f"{len(four)} of {len(cells)} workloads ask for 4 chips "
+                         f"({', '.join(four)}); at most {max(1, len(cells) // 4)} may")
+
+
 def load_cell(name: str, root: Path = ROOT) -> dict:
     """The cell `name` with its configuration file, traffic mix and the
     metrics it reports: {name, chips, config, traffic, end_to_end,
     per_layer}."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
+    check_chips(bench)
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
@@ -120,12 +138,15 @@ def _forbidden_loaded(err) -> bool:
 
 class Builder:
     """Runs the cell's build as the daemon runs a request. argv: the CLI
-    flags; the FASTA and the sink are appended."""
+    flags; the FASTA and the sink are appended. cards: how many cards the
+    build may use, each synchronized and its cache emptied after it."""
 
-    def __init__(self, argv: list[str], fasta: str, sink_path: str, device: str):
+    def __init__(self, argv: list[str], fasta: str, sink_path: str, device: str,
+                 cards: int = 1):
         self.argv = [*argv, fasta, "-o", sink_path]
         self.sink_path = sink_path
         self.device = device
+        self.cards = cards
 
     def run(self, keep: bool = False, expect: bytes | None = None,
             profile_range: bool = False) -> dict:
@@ -151,8 +172,7 @@ class Builder:
                     err.write(traceback.format_exc())
                     rc = 1
             if self.device == "cuda" and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
+                settle_cards(self.cards)
             drain.finish()
         t1 = time.perf_counter()
         return dict(rc=rc, wall_s=t1 - t0, start=t0, end=t1, cpu_s=_cpu_seconds() - cpu0,
@@ -167,15 +187,56 @@ def _cpu_seconds() -> float:
     return ru.ru_utime + ru.ru_stime
 
 
+def settle_cards(cards: int) -> None:
+    """Waits for the work on each of the first `cards` cards and frees
+    the blocks their caching allocator holds."""
+    import torch
+
+    for i in range(cards):
+        torch.cuda.synchronize(i)
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
+
+
+# ---- the cards ----------------------------------------------------------
+
+
+def visible_cards(chips: int, visible: str | None) -> str:
+    """CUDA_VISIBLE_DEVICES for a cell of `chips` cards: the first `chips`
+    of those visible now (`visible`, the variable's value; None: every card
+    of the host, in CUDA's order)."""
+    if visible is None:
+        return ",".join(str(i) for i in range(chips))
+    return ",".join(visible.split(",")[:chips])
+
+
+def card_peaks(cards: int) -> list[int]:
+    """torch.cuda.max_memory_allocated() of each of the first `cards`
+    cards."""
+    import torch
+
+    return [torch.cuda.max_memory_allocated(i) for i in range(cards)]
+
+
+def reset_card_peaks(cards: int) -> None:
+    import torch
+
+    for i in range(cards):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
 # ---- the run ------------------------------------------------------------
 
 
-def card_line() -> str:
+def card_line(visible: str | None) -> str:
+    """The cards of CUDA_VISIBLE_DEVICES `visible` (None: every card) as
+    nvidia-smi names them: index, name and power limit, one a card."""
     try:
         got = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
-        return got.stdout.strip().splitlines()[0] if got.stdout.strip() else "not read"
+            ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader",
+             *(["-i", visible] if visible else [])], capture_output=True, text=True,
+            timeout=60)
+        return "; ".join(got.stdout.strip().splitlines()) or "not read"
     except (OSError, subprocess.SubprocessError):
         return "not read"
 
@@ -230,7 +291,7 @@ def input_shares(config: dict, seed: int) -> dict[str, float]:
     input for --seed ({} without repeats)."""
     from gpubench import genome
 
-    repeats, length = config.get("repeats"), int(config["length"])
+    repeats, length = config.get("repeats"), genome.genome_length(config)
     if not repeats:
         return {}
     return genome.class_shares(
@@ -258,12 +319,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
     phases = {"import": time.perf_counter() - t_start}
 
     cell = load_cell(workload, root)
+    chips = cell["chips"]
+    if device == "cuda" and not torch.cuda.is_initialized():
+        os.environ["CUDA_VISIBLE_DEVICES"] = visible_cards(
+            chips, os.environ.get("CUDA_VISIBLE_DEVICES"))
     from twopaco_tpu_torch.cli import serve
     from twopaco_tpu_torch.kernels import build as kbuild
 
     if device == "cuda":
-        if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
-            print(f"gpubench: the cell needs {cell['chips']} CUDA device(s); "
+        if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+            print(f"gpubench: the cell needs {chips} CUDA device(s); "
                   f"torch.cuda.is_available() = {torch.cuda.is_available()}, "
                   f"device_count = {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
                   file=err)
@@ -282,20 +347,20 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         phases["input"] = time.perf_counter() - t0
         sink_path = sink.make_fifo(work)
         argv = ["-k", str(k), *traffic["argv"], *extra_argv]
-        builder = Builder(argv, fasta, sink_path, device)
+        builder = Builder(argv, fasta, sink_path, device, chips)
         t0 = time.perf_counter()
         serve.warm(device)
         phases["warm"] = time.perf_counter() - t0
         checked = builder.run(keep=True)
         phases["checked build"] = checked["wall_s"]
-        setup_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        setup_peaks = card_peaks(chips) if device == "cuda" else [0] * chips
         if checked["rc"] != 0:
             print(checked["stdout"][-4000:] + checked["stderr"][-4000:], file=err)
 
         # ---- the window
         kbuild.reset_launch_counts()
         if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+            reset_card_peaks(chips)
         t_setup = time.perf_counter() - t_start
         prof = None
         if trace:
@@ -313,21 +378,22 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
             if prof is not None:
                 prof.__exit__(None, None, None)
         window_s = builds[-1]["end"] - builds[0]["start"]
-        window_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        window_peaks = card_peaks(chips) if device == "cuda" else [0] * chips
         launches = kbuild.launch_counts()
         if _forbidden_loaded(err):
             return 1
 
         record = dict(
-            bases=bases, sequences=len(seqs), k=k, setup_s=t_setup, window_s=window_s,
-            window_peak_bytes=window_peak,
+            bases=bases, sequences=len(seqs), k=k, cards=chips, setup_s=t_setup,
+            window_s=window_s, window_peak_bytes=max(window_peaks),
             builds=[dict(rc=b["rc"], ok=b["rc"] == 0 and bool(b["same"]),
                          wall_s=b["wall_s"], stdout=b["stdout"]) for b in builds],
         )
         if prof is not None:
-            record["trace"] = devtrace.from_profiler(prof)
+            record["trace"] = devtrace.from_profiler(prof, chips)
             record["records"] = peaks.vertex_records(seqs, k)
             del prof
+        positions = sum(max(len(s) - k + 1, 0) for s in seqs)
         del seqs
 
         # ---- the comparison, once the program's memory is released
@@ -336,7 +402,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         if device == "cuda":
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
-        want, n_junc = reference.reference_dbg(fasta, k, device=device)
+        blocks = reference.plan_blocks(positions, reference.free_bytes(device))
+        want, n_junc = reference.reference_dbg(fasta, k, device=device, blocks=blocks)
         differing = reference.records_differing(data or b"", want)
         t_ref = time.perf_counter() - t_ref
         record["junctions"] = n_junc
@@ -352,9 +419,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
         correct = checked["rc"] == 0 and all(c["value"] <= c["limit"] for c in compared.values())
 
         metrics = read_metrics(cell["per_layer"] if trace else cell["end_to_end"], record, root)
+        by_card = [max(a, b) for a, b in zip(setup_peaks, window_peaks)]
         dev = dict(platform="gpu" if device == "cuda" else "cpu",
                    kind=torch.cuda.get_device_name(0) if device == "cuda" else "cpu",
-                   count=cell["chips"], memory_peak_bytes=max(setup_peak, window_peak))
+                   count=chips, memory_peak_bytes=max(by_card), peak_by_card=by_card)
         result = dict(correct=bool(correct), attempted=len(builds),
                       failed=sum(b["rc"] != 0 or not b["ok"] for b in record["builds"]),
                       metrics=metrics, device=dev)
@@ -367,8 +435,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
 
         if _forbidden_loaded(err):
             return 1
-        print(f"card: {card_line() if device == 'cuda' else 'cpu'}, {cell['chips']} used",
-              file=out)
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        print(f"card: {card_line(visible) if device == 'cuda' else 'cpu'}, {chips} used "
+              f"(CUDA_VISIBLE_DEVICES={visible})", file=out)
         print(f"cell {workload} seed {seed}: {bases} bases, {record['sequences']} sequences, "
               f"k={k}, argv {' '.join(argv)}", file=out)
         print(f"input: generated in {t_gen:.3f} s, FASTA written in "
@@ -379,7 +448,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str = 
               f"({checked['size'] // 12} records), {checked['wall_s']:.3f} s, "
               f"pipe {checked['pipe_bytes']} bytes; reference {n_junc} junctions, "
               f"{record['occurrences']} occurrences, the most of one junction {most}, in "
-              f"{t_ref:.3f} s", file=out)
+              f"{t_ref:.3f} s, {blocks} block(s)", file=out)
         for ln in log_summary(checked["stdout"]):
             print(f"  log: {ln}", file=out)
         print(rounds_summary(checked["stdout"]), file=out)

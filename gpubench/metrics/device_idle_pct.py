@@ -1,7 +1,8 @@
 """device_idle_pct: the share of the traced builds' wall time in which
-no operation ran on the card: 100 x (1 - the union of the device events'
-intervals / the span from the first traced build's start to the last's
-end), from torch.profiler's trace."""
+no operation ran on a card, averaged over the cell's cards: 100 x (1 -
+devtrace.busy_seconds, the mean over the cards of each card's union of its
+device events' intervals, / the span from the first traced build's start
+to the last's end), from torch.profiler's trace."""
 
 from gpubench import devtrace
 

@@ -18,7 +18,7 @@ def read(record):
     trace = record.get("trace")
     if not trace or "junctions" not in record:
         return None
-    seconds = sum(e - s for name, s, e in trace["device"] if _MERGE.search(name))
+    seconds = sum(e - s for name, s, e, _card in trace["device"] if _MERGE.search(name))
     if seconds <= 0:
         return None
     need = len(trace["builds"]) * peaks.merge_bytes(

@@ -1,5 +1,6 @@
 """peak_device_gib: torch.cuda.max_memory_allocated() over the window's
-builds (reset at the window's start), in GiB."""
+builds (reset at the window's start) on the fullest of the cell's cards,
+in GiB."""
 
 
 def read(record):

@@ -19,7 +19,7 @@ def read(record):
     trace = record.get("trace")
     if not trace:
         return None
-    seconds = sum(e - s for name, s, e in trace["device"] if _ROUND_SORT.search(name))
+    seconds = sum(e - s for name, s, e, _card in trace["device"] if _ROUND_SORT.search(name))
     if seconds <= 0:
         return None
     n_builds = len(trace["builds"])

@@ -28,11 +28,19 @@ test.cpp FindJunctionsNaively, junctionapi.h's record format):
 
 The k-mers are int64 codes (2 bits a character, first character on top),
 so k is at most 31. The heavy work (k-mer codes, the sort, the group
-judgements) runs as plain torch operations on the device given, blocks of
-one sequence at a time where they are per position.
+judgements) runs as plain torch operations on the device given, in B
+blocks by canonical k-mer range, so that an input of Gbases fits one card:
+each block walks every sequence in chunks of CHUNK positions, keeps the
+vertices whose canonical k-mer falls in its range and judges them; its
+junctions take the ranks after the earlier blocks'. Each block's
+occurrences go to the host sorted by position; the records are then put
+in order in pieces of CHUNK positions. B comes from the input's positions
+and the card's free memory (plan_blocks); the .dbg is the same for every B.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -40,6 +48,12 @@ import torch
 STUB_ID_OFFSET = 42
 VIRTUAL = 4  # an extension that equals no other: an N or a sequence end
 SEPARATOR = (-1, -1, 0x7FFFFFFF)  # (pos, id low, id high) as int32 bit patterns
+CHUNK = 1 << 24  # positions whose k-mers are worked out at once; records ordered at once
+# the card's peak a vertex of a block, with room: at one block an H100 peaked
+# at 59 bytes a position on ecoli62 and 89 on chr1, one chunk's work
+# included; and the peak of one chunk's vertices() a position
+BLOCK_BYTES_A_VERTEX = 128
+CHUNK_BYTES_A_POSITION = 160
 
 _VALID = "ACGTURYKMSWBDHWNXV"
 _LUT = np.full(256, 255, dtype=np.uint8)  # 255: invalid
@@ -76,13 +90,15 @@ def _comp(e: torch.Tensor) -> torch.Tensor:
     return torch.where(e < 4, 3 - e, VIRTUAL)
 
 
-def vertices(codes: torch.Tensor, k: int):
-    """One sequence's vertex positions with their canonical k-mer, their
-    extensions read on the canonical strand, and whether the k-mer read
-    is the reverse complement of its canonical form.
+def vertices(codes: torch.Tensor, k: int, before: int = VIRTUAL, after: int = VIRTUAL):
+    """The vertex positions of a run of a sequence with their canonical
+    k-mer, their extensions read on the canonical strand, and whether the
+    k-mer read is the reverse complement of its canonical form.
 
-    codes: (L,) int64 on a device, L >= k. -> (pos (n,) int64 of the
-    definite k-mers, canon, left, right, is_rc), each of n entries."""
+    codes: (L,) int64 on a device, L >= k, the characters of positions 0 ..
+    L - k's k-mers; before, after: the characters just before and just after
+    them (VIRTUAL at a sequence's ends). -> (pos (n,) int64 of the definite
+    k-mers, canon, left, right, is_rc), each of n entries."""
     L = codes.numel()
     n = L - k + 1
     is_n = codes == 4
@@ -95,9 +111,10 @@ def vertices(codes: torch.Tensor, k: int):
     n_cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=codes.device),
                        torch.cumsum(is_n.to(torch.int64), 0)])
     definite = (n_cum[k:] - n_cum[:n]) == 0
-    end = torch.full((1,), VIRTUAL, dtype=torch.int64, device=codes.device)
-    prev = torch.cat([end, codes[: n - 1]])  # the char before position i
-    nxt = torch.cat([codes[k:], end])  # the char after the k-mer at i
+    first = torch.full((1,), before, dtype=torch.int64, device=codes.device)
+    last = torch.full((1,), after, dtype=torch.int64, device=codes.device)
+    prev = torch.cat([first, codes[: n - 1]])  # the char before position i
+    nxt = torch.cat([codes[k:], last])  # the char after the k-mer at i
     is_rc = rev < fwd
     canon = torch.minimum(fwd, rev)
     left = torch.where(is_rc, _comp(nxt), prev)
@@ -120,7 +137,8 @@ def junction_mask(join_keys: torch.Tensor, left: torch.Tensor, right: torch.Tens
     G = int(gid[-1]) + 1
     cnt = torch.bincount(gid, minlength=G)
     many = torch.zeros(G, dtype=torch.bool, device=gid.device)
-    for ext in (left[perm], right[perm]):
+    for ext in (left, right):
+        ext = ext[perm].to(torch.int64)
         virt = torch.zeros(G, dtype=torch.int64, device=gid.device).scatter_add_(
             0, gid, (ext == VIRTUAL).to(torch.int64))
         lo = torch.full((G,), 9, dtype=torch.int64, device=gid.device).scatter_reduce_(
@@ -138,73 +156,143 @@ def exact_keys(canon: torch.Tensor) -> torch.Tensor:
     return canon
 
 
-def junction_records(seqs: list[np.ndarray], k: int, device="cpu", join=exact_keys):
-    """The .dbg of the sequences' codes as an (m, 3) int32 tensor of
-    record rows (pos, id low word, id high word) on the device, and the
-    junction count. join(canon) gives the key whose groups are judged
-    (the control passes a lossy one)."""
-    if not 1 <= k <= 31 or k % 2 == 0:
-        raise ValueError(f"the reference takes odd k up to 31, not {k}")
+def plan_blocks(positions: int, free: int | None) -> int:
+    """The number of blocks B for `positions` k-mer positions on a device
+    with `free` bytes free (None: no limit, one block): each block's
+    vertices at BLOCK_BYTES_A_VERTEX, besides one chunk's work."""
+    if free is None:
+        return 1
+    room = free - CHUNK * CHUNK_BYTES_A_POSITION
+    if room <= 0:
+        raise RuntimeError(f"the reference needs {CHUNK * CHUNK_BYTES_A_POSITION} bytes "
+                           f"for one chunk; {free} are free")
+    return max(1, -(-positions * BLOCK_BYTES_A_VERTEX // room))
+
+
+def key_bounds(k: int, blocks: int) -> list[int]:
+    """The B + 1 bounds [0, ..., 4^k] of the blocks' canonical k-mer ranges,
+    cut so that a random sequence gives each block as many vertices: the
+    canonical code, the smaller of two uniform codes, lies below x with
+    chance 1 - (1 - x / 4^k)^2."""
+    top = 1 << (2 * k)
+    inner = [min(top, int(top * (1 - math.sqrt(1 - b / blocks)))) for b in range(1, blocks)]
+    return [0, *inner, top]
+
+
+def free_bytes(device) -> int | None:
+    """The free memory of a card, as plan_blocks takes it (None off a
+    card)."""
     dev = torch.device(device)
-    flat, canon, left, right, is_rc = [], [], [], [], []
-    starts, lengths = [], []
+    return torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else None
+
+
+def block_vertices(seqs, k: int, dev, lo: int, hi: int):
+    """The vertices of every sequence whose canonical k-mer lies in [lo,
+    hi), in position order: (flat position (the sequences laid end to end)
+    int64, canon int64, left int8, right int8, is_rc bool)."""
+    parts = [[], [], [], [], []]
     ofs = 0
     for codes in seqs:
         L = len(codes)
-        starts.append(ofs)
-        lengths.append(L)
-        if L >= k:
-            got = vertices(torch.from_numpy(codes).to(dev).to(torch.int64), k)
-            flat.append(got[0] + ofs)
-            for lst, t in zip((canon, left, right, is_rc), got[1:]):
+        for a in range(0, L - k + 1, CHUNK):
+            n = min(CHUNK, L - k + 1 - a)
+            win = torch.from_numpy(codes[a : a + n + k - 1]).to(dev).to(torch.int64)
+            before = int(codes[a - 1]) if a else VIRTUAL
+            after = int(codes[a + n + k - 1]) if a + n + k - 1 < L else VIRTUAL
+            pos, canon, left, right, is_rc = vertices(win, k, before, after)
+            keep = torch.nonzero((canon >= lo) & (canon < hi)).squeeze(1)
+            got = (pos[keep] + (ofs + a), canon[keep], left[keep].to(torch.int8),
+                   right[keep].to(torch.int8), is_rc[keep])
+            for lst, t in zip(parts, got):
                 lst.append(t)
+            del win, pos, canon, left, right, is_rc, keep, got
         ofs += L
-    cat = (lambda ts, dt: torch.cat(ts) if ts else torch.zeros(0, dtype=dt, device=dev))
-    flat, canon = cat(flat, torch.int64), cat(canon, torch.int64)
-    left, right = cat(left, torch.int64), cat(right, torch.int64)
-    is_rc = cat(is_rc, torch.bool)
+    dtypes = (torch.int64, torch.int64, torch.int8, torch.int8, torch.bool)
+    return [torch.cat(p) if p else torch.zeros(0, dtype=dt, device=dev)
+            for p, dt in zip(parts, dtypes)]
 
-    junc = junction_mask(join(canon), left, right)
-    del left, right
-    table = torch.unique(canon[junc])  # sorted canonical k-mers of the junctions
-    occ_flat = flat[junc]
-    occ_id = torch.searchsorted(table, canon[junc]) + 1
-    occ_id = torch.where(is_rc[junc], -occ_id, occ_id)
-    n_junc = table.numel()
-    del canon, is_rc, table
 
-    # stubs: each sequence's first and last vertex position that is no
-    # junction occurrence, numbered in stream order
-    occ_set = set()
-    starts_t = torch.tensor(starts, dtype=torch.int64)
-    ends = [(s, s + L - k) for s, L in zip(starts, lengths) if L >= k]
-    cand = sorted({f for pair in ends for f in pair})
-    if cand:
-        cand_t = torch.tensor(cand, dtype=torch.int64, device=dev)
-        hit = torch.isin(cand_t, occ_flat).cpu().tolist()
-        occ_set = {f for f, h in zip(cand, hit) if h}
-    stub_flat = [f for f in cand if f not in occ_set]
-    stub_flat_t = torch.tensor(stub_flat, dtype=torch.int64, device=dev)
-    stub_id = n_junc + STUB_ID_OFFSET + torch.arange(len(stub_flat), dtype=torch.int64,
-                                                     device=dev)
-    all_flat = torch.cat([occ_flat, stub_flat_t])
-    all_id = torch.cat([occ_id, stub_id])
-    del occ_flat, occ_id
-    all_flat, order = torch.sort(all_flat)
-    all_id = all_id[order]
-    del order
+def junction_records(seqs: list[np.ndarray], k: int, device="cpu", join=exact_keys,
+                     blocks: int | None = None):
+    """The .dbg of the sequences' codes as an (m, 3) int32 CPU tensor of
+    record rows (pos, id low word, id high word), and the junction count.
+    join(canon) gives the key whose groups are judged (the control passes
+    a lossy one; its groups are judged within a block). blocks: B, by
+    default plan_blocks's for the device's free memory."""
+    if not 1 <= k <= 31 or k % 2 == 0:
+        raise ValueError(f"the reference takes odd k up to 31, not {k}")
+    dev = torch.device(device)
+    lengths = [len(c) for c in seqs]
+    starts = np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])[:-1].astype(np.int64)
+    if blocks is None:
+        blocks = plan_blocks(sum(max(L - k + 1, 0) for L in lengths), free_bytes(dev))
+    # stub candidates: each sequence's first and last vertex position
+    cand = np.unique(np.array([f for s, L in zip(starts, lengths) if L >= k
+                               for f in (s, s + L - k)], dtype=np.int64))
+    cand_t = torch.from_numpy(cand).to(dev)
+    hit = torch.zeros(len(cand), dtype=torch.bool, device=dev)
+    lists = []  # each block's occurrences on the host: (flat positions ascending, ids)
+    n_junc = 0
+    bounds = key_bounds(k, blocks)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        flat, canon, left, right, is_rc = block_vertices(seqs, k, dev, lo, hi)
+        junc = torch.nonzero(junction_mask(join(canon), left, right)).squeeze(1)
+        del left, right
+        canon = canon[junc]
+        table = torch.unique(canon)  # sorted canonical k-mers of the block's junctions
+        occ_id = torch.searchsorted(table, canon) + (1 + n_junc)
+        occ_id = torch.where(is_rc[junc], -occ_id, occ_id)
+        occ_flat = flat[junc]  # ascending: the vertices are in position order
+        n_junc += table.numel()
+        del flat, canon, is_rc, junc, table
+        hit |= torch.isin(cand_t, occ_flat)
+        lists.append((occ_flat.cpu().numpy(), occ_id.cpu().numpy()))
+        del occ_flat, occ_id
+    # stubs: the candidates that are no junction occurrence, numbered in
+    # stream order
+    stubs = cand[~hit.cpu().numpy()]
+    lists.append((stubs, n_junc + STUB_ID_OFFSET + np.arange(len(stubs), dtype=np.int64)))
+    return torch.from_numpy(ordered_rows(lists, starts, dev)), n_junc
 
-    seq = torch.searchsorted(starts_t.to(dev), all_flat, right=True) - 1
-    pos = all_flat - starts_t.to(dev)[seq]
-    del all_flat
-    prev = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), seq[:-1]])
-    at = torch.arange(seq.numel(), device=dev) + torch.cumsum(seq - prev, 0)
-    n_rows = int(at[-1]) + 1 if at.numel() else 0
-    rows = torch.tensor(SEPARATOR, dtype=torch.int32, device=dev).repeat(n_rows, 1)
-    rows[at, 0] = _i32(pos)
-    rows[at, 1] = _i32(all_id & 0xFFFFFFFF)
-    rows[at, 2] = _i32(all_id >> 32)
-    return rows, n_junc
+
+def ordered_rows(lists, starts: np.ndarray, dev) -> np.ndarray:
+    """The records of `lists` ([(flat positions ascending, ids), ...], no
+    position in two) as .dbg rows in position order, with the separators:
+    an (m, 3) int32 array. Ordered on the device in pieces of CHUNK
+    positions, which hold at most CHUNK records."""
+    n = sum(len(f) for f, _i in lists)
+    if n == 0:
+        return np.zeros((0, 3), dtype=np.int32)
+    top = max(int(f[-1]) for f, _i in lists if len(f))
+    out = np.empty((n + int(np.searchsorted(starts, top, side="right")) - 1, 3),
+                   dtype=np.int32)
+    starts_t = torch.from_numpy(starts).to(dev)
+    sep = torch.tensor(SEPARATOR, dtype=torch.int32, device=dev)
+    row, last_seq = 0, 0
+    for p in range(0, top + 1, CHUNK):
+        cut = [(np.searchsorted(f, p), np.searchsorted(f, p + CHUNK)) for f, _i in lists]
+        flat = torch.from_numpy(np.concatenate([f[a:b] for (f, _i), (a, b) in zip(lists, cut)]))
+        if flat.numel() == 0:
+            continue
+        ids = torch.from_numpy(np.concatenate([i[a:b] for (_f, i), (a, b) in zip(lists, cut)]))
+        flat, order = torch.sort(flat.to(dev))
+        ids = ids.to(dev)[order]
+        del order
+        seq = torch.searchsorted(starts_t, flat, right=True) - 1
+        pos = flat - starts_t[seq]
+        prev = torch.cat([torch.full((1,), last_seq, dtype=torch.int64, device=dev), seq[:-1]])
+        at = torch.arange(seq.numel(), device=dev) + torch.cumsum(seq - prev, 0)
+        rows = sep.repeat(int(at[-1]) + 1, 1)
+        rows[at, 0] = _i32(pos)
+        rows[at, 1] = _i32(ids & 0xFFFFFFFF)
+        rows[at, 2] = _i32(ids >> 32)
+        out[row : row + len(rows)] = rows.cpu().numpy()
+        row += len(rows)
+        last_seq = int(seq[-1])
+        del flat, ids, seq, pos, prev, at, rows
+    if row != len(out):
+        raise RuntimeError(f"the reference ordered {row} rows of {len(out)}")
+    return out
 
 
 def _i32(v: torch.Tensor) -> torch.Tensor:
@@ -213,10 +301,11 @@ def _i32(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-def reference_dbg(fasta_path: str, k: int, device="cpu", join=exact_keys):
+def reference_dbg(fasta_path: str, k: int, device="cpu", join=exact_keys,
+                  blocks: int | None = None):
     """-> (the .dbg's bytes as a uint8 numpy array, the junction count)."""
-    rows, n_junc = junction_records(parse_fasta(fasta_path), k, device, join)
-    return rows.cpu().numpy().view(np.uint8).reshape(-1), n_junc
+    rows, n_junc = junction_records(parse_fasta(fasta_path), k, device, join, blocks)
+    return rows.numpy().view(np.uint8).reshape(-1), n_junc
 
 
 def records_differing(got: np.ndarray | bytes, want: np.ndarray) -> int:

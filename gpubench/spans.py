@@ -113,7 +113,8 @@ def idle_gaps(trace: dict, spans: list, top: int = 10):
     gaps = []
     for lo, hi in trace["builds"]:
         t = lo
-        for s, e in devtrace.union(((s, e) for _n, s, e in trace["device"]), lo, hi) + [[hi, hi]]:
+        for s, e in devtrace.union(((s, e) for _n, s, e, _c in trace["device"]), lo,
+                                   hi) + [[hi, hi]]:
             if s > t:
                 inner = [c for c in cuts if t < c < s]
                 gaps.extend(zip([t, *inner], [*inner, s]))

@@ -61,12 +61,13 @@ def _build_spans(t):
 def _trace():
     device = []
     for t in (0.0, 4.0):
-        device += [["Memcpy HtoD (Pinned -> Device)", t + 0.6, t + 0.65],
-                   [SORT, t + 0.65, t + 0.7], ["Memcpy DtoH (Device -> Pinned)", t + 0.95, t + 1.0],
-                   [MERGE_SPLIT, t + 1.05, t + 1.051], [MERGE_TILE, t + 1.051, t + 1.06]]
+        device += [["Memcpy HtoD (Pinned -> Device)", t + 0.6, t + 0.65, 0],
+                   [SORT, t + 0.65, t + 0.7, 0],
+                   ["Memcpy DtoH (Device -> Pinned)", t + 0.95, t + 1.0, 0],
+                   [MERGE_SPLIT, t + 1.05, t + 1.051, 0], [MERGE_TILE, t + 1.051, t + 1.06, 0]]
     host = [["cudaLaunchKernel", 0.64, 0.65], ["aten::copy_", 4.6, 4.62]]
     return dict(span=[0.0, 7.6], builds=[[0.0, 3.6], [4.0, 7.6]], device=device, host=host,
-                spans=_build_spans(0.0) + _build_spans(4.0))
+                spans=_build_spans(0.0) + _build_spans(4.0), cards=1)
 
 
 def record():

@@ -1,8 +1,10 @@
 """The harness's comparison catches a broken timed path: a run on the CPU
 (the program's plain versions, the card's checks skipped) of a tiny cell
 in four rounds (traffic sort-r4) with a fault planted under the program's
-entry comes out not correct. Every cell has one card, so there is no
-exchange between chips to leave out."""
+entry comes out not correct. The faults in the output are planted in
+ChunkWriter.write_raw, which every packed merge's emit writes through.
+Every cell has one card so far, so there is no exchange between chips to
+leave out."""
 
 import numpy as np
 import pytest
@@ -36,9 +38,11 @@ def test_sort_returning_its_input_unchanged(tiny, monkeypatch):
 
 
 def _patch_writer(monkeypatch, change, from_call=0):
-    """ChunkWriter.write with its (chrs, pos, ids) changed by `change`,
-    from the from_call-th build's writer on."""
-    real_init, real_write = junctions.ChunkWriter.__init__, junctions.ChunkWriter.write
+    """ChunkWriter.write_raw, which every packed merge's emit writes
+    through, with its records (an (n, 3) int32 array: position, id low
+    word, id high word) changed by `change`, from the from_call-th build's
+    writer on."""
+    real_init, real_raw = junctions.ChunkWriter.__init__, junctions.ChunkWriter.write_raw
     builds = [0]
 
     def init(self, path):
@@ -46,22 +50,22 @@ def _patch_writer(monkeypatch, change, from_call=0):
         self.faulty = builds[0] >= from_call
         builds[0] += 1
 
-    def write(self, chrs, pos, ids):
+    def write_raw(self, data):
         if self.faulty:
-            chrs, pos, ids = change(np.asarray(chrs), np.asarray(pos), np.array(ids))
-        return real_write(self, chrs, pos, ids)
+            data = change(np.array(data).view(np.int32).reshape(-1, 3).copy()).reshape(-1)
+        return real_raw(self, data)
 
     monkeypatch.setattr(junctions.ChunkWriter, "__init__", init)
-    monkeypatch.setattr(junctions.ChunkWriter, "write", write)
+    monkeypatch.setattr(junctions.ChunkWriter, "write_raw", write_raw)
 
 
-def _drop_half(chrs, pos, ids):
-    return chrs[::2], pos[::2], ids[::2]
+def _drop_half(rec):
+    return rec[::2]
 
 
-def _alter_one(chrs, pos, ids):
-    ids[len(ids) // 2] += 1
-    return chrs, pos, ids
+def _alter_one(rec):
+    rec[len(rec) // 2, 1] += 1
+    return rec
 
 
 @pytest.mark.parametrize("change", [_drop_half, _alter_one], ids=["half_left_out", "one_altered"])
@@ -108,11 +112,12 @@ def test_build_that_never_writes(tiny, monkeypatch):
     assert "planted" in err
 
 
-def test_no_card_no_result(tiny, capsys):
+def test_no_card_no_result(tiny, monkeypatch):
     import io
 
     from gpubench import harness
 
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # no card, whatever the host has
     out, err = io.StringIO(), io.StringIO()
     rc = harness.run(tiny[1], 1, 1.0, False, device="cuda", root=tiny[0], out=out, err=err)
     assert rc != 0 and out.getvalue() == "" and "CUDA" in err.getvalue()

@@ -56,12 +56,37 @@ def test_configs_and_cells():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["config"] in configs and NAME.match(w["traffic"]) and _line(w["why"])
-        assert w["chips"] == 1
         assert (ROOT / "gpubench" / "traffic" / f"{w['traffic']}.json").is_file()
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
         used.add(w["config"])
     assert used == set(configs)
+    harness.check_chips(BENCH)
+
+
+def _manifest(cells: int, four: int) -> dict:
+    return {"workloads": [{"name": f"c{i}", "chips": 4 if i < four else 1}
+                          for i in range(cells)]}
+
+
+@pytest.mark.parametrize("cells,four", [(1, 1), (3, 1), (4, 1), (8, 2), (11, 2), (24, 6)])
+def test_four_chip_cells_up_to_the_cap(cells, four):
+    harness.check_chips(_manifest(cells, four))
+    harness.check_chips(_manifest(cells, 0))
+
+
+@pytest.mark.parametrize("cells,four", [(2, 2), (7, 2), (8, 3), (24, 7)])
+def test_four_chip_cells_over_the_cap(cells, four):
+    with pytest.raises(ValueError, match="ask for 4 chips"):
+        harness.check_chips(_manifest(cells, four))
+
+
+@pytest.mark.parametrize("chips", [0, 2, 3, 8, True, "1"])
+def test_chips_other_than_1_or_4(chips):
+    bench = _manifest(4, 0)
+    bench["workloads"][2]["chips"] = chips
+    with pytest.raises(ValueError, match="chips must be 1 or 4"):
+        harness.check_chips(bench)
 
 
 def test_metrics():

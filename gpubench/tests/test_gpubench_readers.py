@@ -56,13 +56,15 @@ def _record(trace=None):
 
 def _trace():
     # two builds, [0, 1] and [1, 2] s; device busy [0.1, 0.2], [0.15, 0.3]
-    # (overlapping: 0.2 s of union), [1.5, 1.6]; sort kernels 0.01 s each
-    device = [["Memcpy HtoD (Pinned -> Device)", 0.1, 0.2],
-              [KERNELS[1], 0.15, 0.3], [KERNELS[3], 1.5, 1.6]]
+    # (overlapping: 0.2 s of union), [1.5, 1.6]; sort kernels 0.01 s each;
+    # one card, index 0
+    device = [["Memcpy HtoD (Pinned -> Device)", 0.1, 0.2, 0],
+              [KERNELS[1], 0.15, 0.3, 0], [KERNELS[3], 1.5, 1.6, 0]]
     for i, name in enumerate(KERNELS[:5]):
-        device.append([name, 1.7 + 0.02 * i, 1.71 + 0.02 * i])
+        device.append([name, 1.7 + 0.02 * i, 1.71 + 0.02 * i, 0])
     host = [["aten::copy_", 0.35, 0.9], ["cudaLaunchKernel", 0.31, 0.32]]
-    return dict(span=[0.0, 2.0], builds=[[0.0, 1.0], [1.0, 2.0]], device=device, host=host)
+    return dict(span=[0.0, 2.0], builds=[[0.0, 1.0], [1.0, 2.0]], device=device, host=host,
+                cards=1)
 
 
 @pytest.mark.parametrize("name,want", [
@@ -91,6 +93,39 @@ def test_device_idle_and_busy():
     busy = 0.2 + 0.1 + 5 * 0.01
     assert devtrace.busy_seconds(rec["trace"]) == pytest.approx(busy)
     assert harness.load_reader("device_idle_pct")(rec) == pytest.approx(100 * (1 - busy / 2))
+
+
+def test_one_card_reads_as_one_timeline():
+    """On one card the busy time is the union of all device events, as it
+    was before events kept their card; a trace without "cards" is one
+    card's."""
+    tr = _trace()
+    lo, hi = tr["span"]
+    whole = sum(e - s for s, e in devtrace.union([(s, e) for _n, s, e, _c in tr["device"]],
+                                                 lo, hi))
+    assert devtrace.busy_seconds(tr) == whole
+    del tr["cards"]
+    assert devtrace.busy_seconds(tr) == whole
+
+
+def _four_cards():
+    """A trace of one build, [0, 1] s, on four cards: card 0 busy [0.1,
+    0.3] and [0.2, 0.4] (0.3 s of union), card 1 [0.35, 0.6], card 2 [0.8,
+    0.9], card 3 nothing; no card runs in [0, 0.1], [0.6, 0.8], [0.9, 1]."""
+    device = [["k_a", 0.1, 0.3, 0], ["k_b", 0.2, 0.4, 0], ["k_a", 0.35, 0.6, 1],
+              ["k_c", 0.8, 0.9, 2]]
+    return dict(span=[0.0, 1.0], builds=[[0.0, 1.0]], device=device, host=[], cards=4)
+
+
+def test_busy_is_the_mean_over_the_cards():
+    tr = _four_cards()
+    assert devtrace.busy_seconds(tr) == pytest.approx((0.3 + 0.25 + 0.1 + 0) / 4)
+    rec = _record(tr)
+    assert harness.load_reader("device_idle_pct")(rec) == pytest.approx(
+        100 * (1 - 0.65 / 4))
+    # the device ops add every card's time; the gaps are where no card ran
+    assert devtrace.device_ops(tr)[0] == ["k_a", pytest.approx(0.45)]
+    assert [g[1] for g in devtrace.idle_gaps(tr)] == pytest.approx([0.2, 0.1, 0.1])
 
 
 def test_sort_roofline_counts_the_round_sort_only():

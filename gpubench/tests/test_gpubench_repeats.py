@@ -4,7 +4,9 @@ without the key are those of the generator before it, a repeat-bearing
 base is deterministic from the seed, covers each class's share, holds
 copies of its families' consensuses and gives junctions of high
 multiplicity; a malformed file raises a ValueError naming the key; and
-the harness builds and checks a repeat-bearing cell on the CPU."""
+the harness builds and checks a repeat-bearing cell on the CPU. The whole
+configurations give the bytes they gave before, and `lengths` cuts a
+genome made whole at its sequences' boundaries."""
 
 import copy
 import hashlib
@@ -13,7 +15,7 @@ import json
 import numpy as np
 import pytest
 
-from gpubench import genome, reference
+from gpubench import genome, harness, reference
 from gpubench.tests import cells
 
 ECOLI62 = json.loads((cells.REPO / "gpubench" / "configs" / "ecoli62.json").read_text())
@@ -58,6 +60,50 @@ def test_ecoli62_bytes_as_before(tmp_path, length, seed, digest):
     assert _fasta_sha256(tmp_path, dict(ECOLI62, length=length), seed) == digest
     # an empty list of families is no repeats
     assert _fasta_sha256(tmp_path, dict(ECOLI62, length=length, repeats=[]), seed) == digest
+
+
+# the FASTA's sha256 of each whole configuration, as the generator gave it
+# before it drew the base in chunks and took `lengths`
+@pytest.mark.parametrize("name,seed,digest", [
+    ("ecoli62", 1, "af23b3b7fd8c92af9ee15c1a1d6475cc4b8a346ea023c1abeaccfd751b66bd3c"),
+    ("ecoli62", 3000000019, "dc71129bb8c3311e858c373f4ae7fb1b99e53dd981f4ad913215451a3266b9ca"),
+    ("chr1", 1, "c981da63081baa813c0e22268eb7769b93efc456d19b876f26b93b15bbcf451e"),
+    ("chr1", 3000000019, "3335993ab8a5a2a9f5ee4de1379d7db43058865f5853bb228cb57b3bf30b03b1"),
+])
+def test_configurations_bytes_as_before(name, seed, digest):
+    config = json.loads((cells.REPO / "gpubench" / "configs" / f"{name}.json").read_text())
+    h = hashlib.sha256()
+    for i, s in enumerate(genome.config_genomes(config, seed)):
+        h.update(f">g{i}\n".encode())
+        h.update(memoryview(s))
+        h.update(b"\n")
+    assert h.hexdigest() == digest
+
+
+def test_lengths_cut_the_genome_at_the_sequences_boundaries():
+    # repeats laid in over the whole genome, then cut: two genomes of three
+    # sequences each, the pieces of the whole genomes in order
+    lengths = [7000, 3, 12997]
+    config = dict(cells.TINY_REPEATS, genomes=2, lengths=lengths)
+    whole = genome.config_genomes(cells.TINY_REPEATS, 2**31 + 7)
+    got = genome.config_genomes(config, 2**31 + 7)
+    assert [len(s) for s in got] == lengths * 2
+    for g in range(2):
+        np.testing.assert_array_equal(np.concatenate(got[3 * g : 3 * g + 3]), whole[g])
+    shares = harness.input_shares(config, 5)
+    assert shares == harness.input_shares(cells.TINY_REPEATS, 5) and shares["SINE"] == 0.13
+    # without `length` the genome is as long as the sequences
+    no_length = {k: v for k, v in config.items() if k != "length"}
+    assert genome.genome_length(no_length) == 20_000
+    for a, b in zip(genome.config_genomes(no_length, 2**31 + 7), got):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("lengths", [[], [5000, 0, 15000], [5000, 2.5, 14997.5], "20000",
+                                     [10000, 10001]])
+def test_malformed_lengths_raise(lengths):
+    with pytest.raises(ValueError, match="lengths"):
+        genome.config_genomes(dict(cells.TINY_REPEATS, lengths=lengths), 1)
 
 
 def test_repeats_deterministic_and_seeded(tmp_path):

@@ -60,7 +60,7 @@ def test_span_table():
 def _trace():
     # one build [0, 10]: device work [0.5, 1.0] and [1.1, 1.2]; a torch op
     # over [1.2, 1.5]
-    device = [["k_records<2>", 0.5, 1.0], ["Memcpy DtoH (Device -> Pinned)", 1.1, 1.2]]
+    device = [["k_records<2>", 0.5, 1.0, 0], ["Memcpy DtoH (Device -> Pinned)", 1.1, 1.2, 0]]
     host = [["aten::copy_", 1.2, 1.5], ["cudaLaunchKernel", 0.49, 0.5]]
     return dict(span=[0.0, 10.0], builds=[[0.0, 10.0]], device=device, host=host)
 
